@@ -1,0 +1,245 @@
+"""N-node decentralized training simulator in PyTorch (one device).
+
+Counterpart of ``repro.core.simulate``.  The reference's ``vmap(grad)``
+becomes an explicit node dimension: ``loss_fn(params, batch)`` takes
+node-stacked parameters (leaves ``(N, ...)``) and batches (``(N, b, ...)``)
+and returns the ``(N,)`` per-node losses.  The gradient is
+``torch.autograd.grad`` of their SUM with respect to the stacked
+parameters, which equals the per-node gradients because node i's loss
+depends only on slice i.
+
+Minibatch indices come from ``index_fn(step) -> LongTensor (N, b)``, called
+once per iteration, communication steps included, in iteration order.  By
+default it draws with ``torch.randint`` from a device ``torch.Generator``
+seeded from ``seed``; parity tests inject the reference's indices.
+
+The scenario engine and telemetry are later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from .algorithm import make_round_step
+from .mixing import dense_mix
+from .topology import Topology
+
+Tree = Any
+LossFn = Callable[[Tree, Any], torch.Tensor]   # (stacked params, batch) -> (N,)
+IndexFn = Callable[[int], torch.Tensor]        # step -> (N, b) sample indices
+
+__all__ = ["NodeData", "Simulator", "node_mean", "consensus_distance"]
+
+
+def node_mean(tree: Tree) -> Tree:
+    """Average over the leading node axis (the paper's x-bar)."""
+    return tree_map(lambda x: x.float().mean(dim=0), tree)
+
+
+def consensus_distance(tree: Tree) -> torch.Tensor:
+    """sum_i ||x_i - x_bar||^2 over the whole tree (paper's ||X - X̄||_F^2)."""
+    mean = node_mean(tree)
+
+    def one(x, m):
+        d = x.float() - m[None]
+        return torch.sum(d * d)
+
+    return sum(tree_leaves(tree_map(one, tree, mean)))
+
+
+@dataclasses.dataclass
+class NodeData:
+    """Per-node datasets: features (N, n_i, ...), labels (N, n_i, ...).
+
+    ``n_dropped`` records samples discarded by rectangular truncation in
+    ``partition_to_node_data`` (0 for exact partitions)."""
+
+    x: np.ndarray
+    y: np.ndarray
+    n_dropped: int = 0
+
+    @property
+    def n_nodes(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def samples_per_node(self) -> int:
+        return self.x.shape[1]
+
+
+class Simulator:
+    """Runs a ``DecentralizedAlgorithm`` over a simulated N-node network."""
+
+    def __init__(
+        self,
+        algorithm,
+        topology: Topology,
+        loss_fn: LossFn,
+        data: NodeData,
+        batch_size: int,
+        eval_fn: Optional[Callable[[Tree], Dict[str, float]]] = None,
+        *,
+        device=None,
+        seed: int = 0,
+        index_fn: Optional[IndexFn] = None,
+    ):
+        self.device = resolve_device(device)
+        if data.n_nodes != topology.n:
+            raise ValueError(f"data has {data.n_nodes} nodes, topology has {topology.n}")
+        self.alg = algorithm
+        self.topology = topology
+        self.loss_fn = loss_fn
+        self.data = data
+        self.batch_size = batch_size
+        self.eval_fn = eval_fn
+        self.n_nodes = n = topology.n
+        self.mix_fn = dense_mix(topology.w, self.device)
+
+        dev = self.device
+        self._x = torch.as_tensor(data.x, device=dev)
+        self._y = torch.as_tensor(data.y, device=dev).long()
+        self._rows = torch.arange(n, device=dev)[:, None]
+        self._full_flat = (
+            self._x.reshape((1, -1) + tuple(data.x.shape[2:])),
+            self._y.reshape((1, -1) + tuple(data.y.shape[2:])),
+        )
+        if index_fn is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            n_i = data.samples_per_node
+
+            def index_fn(step):
+                return torch.randint(0, n_i, (n, batch_size), generator=gen, device=dev)
+
+        self.index_fn = index_fn
+
+        self._round_step, self.round_len = make_round_step(
+            algorithm, self.mix_fn,
+            grad_of_batch=self._vgrad,
+            full_grad_fn=self._full_grad_fn,
+        )
+
+    # ------------------------------------------------------------------
+    def _vgrad(self, params: Tree, batch) -> Tree:
+        """Per-node gradients: grad of the node-summed loss (slice i of the
+        result depends only on node i's loss)."""
+        leaves, treedef = tree_flatten(params)
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss = self.loss_fn(tree_unflatten(treedef, leaves), batch).sum()
+            grads = torch.autograd.grad(loss, leaves)
+        return tree_unflatten(treedef, list(grads))
+
+    def _full_grad_fn(self, params: Tree) -> Tree:
+        return self._vgrad(params, (self._x, self._y))
+
+    def _batch(self, step: int):
+        """The minibatch of iteration ``step``: (x (N, b, ...), y (N, b))."""
+        idx = self.index_fn(step).to(device=self.device, dtype=torch.long)
+        return self._x[self._rows, idx], self._y[self._rows, idx]
+
+    # ------------------------------------------------------------------
+    def init_state(self, params: Tree):
+        """Broadcast identical x_0 to all nodes (paper: x_0^{(i)} = x_0)."""
+        stacked = tree_map(
+            lambda p: p.to(self.device).unsqueeze(0).repeat((self.n_nodes,) + (1,) * p.dim()),
+            params,
+        )
+        return self.alg.init(stacked, self._full_grad_fn)
+
+    def run_rounds(self, state, n_rounds: int = 1):
+        """Advance ``n_rounds`` communication rounds and return the state."""
+        for _ in range(int(n_rounds)):
+            batches = [self._batch(state.step + j) for j in range(self.round_len)]
+            state = self._round_step(state, batches)
+        return state
+
+    def _run_local_tail(self, state, n_steps: int):
+        """Trailing local-only steps when num_steps % round_len != 0."""
+        for _ in range(int(n_steps)):
+            batch = self._batch(state.step)
+            state = self.alg.local_update(state, lambda p: self._vgrad(p, batch))
+        return state
+
+    # ------------------------------------------------------------------
+    def run(
+        self,
+        params: Tree,
+        num_steps: int,
+        eval_every: int = 0,
+        verbose: bool = False,
+    ) -> Dict[str, Any]:
+        """Run ``num_steps`` iterations; evaluate every ``eval_every`` steps.
+
+        Evaluation points snap forward to communication-round boundaries; a
+        final evaluation at ``num_steps`` is always emitted when
+        ``eval_every > 0``.
+        """
+        state = self.init_state(params)
+        history: List[Dict[str, float]] = []
+        rl = self.round_len
+        n_rounds, tail = divmod(num_steps, rl)
+
+        def record(steps_done):
+            m = self.evaluate(state)
+            m["step"] = steps_done
+            history.append(m)
+            if verbose:
+                print(
+                    f"  step {steps_done:5d}  "
+                    + "  ".join(f"{k}={v:.4f}" for k, v in m.items() if k != "step")
+                )
+
+        # a round is an eval boundary when an eval point (a multiple of
+        # eval_every) falls inside it; mid-round points snap FORWARD to the
+        # round end
+        eval_rounds = sorted(
+            {
+                r
+                for r in range(1, n_rounds + 1)
+                if eval_every
+                and (r * rl) // eval_every > ((r - 1) * rl) // eval_every
+            }
+            | ({n_rounds} if n_rounds and eval_every and not tail else set())
+        )
+        done = 0
+        for boundary in eval_rounds:
+            state = self.run_rounds(state, boundary - done)
+            done = boundary
+            record(boundary * rl)
+        if done < n_rounds:
+            state = self.run_rounds(state, n_rounds - done)
+        if tail:
+            state = self._run_local_tail(state, tail)
+            if eval_every:
+                record(num_steps)
+        return {"state": state, "history": history}
+
+    # ------------------------------------------------------------------
+    def _eval_loss_gnorm(self, xbar: Tree):
+        """Full-batch loss and squared gradient norm at the node mean."""
+        leaves, treedef = tree_flatten(xbar)
+        leaves = [p.detach().unsqueeze(0).requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss = self.loss_fn(tree_unflatten(treedef, leaves), self._full_flat)[0]
+            grads = torch.autograd.grad(loss, leaves)
+        gnorm = sum(torch.sum(g.float() ** 2) for g in grads)
+        return loss.detach(), gnorm
+
+    def evaluate(self, state) -> Dict[str, float]:
+        """Full-batch metrics at the node mean (host floats)."""
+        xbar = node_mean(state.params)
+        loss, gnorm = self._eval_loss_gnorm(xbar)
+        out = {
+            "train_loss": float(loss),
+            "grad_norm_sq": float(gnorm),
+            "consensus": float(consensus_distance(state.params)),
+        }
+        if self.eval_fn is not None:
+            out.update(self.eval_fn(xbar))
+        return out

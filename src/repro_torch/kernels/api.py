@@ -1,0 +1,263 @@
+"""Fused-op backend of the port: one registry for the update kernels.
+
+Counterpart of ``repro.kernels.api``.  An op is a :class:`FusedOp`: a plain
+PyTorch version (``ref_fn``) and a hand-written kernel over flat buffers
+(``launch``).  :func:`tree_apply` flattens whole parameter trees into one
+contiguous 1-D buffer per dtype bucket and makes ONE launch per bucket.
+
+Dispatch follows the tensors' device, never a silent fallback:
+
+  * CPU tensors run the plain version;
+  * CUDA tensors launch the kernel, or raise (a missing ``triton`` raises
+    ``ImportError`` at the first launch);
+  * :func:`dispatch_mode` ``("ref")`` runs the plain version on CUDA
+    tensors too -- the only way to get it there, used to hold each kernel
+    against its plain version.
+
+The TPU's lane padding (``TilePolicy``) has no counterpart: the kernels mask
+the ragged tail of a buffer.  Nothing on the port's path differentiates
+through these ops, so an input that requires grad is refused.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from collections import Counter
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..tree import tree_flatten, tree_unflatten
+
+Tree = object
+
+__all__ = [
+    "FusedOp", "REGISTRY", "register", "get", "MODES", "dispatch_mode",
+    "tree_apply", "tree_mvr_update", "tree_axpby",
+    "tree_dse_combine", "tree_dse_combine_yh",
+    "launch_counts", "call_counts", "reset_counters",
+]
+
+MODES = ("kernel", "ref")
+_mode = "kernel"
+
+
+@contextlib.contextmanager
+def dispatch_mode(mode: str):
+    """Force a dispatch mode for the block: ``"ref"`` runs the plain version
+    on every device; ``"kernel"`` (the default) launches on CUDA."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
+    global _mode
+    prev, _mode = _mode, mode
+    try:
+        yield
+    finally:
+        _mode = prev
+
+
+# ---------------------------------------------------------------- accounting
+_launches: Counter = Counter()   # kernel launches
+_calls: Counter = Counter()      # dispatches of any kind, one per dtype bucket
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per op since the last reset."""
+    return dict(_launches)
+
+
+def call_counts() -> Dict[str, int]:
+    """Dispatches per op since the last reset (plain version included)."""
+    return dict(_calls)
+
+
+def reset_counters() -> None:
+    _launches.clear()
+    _calls.clear()
+
+
+# ---------------------------------------------------------------- the op
+@dataclasses.dataclass(frozen=True, eq=False)
+class FusedOp:
+    """An elementwise fused op.
+
+    ref_fn:  plain PyTorch version ``ref_fn(*tensors, *scalars)``: computes
+             in fp32 and casts each output to its ``out_dtype_from`` dtype.
+    launch:  ``launch(scalars, ins, outs)``: the hand-written kernel over
+             contiguous 1-D CUDA buffers; fp32 compute, cast on store.
+    out_dtype_from: per output, the input whose dtype it takes.
+    """
+
+    name: str
+    ref_fn: Callable
+    launch: Callable
+    n_inputs: int
+    n_outputs: int = 1
+    n_scalars: int = 0
+    out_dtype_from: Tuple[int, ...] = (0,)
+    doc: str = ""
+
+    def __post_init__(self):
+        if self.n_inputs <= 0:
+            raise ValueError(f"{self.name}: elementwise ops need n_inputs")
+        if len(self.out_dtype_from) != self.n_outputs:
+            raise ValueError(f"{self.name}: out_dtype_from vs n_outputs")
+
+
+REGISTRY: Dict[str, FusedOp] = {}
+
+
+def register(op: FusedOp) -> FusedOp:
+    """Add an op; re-registering a name with other functions is an error."""
+    prev = REGISTRY.get(op.name)
+    if prev is not None and (prev.launch, prev.ref_fn) != (op.launch, op.ref_fn):
+        raise ValueError(f"fused op {op.name!r} is already registered")
+    REGISTRY[op.name] = op
+    return op
+
+
+def get(name: str) -> FusedOp:
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown fused op {name!r}; registered: {sorted(REGISTRY)}"
+        ) from None
+
+
+def _fp32(s) -> float:
+    """A host scalar rounded to fp32 (the kernels take fp32 arguments)."""
+    if isinstance(s, torch.Tensor):
+        raise TypeError("fused-op scalars are host numbers, not tensors")
+    return float(np.float32(s))
+
+
+def _flat_ref(op: FusedOp, scalars, bufs, out_dtypes):
+    outs = op.ref_fn(*(b.float() for b in bufs), *scalars)
+    if not isinstance(outs, tuple):
+        outs = (outs,)
+    return tuple(o.to(d) for o, d in zip(outs, out_dtypes))
+
+
+def _flat_launch(op: FusedOp, scalars, bufs, out_dtypes):
+    bufs = tuple(b.contiguous() for b in bufs)
+    outs = tuple(
+        torch.empty(bufs[0].shape, dtype=d, device=bufs[0].device)
+        for d in out_dtypes
+    )
+    _launches[op.name] += 1
+    op.launch(scalars, bufs, outs)
+    return outs
+
+
+# ---------------------------------------------------------------- tree_apply
+def tree_apply(name: str, *trees, scalars: Sequence = (), like=None):
+    """Bucketed whole-tree executor for a fused op.
+
+    Leaves are grouped into buckets by their (input dtypes, output dtypes)
+    signature; each bucket is raveled into one contiguous 1-D buffer per
+    input, dispatched ONCE, and split back into the trees' shapes.
+    ``like`` (single-output ops) is a tree whose leaf dtypes override the
+    output-dtype rule.  Returns one tree, or a tuple for multi-output ops.
+    """
+    op = get(name)
+    if len(trees) != op.n_inputs:
+        raise ValueError(f"{name}: expected {op.n_inputs} trees, got {len(trees)}")
+    if len(scalars) != op.n_scalars:
+        raise ValueError(
+            f"{name}: expected {op.n_scalars} scalars, got {len(scalars)}"
+        )
+    flat = [tree_flatten(t) for t in trees]
+    treedef = flat[0][1]
+    for _, d in flat[1:]:
+        if d != treedef:
+            raise ValueError(f"{name}: input tree structures differ ({d} vs {treedef})")
+    leaves = [ls for ls, _ in flat]
+    n_leaves = len(leaves[0])
+    for i in range(n_leaves):
+        shapes = {tuple(leaves[t][i].shape) for t in range(op.n_inputs)}
+        if len(shapes) > 1:
+            raise ValueError(f"{name}: leaf {i} shapes differ: {sorted(shapes)}")
+        if any(leaves[t][i].requires_grad for t in range(op.n_inputs)):
+            raise ValueError(
+                f"{name}: inputs must not require grad (fused ops have no "
+                "backward in the port)"
+            )
+    like_leaves = None
+    if like is not None:
+        if op.n_outputs != 1:
+            raise ValueError(f"{name}: like= only supported for 1-output ops")
+        like_leaves, like_def = tree_flatten(like)
+        if like_def != treedef:
+            raise ValueError(f"{name}: like= tree structure differs from inputs")
+    scalars = tuple(_fp32(s) for s in scalars)
+
+    def out_dtypes_of(i):
+        if like_leaves is not None:
+            return (like_leaves[i].dtype,)
+        return tuple(leaves[j][i].dtype for j in op.out_dtype_from)
+
+    buckets: Dict[Tuple, list] = {}
+    for i in range(n_leaves):
+        key = (
+            tuple(leaves[t][i].dtype for t in range(op.n_inputs)),
+            out_dtypes_of(i),
+        )
+        buckets.setdefault(key, []).append(i)
+
+    out_leaves = [[None] * n_leaves for _ in range(op.n_outputs)]
+    for (_, out_dts), idxs in buckets.items():
+        sizes = [leaves[0][i].numel() for i in idxs]
+        if sum(sizes) == 0:   # bucket of empty leaves: nothing to launch
+            for i in idxs:
+                for j, d in enumerate(out_dts):
+                    out_leaves[j][i] = torch.zeros(
+                        leaves[0][i].shape, dtype=d, device=leaves[0][i].device
+                    )
+            continue
+
+        def cat(t):
+            parts = [leaves[t][i].reshape(-1) for i in idxs]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+        bufs = tuple(cat(t) for t in range(op.n_inputs))
+        device = bufs[0].device
+        _calls[name] += 1
+        if device.type == "cpu" or _mode == "ref":
+            outs = _flat_ref(op, scalars, bufs, out_dts)
+        elif device.type == "cuda":
+            outs = _flat_launch(op, scalars, bufs, out_dts)
+        else:
+            raise ValueError(f"{name}: no kernel for device {device}")
+        off = 0
+        for i, sz in zip(idxs, sizes):
+            for j in range(op.n_outputs):
+                out_leaves[j][i] = outs[j][off : off + sz].view(leaves[0][i].shape)
+            off += sz
+
+    res = tuple(tree_unflatten(treedef, out_leaves[j]) for j in range(op.n_outputs))
+    return res[0] if op.n_outputs == 1 else res
+
+
+# --------------------------------------------------- algorithm-layer helpers
+def tree_mvr_update(g_new: Tree, v: Tree, g_old: Tree, alpha) -> Tree:
+    """Whole-tree MVR direction update: v <- g_new + (1 - alpha)(v - g_old)."""
+    return tree_apply("mvr_update", g_new, v, g_old, scalars=(alpha,))
+
+
+def tree_axpby(a, x: Tree, b, y: Tree, like: Optional[Tree] = None) -> Tree:
+    """Whole-tree a*x + b*y (out dtype: y's, or ``like``'s)."""
+    return tree_apply("axpby", x, y, scalars=(a, b), like=like)
+
+
+def tree_dse_combine(params: Tree, v: Tree, x_ref: Tree, z: Tree, gamma):
+    """Fused dual-slow combine, fused-z form: ``h = x_ref - (params - gamma*v)``
+    and ``u = z + h`` in one pass.  Returns ``(u, h)``."""
+    return tree_apply("dse_combine", params, v, x_ref, z, scalars=(gamma,))
+
+
+def tree_dse_combine_yh(params: Tree, v: Tree, x_ref: Tree, y: Tree, h_prev: Tree, gamma):
+    """Fused dual-slow combine, (y, h_prev) form: the same ``h`` and
+    ``u = y + h - h_prev`` in one pass.  Returns ``(u, h)``."""
+    return tree_apply("dse_combine_yh", params, v, x_ref, y, h_prev, scalars=(gamma,))

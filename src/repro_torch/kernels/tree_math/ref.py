@@ -1,0 +1,13 @@
+"""Plain PyTorch version of ``axpby``."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["axpby_ref"]
+
+
+def axpby_ref(x: torch.Tensor, y: torch.Tensor, a, b) -> torch.Tensor:
+    """a*x + b*y in fp32, cast to y's dtype."""
+    out = float(np.float32(a)) * x.float() + float(np.float32(b)) * y.float()
+    return out.to(y.dtype)

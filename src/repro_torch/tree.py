@@ -1,0 +1,55 @@
+"""Parameter trees of the port: nested dicts of tensors.
+
+The port's counterpart of the ``jax.tree`` functions the reference uses.  A
+tree is a tensor (a leaf) or a dict whose values are trees; leaves are
+visited in sorted key order, as ``jax.tree`` orders dict keys, so a flat
+leaf list lines up with the reference's.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+__all__ = ["tree_flatten", "tree_unflatten", "tree_leaves", "tree_map"]
+
+Tree = Any
+TreeDef = Any    # None for a leaf, else a tuple of (key, child TreeDef)
+
+
+def tree_flatten(tree: Tree) -> Tuple[List[Any], TreeDef]:
+    """``(leaves, treedef)``; two trees share a structure iff treedefs are equal."""
+    leaves: List[Any] = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            return tuple((k, walk(t[k])) for k in sorted(t))
+        leaves.append(t)
+        return None
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef: TreeDef, leaves) -> Tree:
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return next(it)
+        return {k: build(c) for k, c in d}
+
+    return build(treedef)
+
+
+def tree_leaves(tree: Tree) -> List[Any]:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` applied leafwise over trees of one structure."""
+    leaves, treedef = tree_flatten(tree)
+    others = []
+    for r in rest:
+        r_leaves, r_def = tree_flatten(r)
+        if r_def != treedef:
+            raise ValueError(f"tree structures differ ({r_def} vs {treedef})")
+        others.append(r_leaves)
+    return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])

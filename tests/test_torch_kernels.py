@@ -1,0 +1,222 @@
+"""The port's fused-op backend (``repro_torch.kernels.api``) against the
+reference's (``repro.kernels.api``).
+
+For each of the four ops on the DSE path, on an odd-size tree that mixes
+fp32 and bf16 leaves, made with numpy from a seed and fed to both packages:
+
+  * the port's plain version (what a CPU tensor runs) vs the reference's
+    per-leaf ``ref_fn`` and vs its Pallas kernel in interpret mode;
+  * one dispatch per dtype bucket, as the reference counts them;
+  * the same ``ValueError``s as the reference on malformed calls.
+
+Tolerances: fp32 rtol 1e-6 / atol 1e-7 -- both sides compute the same fp32
+expression, XLA and ATen may order or contract it differently by an ulp.
+bf16 within one bf16 ulp -- each side rounds its fp32 value once.  On a
+CUDA card (marker ``cuda``) each Triton kernel is held to the plain version.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.kernels  # noqa: F401  (populates the reference registry)
+from repro.kernels import api as japi
+from repro_torch.convert import tree_to_numpy
+from repro_torch.kernels import api as tapi
+
+OPS = {
+    "mvr_update": (0.05,),
+    "axpby": (-0.3, 1.0),
+    "dse_combine": (0.3,),
+    "dse_combine_yh": (0.3,),
+}
+# odd sizes (ragged tails), a 0-d leaf, and two dtype buckets
+LEAVES = {
+    "a": ((3, 7), "float32"),
+    "b": ((1001,), "bfloat16"),
+    "c": ((5, 13), "float32"),
+    "d": ((), "float32"),
+    "e": ((2, 3, 5), "bfloat16"),
+}
+TOL32 = dict(rtol=1e-6, atol=1e-7)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Triton kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _numpy_trees(n_trees, seed):
+    rng = np.random.default_rng(seed)
+    return [
+        {k: rng.standard_normal(shape).astype(np.float32) for k, (shape, _) in LEAVES.items()}
+        for _ in range(n_trees)
+    ]
+
+
+def _jax_tree(tree):
+    return {k: jnp.asarray(v).astype(LEAVES[k][1]) for k, v in tree.items()}
+
+
+def _torch_tree(tree, device="cpu"):
+    return {k: torch.from_numpy(v).to(device, getattr(torch, LEAVES[k][1]))
+            for k, v in tree.items()}
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at |x| (8 significand bits)."""
+    _, e = np.frexp(np.abs(x).astype(np.float32))
+    return np.ldexp(np.float32(1.0), e - 8)
+
+
+def _assert_close(got, want, dtype_name):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    if dtype_name == "bfloat16":
+        ulp = _bf16_ulp(np.maximum(np.abs(got), np.abs(want)))
+        assert np.all(np.abs(got - want) <= ulp), np.max(np.abs(got - want) / ulp)
+    else:
+        np.testing.assert_allclose(got, want, **TOL32)
+
+
+def _assert_trees_close(got_trees, want_trees):
+    for g_tree, w_tree in zip(got_trees, want_trees):
+        for k in LEAVES:
+            _assert_close(g_tree[k], w_tree[k], LEAVES[k][1])
+
+
+@pytest.mark.parametrize("name", sorted(OPS))
+def test_plain_matches_reference_ref(name):
+    scalars = OPS[name]
+    np_trees = _numpy_trees(japi.get(name).n_inputs, seed=len(name))
+    got = _as_tuple(tapi.tree_apply(name, *map(_torch_tree, np_trees), scalars=scalars))
+    jtrees = list(map(_jax_tree, np_trees))
+    ref_fn = japi.get(name).ref_fn
+    want = {k: _as_tuple(ref_fn(*(t[k] for t in jtrees), *scalars)) for k in LEAVES}
+    want_trees = [{k: np.asarray(want[k][j].astype(jnp.float32)) for k in LEAVES}
+                  for j in range(len(got))]
+    for g_tree in got:
+        for k in LEAVES:
+            assert str(g_tree[k].dtype) == f"torch.{LEAVES[k][1]}"
+    _assert_trees_close(map(tree_to_numpy, got), want_trees)
+
+
+@pytest.mark.parametrize("name", sorted(OPS))
+def test_plain_matches_reference_interpret_kernel(name):
+    scalars = OPS[name]
+    np_trees = _numpy_trees(japi.get(name).n_inputs, seed=7 + len(name))
+    got = _as_tuple(tapi.tree_apply(name, *map(_torch_tree, np_trees), scalars=scalars))
+    with japi.dispatch_mode("interpret"):
+        want = _as_tuple(japi.tree_apply(name, *map(_jax_tree, np_trees), scalars=scalars))
+    want = [jax.tree.map(lambda x: np.asarray(x.astype(jnp.float32)), w) for w in want]
+    _assert_trees_close(map(tree_to_numpy, got), want)
+
+
+@pytest.mark.parametrize("name", sorted(OPS))
+def test_one_dispatch_per_dtype_bucket(name):
+    scalars = OPS[name]
+    np_trees = _numpy_trees(japi.get(name).n_inputs, seed=1)
+    tapi.reset_counters()
+    tapi.tree_apply(name, *map(_torch_tree, np_trees), scalars=scalars)
+    japi.reset_counters()
+    with japi.dispatch_mode("interpret"):
+        japi.tree_apply(name, *map(_jax_tree, np_trees), scalars=scalars)
+    # fp32 and bf16 buckets: two dispatches on each side, no launch on the CPU
+    assert tapi.call_counts() == {name: 2} == japi.call_counts()
+    assert tapi.launch_counts() == {}
+
+
+def test_like_sets_output_dtype():
+    np_x, np_y = _numpy_trees(2, seed=3)
+    like = {k: np.zeros(LEAVES[k][0], np.float32) for k in LEAVES}
+    # fp32 inputs everywhere, bf16 outputs where LEAVES says bf16
+    x32 = {k: torch.from_numpy(v) for k, v in np_x.items()}
+    y32 = {k: torch.from_numpy(v) for k, v in np_y.items()}
+    got = tapi.tree_axpby(-0.3, x32, 1.0, y32, like=_torch_tree(like))
+    want = japi.tree_axpby(-0.3, {k: jnp.asarray(v) for k, v in np_x.items()}, 1.0,
+                           {k: jnp.asarray(v) for k, v in np_y.items()},
+                           like=_jax_tree(like))
+    for k in LEAVES:
+        assert str(got[k].dtype) == f"torch.{LEAVES[k][1]}"
+    _assert_trees_close([tree_to_numpy(got)],
+                        [jax.tree.map(lambda x: np.asarray(x.astype(jnp.float32)), want)])
+
+
+def _bad_calls(lib, tree):
+    """Malformed calls, each of which the reference rejects."""
+    t = tree(np.ones(3, np.float32))
+    other = tree(np.ones(4, np.float32))
+    extra = dict(t, extra=t["x"])
+    return {
+        "n_trees": lambda: lib.tree_apply("axpby", t, scalars=(1.0, 1.0)),
+        "n_scalars": lambda: lib.tree_apply("axpby", t, t, scalars=(1.0,)),
+        "structure": lambda: lib.tree_apply("axpby", t, extra, scalars=(1.0, 1.0)),
+        "leaf_shape": lambda: lib.tree_apply("axpby", t, other, scalars=(1.0, 1.0)),
+        "like_two_outputs": lambda: lib.tree_apply(
+            "dse_combine", t, t, t, t, scalars=(0.1,), like=t),
+        "like_structure": lambda: lib.tree_apply(
+            "axpby", t, t, scalars=(1.0, 1.0), like=extra),
+        "unknown_op": lambda: lib.tree_apply("no_such_op", t),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_calls(tapi, lambda a: {"x": a})))
+def test_same_value_errors_as_reference(case):
+    with pytest.raises(ValueError):
+        _bad_calls(japi, lambda a: {"x": jnp.asarray(a)})[case]()
+    with pytest.raises(ValueError):
+        _bad_calls(tapi, lambda a: {"x": torch.from_numpy(a)})[case]()
+
+
+def test_no_fallback_off_cpu_and_cuda():
+    """A tensor on a device with no kernel raises instead of running the
+    plain version (the port's rule: only CPU tensors take it)."""
+    t = {"x": torch.ones(5, device="meta")}
+    with pytest.raises(ValueError, match="no kernel"):
+        tapi.tree_axpby(1.0, t, 1.0, t)
+
+
+def test_refuses_inputs_that_require_grad():
+    x = {"x": torch.ones(4, requires_grad=True)}
+    with pytest.raises(ValueError, match="grad"):
+        tapi.tree_axpby(1.0, x, 1.0, {"x": torch.ones(4)})
+
+
+def test_dispatch_mode_validates_and_restores():
+    with pytest.raises(ValueError):
+        with tapi.dispatch_mode("interpret"):
+            pass
+    with tapi.dispatch_mode("ref"):
+        assert tapi._mode == "ref"
+    assert tapi._mode == "kernel"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(OPS))
+def test_kernel_matches_plain_on_cuda(name, cuda_device):
+    """Triton kernel vs its plain version on the card: fp32 within FMA
+    contraction (rtol 1e-6, atol 1e-6); bf16 within one bf16 ulp beyond it."""
+    scalars = OPS[name]
+    np_trees = _numpy_trees(tapi.get(name).n_inputs, seed=11)
+    trees = [_torch_tree(t, cuda_device) for t in np_trees]
+    tapi.reset_counters()
+    got = _as_tuple(tapi.tree_apply(name, *trees, scalars=scalars))
+    assert tapi.launch_counts() == {name: 2}
+    with tapi.dispatch_mode("ref"):
+        want = _as_tuple(tapi.tree_apply(name, *trees, scalars=scalars))
+    for g_tree, w_tree in zip(got, want):
+        for k in LEAVES:
+            g, w = g_tree[k].float().cpu().numpy(), w_tree[k].float().cpu().numpy()
+            if LEAVES[k][1] == "bfloat16":
+                excess = np.maximum(np.abs(g - w) - 1e-6, 0)
+                assert np.all(excess <= _bf16_ulp(np.maximum(np.abs(g), np.abs(w))))
+            else:
+                np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
