@@ -1,21 +1,30 @@
 """Weights and state carried across from the reference, through numpy.
 
 Inputs are numpy trees, as ``jax.tree.map(np.asarray, ...)`` gives them:
-dicts of arrays for parameters, and for a ``DSEState`` an object with the
-state's fields (or a dict of them).  bfloat16 arrays (numpy's ``ml_dtypes``
-bfloat16) keep their dtype.
+dicts of arrays for parameters, and for an algorithm state an object with
+the state's fields (or a dict of them).  bfloat16 arrays (numpy's
+``ml_dtypes`` bfloat16) keep their dtype.
 """
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from .compression.base import ChannelState
+from .core.baselines import GTHSGDState, GTState, MomentumState, SGDState, SlowMoState
 from .core.dse import DSEState
 from .tree import tree_map
 
 __all__ = ["params_from_numpy", "state_from_numpy", "tree_to_numpy"]
+
+# the port's state classes by name, which is also the reference's name
+_STATE_CLASSES = {
+    cls.__name__: cls
+    for cls in (DSEState, SGDState, GTState, GTHSGDState, MomentumState, SlowMoState)
+}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -30,24 +39,42 @@ def params_from_numpy(tree: Any, device) -> Any:
     return tree_map(lambda a: _tensor(a, device), tree)
 
 
-def state_from_numpy(state: Any, device) -> DSEState:
-    """A reference ``DSEState`` (numpy leaves; either tracking layout) as the
-    port's: absent buffers stay None, the step becomes a host int."""
-    get = state.get if isinstance(state, dict) else lambda k: getattr(state, k, None)
-    if get("comp") is not None:
-        raise NotImplementedError(
-            "gossip-compression state is not ported yet (ROADMAP queue 1 item 5)"
-        )
-
-    def tree(k):
-        t = get(k)
-        return None if t is None else params_from_numpy(t, device)
-
-    return DSEState(
-        params=tree("params"), x_ref=tree("x_ref"), v=tree("v"),
-        y=tree("y"), h_prev=tree("h_prev"), z=tree("z"),
-        step=int(np.asarray(get("step"))),
+def _channel_state_from_numpy(comp, device) -> Optional[ChannelState]:
+    """A reference ``ChannelState`` (its ``wire`` of ``{"res": tree}`` or
+    None per buffer) as the port's.  The reference's PRNG key has no
+    counterpart: the port's codec seeds come from ``comm_seed_fn`` by event
+    number, which starts again at 0."""
+    if comp is None:
+        return None
+    wire = tuple(
+        None if w is None else {k: params_from_numpy(t, device) for k, t in w.items()}
+        for w in comp.wire
     )
+    return ChannelState(wire=wire)
+
+
+def state_from_numpy(state: Any, device) -> Any:
+    """A reference algorithm state with numpy leaves as the port's.
+
+    The port's class is the one named like the reference's (``DSEState``
+    for a dict of fields).  Absent buffers stay None, the step becomes a
+    host int, and a ``comp`` wire state is carried over."""
+    if isinstance(state, dict):
+        get = state.get
+        cls = DSEState
+    else:
+        get = lambda k: getattr(state, k, None)  # noqa: E731
+        cls = _STATE_CLASSES[type(state).__name__]
+    out = {}
+    for f in dataclasses.fields(cls):
+        value = get(f.name)
+        if f.name == "step":
+            out["step"] = int(np.asarray(value))
+        elif f.name == "comp":
+            out["comp"] = _channel_state_from_numpy(value, device)
+        else:
+            out[f.name] = None if value is None else params_from_numpy(value, device)
+    return cls(**out)
 
 
 def tree_to_numpy(tree: Any) -> Any:

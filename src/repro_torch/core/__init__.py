@@ -1,4 +1,5 @@
-"""Paper core of the port: DSE-MVR / DSE-SGD, topologies, gossip, simulation.
+"""Paper core of the port: DSE-MVR / DSE-SGD, baselines, topologies, gossip,
+simulation.
 
 The algorithm contract is the reference's (``repro.core``):
 
@@ -7,8 +8,8 @@ The algorithm contract is the reference's (``repro.core``):
     comm_update(state, mix_fn, grad_fn, reset_grad_fn) -> state   # gossip
     comm : CommSpec
 
-``ALGORITHMS`` holds the methods ported so far; the baselines are ROADMAP
-queue 1 item 3.
+``ALGORITHMS`` is the registry of all eight methods; :func:`make_algorithm`
+builds any of them from one shared hyperparameter vocabulary.
 """
 import dataclasses as _dataclasses
 
@@ -18,12 +19,19 @@ from .topology import (
 )
 from .algorithm import CommSpec, DecentralizedAlgorithm, make_round_step
 from .dse import DSEMVR, DSESGD, DSEState
+from .baselines import DLSGD, DSGD, GTDSGD, GTHSGD, PDSGDM, SlowMoD
 from .mixing import dense_mix
 from .simulate import NodeData, Simulator, consensus_distance, node_mean
 
 ALGORITHMS = {
     "dse_mvr": DSEMVR,
     "dse_sgd": DSESGD,
+    "dsgd": DSGD,
+    "dlsgd": DLSGD,
+    "gt_dsgd": GTDSGD,
+    "gt_hsgd": GTHSGD,
+    "pd_sgdm": PDSGDM,
+    "slowmo_d": SlowMoD,
 }
 
 
@@ -31,15 +39,14 @@ def make_algorithm(name: str, **hyperparams) -> DecentralizedAlgorithm:
     """Instantiate a registered algorithm from a shared hyperparameter set.
 
     Keys that are not fields of the target class are dropped, so one call
-    site can serve the whole registry.
+    site can serve the whole registry (``alpha`` reaches only DSE-MVR,
+    ``fuse_tracking_buffers`` only the DSE family).  ``tau`` is dropped for
+    every-step methods, whose cadence fixes the round length to 1.
     """
     try:
         cls = ALGORITHMS[name]
     except KeyError:
-        raise ValueError(
-            f"unknown algorithm {name!r}; repro_torch has {sorted(ALGORITHMS)} "
-            "(the baselines are ROADMAP queue 1 item 3)"
-        ) from None
+        raise ValueError(f"unknown algorithm {name!r}; known: {sorted(ALGORITHMS)}") from None
     if cls.comm.cadence == "every_step":
         hyperparams.pop("tau", None)
     fields = {f.name for f in _dataclasses.fields(cls)}
@@ -50,6 +57,7 @@ __all__ = [
     "Topology", "ring", "torus", "fully_connected", "star",
     "metropolis_hastings", "spectral_gap", "check_mixing_matrix",
     "CommSpec", "DecentralizedAlgorithm", "make_round_step",
-    "make_algorithm", "DSEMVR", "DSESGD", "DSEState", "dense_mix",
+    "make_algorithm", "DSEMVR", "DSESGD", "DSEState",
+    "DSGD", "DLSGD", "GTDSGD", "GTHSGD", "PDSGDM", "SlowMoD", "dense_mix",
     "Simulator", "NodeData", "node_mean", "consensus_distance", "ALGORITHMS",
 ]

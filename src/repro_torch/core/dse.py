@@ -71,7 +71,9 @@ class DSEState:
 
     ``y`` and ``h_prev`` are None when the tracking buffers are fused into
     ``z``; ``z`` is None otherwise.  ``step`` is the global iteration t,
-    kept on the host.
+    kept on the host.  ``comp`` is the gossip channel's wire state
+    (``repro_torch.compression.ChannelState``), None without a channel;
+    the executor owns it and the updates pass it through.
     """
 
     params: Tree
@@ -81,6 +83,7 @@ class DSEState:
     h_prev: Optional[Tree]        # h from the previous round
     z: Optional[Tree]             # fused y - h_prev buffer
     step: int                     # global iteration t
+    comp: Optional[Any] = None    # gossip-channel wire state
 
 
 @dataclasses.dataclass(frozen=True)

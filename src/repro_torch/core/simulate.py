@@ -13,6 +13,11 @@ once per iteration, communication steps included, in iteration order.  By
 default it draws with ``torch.randint`` from a device ``torch.Generator``
 seeded from ``seed``; parity tests inject the reference's indices.
 
+With an active gossip channel (a lossy codec), the codec's uint32 seeds come
+from ``comm_seed_fn(event, buffer, leaf)``.  By default they are derived on
+the host from ``seed`` (``np.random.SeedSequence``), so no draw waits on the
+device; parity tests replay the reference's key chain and inject it.
+
 The scenario engine and telemetry are later slices.
 """
 from __future__ import annotations
@@ -23,6 +28,8 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..compression.base import attach_channel_state
+from ..compression.channels import SeedFn
 from ..device import resolve_device
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .algorithm import make_round_step
@@ -33,7 +40,22 @@ Tree = Any
 LossFn = Callable[[Tree, Any], torch.Tensor]   # (stacked params, batch) -> (N,)
 IndexFn = Callable[[int], torch.Tensor]        # step -> (N, b) sample indices
 
-__all__ = ["NodeData", "Simulator", "node_mean", "consensus_distance"]
+__all__ = [
+    "NodeData", "Simulator", "node_mean", "consensus_distance", "default_comm_seed_fn",
+]
+
+_CHANNEL_TAG = 0x636F   # keeps the codec's seed stream apart from the batches'
+
+
+def default_comm_seed_fn(seed: int) -> SeedFn:
+    """Host-side codec seeds: one uint32 per (event, buffer, leaf), drawn
+    from ``np.random.SeedSequence`` keyed on ``seed``."""
+
+    def seed_fn(event: int, buffer: int, leaf: int) -> int:
+        entropy = [int(seed), _CHANNEL_TAG, int(event), int(buffer), int(leaf)]
+        return int(np.random.SeedSequence(entropy).generate_state(1)[0])
+
+    return seed_fn
 
 
 def node_mean(tree: Tree) -> Tree:
@@ -87,6 +109,7 @@ class Simulator:
         device=None,
         seed: int = 0,
         index_fn: Optional[IndexFn] = None,
+        comm_seed_fn: Optional[SeedFn] = None,
     ):
         self.device = resolve_device(device)
         if data.n_nodes != topology.n:
@@ -117,11 +140,13 @@ class Simulator:
                 return torch.randint(0, n_i, (n, batch_size), generator=gen, device=dev)
 
         self.index_fn = index_fn
+        self.comm_seed_fn = comm_seed_fn or default_comm_seed_fn(seed)
 
         self._round_step, self.round_len = make_round_step(
             algorithm, self.mix_fn,
             grad_of_batch=self._vgrad,
             full_grad_fn=self._full_grad_fn,
+            comm_seed_fn=self.comm_seed_fn,
         )
 
     # ------------------------------------------------------------------
@@ -145,12 +170,14 @@ class Simulator:
 
     # ------------------------------------------------------------------
     def init_state(self, params: Tree):
-        """Broadcast identical x_0 to all nodes (paper: x_0^{(i)} = x_0)."""
+        """Broadcast identical x_0 to all nodes (paper: x_0^{(i)} = x_0).
+        With an active gossip channel the per-buffer wire state is attached
+        (``comp``); otherwise the state is the algorithm's own."""
         stacked = tree_map(
             lambda p: p.to(self.device).unsqueeze(0).repeat((self.n_nodes,) + (1,) * p.dim()),
             params,
         )
-        return self.alg.init(stacked, self._full_grad_fn)
+        return attach_channel_state(self.alg, self.alg.init(stacked, self._full_grad_fn))
 
     def run_rounds(self, state, n_rounds: int = 1):
         """Advance ``n_rounds`` communication rounds and return the state."""

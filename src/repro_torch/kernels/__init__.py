@@ -3,19 +3,22 @@
 Each package keeps kernel.py (the Triton kernel and its launcher), ref.py
 (the plain PyTorch version: the CPU path and the yardstick the kernel is
 held to) and ops.py (the :class:`~repro_torch.kernels.api.FusedOp`
-registration).  Importing this package populates the registry with the four
-ops of the DSE path: mvr_update, axpby, dse_combine, dse_combine_yh.
+registration).  Importing this package populates the registry with seven
+ops: mvr_update, axpby, add_sub, dse_combine, dse_combine_yh (the update
+arithmetic) and qsgd_quantize, qsgd_dequantize (the QSGD codec).
 """
 from . import api
-from . import dse_combine, mvr_update, tree_math
+from . import comm_compress, dse_combine, mvr_update, tree_math
 from .api import (
     REGISTRY,
     FusedOp,
+    call,
     call_counts,
     dispatch_mode,
     launch_counts,
     register,
     reset_counters,
+    tree_add_sub,
     tree_apply,
     tree_axpby,
     tree_dse_combine,
@@ -24,8 +27,9 @@ from .api import (
 )
 
 __all__ = [
-    "api", "mvr_update", "tree_math", "dse_combine",
-    "FusedOp", "REGISTRY", "register", "tree_apply", "dispatch_mode",
-    "tree_mvr_update", "tree_axpby", "tree_dse_combine", "tree_dse_combine_yh",
+    "api", "mvr_update", "tree_math", "dse_combine", "comm_compress",
+    "FusedOp", "REGISTRY", "register", "tree_apply", "call", "dispatch_mode",
+    "tree_mvr_update", "tree_axpby", "tree_add_sub",
+    "tree_dse_combine", "tree_dse_combine_yh",
     "launch_counts", "call_counts", "reset_counters",
 ]

@@ -36,17 +36,27 @@ def jit(body: Callable) -> Callable:
     return kernel
 
 
-def check_flat(name: str, bufs) -> int:
-    """Validate the flat buffers of one launch; returns their length."""
-    n = bufs[0].numel()
-    dev = bufs[0].device
-    for b in bufs:
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def check_flat(name: str, ins, outs) -> int:
+    """Validate the flat buffers of one launch; returns their length.
+
+    Inputs may also be int8 (the QSGD payload, upcast in registers);
+    outputs are floating point."""
+    n = ins[0].numel()
+    dev = ins[0].device
+    for b in tuple(ins) + tuple(outs):
         if b.device != dev or dev.type != "cuda":
             raise ValueError(f"{name}: every buffer must be on one CUDA device")
         if b.dim() != 1 or b.numel() != n or not b.is_contiguous():
             raise ValueError(f"{name}: buffers must be contiguous 1-D of length {n}")
-        if b.dtype not in (torch.float32, torch.bfloat16, torch.float16):
-            raise ValueError(f"{name}: unsupported dtype {b.dtype}")
+    for b in ins:
+        if b.dtype not in _FLOATS + (torch.int8,):
+            raise ValueError(f"{name}: unsupported input dtype {b.dtype}")
+    for b in outs:
+        if b.dtype not in _FLOATS:
+            raise ValueError(f"{name}: unsupported output dtype {b.dtype}")
     return n
 
 

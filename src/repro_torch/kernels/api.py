@@ -1,4 +1,4 @@
-"""Fused-op backend of the port: one registry for the update kernels.
+"""Fused-op backend of the port: one registry for the hand-written kernels.
 
 Counterpart of ``repro.kernels.api``.  An op is a :class:`FusedOp`: a plain
 PyTorch version (``ref_fn``) and a hand-written kernel over flat buffers
@@ -34,7 +34,7 @@ Tree = object
 
 __all__ = [
     "FusedOp", "REGISTRY", "register", "get", "MODES", "dispatch_mode",
-    "tree_apply", "tree_mvr_update", "tree_axpby",
+    "tree_apply", "call", "tree_mvr_update", "tree_axpby", "tree_add_sub",
     "tree_dse_combine", "tree_dse_combine_yh",
     "launch_counts", "call_counts", "reset_counters",
 ]
@@ -240,6 +240,13 @@ def tree_apply(name: str, *trees, scalars: Sequence = (), like=None):
     return res[0] if op.n_outputs == 1 else res
 
 
+def call(name: str, *tensors, scalars: Sequence = (), **kw):
+    """Dispatch a registered op on tensors or trees (the reference's
+    ``api.call``).  Every op ported so far is elementwise, so this hands
+    over to :func:`tree_apply`; shaped ops come with the top-k kernels."""
+    return tree_apply(name, *tensors, scalars=scalars, **kw)
+
+
 # --------------------------------------------------- algorithm-layer helpers
 def tree_mvr_update(g_new: Tree, v: Tree, g_old: Tree, alpha) -> Tree:
     """Whole-tree MVR direction update: v <- g_new + (1 - alpha)(v - g_old)."""
@@ -249,6 +256,11 @@ def tree_mvr_update(g_new: Tree, v: Tree, g_old: Tree, alpha) -> Tree:
 def tree_axpby(a, x: Tree, b, y: Tree, like: Optional[Tree] = None) -> Tree:
     """Whole-tree a*x + b*y (out dtype: y's, or ``like``'s)."""
     return tree_apply("axpby", x, y, scalars=(a, b), like=like)
+
+
+def tree_add_sub(a: Tree, b: Tree, c: Tree) -> Tree:
+    """Whole-tree a + b - c (the gradient-tracking correction)."""
+    return tree_apply("add_sub", a, b, c)
 
 
 def tree_dse_combine(params: Tree, v: Tree, x_ref: Tree, z: Tree, gamma):

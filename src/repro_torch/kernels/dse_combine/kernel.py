@@ -62,7 +62,7 @@ def _dse_combine_yh_kernel(p_ptr, v_ptr, x_ref_ptr, y_ptr, h_prev_ptr, u_ptr, h_
 
 def launch_dse_combine(scalars, ins, outs) -> None:
     """ins (params, v, x_ref, z), outs (u, h)."""
-    n = _triton.check_flat("dse_combine", ins + outs)
+    n = _triton.check_flat("dse_combine", ins, outs)
     (gamma,) = scalars
     _triton.jit(_dse_combine_kernel)[_triton.grid(n, BLOCK)](
         *ins, *outs, gamma, n,
@@ -72,7 +72,7 @@ def launch_dse_combine(scalars, ins, outs) -> None:
 
 def launch_dse_combine_yh(scalars, ins, outs) -> None:
     """ins (params, v, x_ref, y, h_prev), outs (u, h)."""
-    n = _triton.check_flat("dse_combine_yh", ins + outs)
+    n = _triton.check_flat("dse_combine_yh", ins, outs)
     (gamma,) = scalars
     _triton.jit(_dse_combine_yh_kernel)[_triton.grid(n, BLOCK)](
         *ins, *outs, gamma, n,

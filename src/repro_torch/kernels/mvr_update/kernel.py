@@ -38,7 +38,7 @@ def _mvr_update_kernel(g_new_ptr, v_ptr, g_old_ptr, out_ptr, alpha, n,
 
 def launch_mvr_update(scalars, ins, outs) -> None:
     """One launch over flat CUDA buffers: ins (g_new, v, g_old), outs (v_new,)."""
-    n = _triton.check_flat("mvr_update", ins + outs)
+    n = _triton.check_flat("mvr_update", ins, outs)
     (alpha,) = scalars
     _triton.jit(_mvr_update_kernel)[_triton.grid(n, BLOCK)](
         *ins, *outs, alpha, n,

@@ -2,7 +2,8 @@
 
 Counterpart of the problem in ``benchmarks/common.py``: pseudo-MNIST with
 feature and label noise, Dirichlet(omega) partitioned over an 8-node ring,
-a 196 -> 64 -> 10 tanh MLP, and the paper-tuned DSE-MVR / DSE-SGD.
+a 196 -> 64 -> 10 tanh MLP, and the paper-tuned DSE-MVR / DSE-SGD and
+baselines, optionally with compressed gossip (``compression="qsgd"``).
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from .core import DSEMVR, DSESGD, Simulator, ring
+from .core import ALGORITHMS, DLSGD, DSEMVR, DSESGD, PDSGDM, SlowMoD, Simulator, ring
+from .core import make_algorithm as registry_make
 from .data import dirichlet_partition, make_pseudo_mnist, partition_to_node_data
 from .device import resolve_device
 from .optim.schedules import decay_weight, paper_mnist_schedule
@@ -78,37 +80,49 @@ def make_paper_problem(
 
 def make_algorithm(
     name: str, lr: float, tau: int, total_steps: int, alpha: float = 0.05,
+    channel=None, compression=None,
     *, use_fused: bool = False, fuse_tracking_buffers: bool = False,
 ):
-    """Paper-tuned hyperparameters per method (the DSE family so far)."""
+    """Paper-tuned hyperparameters per method, on top of the registry.
+
+    ``channel`` / ``compression`` set the gossip protocol and wire codec."""
+    comm = dict(channel=channel, compression=compression, use_fused=use_fused)
     sched = paper_mnist_schedule(lr, total_steps)
-    kw = dict(tau=tau, use_fused=use_fused, fuse_tracking_buffers=fuse_tracking_buffers)
     if name == "dse_mvr":
-        return DSEMVR(lr=sched, alpha=decay_weight(alpha, 0.99), **kw)
+        return DSEMVR(lr=sched, alpha=decay_weight(alpha, 0.99), tau=tau,
+                      fuse_tracking_buffers=fuse_tracking_buffers, **comm)
     if name == "dse_sgd":
-        return DSESGD(lr=sched, **kw)
-    raise ValueError(
-        f"{name!r} is not ported to repro_torch yet (the baselines are ROADMAP "
-        "queue 1 item 3)"
-    )
+        return DSESGD(lr=sched, tau=tau, fuse_tracking_buffers=fuse_tracking_buffers, **comm)
+    if name == "dlsgd":
+        return DLSGD(lr=sched, tau=tau, **comm)
+    if name == "pd_sgdm":
+        return PDSGDM(lr=paper_mnist_schedule(lr * 0.3, total_steps), tau=tau, beta=0.9, **comm)
+    if name == "slowmo_d":
+        return SlowMoD(lr=sched, tau=tau, slow_lr=0.7, beta=0.6, **comm)
+    if name in ALGORITHMS:  # every-step baselines: dsgd, gt_dsgd, gt_hsgd
+        return registry_make(name, lr=paper_mnist_schedule(lr * 0.5, total_steps),
+                             tau=tau, **comm)
+    raise ValueError(f"unknown algorithm {name!r}; known: {sorted(ALGORITHMS)}")
 
 
 def run_method(
     name: str, omega: float, tau: int, b: int, steps: int, seed: int = 0, lr: float = 0.3,
+    channel=None, compression=None,
     *,
     use_fused: bool = False,
     fuse_tracking_buffers: bool = False,
     device=None,
     index_fn: Optional[Callable[[int], torch.Tensor]] = None,
+    comm_seed_fn: Optional[Callable[[int, int, int], int]] = None,
     init_params: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Dict[str, float]:
     """One paper run: final train loss, test accuracy, consensus and wall
-    seconds.  ``init_params`` and ``index_fn`` default to the port's own
-    seeded draws (parity tests pass the reference's)."""
+    seconds.  ``init_params``, ``index_fn`` and ``comm_seed_fn`` default to
+    the port's own seeded draws (parity tests pass the reference's)."""
     dev = resolve_device(device)
     data, (xte, yte) = make_paper_problem(omega, seed=seed)
     alg = make_algorithm(
-        name, lr, tau, steps,
+        name, lr, tau, steps, channel=channel, compression=compression,
         use_fused=use_fused, fuse_tracking_buffers=fuse_tracking_buffers,
     )
     xte_t = torch.as_tensor(xte, device=dev)
@@ -116,7 +130,7 @@ def run_method(
     sim = Simulator(
         alg, ring(N_NODES), mlp_loss, data, batch_size=b,
         eval_fn=lambda p: {"test_acc": accuracy(p, xte_t, yte_t)},
-        device=dev, seed=seed + 1, index_fn=index_fn,
+        device=dev, seed=seed + 1, index_fn=index_fn, comm_seed_fn=comm_seed_fn,
     )
     params = init_params if init_params is not None else mlp_init(seed)
     t0 = time.perf_counter()

@@ -146,7 +146,11 @@ def test_init_matches_reference():
 
 
 def test_compression_and_channels_not_ported():
-    for kw in (dict(compression="qsgd"), dict(channel="choco"), dict(overlap=True)):
+    """QSGD on the sync channel is ported; what is not raises and names the
+    ROADMAP item."""
+    for kw in (dict(compression="top_k"), dict(channel="choco"), dict(overlap=True),
+               dict(channel={"params": "sync"})):
         with pytest.raises(NotImplementedError, match="queue 1 item 5"):
             tdse.DSEMVR(lr=0.1, **kw)
+    assert tdse.DSEMVR(lr=0.1, compression="qsgd").comm.resolved_channel().tag == "sync_ef_qsgd"
     assert dataclasses.is_dataclass(tdse.DSEState)

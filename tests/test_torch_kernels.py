@@ -1,8 +1,10 @@
 """The port's fused-op backend (``repro_torch.kernels.api``) against the
 reference's (``repro.kernels.api``).
 
-For each of the four ops on the DSE path, on an odd-size tree that mixes
-fp32 and bf16 leaves, made with numpy from a seed and fed to both packages:
+For each of the seven ported ops, on an odd-size tree that mixes fp32 and
+bf16 leaves, made with numpy from a seed and fed to both packages (the QSGD
+ops get inputs in their domain: a normalized buffer and U[0, 1) noise for
+the quantize, an int8 payload and a positive scale for the dequantize):
 
   * the port's plain version (what a CPU tensor runs) vs the reference's
     per-leaf ``ref_fn`` and vs its Pallas kernel in interpret mode;
@@ -11,8 +13,10 @@ fp32 and bf16 leaves, made with numpy from a seed and fed to both packages:
 
 Tolerances: fp32 rtol 1e-6 / atol 1e-7 -- both sides compute the same fp32
 expression, XLA and ATen may order or contract it differently by an ulp.
-bf16 within one bf16 ulp -- each side rounds its fp32 value once.  On a
-CUDA card (marker ``cuda``) each Triton kernel is held to the plain version.
+bf16 within one bf16 ulp -- each side rounds its fp32 value once.  The
+QSGD ops are held exactly: their levels are integers, and neither side
+contracts the quantize's multiply-add.  On a CUDA card (marker ``cuda``)
+each Triton kernel is held to the plain version.
 """
 import jax
 import jax.numpy as jnp
@@ -25,11 +29,37 @@ from repro.kernels import api as japi
 from repro_torch.convert import tree_to_numpy
 from repro_torch.kernels import api as tapi
 
+
+
+def _normal(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _unit(rng, shape):          # a node-normalized buffer, |x| <= 1
+    return rng.uniform(-1.0, 1.0, shape).astype(np.float32)
+
+
+def _uniform01(rng, shape):     # the quantize's noise
+    return rng.random(shape, dtype=np.float32)
+
+
+def _levels(rng, shape):        # the int8 QSGD payload
+    return rng.integers(-127, 128, shape).astype(np.int8)
+
+
+def _positive(rng, shape):      # the per-node scale, broadcast
+    return rng.uniform(0.1, 2.0, shape).astype(np.float32)
+
+
+# op -> (scalars, one input maker per input)
 OPS = {
-    "mvr_update": (0.05,),
-    "axpby": (-0.3, 1.0),
-    "dse_combine": (0.3,),
-    "dse_combine_yh": (0.3,),
+    "mvr_update": ((0.05,), (_normal,) * 3),
+    "axpby": ((-0.3, 1.0), (_normal,) * 2),
+    "add_sub": ((), (_normal,) * 3),
+    "dse_combine": ((0.3,), (_normal,) * 4),
+    "dse_combine_yh": ((0.3,), (_normal,) * 5),
+    "qsgd_quantize": ((127.0,), (_unit, _uniform01)),
+    "qsgd_dequantize": ((1.0 / 127,), (_levels, _positive)),
 }
 # odd sizes (ragged tails), a 0-d leaf, and two dtype buckets
 LEAVES = {
@@ -51,20 +81,23 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _numpy_trees(n_trees, seed):
+def _numpy_trees(name, seed):
+    """One numpy tree per input of ``name``, from its input makers."""
     rng = np.random.default_rng(seed)
-    return [
-        {k: rng.standard_normal(shape).astype(np.float32) for k, (shape, _) in LEAVES.items()}
-        for _ in range(n_trees)
-    ]
+    return [{k: make(rng, shape) for k, (shape, _) in LEAVES.items()} for make in OPS[name][1]]
+
+
+def _dtype(k, v):
+    """A leaf's dtype name: int8 payloads stay int8, floats take LEAVES'."""
+    return "int8" if v.dtype == np.int8 else LEAVES[k][1]
 
 
 def _jax_tree(tree):
-    return {k: jnp.asarray(v).astype(LEAVES[k][1]) for k, v in tree.items()}
+    return {k: jnp.asarray(v).astype(_dtype(k, v)) for k, v in tree.items()}
 
 
 def _torch_tree(tree, device="cpu"):
-    return {k: torch.from_numpy(v).to(device, getattr(torch, LEAVES[k][1]))
+    return {k: torch.from_numpy(v).to(device, getattr(torch, _dtype(k, v)))
             for k, v in tree.items()}
 
 
@@ -78,25 +111,32 @@ def _bf16_ulp(x):
     return np.ldexp(np.float32(1.0), e - 8)
 
 
-def _assert_close(got, want, dtype_name):
+def _assert_close(got, want, dtype_name, exact=False):
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
-    if dtype_name == "bfloat16":
+    if exact:
+        np.testing.assert_array_equal(got, want)
+    elif dtype_name == "bfloat16":
         ulp = _bf16_ulp(np.maximum(np.abs(got), np.abs(want)))
         assert np.all(np.abs(got - want) <= ulp), np.max(np.abs(got - want) / ulp)
     else:
         np.testing.assert_allclose(got, want, **TOL32)
 
 
-def _assert_trees_close(got_trees, want_trees):
+def _assert_trees_close(got_trees, want_trees, exact=False):
     for g_tree, w_tree in zip(got_trees, want_trees):
         for k in LEAVES:
-            _assert_close(g_tree[k], w_tree[k], LEAVES[k][1])
+            _assert_close(g_tree[k], w_tree[k], LEAVES[k][1], exact=exact)
+
+
+def _exact(name):
+    return name.startswith("qsgd")
 
 
 @pytest.mark.parametrize("name", sorted(OPS))
 def test_plain_matches_reference_ref(name):
-    scalars = OPS[name]
-    np_trees = _numpy_trees(japi.get(name).n_inputs, seed=len(name))
+    scalars = OPS[name][0]
+    np_trees = _numpy_trees(name, seed=len(name))
+    assert len(np_trees) == japi.get(name).n_inputs
     got = _as_tuple(tapi.tree_apply(name, *map(_torch_tree, np_trees), scalars=scalars))
     jtrees = list(map(_jax_tree, np_trees))
     ref_fn = japi.get(name).ref_fn
@@ -106,24 +146,24 @@ def test_plain_matches_reference_ref(name):
     for g_tree in got:
         for k in LEAVES:
             assert str(g_tree[k].dtype) == f"torch.{LEAVES[k][1]}"
-    _assert_trees_close(map(tree_to_numpy, got), want_trees)
+    _assert_trees_close(map(tree_to_numpy, got), want_trees, exact=_exact(name))
 
 
 @pytest.mark.parametrize("name", sorted(OPS))
 def test_plain_matches_reference_interpret_kernel(name):
-    scalars = OPS[name]
-    np_trees = _numpy_trees(japi.get(name).n_inputs, seed=7 + len(name))
+    scalars = OPS[name][0]
+    np_trees = _numpy_trees(name, seed=7 + len(name))
     got = _as_tuple(tapi.tree_apply(name, *map(_torch_tree, np_trees), scalars=scalars))
     with japi.dispatch_mode("interpret"):
         want = _as_tuple(japi.tree_apply(name, *map(_jax_tree, np_trees), scalars=scalars))
     want = [jax.tree.map(lambda x: np.asarray(x.astype(jnp.float32)), w) for w in want]
-    _assert_trees_close(map(tree_to_numpy, got), want)
+    _assert_trees_close(map(tree_to_numpy, got), want, exact=_exact(name))
 
 
 @pytest.mark.parametrize("name", sorted(OPS))
 def test_one_dispatch_per_dtype_bucket(name):
-    scalars = OPS[name]
-    np_trees = _numpy_trees(japi.get(name).n_inputs, seed=1)
+    scalars = OPS[name][0]
+    np_trees = _numpy_trees(name, seed=1)
     tapi.reset_counters()
     tapi.tree_apply(name, *map(_torch_tree, np_trees), scalars=scalars)
     japi.reset_counters()
@@ -134,8 +174,24 @@ def test_one_dispatch_per_dtype_bucket(name):
     assert tapi.launch_counts() == {}
 
 
+def test_call_matches_reference_call():
+    """``api.call`` on bare tensors: one dispatch, the reference's result."""
+    rng = np.random.default_rng(5)
+    a, b, c = (rng.standard_normal((4, 9)).astype(np.float32) for _ in range(3))
+    tapi.reset_counters()
+    got = tapi.call("add_sub", *map(torch.from_numpy, (a, b, c)))
+    assert tapi.call_counts() == {"add_sub": 1}
+    want = japi.call("add_sub", *map(jnp.asarray, (a, b, c)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL32)
+    q = tapi.call("qsgd_quantize", torch.from_numpy(a / np.abs(a).max()),
+                  torch.from_numpy(_uniform01(rng, a.shape)), scalars=(127.0,))
+    assert q.shape == a.shape and float(q.abs().max()) <= 127.0
+
+
 def test_like_sets_output_dtype():
-    np_x, np_y = _numpy_trees(2, seed=3)
+    rng = np.random.default_rng(3)
+    np_x, np_y = ({k: _normal(rng, shape) for k, (shape, _) in LEAVES.items()}
+                  for _ in range(2))
     like = {k: np.zeros(LEAVES[k][0], np.float32) for k in LEAVES}
     # fp32 inputs everywhere, bf16 outputs where LEAVES says bf16
     x32 = {k: torch.from_numpy(v) for k, v in np_x.items()}
@@ -203,9 +259,10 @@ def test_dispatch_mode_validates_and_restores():
 @pytest.mark.parametrize("name", sorted(OPS))
 def test_kernel_matches_plain_on_cuda(name, cuda_device):
     """Triton kernel vs its plain version on the card: fp32 within FMA
-    contraction (rtol 1e-6, atol 1e-6); bf16 within one bf16 ulp beyond it."""
-    scalars = OPS[name]
-    np_trees = _numpy_trees(tapi.get(name).n_inputs, seed=11)
+    contraction (rtol 1e-6, atol 1e-6); bf16 within one bf16 ulp beyond it;
+    the QSGD ops exactly (the quantize is built without FMA contraction)."""
+    scalars = OPS[name][0]
+    np_trees = _numpy_trees(name, seed=11)
     trees = [_torch_tree(t, cuda_device) for t in np_trees]
     tapi.reset_counters()
     got = _as_tuple(tapi.tree_apply(name, *trees, scalars=scalars))
@@ -215,7 +272,9 @@ def test_kernel_matches_plain_on_cuda(name, cuda_device):
     for g_tree, w_tree in zip(got, want):
         for k in LEAVES:
             g, w = g_tree[k].float().cpu().numpy(), w_tree[k].float().cpu().numpy()
-            if LEAVES[k][1] == "bfloat16":
+            if _exact(name):
+                np.testing.assert_array_equal(g, w)
+            elif LEAVES[k][1] == "bfloat16":
                 excess = np.maximum(np.abs(g - w) - 1e-6, 0)
                 assert np.all(excess <= _bf16_ulp(np.maximum(np.abs(g), np.abs(w))))
             else:

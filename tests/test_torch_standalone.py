@@ -20,6 +20,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     __import__(name)
 assert "repro_torch.kernels.mvr_update.kernel" in names, names
+assert "repro_torch.kernels.comm_compress.kernel" in names, names
 assert "jax" not in sys.modules, "jax was imported"
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
@@ -54,9 +55,19 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 
 def test_unported_algorithms_point_at_the_roadmap():
+    """Every algorithm is ported; the gossip options that are not (top-k
+    codecs, choco and async channels, per-buffer channels, overlap) raise
+    and name the ROADMAP item."""
+    from repro_torch.core import ALGORITHMS
     from repro_torch.core import make_algorithm as registry_make
 
-    for fn in (lambda: make_algorithm("dlsgd", 0.3, 4, 8),
-               lambda: registry_make("gt_hsgd", lr=0.1)):
-        with pytest.raises(ValueError, match="queue 1 item 3"):
+    assert len(ALGORITHMS) == 8
+    for name in ALGORITHMS:
+        assert make_algorithm(name, 0.3, 4, 8).comm.resolved_channel() is None
+    for fn in (lambda: make_algorithm("dlsgd", 0.3, 4, 8, compression="top_k"),
+               lambda: make_algorithm("dse_mvr", 0.3, 4, 8, channel="choco"),
+               lambda: registry_make("gt_hsgd", lr=0.1, channel="async:2"),
+               lambda: registry_make("dse_mvr", lr=0.1, overlap=True),
+               lambda: registry_make("gt_hsgd", lr=0.1, channel={"y": "sync"})):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
             fn()
