@@ -13,16 +13,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    on the card -- on the 8-node MLP tree as the main path feeds it and on
    one flat buffer of 2**26+3 elements in fp32 and bf16 -- and timed with
    CUDA events on the fp32 buffer beside its HBM bound, its plain version
-   and a one-call PyTorch yardstick where one exists;
+   and a one-call PyTorch yardstick where one exists.  The two CUDA C++
+   kernels (top_k_pack, top_k_unpack), compiled by nvcc from
+   src/repro_torch/csrc/ on first launch, are held bit for bit against
+   their plain versions on the MLP's four leaves at ratio 0.1 and on
+   N=8, d=2**24+3, k=ceil(0.1 d), in fp32 and bf16, with indices in
+   magnitude order as the codec makes them, and timed there beside their
+   bounds and the torch.gather / torch.zeros + scatter_add_ yardsticks;
 3. main paths, each through ``run_method`` at the MLP's full width:
    DSE-MVR (omega=0.5, tau=4, b=16, 200 steps) through the kernels against
    the unfused path on the card and on the CPU from the same index stream,
    then the fused-z state layout and DSE-SGD; the six baselines through the
    kernels against the CPU; DSE-MVR with QSGD-compressed gossip through the
    kernels, plain on the card and plain on the CPU from the same index and
-   codec-seed streams (64 steps); and ``compression="identity"`` against the
-   uncompressed run.  Launch counts are reset just before and read just
-   after each run through the kernels;
+   codec-seed streams (64 steps); ten compressed-gossip configurations of
+   DSE-MVR in the same three ways (64 steps): sync+EF top_k:0.1, choco
+   top_k:0.1, choco:0.8 top_k:0.1, async(4, 0.5) top_k:0.1, async(4, 0.1)
+   raw, rand_k:0.25 (its index draws come from the seed stream on the
+   host, the same on every device), low_rank:2, {"params": "choco"} with
+   top_k:0.1 and choco top_k:0.1 with overlap, each with its link bytes per
+   round; ``compression="identity"`` and ``channel="async:1"`` against the
+   uncompressed run, bit for bit.  Launch counts are reset just before and
+   read just after each run through the kernels;
 4. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -47,6 +59,8 @@ sys.path.insert(0, str(ROOT / "src"))
 STEPS, TAU, BATCH, OMEGA = 200, 4, 16, 0.5
 QSGD_STEPS = 64
 BIG_N = 2**26 + 3
+TOP_K_BIG_D = 2**24 + 3        # per node; N = 8 nodes
+TOP_K_RATIO = 0.1
 REPS = 25
 # fp32 kernel vs plain: FMA contraction in the kernel may move one ulp
 RTOL32 = ATOL32 = 1e-6
@@ -62,6 +76,15 @@ RUN_RTOL, RUN_ATOL, ACC_TOL = 5e-4, 1e-5, 2e-3
 QSGD_RTOL, QSGD_ACC_TOL = 5e-3, 5e-3
 FP32_PEAK_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
 BASELINES = ("dlsgd", "dsgd", "gt_dsgd", "gt_hsgd", "pd_sgdm", "slowmo_d")
+# difference gossip with a sparsifier: x - x_hat cancels, so the ulps by
+# which cuBLAS, the CPU's GEMM and Triton's FMAs differ become relative
+# gaps of 1e-4 in the top-k input, and a near-tie at the k-th magnitude
+# then swaps an index and the replicas carry it on.  On the CPU against the
+# reference, choco:0.8 top-k first swaps at event 5 of 16 and ends 6.7e-3
+# apart on consensus (ROADMAP queue 3); these runs are held to 2e-2
+CHOCO_BAND = ("choco_top_k0.1", "choco0.8_top_k0.1", "async4_thr0.5_top_k0.1",
+              "choco_overlap_top_k0.1")
+CHOCO_RTOL = 2e-2
 MLP_SHAPES = {"w1": (8, 196, 64), "b1": (8, 64), "w2": (8, 64, 10), "b2": (8, 10)}
 
 
@@ -116,6 +139,13 @@ OPS = {
 }
 # the QSGD codec calls its ops once per leaf (not once per dtype bucket)
 PER_LEAF = ("qsgd_quantize", "qsgd_dequantize")
+# shaped CUDA C++ ops: (source, TPU kernel replaced)
+TOP_K_OPS = {
+    "top_k_pack": ("src/repro_torch/csrc/top_k.cu",
+                   "src/repro/kernels/comm_compress/kernel.py:67"),
+    "top_k_unpack": ("src/repro_torch/csrc/top_k.cu",
+                     "src/repro/kernels/comm_compress/kernel.py:101"),
+}
 
 
 def hbm_bytes_per_s(name: str) -> float:
@@ -174,6 +204,110 @@ def bf16_excess_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     _, exp = torch.frexp(torch.maximum(g.abs(), w.abs()))
     ulp = torch.ldexp(torch.ones_like(g), exp - 8)   # bf16: 8 significand bits
     return float(((g - w).abs() - ATOL32).clamp(min=0).div(ulp).max())
+
+
+def gossip_configs():
+    """(tag, channel, compression): the configurations of the repo's gossip
+    and compression benches (benchmarks/gossip_bench.py:26-33,
+    compression_bench.py:21) on DSE-MVR."""
+    from repro_torch.compression import AsyncChannel, ChocoChannel
+
+    return (
+        ("sync_ef_top_k0.1", None, "top_k:0.1"),
+        ("choco_top_k0.1", "choco", "top_k:0.1"),
+        ("choco0.8_top_k0.1", "choco:0.8", "top_k:0.1"),
+        ("async4_thr0.5_top_k0.1", AsyncChannel(max_staleness=4, threshold=0.5), "top_k:0.1"),
+        ("async4_thr0.1_raw", AsyncChannel(max_staleness=4, threshold=0.1), None),
+        ("sync_ef_rand_k0.25", None, "rand_k:0.25"),
+        ("sync_ef_low_rank2", None, "low_rank:2"),
+        ("per_buffer_choco_top_k0.1", {"params": "choco"}, "top_k:0.1"),
+        ("choco_overlap_top_k0.1", ChocoChannel(overlap=True), "top_k:0.1"),
+    )
+
+
+def top_k_case(n, d, dtype, gen):
+    """x (n, d) and its top-k indices at TOP_K_RATIO in magnitude order (the
+    codec's stable sort), as the main path feeds the pack."""
+    k = max(1, min(d, math.ceil(TOP_K_RATIO * d)))
+    x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+    idx = torch.sort(-x.float().abs(), dim=1, stable=True).indices[:, :k]
+    return x, idx.to(torch.int32).contiguous()
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(bits), b.view(bits))
+
+
+def check_top_k(api, bw) -> dict:
+    """Phase 2 for the CUDA C++ pair: build, bit-equality against the plain
+    versions on the MLP's leaves and the large shape, and timing."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    t0 = time.perf_counter()
+    x, idx = top_k_case(2, 5, torch.float32, gen)
+    api.call("top_k_pack", x, idx)          # the first launch builds the library
+    torch.cuda.synchronize()
+    print(f"top_k.cu built and loaded in {time.perf_counter() - t0:.1f} s")
+    rows = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
+                   "max_abs_err": 0.0}
+            for name, (src, rep) in TOP_K_OPS.items()}
+    mlp_d = {k: math.prod(s[1:]) for k, s in MLP_SHAPES.items()}
+    for label, shapes in (("mlp", mlp_d), ("big", {"x": TOP_K_BIG_D})):
+        for dtype in (torch.float32, torch.bfloat16):
+            cases = {k: top_k_case(8, d, dtype, gen) for k, d in shapes.items()}
+
+            def pack(mode="kernel"):
+                with api.dispatch_mode(mode):
+                    return {k: api.call("top_k_pack", x, i) for k, (x, i) in cases.items()}
+
+            vals = pack()
+            want = pack("ref")
+
+            def unpack(mode="kernel"):
+                with api.dispatch_mode(mode):
+                    return {k: api.call("top_k_unpack", cases[k][1], vals[k], d=shapes[k])
+                            for k in cases}
+
+            dense, dense_want = unpack(), unpack("ref")
+            torch.cuda.synchronize()
+            for k in cases:
+                assert same_bits(vals[k], want[k]), f"top_k_pack {label} {dtype} {k} differs"
+                assert same_bits(dense[k], dense_want[k]), \
+                    f"top_k_unpack {label} {dtype} {k} differs"
+            if dtype != torch.float32:
+                continue
+            if label == "mlp":
+                for name, fn in (("top_k_pack", pack), ("top_k_unpack", unpack)):
+                    rows[name]["mlp_ms"], rows[name]["mlp_plain_ms"] = abba_ms(
+                        fn, lambda fn=fn: fn("ref"))
+                continue
+            (x, i), v, d = cases["x"], vals["x"], shapes["x"]
+            i64 = i.long()
+            n, kk = i.shape
+            out = torch.empty((n, d), device="cuda")
+            pack_bytes = n * kk * (4 + 4 + 4)
+            unpack_bytes = n * d * 4 + n * kk * (4 + 4)
+            times = abba_ms(lambda: api.call("top_k_pack", x, i),
+                            lambda: pack("ref"),
+                            lambda: torch.gather(x, 1, i64, out=v))
+            rows["top_k_pack"].update(ms=times[0], plain_ms=times[1], library_ms=times[2],
+                                      bound_ms=pack_bytes / bw * 1e3, bytes=pack_bytes)
+            times = abba_ms(lambda: api.call("top_k_unpack", i, v, d=d),
+                            lambda: unpack("ref"),
+                            lambda: out.zero_().scatter_add_(1, i64, v))
+            rows["top_k_unpack"].update(ms=times[0], plain_ms=times[1], library_ms=times[2],
+                                        bound_ms=unpack_bytes / bw * 1e3, bytes=unpack_bytes)
+            del out, i64
+        del cases, vals, want, dense, dense_want
+    for row in rows.values():
+        row["bound_by"] = "bytes"   # no arithmetic: the bytes are the bound
+        print(f"kernel {row['name']}: bit-equal to plain (mlp leaves and N=8 d={TOP_K_BIG_D} "
+              f"k={math.ceil(TOP_K_RATIO * TOP_K_BIG_D)}, fp32 and bf16) "
+              f"ms={row['ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+              f"mlp_ms={row['mlp_ms']:.4f} mlp_plain_ms={row['mlp_plain_ms']:.4f}")
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -278,6 +412,7 @@ def main() -> int:
               f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']} "
               f"mlp_ms={row['mlp_ms']:.4f} mlp_plain_ms={row['mlp_plain_ms']:.4f}")
     torch.cuda.empty_cache()
+    results.update(check_top_k(api, bw))
 
     # ---------------------------------------------------------------- 3
     data, _ = make_paper_problem(OMEGA, seed=0)
@@ -371,15 +506,47 @@ def main() -> int:
     print("dse_mvr qsgd steps/s: kernels %.1f, plain cuda %.1f, plain cpu %.1f" % (
         q_kernels["steps_per_s"], q_plain_cuda["steps_per_s"], q_plain_cpu["steps_per_s"]))
 
-    # identity compression is structurally the uncompressed path
-    uncompressed = run("dse_mvr", "cuda", use_fused=True)
-    identity = run("dse_mvr", "cuda", use_fused=True, compression="identity")
-    for k in ("train_loss", "consensus", "test_acc"):
-        assert identity[k] == uncompressed[k], f"identity vs uncompressed: {k}"
-    assert identity["launches"] == uncompressed["launches"]
-
+    # the rest of compressed gossip: the sparsifying and low-rank codecs on
+    # the sync, choco, async and per-buffer channels, and overlap
     params = {k: v.unsqueeze(0).repeat((data.n_nodes,) + (1,) * v.dim())
               for k, v in mlp_init(0).items()}
+    raw_bytes = sum(link_bytes_per_round(
+        make_algorithm("dse_mvr", 0.3, TAU, STEPS).comm, params).values())
+    gossip_rates = {}
+    for tag, channel, comp in gossip_configs():
+        kw = dict(steps=QSGD_STEPS, compression=comp, channel=channel)
+        got = run("dse_mvr", "cuda", use_fused=True, **kw)
+        plain_card = run("dse_mvr", "cuda", mode="ref", **kw)
+        cpu = run("dse_mvr", "cpu", **kw)
+        assert not plain_card["launches"] and not cpu["launches"]
+        rtol = CHOCO_RTOL if tag in CHOCO_BAND else QSGD_RTOL
+        for a, b, what in ((got, cpu, "kernels vs cpu"), (plain_card, cpu, "plain cuda vs cpu"),
+                           (got, plain_card, "kernels vs plain cuda")):
+            print(f"gossip {tag} {what}: relative gap " + json.dumps(
+                {k: abs(a[k] - b[k]) / abs(b[k]) for k in ("train_loss", "consensus")}))
+            agree(a, b, f"dse_mvr {tag} {what}", rtol=rtol, acc_tol=QSGD_ACC_TOL)
+        events = QSGD_STEPS // TAU
+        if comp is not None and comp.startswith(("top_k", "rand_k")):
+            # 4 leaves x 2 buffers: one pack and one unpack per leaf per event
+            for op in ("top_k_pack", "top_k_unpack"):
+                assert got["launches"].get(op) == 8 * events, (tag, got["launches"])
+        link = link_bytes_per_round(
+            make_algorithm("dse_mvr", 0.3, TAU, STEPS, channel=channel, compression=comp).comm,
+            params)
+        print(f"gossip {tag}: launches {json.dumps(got['launches'])}; link bytes per round "
+              f"{sum(link.values()):.0f} {json.dumps(link)} (raw fp32 "
+              f"{raw_bytes / sum(link.values()):.3f}x)")
+        gossip_rates[tag] = (got["steps_per_s"], plain_card["steps_per_s"], cpu["steps_per_s"])
+    print("gossip steps/s (kernels, plain cuda, plain cpu): " + json.dumps(gossip_rates))
+
+    # identity compression and async:1 are structurally the uncompressed path
+    uncompressed = run("dse_mvr", "cuda", use_fused=True)
+    for kw in (dict(compression="identity"), dict(channel="async:1")):
+        same = run("dse_mvr", "cuda", use_fused=True, **kw)
+        for k in ("train_loss", "consensus", "test_acc"):
+            assert same[k] == uncompressed[k], f"{kw} vs uncompressed: {k}"
+        assert same["launches"] == uncompressed["launches"]
+
     link = {c: link_bytes_per_round(make_algorithm("dse_mvr", 0.3, TAU, STEPS,
                                                    compression=c).comm, params)
             for c in (None, "qsgd")}

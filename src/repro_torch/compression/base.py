@@ -13,8 +13,9 @@ Randomness is injected: a stochastic codec takes a uint32 ``seed`` per leaf
 order, the order in which the reference folds ``i`` into its key.
 
 :class:`ChannelState` is the per-node, per-buffer wire state (error-feedback
-residuals ``{"res": tree}``) plus the number of communication events so far;
-the seeds of event ``e`` come from the executor's ``comm_seed_fn``.
+residuals, replica estimates, staleness ages, in-flight payloads) plus the
+number of communication events so far; the seeds of event ``e`` come from
+the executor's ``comm_seed_fn``.
 
 This module imports nothing of ``repro_torch.core`` (the executor imports
 us, not vice versa).
@@ -37,8 +38,11 @@ __all__ = [
     "compression_error", "NOT_PORTED",
 ]
 
-#: what unported gossip codecs, channels and options say when asked for
-NOT_PORTED = "is not ported to repro_torch yet (ROADMAP queue 1 item 5)"
+#: what the sharded engine's gossip options say when asked for on the port
+NOT_PORTED = (
+    "belongs to the sharded engine, which is not ported to repro_torch yet "
+    "(ROADMAP queue 1 item 8)"
+)
 
 
 @dataclasses.dataclass
@@ -189,8 +193,12 @@ class ChannelState:
     """Gossip-channel wire state in the ``comp`` field of a state.
 
     wire:  one entry per ``CommSpec.buffers`` name, matched positionally to
-           the ``mix`` calls inside ``comm_update``: ``{"res": tree}`` for
-           error feedback, None for a wire-free buffer.
+           the ``mix`` calls inside ``comm_update``, laid out by that
+           buffer's channel: ``{"res": tree}`` for sync with error feedback;
+           ``{"hat": tree}`` for choco, plus ``"age"`` (int32, (N,)) and
+           ``"sent"`` (bool, (N,)) for async, plus ``"fly": {"payload":
+           packed tree[, "sent"]}`` with overlap; None for a wire-free
+           buffer.
     event: communication events so far (a host int); the codec seeds of
            event ``e`` are ``comm_seed_fn(e, buffer, leaf)``.
     """
@@ -208,7 +216,10 @@ def attach_channel_state(algorithm, state):
     channel = algorithm.comm.resolved_channel()
     if channel is None:
         return state
-    wire = tuple(channel.init_wire(state.params) for _ in algorithm.comm.buffers)
+    wire = tuple(
+        channel.for_buffer(i).init_wire(state.params)
+        for i in range(len(algorithm.comm.buffers))
+    )
     return dataclasses.replace(state, comp=ChannelState(wire=wire))
 
 

@@ -13,7 +13,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .compression.base import ChannelState
+from .compression.base import ChannelState, Packed
 from .core.baselines import GTHSGDState, GTState, MomentumState, SGDState, SlowMoState
 from .core.dse import DSEState
 from .tree import tree_map
@@ -39,17 +39,31 @@ def params_from_numpy(tree: Any, device) -> Any:
     return tree_map(lambda a: _tensor(a, device), tree)
 
 
+def _packed_from_numpy(p, device) -> Packed:
+    """A reference ``Packed`` with numpy data as the port's: its meta names
+    dtypes by string, the port's by ``torch.dtype``."""
+    meta = tuple(getattr(torch, m) if isinstance(m, str) else m for m in p.meta)
+    return Packed({k: _tensor(a, device) for k, a in p.data.items()}, meta=meta)
+
+
+def _wire_from_numpy(tree, device) -> Any:
+    """One buffer's wire entry: dicts of trees (``res``, ``hat``), per-node
+    arrays (``age`` int32, ``sent`` bool) and in-flight ``Packed`` payloads."""
+    if isinstance(tree, dict):
+        return {k: _wire_from_numpy(v, device) for k, v in tree.items()}
+    if type(tree).__name__ == "Packed":
+        return _packed_from_numpy(tree, device)
+    return _tensor(tree, device)
+
+
 def _channel_state_from_numpy(comp, device) -> Optional[ChannelState]:
-    """A reference ``ChannelState`` (its ``wire`` of ``{"res": tree}`` or
-    None per buffer) as the port's.  The reference's PRNG key has no
-    counterpart: the port's codec seeds come from ``comm_seed_fn`` by event
-    number, which starts again at 0."""
+    """A reference ``ChannelState`` (per buffer, None or the channel's wire:
+    ``res``, ``hat``, ``age``, ``sent``, ``fly``) as the port's.  The
+    reference's PRNG key has no counterpart: the port's codec seeds come
+    from ``comm_seed_fn`` by event number, which starts again at 0."""
     if comp is None:
         return None
-    wire = tuple(
-        None if w is None else {k: params_from_numpy(t, device) for k, t in w.items()}
-        for w in comp.wire
-    )
+    wire = tuple(None if w is None else _wire_from_numpy(w, device) for w in comp.wire)
     return ChannelState(wire=wire)
 
 

@@ -11,19 +11,20 @@ what cadence, which gradient resets the direction estimate, and how the
 messages move on the wire (``compression``, ``channel``).
 :func:`make_round_step` is the one round executor the Simulator drives.
 
-Ported gossip: the synchronous channel with the ``identity`` and ``qsgd``
-codecs (``repro_torch.compression``).  Overlap, per-buffer channels and the
-choco and async channels raise ``NotImplementedError`` (ROADMAP queue 1
-item 5).  The scenario engine's scheduled executor is ROADMAP queue 1 item 4.
+Gossip runs through ``repro_torch.compression``: the codecs (identity,
+qsgd, top_k, rand_k, low_rank), the sync, choco and async channels,
+per-buffer channel mappings and comm/compute overlap, on the dense engine.
+The scenario engine's scheduled executor is ROADMAP queue 1 item 4.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Optional, Sequence, Tuple
 
-from ..compression.base import NOT_PORTED, make_compressor
+from ..compression.base import make_compressor
 from ..compression.channels import (
-    ChannelSession, SeedFn, SyncChannel, Transport, make_channel,
+    ChannelSession, ChocoChannel, PerBufferChannel, SeedFn, SyncChannel, Transport,
+    make_channel,
 )
 
 Tree = Any
@@ -51,11 +52,18 @@ class CommSpec:
               v-reset), "minibatch" (fresh minibatch gradient, DSE-SGD) or
               "none".
     compression: the wire codec: None, a registry name ("identity",
-              "qsgd", "qsgd:63"; lossy codecs are error-feedback-wrapped by
-              default) or a ``Compressor``.  None and "identity" take the
-              exact uncompressed gossip path.
-    channel:  the gossip protocol: None or "sync" (or a ``GossipChannel``).
-    overlap:  comm/compute overlap; not ported.
+              "qsgd", "top_k:0.1", "rand_k:0.25", "low_rank:2"; lossy codecs
+              are error-feedback-wrapped by default) or a ``Compressor``.
+              None and "identity" take the exact uncompressed gossip path.
+    channel:  the gossip protocol: None or "sync", "choco" (``"choco:0.8"``
+              sets the consensus step), "async" (``"async:2"`` sets the
+              staleness bound), a ``GossipChannel``, or a ``{buffer_name:
+              spec}`` mapping (unlisted buffers stay "sync").  Difference
+              channels drop the error-feedback default (the replica is the
+              memory).
+    overlap:  comm/compute overlap: double-buffer the sends of a choco or
+              async channel on every buffer; each round applies the
+              previous round's message (async needs ``max_staleness >= 2``).
     """
 
     cadence: str = "every_tau"
@@ -81,10 +89,34 @@ class CommSpec:
                         f"per-buffer channel mapping names unknown buffers "
                         f"{unknown}; declared buffers: {self.buffers}"
                     )
-                raise NotImplementedError(f"a per-buffer channel mapping {NOT_PORTED}")
-            object.__setattr__(self, "channel", make_channel(chan).bind(self.compression))
+                chan = PerBufferChannel(channels=tuple(
+                    make_channel(chan.get(b, "sync")) for b in self.buffers
+                ))
+            else:
+                chan = make_channel(chan)
+            object.__setattr__(self, "channel", chan.bind(self.compression))
         if self.overlap:
-            raise NotImplementedError(f"overlap=True (comm/compute overlap) {NOT_PORTED}")
+            chan = self.channel
+            if chan is None:
+                raise ValueError(
+                    "overlap=True double-buffers a stateful channel's sends; set "
+                    "channel='choco' or 'async:k' (sync gossip has no replica to mix "
+                    "against while the message is in flight)"
+                )
+
+            def _ov(c):
+                if not isinstance(c, ChocoChannel):
+                    raise ValueError(
+                        "overlap=True requires a difference or stale-mix channel "
+                        f"(choco/async) per buffer, got {c.name!r}"
+                    )
+                return c if c.overlap else dataclasses.replace(c, overlap=True)
+
+            if isinstance(chan, PerBufferChannel):
+                chan = dataclasses.replace(chan, channels=tuple(_ov(c) for c in chan.channels))
+            else:
+                chan = _ov(chan)
+            object.__setattr__(self, "channel", chan)
 
     def round_len(self, tau: int) -> int:
         """Steps per communication round (1 for every-step methods)."""

@@ -1,11 +1,14 @@
 """Hand-written Hopper kernels behind one fused-op backend (``api``).
 
-Each package keeps kernel.py (the Triton kernel and its launcher), ref.py
+Each package keeps kernel.py (the kernel's launcher: a Triton body, or a
+``ctypes`` wrapper of a CUDA C++ source in ``repro_torch/csrc/``), ref.py
 (the plain PyTorch version: the CPU path and the yardstick the kernel is
 held to) and ops.py (the :class:`~repro_torch.kernels.api.FusedOp`
-registration).  Importing this package populates the registry with seven
+registration).  Importing this package populates the registry with nine
 ops: mvr_update, axpby, add_sub, dse_combine, dse_combine_yh (the update
-arithmetic) and qsgd_quantize, qsgd_dequantize (the QSGD codec).
+arithmetic, Triton), qsgd_quantize, qsgd_dequantize (the QSGD codec,
+Triton) and top_k_pack, top_k_unpack (the top-k and rand-k codecs' packed
+payload, CUDA C++).
 """
 from . import api
 from . import comm_compress, dse_combine, mvr_update, tree_math

@@ -1,15 +1,19 @@
 """Fused-op backend of the port: one registry for the hand-written kernels.
 
 Counterpart of ``repro.kernels.api``.  An op is a :class:`FusedOp`: a plain
-PyTorch version (``ref_fn``) and a hand-written kernel over flat buffers
-(``launch``).  :func:`tree_apply` flattens whole parameter trees into one
-contiguous 1-D buffer per dtype bucket and makes ONE launch per bucket.
+PyTorch version (``ref_fn``) and a hand-written kernel.  An elementwise op's
+kernel works over flat buffers (``launch``): :func:`tree_apply` flattens
+whole parameter trees into one contiguous 1-D buffer per dtype bucket and
+makes ONE launch per bucket.  A shaped op's kernel takes the tensors as
+they are, with static keyword arguments (``launch_shaped``), and
+:func:`call` makes one launch per call.
 
 Dispatch follows the tensors' device, never a silent fallback:
 
   * CPU tensors run the plain version;
   * CUDA tensors launch the kernel, or raise (a missing ``triton`` raises
-    ``ImportError`` at the first launch);
+    ``ImportError`` and a missing ``nvcc`` ``RuntimeError`` at the first
+    launch);
   * :func:`dispatch_mode` ``("ref")`` runs the plain version on CUDA
     tensors too -- the only way to get it there, used to hold each kernel
     against its plain version.
@@ -80,29 +84,41 @@ def reset_counters() -> None:
 # ---------------------------------------------------------------- the op
 @dataclasses.dataclass(frozen=True, eq=False)
 class FusedOp:
-    """An elementwise fused op.
+    """A fused op: elementwise (``launch``) or shaped (``launch_shaped``).
 
-    ref_fn:  plain PyTorch version ``ref_fn(*tensors, *scalars)``: computes
-             in fp32 and casts each output to its ``out_dtype_from`` dtype.
-    launch:  ``launch(scalars, ins, outs)``: the hand-written kernel over
+    ref_fn:  plain PyTorch version.  Elementwise: ``ref_fn(*tensors,
+             *scalars)``, computing in fp32 (outputs cast to their
+             ``out_dtype_from`` dtype).  Shaped: ``ref_fn(*tensors,
+             **static)``.
+    launch:  elementwise kernel ``launch(scalars, ins, outs)`` over
              contiguous 1-D CUDA buffers; fp32 compute, cast on store.
-    out_dtype_from: per output, the input whose dtype it takes.
+    launch_shaped: shaped kernel ``launch_shaped(*tensors, **static)`` on
+             CUDA tensors; allocates and returns its output.
+    out_dtype_from: per output of an elementwise op, the input whose dtype
+             it takes.
     """
 
     name: str
     ref_fn: Callable
-    launch: Callable
     n_inputs: int
+    launch: Optional[Callable] = None
+    launch_shaped: Optional[Callable] = None
     n_outputs: int = 1
     n_scalars: int = 0
     out_dtype_from: Tuple[int, ...] = (0,)
     doc: str = ""
 
     def __post_init__(self):
+        if (self.launch is None) == (self.launch_shaped is None):
+            raise ValueError(f"{self.name}: give exactly one of launch, launch_shaped")
         if self.n_inputs <= 0:
-            raise ValueError(f"{self.name}: elementwise ops need n_inputs")
+            raise ValueError(f"{self.name}: ops need n_inputs")
         if len(self.out_dtype_from) != self.n_outputs:
             raise ValueError(f"{self.name}: out_dtype_from vs n_outputs")
+
+    @property
+    def elementwise(self) -> bool:
+        return self.launch is not None
 
 
 REGISTRY: Dict[str, FusedOp] = {}
@@ -111,7 +127,8 @@ REGISTRY: Dict[str, FusedOp] = {}
 def register(op: FusedOp) -> FusedOp:
     """Add an op; re-registering a name with other functions is an error."""
     prev = REGISTRY.get(op.name)
-    if prev is not None and (prev.launch, prev.ref_fn) != (op.launch, op.ref_fn):
+    fns = lambda o: (o.launch, o.launch_shaped, o.ref_fn)  # noqa: E731
+    if prev is not None and fns(prev) != fns(op):
         raise ValueError(f"fused op {op.name!r} is already registered")
     REGISTRY[op.name] = op
     return op
@@ -162,6 +179,8 @@ def tree_apply(name: str, *trees, scalars: Sequence = (), like=None):
     output-dtype rule.  Returns one tree, or a tuple for multi-output ops.
     """
     op = get(name)
+    if not op.elementwise:
+        raise ValueError(f"{name} is a shaped op: dispatch it with call()")
     if len(trees) != op.n_inputs:
         raise ValueError(f"{name}: expected {op.n_inputs} trees, got {len(trees)}")
     if len(scalars) != op.n_scalars:
@@ -241,10 +260,33 @@ def tree_apply(name: str, *trees, scalars: Sequence = (), like=None):
 
 
 def call(name: str, *tensors, scalars: Sequence = (), **kw):
-    """Dispatch a registered op on tensors or trees (the reference's
-    ``api.call``).  Every op ported so far is elementwise, so this hands
-    over to :func:`tree_apply`; shaped ops come with the top-k kernels."""
-    return tree_apply(name, *tensors, scalars=scalars, **kw)
+    """Dispatch a registered op (the reference's ``api.call``).
+
+    Elementwise ops hand over to :func:`tree_apply` (``scalars=`` carries
+    their scalar operands), so trees and single tensors both work.  Shaped
+    ops, ``call("top_k_unpack", idx, vals, d=777)``, take tensors and their
+    static keyword arguments: one dispatch, and on CUDA one launch, per call.
+    """
+    op = get(name)
+    if op.elementwise:
+        return tree_apply(name, *tensors, scalars=scalars, **kw)
+    if scalars:
+        raise ValueError(f"{name}: shaped ops take static keywords, not scalars=")
+    if len(tensors) != op.n_inputs:
+        raise ValueError(f"{name}: expected {op.n_inputs} tensors, got {len(tensors)}")
+    if any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{name}: inputs must not require grad (fused ops have no "
+            "backward in the port)"
+        )
+    device = tensors[0].device
+    _calls[name] += 1
+    if device.type == "cpu" or _mode == "ref":
+        return op.ref_fn(*tensors, **kw)
+    if device.type == "cuda":
+        _launches[name] += 1
+        return op.launch_shaped(*tensors, **kw)
+    raise ValueError(f"{name}: no kernel for device {device}")
 
 
 # --------------------------------------------------- algorithm-layer helpers

@@ -1,6 +1,6 @@
-"""Triton kernels for the QSGD codec's per-element hot paths.
+"""The codecs' kernels: Triton for QSGD, CUDA C++ for the top-k payloads.
 
-Replace the TPU kernels ``repro/kernels/comm_compress/kernel.py::
+QSGD (Triton, below) replaces the TPU kernels ``repro/kernels/comm_compress/kernel.py::
 qsgd_quantize_expr`` and ``::qsgd_dequantize_expr`` as launched by
 ``repro/kernels/api.py::_flat_launch``:
 
@@ -22,12 +22,24 @@ rounding instead of two), and an element whose value lies within an ulp of
 an integer then lands on the neighbouring level.  Without it the kernel
 rounds the product and the sum separately, as the plain version does, and
 the levels agree bit for bit.
+
+Top-k pack / unpack (CUDA C++, ``repro_torch/csrc/top_k.cu``, whose header
+says what they replace, their bound and their design): the wrappers here
+check device, dtype, shape and contiguity, allocate the output with
+``torch.empty``, launch on the current stream through ``ctypes`` and raise
+on a launch error.  The library is compiled by ``nvcc`` on the first launch
+(``kernels/_cuda.py``).
 """
 from __future__ import annotations
 
-from .. import _triton
+import ctypes
 
-__all__ = ["launch_qsgd_quantize", "launch_qsgd_dequantize"]
+import torch
+
+from .. import _cuda, _triton
+
+__all__ = ["launch_qsgd_quantize", "launch_qsgd_dequantize",
+           "launch_top_k_pack", "launch_top_k_unpack"]
 
 BLOCK = 1024
 tl = None   # triton.language, bound by _triton.jit on the first launch
@@ -79,3 +91,52 @@ def launch_qsgd_dequantize(scalars, ins, outs) -> None:
         *ins, *outs, inv_levels, n,
         BLOCK=BLOCK, INT64=_triton.needs_int64(n, BLOCK), num_warps=4,
     )
+
+
+# ------------------------------------------------------- top-k (CUDA C++)
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_TOP_K_FUNCTIONS = {
+    "top_k_pack": (_P, _P, _P, _I64, _I64, _I64, _INT, _P),
+    "top_k_unpack": (_P, _P, _P, _I64, _I64, _I64, _INT, _P),
+}
+_PACK_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_UNPACK_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _top_k_lib():
+    return _cuda.library("top_k", _TOP_K_FUNCTIONS)
+
+
+def launch_top_k_pack(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """vals (N, k) = x (N, d) gathered at int32 idx (N, k), in x's dtype."""
+    if x.dim() != 2 or idx.dim() != 2 or idx.shape[0] != x.shape[0]:
+        raise ValueError(f"top_k_pack: x (N, d) and idx (N, k), got {tuple(x.shape)} "
+                         f"and {tuple(idx.shape)}")
+    n, d = x.shape
+    k = idx.shape[1]
+    _cuda.check_tensors("top_k_pack", (("x", x, _PACK_DTYPES, None),
+                                       ("idx", idx, (torch.int32,), None)))
+    vals = torch.empty((n, k), dtype=x.dtype, device=x.device)
+    lib = _top_k_lib()
+    err = lib.top_k_pack(x.data_ptr(), idx.data_ptr(), vals.data_ptr(), n, d, k,
+                         x.element_size(), _cuda.stream_of(x))
+    _cuda.check("top_k", "top_k_pack", err)
+    return vals
+
+
+def launch_top_k_unpack(idx: torch.Tensor, vals: torch.Tensor, d: int) -> torch.Tensor:
+    """Dense (N, d) in vals' dtype: zeros, plus vals[i, j] at idx[i, j]."""
+    if idx.dim() != 2:
+        raise ValueError(f"top_k_unpack: idx must be (N, k), got {tuple(idx.shape)}")
+    n, k = idx.shape
+    d = int(d)
+    if d < 0:
+        raise ValueError(f"top_k_unpack: d must be >= 0, got {d}")
+    _cuda.check_tensors("top_k_unpack", (("idx", idx, (torch.int32,), None),
+                                         ("vals", vals, tuple(_UNPACK_DTYPES), (n, k))))
+    out = torch.empty((n, d), dtype=vals.dtype, device=vals.device)
+    lib = _top_k_lib()
+    err = lib.top_k_unpack(idx.data_ptr(), vals.data_ptr(), out.data_ptr(), n, d, k,
+                           _UNPACK_DTYPES[vals.dtype], _cuda.stream_of(vals))
+    _cuda.check("top_k", "top_k_unpack", err)
+    return out

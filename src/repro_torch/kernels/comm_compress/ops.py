@@ -1,14 +1,18 @@
-"""Registry entries for the QSGD quantize / dequantize ops.
+"""Registry entries for the codecs' ops.
 
-The QSGD codec (``repro_torch.compression.compressors.QSGD``) calls them
-through ``api.call`` on every compressed gossip message, whatever the
-algorithm's ``use_fused`` says.  The top-k pack / unpack ops are not ported
-yet (ROADMAP queue 2 item 6)."""
+The QSGD codec calls the quantize / dequantize ops, and the top-k and
+rand-k codecs the pack / unpack ops, through ``api.call`` on every
+compressed gossip message, whatever the algorithm's ``use_fused`` says."""
 from __future__ import annotations
 
 from .. import api
-from .kernel import launch_qsgd_dequantize, launch_qsgd_quantize
-from .ref import qsgd_dequantize_ref, qsgd_quantize_ref
+from .kernel import (
+    launch_qsgd_dequantize,
+    launch_qsgd_quantize,
+    launch_top_k_pack,
+    launch_top_k_unpack,
+)
+from .ref import qsgd_dequantize_ref, qsgd_quantize_ref, top_k_pack_ref, top_k_unpack_ref
 
 api.register(
     api.FusedOp(
@@ -33,5 +37,25 @@ api.register(
         n_scalars=1,           # 1/levels
         out_dtype_from=(1,),   # the scale's dtype, NOT the int8 payload's
         doc="dequantize q * scale / levels",
+    )
+)
+
+api.register(
+    api.FusedOp(
+        name="top_k_pack",
+        ref_fn=top_k_pack_ref,
+        launch_shaped=launch_top_k_pack,
+        n_inputs=2,            # x (N, d), idx (N, k)
+        doc="gather the packed top-k payload vals[i,j] = x[i, idx[i,j]]",
+    )
+)
+
+api.register(
+    api.FusedOp(
+        name="top_k_unpack",
+        ref_fn=top_k_unpack_ref,
+        launch_shaped=launch_top_k_unpack,
+        n_inputs=2,            # idx (N, k), vals (N, k); static d
+        doc="scatter the packed payload back to a dense (N, d) buffer",
     )
 )

@@ -1,10 +1,13 @@
-"""Plain PyTorch versions of the QSGD quantize / dequantize ops."""
+"""Plain PyTorch versions of the codecs' ops: QSGD quantize / dequantize
+and the top-k pack / unpack."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["qsgd_quantize_ref", "qsgd_dequantize_ref"]
+__all__ = [
+    "qsgd_quantize_ref", "qsgd_dequantize_ref", "top_k_pack_ref", "top_k_unpack_ref",
+]
 
 
 def qsgd_quantize_ref(x: torch.Tensor, u: torch.Tensor, levels) -> torch.Tensor:
@@ -23,3 +26,15 @@ def qsgd_dequantize_ref(q: torch.Tensor, scale: torch.Tensor, inv_levels) -> tor
     payload on the codec's path)."""
     out = q.float() * scale.float() * float(np.float32(inv_levels))
     return out.to(scale.dtype)
+
+
+def top_k_pack_ref(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """vals[i, j] = x[i, idx[i, j]]: the gather behind the packed payload."""
+    return torch.gather(x, 1, idx.long())
+
+
+def top_k_unpack_ref(idx: torch.Tensor, vals: torch.Tensor, d: int) -> torch.Tensor:
+    """Dense (N, d) in vals' dtype: zeros, then a per-row scatter-add of
+    vals at idx."""
+    out = torch.zeros((idx.shape[0], int(d)), dtype=vals.dtype, device=vals.device)
+    return out.scatter_add_(1, idx.long(), vals)

@@ -3,7 +3,8 @@
 Counterpart of the problem in ``benchmarks/common.py``: pseudo-MNIST with
 feature and label noise, Dirichlet(omega) partitioned over an 8-node ring,
 a 196 -> 64 -> 10 tanh MLP, and the paper-tuned DSE-MVR / DSE-SGD and
-baselines, optionally with compressed gossip (``compression="qsgd"``).
+baselines, optionally with compressed gossip (``compression="top_k:0.1"``,
+``channel="choco"``, ...).
 """
 from __future__ import annotations
 

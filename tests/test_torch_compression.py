@@ -9,6 +9,12 @@ hand the port the resulting uint32 seeds through ``comm_seed_fn``.
 
 Tolerances:
   * ``_hash_uniform``: bit for bit;
+  * TopK and RandK on equal inputs: indices equal (order included) and
+    values bit for bit -- a stable sort and a gather, no arithmetic;
+  * LowRank, with the reference's sketch injected: the decoded tensor
+    within rtol 1e-5 / atol 1e-6 (the QR's column signs may differ between
+    LAPACK and XLA, ``P Pᵀ M`` does not, and the two GEMM orders round
+    differently);
   * QSGD on the same inputs: the scale exactly; the int8 payload with at
     most 1e-4 of its elements off, each by one level (measured: none; the
     quantize rounds its product and sum separately on both sides);
@@ -34,15 +40,18 @@ from repro.compression import Transport as JTransport
 from repro.compression import make_compressor as j_make_compressor
 from repro.compression.channels import link_bytes_per_round as j_link_bytes
 from repro.compression.compressors import QSGD as JQSGD
+from repro.compression.compressors import LowRank as JLowRank
+from repro.compression.compressors import RandK as JRandK
+from repro.compression.compressors import TopK as JTopK
 from repro.compression.compressors import _hash_uniform as j_hash_uniform
 from repro.core import CommSpec as JCommSpec
 from repro.core import make_algorithm as j_registry_make
 from repro.core.algorithm import make_round_step as j_make_round_step
 from repro_torch import paper_problem as tproblem
 from repro_torch.compression import (
-    COMPRESSORS, QSGD, ChannelSession, ChannelState, ErrorFeedback, Identity, SyncChannel,
-    Transport, attach_channel_state, compression_error, link_bytes_per_round,
-    make_compressor,
+    COMPRESSORS, QSGD, ChannelSession, ChannelState, ErrorFeedback, Identity, LowRank,
+    Packed, RandK, SyncChannel, TopK, Transport, attach_channel_state, compression_error,
+    link_bytes_per_round, make_compressor,
 )
 from repro_torch.compression.compressors import _hash_uniform
 from repro_torch.convert import params_from_numpy, state_from_numpy, tree_to_numpy
@@ -64,18 +73,45 @@ def _seed_of(key) -> int:
     return int(d[0] ^ d[-1])
 
 
+class ReferenceDraws:
+    """The reference's per-leaf codec keys, replayed from the channel key
+    (the Simulator's is ``fold_in(run_key, 0x636F)``): ``seed_fn`` is the
+    port's ``comm_seed_fn`` (the uint32 each key's noise hash reads), and
+    ``index_draw`` / ``sketch_draw`` are the draws rand-k and low-rank make
+    from the key behind a seed, for injection into the port's codecs."""
+
+    def __init__(self, chan_key, n_events, n_buffers, n_leaves):
+        k = chan_key
+        self.seeds, self.keys = {}, {}
+        for e in range(n_events):
+            use, k = jax.random.split(k)
+            for b in range(n_buffers):
+                kb = jax.random.fold_in(use, b)
+                for leaf in range(n_leaves):
+                    self.add(jax.random.fold_in(kb, leaf), (e, b, leaf))
+
+    def add(self, key, at=None):
+        seed = _seed_of(key)
+        assert self.keys.setdefault(seed, key) is key, "two keys share a seed"
+        if at is not None:
+            self.seeds[at] = seed
+        return seed
+
+    def seed_fn(self, e, b, leaf):
+        return self.seeds[e, b, leaf]
+
+    def index_draw(self, seed, d, k):
+        return torch.from_numpy(np.array(
+            jax.random.choice(self.keys[seed], d, shape=(k,), replace=False)))
+
+    def sketch_draw(self, seed, rows, cols):
+        return torch.from_numpy(np.array(
+            jax.random.normal(self.keys[seed], (rows, cols), jnp.float32)))
+
+
 def _reference_seed_fn(chan_key, n_events, n_buffers, n_leaves):
-    """``comm_seed_fn`` replaying the reference's key chain from the channel
-    key (the Simulator's is ``fold_in(run_key, 0x636F)``)."""
-    k = chan_key
-    seeds = {}
-    for e in range(n_events):
-        use, k = jax.random.split(k)
-        for b in range(n_buffers):
-            kb = jax.random.fold_in(use, b)
-            for leaf in range(n_leaves):
-                seeds[e, b, leaf] = _seed_of(jax.random.fold_in(kb, leaf))
-    return lambda e, b, leaf: seeds[e, b, leaf]
+    """``comm_seed_fn`` replaying the reference's key chain."""
+    return ReferenceDraws(chan_key, n_events, n_buffers, n_leaves).seed_fn
 
 
 def _assert_levels_close(got_q, want_q):
@@ -175,6 +211,97 @@ def test_payload_bytes_model():
     assert QSGD().payload_bytes((d,), torch.float32, scale=0.25) == \
         JQSGD().payload_bytes((d,), jnp.float32, scale=0.25)
     assert make_compressor("qsgd").payload_bytes((d,), torch.float32) == q
+    # the sparsifiers: k values of the leaf's dtype + k int32 indices
+    assert TopK(0.1).payload_bytes((d,), torch.float32) == 10_000 * 8
+    assert RandK(0.25).payload_bytes((d,), torch.bfloat16) == 25_000 * 6
+    for shape in ((196, 64), (64, 10), (64,), (10,), (3, 1), (7, 5, 3), (1,)):
+        for dt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+            for port, ref in ((TopK(0.1), JTopK(0.1)), (RandK(0.25), JRandK(0.25)),
+                              (LowRank(2), JLowRank(2)), (LowRank(4), JLowRank(4))):
+                for scale in (None, 0.3):
+                    assert port.payload_bytes(shape, dt, scale=scale) == \
+                        ref.payload_bytes(shape, jdt, scale=scale), (port, shape, dt, scale)
+    # on the MLP, W1 and W2 factorize at r = 2; the biases go raw
+    assert LowRank(2).payload_bytes((196, 64), torch.float32) == (196 + 64) * 2 * 4
+    assert LowRank(2).payload_bytes((64,), torch.float32) == 64 * 4
+
+
+def _tied_leaf(seed, shape=(N, 196, 64)):
+    """Normal values on a coarse grid: many exact |x| ties, of both signs,
+    and zeros -- where the tie-breaking rule decides the selection."""
+    x = np.round(_leaf(seed, shape) * 4) / 4
+    x[:, :3] = 0.0
+    return x.astype(np.float32)
+
+
+def _assert_packed_equal(tp, jp):
+    assert sorted(tp.data) == sorted(jp.data)
+    for k, t in tp.data.items():
+        np.testing.assert_array_equal(tree_to_numpy(t), np.asarray(jp.data[k]).astype(
+            np.float32 if t.dtype == torch.bfloat16 else np.asarray(jp.data[k]).dtype), err_msg=k)
+
+
+@pytest.mark.parametrize("scale", [None, 0.5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(N, 196, 64), (N, 33, 7), (N, 10)])
+def test_top_k_encode_decode_match_reference(shape, dtype, scale):
+    """Indices equal in order (a stable descending-|x| sort, ties to the
+    lower index), values bit for bit, on a leaf full of ties and zeros."""
+    jx = jnp.asarray(_tied_leaf(4, shape)).astype(dtype)
+    tx = params_from_numpy(np.asarray(jx), "cpu")
+    key = jax.random.key(2)
+    jp = JTopK(0.1).encode(jx, key, scale=None if scale is None else jnp.float32(scale))
+    tp = TopK(0.1).encode(tx, _seed_of(key), scale=scale)
+    assert tp.data["idx"].dtype == torch.int32 and tp.data["vals"].dtype == tx.dtype
+    _assert_packed_equal(tp, jp)
+    got, want = TopK(0.1).decode(tp), JTopK(0.1).decode(jp)
+    assert got.shape == want.shape and got.dtype == tx.dtype
+    np.testing.assert_array_equal(tree_to_numpy(got), np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rand_k_matches_reference_with_its_draw(dtype):
+    """RandK with the reference's ``jax.random.choice`` draw injected: one
+    index set shared by every node, values bit for bit."""
+    jx = jnp.asarray(_leaf(5, (N, 64, 10))).astype(dtype)
+    tx = params_from_numpy(np.asarray(jx), "cpu")
+    draws = ReferenceDraws(jax.random.key(9), 1, 1, 1)
+    key = draws.keys[draws.seed_fn(0, 0, 0)]
+    jp = JRandK(0.25).encode(jx, key)
+    tp = RandK(0.25, index_draw=draws.index_draw).encode(tx, draws.seed_fn(0, 0, 0))
+    _assert_packed_equal(tp, jp)
+    assert bool((tp.data["idx"] == tp.data["idx"][:1]).all())
+    np.testing.assert_array_equal(tree_to_numpy(RandK(0.25).decode(tp)),
+                                  np.asarray(JRandK(0.25).decode(jp).astype(jnp.float32)))
+
+
+def test_rand_k_default_draw_is_seeded_and_distinct():
+    x = torch.from_numpy(_leaf(6, (N, 640)))
+    a, b = RandK(0.25).encode(x, 17), RandK(0.25).encode(x, 17)
+    assert torch.equal(a.data["idx"], b.data["idx"])
+    assert not torch.equal(a.data["idx"], RandK(0.25).encode(x, 18).data["idx"])
+    row = a.data["idx"][0]
+    assert row.shape == (160,) and len(set(row.tolist())) == 160
+
+
+@pytest.mark.parametrize("shape", [(N, 196, 64), (N, 64, 10), (N, 64), (N, 5, 3, 4)])
+def test_low_rank_decodes_like_reference_with_its_sketch(shape):
+    x = _leaf(7, shape)
+    draws = ReferenceDraws(jax.random.key(4), 1, 1, 1)
+    seed = draws.seed_fn(0, 0, 0)
+    jp = JLowRank(2).encode(jnp.asarray(x), draws.keys[seed])
+    tp = LowRank(2, sketch_draw=draws.sketch_draw).encode(torch.from_numpy(x), seed)
+    assert sorted(tp.data) == sorted(jp.data)
+    got = LowRank(2).decode(tp)
+    assert got.shape == x.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(JLowRank(2).decode(jp)),
+                               rtol=1e-5, atol=1e-6)
+    if "raw" in tp.data:
+        np.testing.assert_array_equal(got.numpy(), x)
+    else:   # orthonormal P: the decode is the projection P Pᵀ M
+        p = tp.data["p"]
+        eye = torch.eye(p.shape[-1]).expand(p.shape[0], -1, -1)
+        torch.testing.assert_close(p.transpose(1, 2) @ p, eye, rtol=0, atol=1e-5)
 
 
 # --------------------------------------------------------------- registry
@@ -188,9 +315,15 @@ def test_make_compressor_registry_and_shorthands():
     assert make_compressor("qsgd:63").inner.levels == 63
     inst = QSGD(levels=31)
     assert make_compressor(inst) is inst
-    for spec in ("top_k:0.05", "rand_k:0.5", "low_rank:3", "top_k"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-            make_compressor(spec)
+    for spec, cls, field, value in (("top_k:0.05", TopK, "ratio", 0.05),
+                                    ("rand_k:0.5", RandK, "ratio", 0.5),
+                                    ("low_rank:3", LowRank, "rank", 3),
+                                    ("top_k", TopK, "ratio", 0.1)):
+        c = make_compressor(spec)
+        assert isinstance(c, ErrorFeedback) and type(c.inner) is cls, spec
+        assert getattr(c.inner, field) == value
+        assert c.tag == j_make_compressor(spec).tag
+        assert type(make_compressor(spec, error_feedback=False)) is cls
 
 
 @pytest.mark.parametrize(
@@ -483,16 +616,30 @@ def test_compressed_comm_event_dispatch_counts():
         assert state.comp.event == 1 and tapi.launch_counts() == {}
 
 
-@pytest.mark.parametrize("compression", [None, "identity", "qsgd", "qsgd:15"])
-@pytest.mark.parametrize("name", ["dse_mvr", "gt_hsgd", "dlsgd"])
-def test_link_bytes_per_round_matches_reference(name, compression):
+def _link_bytes_both(name, **kw):
     params = _reference_init(SEED)
     jparams = jax.tree.map(jnp.asarray, tree_to_numpy(params))
     stacked = {k: v.unsqueeze(0).repeat((N,) + (1,) * v.dim()) for k, v in params.items()}
     jstacked = jax.tree.map(lambda p: jnp.broadcast_to(p[None], (N,) + p.shape), jparams)
-    t = t_registry_make(name, lr=0.1, tau=4, compression=compression)
-    j = j_registry_make(name, lr=0.1, tau=4, compression=compression)
-    assert link_bytes_per_round(t.comm, stacked) == j_link_bytes(j.comm, jstacked)
+    t = t_registry_make(name, lr=0.1, tau=4, **kw)
+    j = j_registry_make(name, lr=0.1, tau=4, **kw)
+    return link_bytes_per_round(t.comm, stacked), j_link_bytes(j.comm, jstacked)
+
+
+@pytest.mark.parametrize("compression", [None, "identity", "qsgd", "qsgd:15"])
+@pytest.mark.parametrize("name", ["dse_mvr", "gt_hsgd", "dlsgd"])
+def test_link_bytes_per_round_matches_reference(name, compression):
+    got, want = _link_bytes_both(name, compression=compression)
+    assert got == want
+
+
+@pytest.mark.parametrize("channel", [None, "choco", "async:2", {"params": "choco"}])
+@pytest.mark.parametrize("compression", [None, "top_k:0.1", "rand_k:0.25", "low_rank:2"])
+@pytest.mark.parametrize("name", ["dse_mvr", "gt_hsgd"])
+def test_link_bytes_per_round_per_channel_matches_reference(name, compression, channel):
+    """Each buffer counted through its own channel (``for_buffer``)."""
+    got, want = _link_bytes_both(name, compression=compression, channel=channel)
+    assert got == want
 
 
 def test_state_from_numpy_carries_the_wire_state():
@@ -504,3 +651,31 @@ def test_state_from_numpy_carries_the_wire_state():
     assert got.comp.event == 0 and got.comp.wire[1] is None
     np.testing.assert_array_equal(tree_to_numpy(got.comp.wire[0]["res"])["w"], res[0]["w"])
     assert dataclasses.is_dataclass(got)
+
+    # an async overlap wire (hat, age, sent, fly with a packed top-k payload)
+    # beside a choco wire, as the reference's state holds them
+    rng = np.random.default_rng(3)
+    hat = _np_tree(rng)
+    payload = jax.tree.map(np.asarray, JTopK(0.2).encode_tree(
+        jax.tree.map(jnp.asarray, _np_tree(rng)), jax.random.key(0)))
+    age, sent = np.array([0, 3, 1, 2, 0, 1, 3, 2], np.int32), np.arange(N) % 3 == 0
+    wire = ({"hat": hat, "age": age, "sent": sent, "fly": {"payload": payload, "sent": ~sent}},
+            {"hat": hat})
+    got = state_from_numpy(_reference_like("GTHSGDState", st, step=np.int32(1),
+                                           comp=JChannelState(wire=wire, key=None)), "cpu")
+    w0, w1 = got.comp.wire
+    assert w0["age"].dtype == torch.int32 and w0["sent"].dtype == torch.bool
+    np.testing.assert_array_equal(w0["age"].numpy(), age)
+    np.testing.assert_array_equal(w0["sent"].numpy(), sent)
+    np.testing.assert_array_equal(w0["fly"]["sent"].numpy(), ~sent)
+    for k in SHAPES:
+        np.testing.assert_array_equal(w0["hat"][k].numpy(), hat[k])
+        np.testing.assert_array_equal(w1["hat"][k].numpy(), hat[k])
+        pk = w0["fly"]["payload"][k]
+        assert isinstance(pk, Packed) and pk.meta[1] == torch.float32
+        assert pk.meta == (payload[k].meta[0], torch.float32, payload[k].meta[2])
+        assert pk.data["idx"].dtype == torch.int32
+        np.testing.assert_array_equal(pk.data["idx"].numpy(), payload[k].data["idx"])
+        np.testing.assert_array_equal(pk.data["vals"].numpy(), payload[k].data["vals"])
+        np.testing.assert_array_equal(TopK(0.2).decode(pk).numpy(),
+                                      np.asarray(JTopK(0.2).decode(payload[k])))

@@ -1,4 +1,4 @@
-"""The port's Triton kernels and launch counts on a CUDA card.
+"""The port's Triton and CUDA C++ kernels and launch counts on a CUDA card.
 
 Every test here carries the ``cuda`` marker and skips without a card.  The
 file imports neither JAX nor ``repro``, so it runs on a machine with torch,
@@ -9,7 +9,9 @@ Triton and a card alone:
 Tolerances, kernel vs its plain version on the same card: fp32 rtol 1e-6 /
 atol 1e-6 (Triton may contract a multiply-add into an FMA, one ulp); bf16
 within one bf16 ulp beyond that; the QSGD ops exactly (integer levels, and
-the quantize is built without FMA contraction).
+the quantize is built without FMA contraction); the top-k pack and unpack
+exactly (a gather copies bits; with distinct indices each unpacked slot is
+one add into zero).
 """
 import numpy as np
 import pytest
@@ -30,7 +32,7 @@ LEAVES = {"a": ((3, 7), torch.float32), "b": ((1001,), torch.bfloat16),
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the Triton kernels run only on the card")
+        pytest.skip("needs a CUDA device: the port's kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -139,5 +141,106 @@ def test_compressed_comm_event_launches_eight_of_each_qsgd_op(cuda_device):
     assert state.comp.event == 1
     for wire in state.comp.wire:
         for leaf in wire["res"].values():
+            assert bool(torch.isfinite(leaf).all())
+    assert np.isfinite(sim.evaluate(state)["train_loss"])
+
+
+# --------------------------------------------------------- top-k (CUDA C++)
+# (N, d, k): the MLP's leaves at ratio 0.1, ragged sizes, k = d, and one row
+TOP_K_SHAPES = [(8, 12544, 1255), (8, 64, 7), (8, 640, 64), (8, 10, 1), (3, 777, 13),
+                (5, 33, 33), (1, 1001, 100)]
+
+
+def _distinct_indices(gen, n, d, k, device):
+    return torch.stack([torch.randperm(d, generator=gen)[:k] for _ in range(n)]).to(
+        device=device, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", TOP_K_SHAPES)
+def test_top_k_pack_matches_plain_bit_for_bit(shape, dtype, cuda_device):
+    n, d, k = shape
+    gen = torch.Generator().manual_seed(d + k)
+    x = torch.randn((n, d), generator=gen).to(cuda_device, dtype)
+    idx = _distinct_indices(gen, n, d, k, cuda_device)
+    api.reset_counters()
+    got = api.call("top_k_pack", x, idx)
+    torch.cuda.synchronize()
+    assert api.launch_counts() == {"top_k_pack": 1}
+    with api.dispatch_mode("ref"):
+        want = api.call("top_k_pack", x, idx)
+    assert got.dtype == want.dtype == dtype and got.shape == (n, k)
+    assert torch.equal(got.view(torch.int16 if dtype != torch.float32 else torch.int32),
+                       want.view(torch.int16 if dtype != torch.float32 else torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TOP_K_SHAPES)
+def test_top_k_unpack_matches_plain_bit_for_bit(shape, dtype, cuda_device):
+    n, d, k = shape
+    gen = torch.Generator().manual_seed(3 * d + k)
+    vals = torch.randn((n, k), generator=gen).to(cuda_device, dtype)
+    vals[0, 0] = -0.0          # a signed zero lands as +0, as in the plain version
+    idx = _distinct_indices(gen, n, d, k, cuda_device)
+    out = torch.full((n, d), 7.0, dtype=dtype, device=cuda_device)   # dirty the pool
+    del out
+    api.reset_counters()
+    got = api.call("top_k_unpack", idx, vals, d=d)
+    torch.cuda.synchronize()
+    assert api.launch_counts() == {"top_k_unpack": 1}
+    with api.dispatch_mode("ref"):
+        want = api.call("top_k_unpack", idx, vals, d=d)
+    assert got.dtype == want.dtype == dtype and got.shape == (n, d)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+def test_top_k_kernels_handle_odd_offsets_and_empty_shapes(cuda_device):
+    """Small odd outputs drive the fill's single-byte tail; k = 0 launches
+    no scatter and leaves the zero fill."""
+    gen = torch.Generator().manual_seed(5)
+    for n, d in ((1, 1), (1, 3), (2, 5), (3, 7), (1, 9)):
+        idx = _distinct_indices(gen, n, d, 1, cuda_device)
+        vals = torch.randn((n, 1), generator=gen).to(cuda_device)
+        got = api.call("top_k_unpack", idx, vals, d=d)
+        with api.dispatch_mode("ref"):
+            want = api.call("top_k_unpack", idx, vals, d=d)
+        assert torch.equal(got, want)
+    empty = torch.empty((4, 0), dtype=torch.int32, device=cuda_device)
+    x = torch.randn((4, 6), device=cuda_device)
+    assert api.call("top_k_pack", x, empty).shape == (4, 0)
+    dense = api.call("top_k_unpack", empty, torch.empty((4, 0), device=cuda_device), d=6)
+    assert torch.equal(dense, torch.zeros((4, 6), device=cuda_device))
+
+
+def test_top_k_kernels_refuse_what_they_do_not_take(cuda_device):
+    x = torch.randn((4, 10), device=cuda_device)
+    idx = torch.zeros((4, 3), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="idx dtype"):
+        api.call("top_k_pack", x, idx.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        api.call("top_k_pack", x.t().contiguous().t(), idx)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        api.call("top_k_pack", x, idx.cpu())
+    with pytest.raises(ValueError, match="vals dtype"):
+        api.call("top_k_unpack", idx, torch.zeros((4, 3), dtype=torch.float16,
+                                                  device=cuda_device), d=10)
+    with pytest.raises(ValueError, match="shape"):
+        api.call("top_k_unpack", idx, torch.zeros((4, 2), device=cuda_device), d=10)
+
+
+def test_choco_top_k_comm_event_launches_eight_of_each_top_k_op(cuda_device):
+    """A CHOCO top-k DSE-MVR communication event launches 8 packs and 8
+    unpacks (4 leaves x 2 buffers) and no QSGD kernel."""
+    sim = _sim("dse_mvr", cuda_device, compression="top_k:0.1", channel="choco")
+    state = sim.init_state(tproblem.mlp_init(0))
+    api.reset_counters()
+    state = sim.run_rounds(state, 1)
+    torch.cuda.synchronize()
+    counts = api.launch_counts()
+    assert counts["top_k_pack"] == counts["top_k_unpack"] == 8, counts
+    assert "qsgd_quantize" not in counts
+    for wire in state.comp.wire:
+        for leaf in wire["hat"].values():
             assert bool(torch.isfinite(leaf).all())
     assert np.isfinite(sim.evaluate(state)["train_loss"])

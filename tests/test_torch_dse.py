@@ -146,11 +146,23 @@ def test_init_matches_reference():
 
 
 def test_compression_and_channels_not_ported():
-    """QSGD on the sync channel is ported; what is not raises and names the
-    ROADMAP item."""
-    for kw in (dict(compression="top_k"), dict(channel="choco"), dict(overlap=True),
+    """Every codec and channel of the dense engine builds, with the
+    reference's tags; only the sharded engine's wire modes raise, and they
+    name the ROADMAP item."""
+    from repro.core import dse as jdse
+
+    for kw in (dict(compression="qsgd"), dict(compression="top_k"),
+               dict(compression="top_k:0.1", channel="choco"),
+               dict(compression="rand_k:0.25", channel="async:2"),
+               dict(compression="low_rank:2", channel={"params": "choco"}),
+               dict(compression="top_k:0.1", channel="choco", overlap=True),
                dict(channel={"params": "sync"})):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            tdse.DSEMVR(lr=0.1, **kw)
+        t = tdse.DSEMVR(lr=0.1, **kw).comm.resolved_channel()
+        j = jdse.DSEMVR(lr=0.1, **kw).comm.resolved_channel()
+        assert (t is None and j is None) or t.tag == j.tag, kw
+    from repro_torch.compression import ChocoChannel
+
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        tdse.DSEMVR(lr=0.1, compression="top_k:0.1", channel=ChocoChannel(neighbor_shifts=(1,)))
     assert tdse.DSEMVR(lr=0.1, compression="qsgd").comm.resolved_channel().tag == "sync_ef_qsgd"
     assert dataclasses.is_dataclass(tdse.DSEState)

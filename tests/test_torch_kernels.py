@@ -1,7 +1,7 @@
 """The port's fused-op backend (``repro_torch.kernels.api``) against the
 reference's (``repro.kernels.api``).
 
-For each of the seven ported ops, on an odd-size tree that mixes fp32 and
+For each of the seven ported elementwise ops, on an odd-size tree that mixes fp32 and
 bf16 leaves, made with numpy from a seed and fed to both packages (the QSGD
 ops get inputs in their domain: a normalized buffer and U[0, 1) noise for
 the quantize, an int8 payload and a positive scale for the dequantize):
@@ -17,6 +17,13 @@ bf16 within one bf16 ulp -- each side rounds its fp32 value once.  The
 QSGD ops are held exactly: their levels are integers, and neither side
 contracts the quantize's multiply-add.  On a CUDA card (marker ``cuda``)
 each Triton kernel is held to the plain version.
+
+The two shaped ops, ``top_k_pack`` and ``top_k_unpack``, are held exactly to
+the reference's ``ref_fn`` and to its Pallas kernels in interpret mode, on
+the reference's own case (odd d = 777, 13 indices per row; distinct indices
+for the unpack): a gather copies, and with distinct indices every unpacked
+slot is one value added to zero.  With duplicate indices the unpack sums in
+another order, so it is held within fp32 rtol 1e-6 there.
 """
 import jax
 import jax.numpy as jnp
@@ -27,8 +34,8 @@ import torch
 import repro.kernels  # noqa: F401  (populates the reference registry)
 from repro.kernels import api as japi
 from repro_torch.convert import tree_to_numpy
+from repro_torch.kernels import _cuda
 from repro_torch.kernels import api as tapi
-
 
 
 def _normal(rng, shape):
@@ -279,3 +286,100 @@ def test_kernel_matches_plain_on_cuda(name, cuda_device):
                 assert np.all(excess <= _bf16_ulp(np.maximum(np.abs(g), np.abs(w))))
             else:
                 np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
+
+
+# ----------------------------------------------------------- shaped ops
+def _top_k_case(dtype):
+    """The reference's pack/unpack case: x (3, 777), 13 indices per row drawn
+    with replacement, and 13 distinct ones per row for the unpack."""
+    key = jax.random.key(11)
+    x = np.array(jax.random.normal(key, (3, 777)))
+    idx = np.array(jax.random.randint(jax.random.fold_in(key, 1), (3, 13), 0, 777), np.int32)
+    rng = np.random.default_rng(11)
+    distinct = np.stack([rng.choice(777, 13, replace=False) for _ in range(3)]).astype(np.int32)
+    jx = jnp.asarray(x).astype(dtype)
+    return jx, np.asarray(jx.astype(jnp.float32)), idx, distinct
+
+
+def _torch_from(a, dtype):
+    return torch.from_numpy(np.array(a, np.float32)).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["with_repeats", "distinct"])
+def test_top_k_pack_matches_reference(dtype, which):
+    jx, x, idx, distinct = _top_k_case(dtype)
+    ix = idx if which == "with_repeats" else distinct
+    tapi.reset_counters()
+    got = tapi.call("top_k_pack", _torch_from(x, dtype), torch.from_numpy(ix))
+    assert tapi.call_counts() == {"top_k_pack": 1} and tapi.launch_counts() == {}
+    assert str(got.dtype) == f"torch.{dtype}" and tuple(got.shape) == (3, 13)
+    want_ref = japi.get("top_k_pack").ref_fn(jx, jnp.asarray(ix))
+    with japi.dispatch_mode("interpret"):
+        want_kernel = japi.call("top_k_pack", jx, jnp.asarray(ix))
+    for want in (want_ref, want_kernel):
+        np.testing.assert_array_equal(tree_to_numpy(got), np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_top_k_unpack_matches_reference(dtype):
+    jx, x, _, distinct = _top_k_case(dtype)
+    jvals = japi.get("top_k_pack").ref_fn(jx, jnp.asarray(distinct))
+    vals = _torch_from(np.asarray(jvals.astype(jnp.float32)), dtype)
+    tapi.reset_counters()
+    got = tapi.call("top_k_unpack", torch.from_numpy(distinct), vals, d=777)
+    assert tapi.call_counts() == {"top_k_unpack": 1} and tapi.launch_counts() == {}
+    assert str(got.dtype) == f"torch.{dtype}" and tuple(got.shape) == (3, 777)
+    want_ref = japi.get("top_k_unpack").ref_fn(jnp.asarray(distinct), jvals, 777)
+    with japi.dispatch_mode("interpret"):
+        want_kernel = japi.call("top_k_unpack", jnp.asarray(distinct), jvals, d=777)
+    for want in (want_ref, want_kernel):
+        np.testing.assert_array_equal(tree_to_numpy(got), np.asarray(want.astype(jnp.float32)))
+    # the round trip puts every kept value back in its place, zeros elsewhere
+    dense = np.zeros_like(x)
+    np.put_along_axis(dense, distinct, np.take_along_axis(x, distinct, 1), 1)
+    np.testing.assert_array_equal(tree_to_numpy(got), dense)
+
+
+def test_top_k_unpack_with_repeated_indices_sums_them():
+    jx, x, idx, _ = _top_k_case("float32")
+    vals = np.take_along_axis(x, idx, 1)
+    got = tapi.call("top_k_unpack", torch.from_numpy(idx), torch.from_numpy(vals), d=777)
+    with japi.dispatch_mode("interpret"):
+        want = japi.call("top_k_unpack", jnp.asarray(idx), jnp.asarray(vals), d=777)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+
+
+def test_shaped_ops_follow_the_dispatch_rules():
+    x = torch.randn(2, 9)
+    idx = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shaped op"):
+        tapi.tree_apply("top_k_pack", x, idx)
+    with pytest.raises(ValueError, match="scalars"):
+        tapi.call("top_k_pack", x, idx, scalars=(1.0,))
+    with pytest.raises(ValueError, match="expected 2"):
+        tapi.call("top_k_pack", x)
+    with pytest.raises(ValueError, match="grad"):
+        tapi.call("top_k_pack", x.requires_grad_(True), idx)
+    with pytest.raises(ValueError, match="no kernel"):
+        tapi.call("top_k_pack", torch.ones((2, 9), device="meta"),
+                  torch.zeros((2, 3), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="exactly one"):
+        tapi.FusedOp(name="neither", ref_fn=lambda x: x, n_inputs=1)
+    for name in ("top_k_pack", "top_k_unpack"):
+        assert not tapi.get(name).elementwise and japi.get(name).kernel_fn is not None
+
+
+def test_cuda_loader_raises_without_nvcc(monkeypatch, tmp_path):
+    """Nothing is built at import; the first launch builds, and with no
+    ``nvcc`` anywhere it raises a ``RuntimeError`` that says so."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_cuda, "DEFAULT_CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_cuda, "_loaded", {})
+    with pytest.raises(RuntimeError, match="no nvcc"):
+        _cuda.find_nvcc()
+    with pytest.raises(RuntimeError, match="no nvcc"):
+        _cuda.library("top_k", {})
+    assert not (tmp_path / "build").exists() or not any((tmp_path / "build").iterdir())

@@ -25,6 +25,8 @@ assert "jax" not in sys.modules, "jax was imported"
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
 assert "triton" not in sys.modules, "triton was imported before a launch"
+from repro_torch.kernels import _cuda
+assert not _cuda._loaded, "a CUDA library was loaded before a launch"
 print(len(names))
 """
 
@@ -55,19 +57,26 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 
 def test_unported_algorithms_point_at_the_roadmap():
-    """Every algorithm is ported; the gossip options that are not (top-k
-    codecs, choco and async channels, per-buffer channels, overlap) raise
-    and name the ROADMAP item."""
+    """Every algorithm and every gossip option of the dense engine is
+    ported; what the sharded engine alone needs (its wire modes and
+    transport hooks) raises and names the ROADMAP item."""
+    from repro_torch.compression import AsyncChannel, ChocoChannel, Transport
     from repro_torch.core import ALGORITHMS
     from repro_torch.core import make_algorithm as registry_make
 
     assert len(ALGORITHMS) == 8
     for name in ALGORITHMS:
         assert make_algorithm(name, 0.3, 4, 8).comm.resolved_channel() is None
-    for fn in (lambda: make_algorithm("dlsgd", 0.3, 4, 8, compression="top_k"),
-               lambda: make_algorithm("dse_mvr", 0.3, 4, 8, channel="choco"),
-               lambda: registry_make("gt_hsgd", lr=0.1, channel="async:2"),
-               lambda: registry_make("dse_mvr", lr=0.1, overlap=True),
-               lambda: registry_make("gt_hsgd", lr=0.1, channel={"y": "sync"})):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+    assert make_algorithm("dlsgd", 0.3, 4, 8, compression="top_k").comm.resolved_channel()
+    assert make_algorithm("dse_mvr", 0.3, 4, 8, channel="choco").comm.resolved_channel()
+    assert registry_make("gt_hsgd", lr=0.1, channel="async:2").comm.resolved_channel()
+    assert registry_make("dse_mvr", lr=0.1, channel="choco", overlap=True).comm.channel.overlap
+    assert registry_make("gt_hsgd", lr=0.1, channel={"y": "sync"}).comm.resolved_channel() is None
+    for fn in (lambda: make_algorithm("dse_mvr", 0.3, 4, 8,
+                                      channel=ChocoChannel(neighbor_shifts=(1, -1))),
+               lambda: registry_make("gt_hsgd", lr=0.1,
+                                     channel=AsyncChannel(replicated_wire=True)),
+               lambda: ChocoChannel(overlap=True, defer_roll=True),
+               lambda: Transport(lambda t: t, gather_payload=lambda p: p)):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
             fn()
