@@ -20,6 +20,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    N=8, d=2**24+3, k=ceil(0.1 d), in fp32 and bf16, with indices in
    magnitude order as the codec makes them, and timed there beside their
    bounds and the torch.gather / torch.zeros + scatter_add_ yardsticks;
+   flash_attention (CUDA C++, src/repro_torch/csrc/flash_attention.cu,
+   built with top_k.cu by two nvcc processes started together) is held
+   against its plain version on Gemma-2 2B's global and local layer shapes
+   (B=2, H=8, K=4, S=8192, D=256, softcap 50, window 4096) and on Yi-9B's
+   (H=32, K=4, D=128), bf16, and checked untimed in fp32 at S=1024 and at a
+   ragged S=1000; rms_norm (Triton) on 16,384 rows of Gemma-2's 2304 in
+   bf16 and untimed in fp32 on an odd row count.  Each is timed beside its
+   bound, its plain version and, where one PyTorch call computes the same
+   function, that call;
 3. main paths, each through ``run_method`` at the MLP's full width:
    DSE-MVR (omega=0.5, tau=4, b=16, 200 steps) through the kernels against
    the unfused path on the card and on the CPU from the same index stream,
@@ -35,7 +44,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    round; ``compression="identity"`` and ``channel="async:1"`` against the
    uncompressed run, bit for bit.  Launch counts are reset just before and
    read just after each run through the kernels;
-4. a ``{"kernels": [...]}`` line, then the last line
+4. the LM serving path at Gemma-2 2B's full width (26 layers, d 2304,
+   vocab 256,000; random bf16 weights from a seed): ``make_serve_job(...).
+   prefill_fn`` with ``attn_impl="pallas"`` on 2 prompts of 8192 tokens,
+   through the kernel (26 flash_attention launches a call) and through the
+   plain version on the card; the same prefill in fp32 at B=1, kernel
+   against plain (at 6 layers within 1e-3, at 26 within twice the gap of
+   the plain path's blockwise twin); the kernel prefill against
+   ``scan_prefill`` through
+   decode steps (fp32, B=2, S=128); then ``serve.main`` and a 4-slot
+   ``RequestDriver`` of 8 requests through the bf16 ``decode_fn``;
+5. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -86,6 +105,23 @@ CHOCO_BAND = ("choco_top_k0.1", "choco0.8_top_k0.1", "async4_thr0.5_top_k0.1",
               "choco_overlap_top_k0.1")
 CHOCO_RTOL = 2e-2
 MLP_SHAPES = {"w1": (8, 196, 64), "b1": (8, 64), "w2": (8, 64, 10), "b2": (8, 10)}
+# the LM serving path: Gemma-2 2B at full width, prompts of its 8192 context
+LM_ARCH, LM_BATCH, LM_SEQ = "gemma2-2b", 2, 8192
+# fp32 flash_attention and rms_norm vs plain: other summation orders, the
+# hardware's rsqrt; bf16 within one bf16 ulp beyond that
+ATT_RTOL = ATT_ATOL = 1e-5
+# fp32 last-token logits of the kernel prefill vs the plain one (capped at
+# +-30), at 6 of the 26 layers (see serving_path); prefill vs decode steps:
+# the repo's own prefill-vs-decode tolerance (tests/test_arch_smoke.py)
+LOGIT_TOL, PREFILL_DECODE_TOL = 1e-3, 2e-3
+BF16_PEAK_FLOPS = 989e12         # H100 SXM, dense bf16 tensor cores
+# timed flash_attention cases at the serving path's shapes, bf16:
+# (label, B, H, K, S, D, window, softcap)
+FLASH_CASES = (
+    ("gemma2_global", 2, 8, 4, LM_SEQ, 256, None, 50.0),
+    ("gemma2_local", 2, 8, 4, LM_SEQ, 256, 4096, 50.0),
+    ("yi_9b", 2, 32, 4, LM_SEQ, 128, None, None),
+)
 
 
 def randn(shape, dtype, gen, feed):
@@ -146,6 +182,9 @@ TOP_K_OPS = {
     "top_k_unpack": ("src/repro_torch/csrc/top_k.cu",
                      "src/repro/kernels/comm_compress/kernel.py:101"),
 }
+# registered and held to its plain version, but on no path: no model calls
+# rms_norm, in the port as in the reference (models/common.py's norm)
+OFF_PATH = ("rms_norm",)
 
 
 def hbm_bytes_per_s(name: str) -> float:
@@ -194,7 +233,8 @@ def abba_ms(*fns) -> list:
     return [statistics.median(x) for x in samples]
 
 
-def bf16_excess_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+def bf16_excess_ulps(got: torch.Tensor, want: torch.Tensor, rtol: float = 0.0,
+                     atol: float = ATOL32) -> float:
     """Largest |got - want| beyond the fp32 tolerance, in bf16 ulps of the
     larger magnitude.  Both sides compute in fp32 and round once to bf16, so
     they differ by one rounding step plus their fp32 difference; where an
@@ -203,7 +243,7 @@ def bf16_excess_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     g, w = got.float(), want.float()
     _, exp = torch.frexp(torch.maximum(g.abs(), w.abs()))
     ulp = torch.ldexp(torch.ones_like(g), exp - 8)   # bf16: 8 significand bits
-    return float(((g - w).abs() - ATOL32).clamp(min=0).div(ulp).max())
+    return float(((g - w).abs() - atol - rtol * w.abs()).clamp(min=0).div(ulp).max())
 
 
 def gossip_configs():
@@ -245,9 +285,9 @@ def check_top_k(api, bw) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     t0 = time.perf_counter()
     x, idx = top_k_case(2, 5, torch.float32, gen)
-    api.call("top_k_pack", x, idx)          # the first launch builds the library
+    api.call("top_k_pack", x, idx)          # the first launch loads the library
     torch.cuda.synchronize()
-    print(f"top_k.cu built and loaded in {time.perf_counter() - t0:.1f} s")
+    print(f"top_k.cu loaded in {time.perf_counter() - t0:.1f} s")
     rows = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
                    "max_abs_err": 0.0}
             for name, (src, rep) in TOP_K_OPS.items()}
@@ -310,6 +350,284 @@ def check_top_k(api, bw) -> dict:
     return rows
 
 
+def attention_pairs(s: int, window) -> int:
+    """Query-key pairs a causal (windowed) pass over s tokens must score."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def ptxas_summary(log: str) -> list:
+    """(kernel, registers, spill-store bytes) per entry function of an
+    nvcc -Xptxas -v report."""
+    out, name, spill = [], None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in line and "registers" in line and name:
+            out.append((name, int(line.split("Used")[1].split("registers")[0]), spill))
+    return out
+
+
+def check_attention_kernels(api, bw) -> dict:
+    """Phase 2 for flash_attention (CUDA C++) and rms_norm (Triton):
+    agreement with the plain versions on the card, and timing at the
+    serving path's shapes."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    flash = {"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
+             "bound_by": "operations", "cases": []}
+    peak = BF16_PEAK_FLOPS
+
+    def qkv(b, h, kh, s, d, dtype):
+        return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d))]
+
+    def held(got, want, what):
+        assert got.dtype == want.dtype and got.shape == want.shape, what
+        assert bool(torch.isfinite(got).all()), f"{what}: not finite"
+        if got.dtype == torch.bfloat16:
+            ulps = bf16_excess_ulps(got, want, ATT_RTOL, ATT_ATOL)
+            assert ulps <= 1.0, f"{what}: {ulps} bf16 ulps beyond rtol/atol {ATT_RTOL}"
+        else:
+            torch.testing.assert_close(got, want, rtol=ATT_RTOL, atol=ATT_ATOL)
+        return float((got.float() - want.float()).abs().max())
+
+    # untimed: fp32 at S=1024 and ragged lengths, Gemma-2's and Yi's heads
+    fp32_err, bf16_err = 0.0, 0.0
+    for b, h, kh, s, d, window, cap, dtype in (
+        (1, 8, 4, 1024, 256, 256, 50.0, torch.float32),
+        (1, 32, 4, 1024, 128, None, None, torch.float32),
+        (2, 8, 4, 1000, 256, 400, 50.0, torch.float32),
+        (2, 8, 4, 1000, 256, 400, 50.0, torch.bfloat16),
+        (1, 32, 4, 1000, 128, None, None, torch.bfloat16),
+    ):
+        q, k, v = qkv(b, h, kh, s, d, dtype)
+        kw = dict(causal=True, sliding_window=window, softcap=cap)
+        got = api.call("flash_attention", q, k, v, **kw)
+        with api.dispatch_mode("ref"):
+            want = api.call("flash_attention", q, k, v, **kw)
+        err = held(got, want, f"flash_attention {dtype} S={s} D={d}")
+        if dtype == torch.float32:
+            fp32_err = max(fp32_err, err)
+        else:
+            bf16_err = max(bf16_err, err)
+    # timed: the serving path's shapes in bf16
+    for label, b, h, kh, s, d, window, cap in FLASH_CASES:
+        q, k, v = qkv(b, h, kh, s, d, torch.bfloat16)
+        kw = dict(causal=True, sliding_window=window, softcap=cap)
+        got = api.call("flash_attention", q, k, v, **kw)
+        with api.dispatch_mode("ref"):
+            want = api.call("flash_attention", q, k, v, **kw)
+        bf16_err = max(bf16_err, held(got, want, f"flash_attention {label}"))
+        del got, want
+        torch.cuda.empty_cache()
+
+        def plain():
+            with api.dispatch_mode("ref"):
+                return api.call("flash_attention", q, k, v, **kw)
+
+        fns = [lambda: api.call("flash_attention", q, k, v, **kw), plain]
+        if cap is None and window is None:   # SDPA has neither softcap nor window
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            fns.append(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                              enable_gqa=True))
+        times = abba_ms(*fns)
+        flops = attention_pairs(s, window) * 4 * d * b * h
+        n_bytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
+        bound = max(flops / peak, n_bytes / bw) * 1e3
+        case = {"case": label, "shape": [b, h, kh, s, d], "window": window, "softcap": cap,
+                "ms": times[0], "plain_ms": times[1],
+                "library_ms": times[2] if len(times) > 2 else None, "bound_ms": bound,
+                "tflops": flops / times[0] / 1e9}
+        flash["cases"].append(case)
+        print(f"kernel flash_attention {label}: ms={case['ms']:.4f} bound_ms={bound:.4f} "
+              f"plain_ms={case['plain_ms']:.4f} library_ms={case['library_ms']} "
+              f"({case['tflops']:.1f} TFLOP/s of {peak / 1e12:.0f})")
+        del q, k, v, fns
+        torch.cuda.empty_cache()
+    main_case = flash["cases"][0]   # Gemma-2's global layer, the longest
+    flash.update({k: main_case[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    flash.update(max_abs_err=fp32_err, bf16_max_abs_err=bf16_err)
+
+    norm = {"name": "rms_norm", "route": "triton",
+            "source": "src/repro_torch/kernels/rms_norm/kernel.py",
+            "replaces": "src/repro/kernels/rms_norm/kernel.py:29", "bound_by": "bytes"}
+    x = torch.randn((1001, 2304), generator=gen, device="cuda")
+    w = torch.randn((2304,), generator=gen, device="cuda")
+    got = api.call("rms_norm", x, w, eps=1e-6, plus_one=False)
+    with api.dispatch_mode("ref"):
+        want = api.call("rms_norm", x, w, eps=1e-6, plus_one=False)
+    norm["max_abs_err"] = held(got, want, "rms_norm fp32")
+    rows, d = 16384, 2304
+    x = torch.randn((rows, d), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((d,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    got = api.call("rms_norm", x, w, eps=1e-6, plus_one=True)
+    with api.dispatch_mode("ref"):
+        want = api.call("rms_norm", x, w, eps=1e-6, plus_one=True)
+    norm["bf16_max_abs_err"] = held(got, want, "rms_norm bf16")
+    w1 = w + 1
+    def plain_norm():
+        with api.dispatch_mode("ref"):
+            return api.call("rms_norm", x, w, eps=1e-6, plus_one=True)
+
+    times = abba_ms(lambda: api.call("rms_norm", x, w, eps=1e-6, plus_one=True),
+                    plain_norm, lambda: F.rms_norm(x, (d,), w1, 1e-6))
+    n_bytes = 2 * x.numel() * 2 + d * 2
+    ops_ms = 4 * x.numel() / FP32_PEAK_FLOPS * 1e3
+    norm.update(ms=times[0], plain_ms=times[1], library_ms=times[2],
+                bound_ms=max(n_bytes / bw * 1e3, ops_ms))
+    print(f"kernel rms_norm {rows}x{d} bf16: max_abs_err={norm['max_abs_err']:.3g} "
+          f"bf16_max_abs_err={norm['bf16_max_abs_err']:.3g} ms={norm['ms']:.4f} "
+          f"bound_ms={norm['bound_ms']:.4f} plain_ms={norm['plain_ms']:.4f} "
+          f"library_ms={norm['library_ms']:.4f}")
+    del x, w, w1, got, want
+    torch.cuda.empty_cache()
+    return {"flash_attention": flash, "rms_norm": norm}
+
+
+def serving_path(api) -> list:
+    """Phase 4: the LM serving path at Gemma-2 2B's full width.  Returns the
+    launch counts of each run through the kernels."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serving import RequestDriver, scan_prefill
+    from repro_torch.tree import tree_map
+
+    runs = []
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="pallas")
+    job = serve.make_serve_job(cfg, device="cuda")
+    model = job.model
+    t0 = time.perf_counter()
+    params = job.init_params(0)
+    torch.cuda.synchronize()
+    print(f"serve {cfg.name}: {cfg.param_count(params):,} parameters in "
+          f"{job.param_dtype}, initialized in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ), generator=gen, device="cuda")
+
+    def prefill(mode, p, batch, fn, layers=cfg.n_layers):
+        api.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with api.dispatch_mode(mode):
+            logits, caches = fn(p, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        launches = api.launch_counts()
+        if mode == "kernel":
+            assert launches == {"flash_attention": layers}, launches
+            runs.append(launches)
+        else:
+            assert not launches, launches
+        assert bool(torch.isfinite(logits).all()), f"prefill {mode}: logits not finite"
+        return logits, caches, dt, torch.cuda.max_memory_allocated()
+
+    # 1. bf16 prefill of 2 x 8192 tokens through prefill_fn: kernel (twice:
+    #    the first call carries one-time set-up), plain, kernel
+    batch = {"tokens": tokens}
+    rates = {}
+    for mode in ("kernel", "kernel", "ref", "kernel"):
+        logits, caches, dt, peak = prefill(mode, params, batch, job.prefill_fn)
+        rates.setdefault(mode, []).append(LM_BATCH * LM_SEQ / dt)
+        print(f"serve prefill bf16 {mode}: {LM_BATCH}x{LM_SEQ} tokens in {dt:.3f} s, "
+              f"{LM_BATCH * LM_SEQ / dt:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB, "
+              f"launches {api.launch_counts()}")
+        if mode == "ref":
+            plain_logits = logits.float()
+        else:
+            kernel_logits = logits.float()
+        del caches
+    print("serve prefill bf16 last-token logits, kernel vs plain: max abs diff "
+          f"{float((kernel_logits - plain_logits).abs().max()):.4g} ({cfg.n_layers} layers "
+          "of bf16 rounding on random weights; the kernel is held at the op level)")
+    print("serve prefill tokens/s: " + json.dumps(rates))
+    del params, logits
+    torch.cuda.empty_cache()
+
+    # 2. fp32 prefill at B=1, S=8192: kernel vs plain, last-token logits.
+    #    On random weights the gap between any two fp32 summation orders
+    #    grows with depth: at 26 layers the plain path's own online-softmax
+    #    twin (attn_impl="blockwise", no kernel) lies further than
+    #    LOGIT_TOL from it.  So the kernel is held within LOGIT_TOL at 6
+    #    layers and, at all 26, within twice the blockwise twin's gap
+    params32 = job.model.init(0, dtype=torch.float32, device="cuda")
+
+    def prefill32(m):
+        def fn(p, b):
+            with torch.inference_mode():
+                return m.prefill(p, b, dtype=torch.float32)
+        return fn
+
+    batch1 = {"tokens": tokens[:1]}
+    cut = dataclasses.replace(cfg, n_layers=6)
+    params_cut = {**params32, "blocks": tree_map(lambda t: t[:cut.repeats], params32["blocks"])}
+    got, _, _, _ = prefill("kernel", params_cut, batch1, prefill32(Model(cut)), cut.n_layers)
+    want, _, _, _ = prefill("ref", params_cut, batch1, prefill32(Model(cut)))
+    err_cut = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    got, _, dt_k, _ = prefill("kernel", params32, batch1, prefill32(model))
+    want, _, dt_p, _ = prefill("ref", params32, batch1, prefill32(model))
+    twin, _, dt_b, _ = prefill("ref", params32, batch1, prefill32(
+        Model(dataclasses.replace(cfg, attn_impl="blockwise"))))
+    err, err_twin = float((got - want).abs().max()), float((twin - want).abs().max())
+    assert err <= 2 * err_twin, f"fp32 prefill: kernel {err} vs plain, blockwise twin {err_twin}"
+    print(f"serve prefill fp32 1x{LM_SEQ}: last-token logits, kernel vs plain max abs diff "
+          f"{err_cut:.3g} at {cut.n_layers} layers (tolerance {LOGIT_TOL}); at "
+          f"{cfg.n_layers} layers {err:.3g}, the plain blockwise twin {err_twin:.3g} "
+          f"(bound: twice the twin's); kernel {dt_k:.3f} s, plain {dt_p:.3f} s, "
+          f"blockwise {dt_b:.3f} s")
+    del params_cut, twin
+
+    # 3. the kernel prefill against scan_prefill through decode steps
+    short = tokens[:, :128]
+    got, _, _, _ = prefill("kernel", params32, {"tokens": short}, prefill32(model))
+    caches = model.init_cache(LM_BATCH, 128, dtype=torch.float32, device="cuda")
+    want, _ = scan_prefill(model, params32, caches, short, dtype=torch.float32)
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=PREFILL_DECODE_TOL, atol=PREFILL_DECODE_TOL)
+    print(f"serve prefill_fn path vs scan_prefill (fp32, {LM_BATCH}x128): last-token "
+          f"logits max abs diff {err:.3g} (tolerance {PREFILL_DECODE_TOL})")
+    del params32, caches, got, want
+    torch.cuda.empty_cache()
+
+    # 4. the serving CLI and continuous batching
+    out = serve.main(["--arch", LM_ARCH, "--requests", "8", "--prompt-len", "128",
+                      "--new-tokens", "32"])
+    assert out["finite"], "serve.main: non-finite logits"
+    print(f"serve.main: decode {out['decode_ms_per_step']:.2f} ms/step, "
+          f"{out['tokens_per_s']:.1f} tokens/s, prefill {out['prefill_s']:.2f} s, "
+          f"finite logits {out['finite']}")
+    torch.cuda.empty_cache()
+    params = job.init_params(0)
+    rng = torch.Generator().manual_seed(4)
+    requests = [(torch.randint(0, cfg.vocab_size, (int(n),), generator=rng).tolist(), 16)
+                for n in torch.randint(16, 97, (8,), generator=rng)]
+    driver = RequestDriver(model, slots=4, max_len=96 + 16, dtype=torch.bfloat16,
+                           decode_fn=job.decode_fn, device=job.device)
+    res = driver.run(params, requests)
+    outs = res["outputs"]
+    ok = all(len(o) == 16 and 0 <= int(o.min()) and int(o.max()) < cfg.vocab_size
+             for o in outs.values())
+    assert res["completed"] == 8 and ok, res
+    print(f"serve RequestDriver(slots=4) 8 requests: {res['steps']} steps, "
+          f"{res['elapsed_s'] / res['steps'] * 1e3:.2f} ms/step, "
+          f"{res['tokens_per_sec']:.1f} tokens/s, {res['requests_per_sec']:.2f} requests/s, "
+          f"every output 16 tokens in the vocabulary: {ok}")
+    del params, driver
+    torch.cuda.empty_cache()
+    return runs
+
+
 def main() -> int:
     # ---------------------------------------------------------------- 1
     if not torch.cuda.is_available():
@@ -318,7 +636,7 @@ def main() -> int:
         return 1
     from repro_torch.compression import link_bytes_per_round
     from repro_torch.core.simulate import default_comm_seed_fn
-    from repro_torch.kernels import api
+    from repro_torch.kernels import _cuda, api
     from repro_torch.paper_problem import make_algorithm, make_paper_problem, mlp_init, run_method
 
     smi = subprocess.run(
@@ -336,6 +654,12 @@ def main() -> int:
           f"triton {importlib.metadata.version('triton')} on {kind}; "
           f"HBM bound at {bw / 1e12} TB/s; host CPU path "
           f"{torch.backends.cpu.get_cpu_capability()} x{torch.get_num_threads()}")
+    t0 = time.perf_counter()
+    _cuda.build(["top_k", "flash_attention"])   # one nvcc per source, together
+    print(f"nvcc built top_k.cu and flash_attention.cu in {time.perf_counter() - t0:.1f} s")
+    for name in ("top_k", "flash_attention"):
+        for fn, regs, spill in ptxas_summary(_cuda.build_log(name)):
+            print(f"ptxas {name}: {fn}: {regs} registers, {spill} bytes spill stores")
 
     # ---------------------------------------------------------------- 2
     spin_up()
@@ -413,6 +737,7 @@ def main() -> int:
               f"mlp_ms={row['mlp_ms']:.4f} mlp_plain_ms={row['mlp_plain_ms']:.4f}")
     torch.cuda.empty_cache()
     results.update(check_top_k(api, bw))
+    results.update(check_attention_kernels(api, bw))
 
     # ---------------------------------------------------------------- 3
     data, _ = make_paper_problem(OMEGA, seed=0)
@@ -556,13 +881,20 @@ def main() -> int:
           f"ratio {raw / qsgd:.3f}")
 
     # ---------------------------------------------------------------- 4
+    kernel_runs += [{"launches": launches} for launches in serving_path(api)]
+
+    # ---------------------------------------------------------------- 5
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "bf16_max_abs_err",
-            "flips", "mlp_ms", "mlp_plain_ms")
+            "flips", "mlp_ms", "mlp_plain_ms", "on_path", "cases")
     kernels = []
     for name, row in results.items():
         row["launches"] = sum(r["launches"].get(name, 0) for r in kernel_runs)
-        assert row["launches"] > 0, f"{name} never launched on the main paths"
+        row["on_path"] = name not in OFF_PATH
+        if row["on_path"]:
+            assert row["launches"] > 0, f"{name} never launched on the main paths"
+        else:
+            assert row["launches"] == 0, f"{name} is on no path but launched"
         kernels.append({k: row.get(k) for k in keys})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

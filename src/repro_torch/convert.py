@@ -1,8 +1,8 @@
 """Weights and state carried across from the reference, through numpy.
 
 Inputs are numpy trees, as ``jax.tree.map(np.asarray, ...)`` gives them:
-dicts of arrays for parameters, and for an algorithm state an object with
-the state's fields (or a dict of them).  bfloat16 arrays (numpy's
+dicts of arrays for parameters and for a model's decode caches, and for an
+algorithm state an object with the state's fields (or a dict of them).  bfloat16 arrays (numpy's
 ``ml_dtypes`` bfloat16) keep their dtype.
 """
 from __future__ import annotations
@@ -18,7 +18,7 @@ from .core.baselines import GTHSGDState, GTState, MomentumState, SGDState, SlowM
 from .core.dse import DSEState
 from .tree import tree_map
 
-__all__ = ["params_from_numpy", "state_from_numpy", "tree_to_numpy"]
+__all__ = ["params_from_numpy", "cache_from_numpy", "state_from_numpy", "tree_to_numpy"]
 
 # the port's state classes by name, which is also the reference's name
 _STATE_CLASSES = {
@@ -37,6 +37,20 @@ def _tensor(a, device) -> torch.Tensor:
 def params_from_numpy(tree: Any, device) -> Any:
     """A numpy parameter tree as the port's tree of tensors on ``device``."""
     return tree_map(lambda a: _tensor(a, device), tree)
+
+
+def cache_from_numpy(caches: Any, device) -> Any:
+    """A reference model's decode caches as the port's: per block element
+    ``b{i}`` an ``{"attn": {"k", "v", "pos"}}`` dict stacked over repeats,
+    k and v in their dtype and ``pos`` int32 (-1 marks an empty slot)."""
+    out = {}
+    for key, one in caches.items():
+        attn = one["attn"]
+        pos = np.asarray(attn["pos"])
+        if pos.dtype != np.int32:
+            raise ValueError(f"{key}: cache positions must be int32, got {pos.dtype}")
+        out[key] = {"attn": {name: _tensor(attn[name], device) for name in ("k", "v", "pos")}}
+    return out
 
 
 def _packed_from_numpy(p, device) -> Packed:

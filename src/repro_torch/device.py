@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "synchronize"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -20,3 +20,10 @@ def resolve_device(device=None) -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU), so a host
+    clock read afterwards times the work, not its enqueueing."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

@@ -8,9 +8,13 @@ checkout's ``build/cuda/`` (listed in ``.gitignore``) and loads it with
 ``ctypes``.  The library's file name carries a hash of the source and the
 flags, so an edited source never loads a stale build.
 
-Nothing is compiled or loaded until a kernel is launched, so every module
-imports on a machine without ``nvcc`` or a card; there the first launch
-raises ``RuntimeError``.
+Nothing is compiled or loaded until a kernel is launched (or :func:`build`
+is called), so every module imports on a machine without ``nvcc`` or a
+card; there the first launch raises ``RuntimeError``.  :func:`build` starts
+one ``nvcc`` per source at once and waits for all of them, so a program that
+needs several libraries pays for the slowest build, not the sum.  The
+compiler's ``-Xptxas -v`` report (registers, shared memory and spills per
+kernel) is kept beside each library as ``.log`` (:func:`build_log`).
 """
 from __future__ import annotations
 
@@ -25,14 +29,15 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "find_nvcc", "library", "check", "stream_of", "check_tensors"]
+__all__ = ["NVCC_FLAGS", "find_nvcc", "build", "build_log", "library", "check", "stream_of",
+           "check_tensors"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # the build goes under the checkout's build/ (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -58,27 +63,58 @@ def find_nvcc() -> str:
     )
 
 
-def _build(source: Path, name: str) -> Path:
+def _target(name: str) -> Path:
+    source = CSRC / f"{name}.cu"
     digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Sequence[str]) -> Dict[str, Path]:
+    """Compile ``csrc/<name>.cu`` for each name not built yet, one ``nvcc``
+    per source, all started together; returns each library's path."""
+    outs = {name: _target(name) for name in names}
+    todo = {name: out for name, out in outs.items() if not out.exists()}
+    if not todo:
+        return outs
     nvcc = find_nvcc()
-    out.parent.mkdir(parents=True, exist_ok=True)
-    # compile beside the target and rename, so a concurrent process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = []
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stderr}")
-        os.replace(tmp, out)
+        for name, out in todo.items():
+            # compile beside the target and rename, so a concurrent process
+            # never loads a half-written library; the compiler's report goes
+            # to a file, so no pipe fills while another build is awaited
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            with open(tmp + ".log", "w") as log:
+                proc = subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                    stdout=log, stderr=subprocess.STDOUT)
+            running.append((name, out, tmp, proc))
+        failed = []
+        for name, out, tmp, proc in running:
+            proc.wait()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {name}.cu:\n{Path(tmp + '.log').read_text()}")
+                continue
+            os.replace(tmp + ".log", out.with_suffix(".log"))
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+        for _, _, tmp, proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for path in (tmp, tmp + ".log"):
+                if os.path.exists(path):
+                    os.unlink(path)
+    return outs
+
+
+def build_log(name: str) -> str:
+    """The ``-Xptxas -v`` report of the built ``csrc/<name>.cu``."""
+    return _target(name).with_suffix(".log").read_text()
 
 
 def library(name: str, functions: Dict[str, Sequence]) -> ctypes.CDLL:
@@ -89,7 +125,7 @@ def library(name: str, functions: Dict[str, Sequence]) -> ctypes.CDLL:
     ``<name>_error_string``, which wraps ``cudaGetErrorString``."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(_build(CSRC / f"{name}.cu", name)))
+        lib = ctypes.CDLL(str(build([name])[name]))
         for fn, argtypes in functions.items():
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int

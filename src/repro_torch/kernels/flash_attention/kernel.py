@@ -1,0 +1,64 @@
+"""The flash-attention forward's launcher: a ``ctypes`` wrapper of the CUDA
+C++ kernel ``repro_torch/csrc/flash_attention.cu``, whose header says what
+it replaces (``repro/kernels/flash_attention/kernel.py::flash_attention_fwd``),
+what bounds it on the H100 and how it is built.
+
+The wrapper checks device, dtype, shapes, contiguity and alignment, allocates
+the output with ``torch.empty``, launches on the current stream and raises
+on a launch error.  The library is compiled by ``nvcc`` on the first launch
+(``kernels/_cuda.py``).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from .. import _cuda
+
+__all__ = ["launch_flash_attention", "HEAD_DIMS"]
+
+HEAD_DIMS = (32, 64, 128, 256)   # the kernel's template instances
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FUNCTIONS = {
+    "flash_attention_fwd": (_P, _P, _P, _P) + (_INT,) * 8 + (_F, _F, _INT, _P),
+}
+
+
+def launch_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           causal: bool = True, sliding_window: Optional[int] = None,
+                           softcap: Optional[float] = None) -> torch.Tensor:
+    """out (B, Sq, H, D) in q's dtype, from q (B, Sq, H, D) and k, v
+    (B, Skv, K, D), H a multiple of K; fp32 or bf16, D in ``HEAD_DIMS``."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_attention: q (B, S, H, D) and k, v (B, S, K, D), got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or kh == 0 or h % kh:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit k {tuple(k.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
+    if sliding_window is not None and sliding_window < 1:
+        raise ValueError(f"flash_attention: sliding_window must be >= 1, got {sliding_window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"flash_attention: softcap must be > 0, got {softcap}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: unsupported dtype {q.dtype}")
+    dtypes = (q.dtype,)
+    _cuda.check_tensors("flash_attention", (("q", q, dtypes, None),
+                                            ("k", k, dtypes, None),
+                                            ("v", v, dtypes, tuple(k.shape))))
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must start on a 16-byte boundary")
+    out = torch.empty_like(q)
+    lib = _cuda.library("flash_attention", _FUNCTIONS)
+    err = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kh, sq, skv, d,
+        int(causal), int(sliding_window or 0), float(softcap or 0.0), 1.0 / math.sqrt(d),
+        _DTYPES[q.dtype], _cuda.stream_of(q))
+    _cuda.check("flash_attention", "flash_attention", err)
+    return out

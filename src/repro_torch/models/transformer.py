@@ -1,0 +1,306 @@
+"""Model assembly: a repeating ``block_unit`` of layer kinds, ``repeats``
+times, with an embedding in front and an LM head behind.
+
+Counterpart of ``repro.models.transformer`` for the kinds the port has:
+
+  'attn'    full attention + dense FFN
+  'local'   sliding-window attention + dense FFN (Gemma-2's local layers)
+
+The other kinds raise ``NotImplementedError`` naming their ROADMAP item:
+'rwkv' (queue 1 item 7 (a)), 'moe' (7 (b)), 'mamba' and 'shared_attn'
+(7 (c)); so do the audio and vision front ends (7 (d)).
+
+Parameters are a plain dict tree with the reference's names and its stacked
+layout -- every block element's leaves carry a leading ``(repeats,)`` axis
+-- so ``convert.params_from_numpy`` carries the reference's parameters over
+unchanged.  The reference's ``lax.scan`` over repeats is a Python loop that
+indexes the stacked leaves.  Entry points: ``forward`` / ``loss`` (training
+and evaluation), ``prefill`` (build caches from a prompt) and
+``decode_step`` (one token against the ring-buffer caches).  ``init`` and
+``init_cache`` make tensors on CUDA unless the caller asks for the CPU;
+the rest follow their inputs' device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..device import resolve_device
+from ..tree import tree_leaves, tree_map
+from . import attention as attn_lib
+from . import mlp as mlp_lib
+from .common import Initializer, cross_entropy_loss, rms_norm, softcap
+
+Tree = Any
+
+__all__ = ["ModelConfig", "Model", "UNPORTED_KINDS"]
+
+ATTN_KINDS = ("attn", "local")
+UNPORTED_KINDS = {
+    "rwkv": "RWKV-6 blocks wait for ROADMAP queue 1 item 7 (a)",
+    "moe": mlp_lib.MOE_TODO,
+    "mamba": "Mamba-2 blocks wait for ROADMAP queue 1 item 7 (c)",
+    "shared_attn": "Zamba2's shared attention block waits for ROADMAP queue 1 item 7 (c)",
+}
+FRONTEND_TODO = "the audio and vision front ends wait for ROADMAP queue 1 item 7 (d)"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The reference's ``ModelConfig``: the same fields and defaults
+    (``param_dtype`` a ``torch.dtype``)."""
+
+    name: str
+    arch_type: str                 # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    block_unit: Tuple[str, ...] = ("attn",)
+    causal: bool = True
+    head: str = "lm"               # 'lm' | 'frame'
+    tie_embeddings: bool = True
+    scale_embeddings: bool = False
+    activation: str = "silu"
+    norm_plus_one: bool = False    # gemma convention
+    use_post_norm: bool = False    # gemma2 post-block norms
+    use_bias: bool = False
+    qk_norm: bool = False
+    # attention
+    sliding_window: Optional[int] = None
+    attn_softcap: Optional[float] = None
+    logit_softcap: Optional[float] = None
+    rope_theta: float = 10000.0
+    mrope_sections: Optional[Tuple[int, int, int]] = None
+    attn_impl: str = "xla"
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    dense_residual: bool = False
+    moe_d_ff: Optional[int] = None
+    capacity_factor: float = 1.25
+    moe_dispatch: str = "auto"
+    # ssm
+    ssm_state: int = 64
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    # modality frontends
+    n_vision_tokens: int = 0
+    vision_grid: Tuple[int, int] = (16, 16)
+    audio_frontend_dim: int = 0
+    # numerics
+    param_dtype: Any = torch.float32
+    rwkv_chunk: int = 0
+    rwkv_chunk_bf16: bool = False
+    rwkv_pallas: bool = False
+    remat: str = "block"
+
+    def __post_init__(self):
+        if self.n_layers % len(self.block_unit):
+            raise ValueError(
+                f"{self.name}: n_layers={self.n_layers} not divisible by "
+                f"block unit {self.block_unit}"
+            )
+
+    @property
+    def repeats(self) -> int:
+        return self.n_layers // len(self.block_unit)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def attn_cfg(self, kind: str) -> attn_lib.AttentionConfig:
+        return attn_lib.AttentionConfig(
+            d_model=self.d_model,
+            n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads,
+            head_dim=self.hd,
+            causal=self.causal,
+            sliding_window=self.sliding_window if kind == "local" else None,
+            attn_softcap=self.attn_softcap,
+            rope_theta=self.rope_theta,
+            mrope_sections=self.mrope_sections,
+            use_bias=self.use_bias,
+            qk_norm=self.qk_norm,
+            attn_impl=self.attn_impl,
+        )
+
+    def mlp_cfg(self) -> mlp_lib.MLPConfig:
+        return mlp_lib.MLPConfig(self.d_model, self.d_ff, self.activation, self.use_bias)
+
+    def param_count(self, params: Tree) -> int:
+        return sum(int(p.numel()) for p in tree_leaves(params))
+
+
+class Model:
+    """Functional model bound to a ModelConfig."""
+
+    def __init__(self, cfg: ModelConfig):
+        for kind in cfg.block_unit:
+            if kind in UNPORTED_KINDS:
+                raise NotImplementedError(f"{cfg.name}: {UNPORTED_KINDS[kind]}")
+            if kind not in ATTN_KINDS:
+                raise ValueError(kind)
+        if cfg.audio_frontend_dim or cfg.n_vision_tokens:
+            raise NotImplementedError(f"{cfg.name}: {FRONTEND_TODO}")
+        if cfg.mrope_sections is not None:
+            raise NotImplementedError(f"{cfg.name}: {attn_lib.MROPE_TODO}")
+        self.cfg = cfg
+
+    # ------------------------------------------------------------------
+    # parameter construction
+    # ------------------------------------------------------------------
+    def _init_element(self, kind: str, ini: Initializer) -> Dict[str, Any]:
+        cfg = self.cfg
+        d = cfg.d_model
+        p: Dict[str, Any] = {"norm1": ini.param((d,), init="ones")}
+        p["attn"] = attn_lib.init_attention(cfg.attn_cfg(kind), ini)
+        p["norm2"] = ini.param((d,), init="ones")
+        p["ffn"] = mlp_lib.init_mlp(cfg.mlp_cfg(), ini)
+        if cfg.use_post_norm:
+            p["post_norm1"] = ini.param((d,), init="ones")
+            p["post_norm2"] = ini.param((d,), init="ones")
+        return p
+
+    def init(self, seed: int = 0, dtype=None, device=None) -> Tree:
+        """Random parameters from ``seed`` (a ``torch.Generator`` on the
+        target device; not the reference's ``jax.random`` numbers)."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        ini = Initializer(torch.Generator(device=dev).manual_seed(int(seed)),
+                          dtype or cfg.param_dtype, dev)
+        params: Dict[str, Any] = {
+            "embed": ini.param((cfg.vocab_size, cfg.d_model), init="embed", scale=0.02),
+        }
+        stacked = ini.stacked(cfg.repeats)
+        params["blocks"] = {f"b{i}": self._init_element(kind, stacked)
+                            for i, kind in enumerate(cfg.block_unit)}
+        params["final_norm"] = ini.param((cfg.d_model,), init="ones")
+        if not cfg.tie_embeddings:
+            params["lm_head"] = ini.param((cfg.d_model, cfg.vocab_size), init="normal")
+        return params
+
+    # ------------------------------------------------------------------
+    # embedding / head
+    # ------------------------------------------------------------------
+    def _norm(self, x, w):
+        return rms_norm(x, w, plus_one=self.cfg.norm_plus_one)
+
+    def _scale_embeddings(self, x):
+        # sqrt(d_model) in fp32, cast to the activation dtype first
+        root = torch.tensor(float(self.cfg.d_model), dtype=torch.float32).sqrt()
+        return x * root.to(device=x.device, dtype=x.dtype)
+
+    def _embed_inputs(self, params, batch, dtype=torch.bfloat16):
+        """Returns (x, positions (B, S) int32)."""
+        tokens = batch["tokens"]
+        x = params["embed"][tokens].to(dtype)
+        b, s = tokens.shape
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+        if self.cfg.scale_embeddings:
+            x = self._scale_embeddings(x)
+        return x, positions
+
+    def _head(self, params, x):
+        x = self._norm(x, params["final_norm"])
+        w = params.get("lm_head")
+        if w is None:
+            w = params["embed"].T
+        logits = torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+        return softcap(logits, self.cfg.logit_softcap)
+
+    # ------------------------------------------------------------------
+    # block application
+    # ------------------------------------------------------------------
+    def _apply_block(self, kind, bp, x, positions, mode, cache=None, position=None):
+        """Apply one block.  mode: 'fwd' | 'prefill' | 'decode'.
+        Returns (x, new_cache)."""
+        cfg = self.cfg
+        acfg = cfg.attn_cfg(kind)
+        h = self._norm(x, bp["norm1"])
+        if mode == "decode":
+            y, new_cache = attn_lib.attention_decode(acfg, bp["attn"], h, position,
+                                                     cache["attn"])
+        elif mode == "prefill":
+            y, new_cache = attn_lib.attention_forward(acfg, bp["attn"], h, positions,
+                                                      return_cache=True)
+        else:
+            y, new_cache = attn_lib.attention_forward(acfg, bp["attn"], h, positions), None
+        if cfg.use_post_norm:
+            y = self._norm(y, bp["post_norm1"])
+        x = x + y
+        h = self._norm(x, bp["norm2"])
+        y = mlp_lib.mlp_forward(cfg.mlp_cfg(), bp["ffn"], h)
+        if cfg.use_post_norm:
+            y = self._norm(y, bp["post_norm2"])
+        x = x + y
+        return x, (None if new_cache is None else {"attn": new_cache})
+
+    def _scan_blocks(self, params, x, positions, mode, caches=None, position=None):
+        """Loop over repeats; within a repeat apply each unit element in
+        order.  Returns (x, caches stacked over repeats, or None)."""
+        cfg = self.cfg
+        out: Dict[str, list] = {f"b{i}": [] for i in range(len(cfg.block_unit))}
+        for r in range(cfg.repeats):
+            for i, kind in enumerate(cfg.block_unit):
+                key = f"b{i}"
+                bp = tree_map(lambda t: t[r], params["blocks"][key])
+                c = None if caches is None else tree_map(lambda t: t[r], caches[key])
+                x, nc = self._apply_block(kind, bp, x, positions, mode, cache=c,
+                                          position=position)
+                if nc is not None:
+                    out[key].append(nc)
+        if mode == "fwd":
+            return x, None
+        return x, {key: tree_map(lambda *ts: torch.stack(ts), *layers)
+                   for key, layers in out.items()}
+
+    # ------------------------------------------------------------------
+    # public entry points
+    # ------------------------------------------------------------------
+    def forward(self, params, batch, dtype=torch.bfloat16):
+        """Logits (B, S, V) and the auxiliary loss (0: no MoE here)."""
+        x, positions = self._embed_inputs(params, batch, dtype)
+        x, _ = self._scan_blocks(params, x, positions, "fwd")
+        return self._head(params, x), torch.zeros((), device=x.device)
+
+    def loss(self, params, batch, dtype=torch.bfloat16):
+        logits, aux = self.forward(params, batch, dtype)
+        return cross_entropy_loss(logits, batch["targets"], batch.get("mask")) + aux
+
+    def prefill(self, params, batch, dtype=torch.bfloat16):
+        """Last-token logits (B, 1, V) and the prompt's caches: per block
+        element ``{"attn": {"k", "v" (repeats, B, S, K, hd), "pos"
+        (repeats, B, S) int32}}``, full length (not ring buffers)."""
+        x, positions = self._embed_inputs(params, batch, dtype)
+        x, caches = self._scan_blocks(params, x, positions, "prefill")
+        return self._head(params, x[:, -1:]), caches
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+        """Empty ring-buffer caches for decode, stacked over repeats."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        caches = {}
+        for i, kind in enumerate(cfg.block_unit):
+            one = attn_lib.init_kv_cache(cfg.attn_cfg(kind), batch, max_len, dtype, dev)
+            caches[f"b{i}"] = {"attn": tree_map(
+                lambda t: t.unsqueeze(0).repeat((cfg.repeats,) + (1,) * t.dim()), one)}
+        return caches
+
+    def decode_step(self, params, caches, tokens, position, dtype=torch.bfloat16):
+        """tokens: (B, 1) int; position: (B,) int32.  Returns (logits
+        (B, 1, V), caches); the input caches are not modified."""
+        x = params["embed"][tokens].to(dtype)
+        if self.cfg.scale_embeddings:
+            x = self._scale_embeddings(x)
+        x, caches_out = self._scan_blocks(params, x, None, "decode", caches=caches,
+                                          position=position)
+        return self._head(params, x), caches_out

@@ -11,8 +11,12 @@ atol 1e-6 (Triton may contract a multiply-add into an FMA, one ulp); bf16
 within one bf16 ulp beyond that; the QSGD ops exactly (integer levels, and
 the quantize is built without FMA contraction); the top-k pack and unpack
 exactly (a gather copies bits; with distinct indices each unpacked slot is
-one add into zero).
+one add into zero); flash attention and rms_norm in fp32 within rtol 1e-5 /
+atol 1e-5 (other summation orders, the hardware's rsqrt) and in bf16 within
+one bf16 ulp beyond that (both compute in fp32 and round once).
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -244,3 +248,115 @@ def test_choco_top_k_comm_event_launches_eight_of_each_top_k_op(cuda_device):
         for leaf in wire["hat"].values():
             assert bool(torch.isfinite(leaf).all())
     assert np.isfinite(sim.evaluate(state)["train_loss"])
+
+
+# ----------------------------------------- flash attention (CUDA C++), rms_norm
+# (b, s, h, kh, d, window, softcap, causal): Gemma-2's D = 256 with GQA 2,
+# window and softcap; D = 128 (Yi, Minitron); ragged lengths; D 32 / 64
+FLASH_SHAPES = [
+    (2, 256, 8, 4, 256, None, 50.0, True),
+    (2, 300, 8, 4, 256, 64, 50.0, True),
+    (1, 1000, 8, 2, 128, None, None, True),
+    (2, 129, 4, 4, 128, 48, None, True),
+    (1, 77, 4, 1, 64, None, 30.0, False),
+    (1, 200, 2, 2, 32, 16, 50.0, True),
+]
+
+
+def _flash_case(case, dtype, device, seed=7):
+    b, s, h, kh, d = case[:5]
+    gen = torch.Generator().manual_seed(seed)
+    q = (torch.randn((b, s, h, d), generator=gen) * 4).to(dtype).to(device)
+    k = torch.randn((b, s, kh, d), generator=gen).to(dtype).to(device)
+    v = torch.randn((b, s, kh, d), generator=gen).to(dtype).to(device)
+    return q, k, v, dict(causal=case[7], sliding_window=case[5], softcap=case[6])
+
+
+def _assert_kernel_close(got, want, rtol=1e-5, atol=1e-5):
+    """fp32 within rtol / atol; bf16 within one bf16 ulp beyond that."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    excess = ((g - w).abs() - atol - rtol * w.abs()).clamp(min=0)
+    if got.dtype == torch.bfloat16:
+        assert bool(torch.all(excess <= _bf16_ulp(torch.maximum(g.abs(), w.abs()))))
+    else:
+        assert float(excess.max()) == 0.0, float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_SHAPES)
+def test_flash_attention_matches_plain(case, dtype, cuda_device):
+    q, k, v, kw = _flash_case(case, dtype, cuda_device)
+    api.reset_counters()
+    got = api.call("flash_attention", q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert api.launch_counts() == {"flash_attention": 1}
+    with api.dispatch_mode("ref"):
+        want = api.call("flash_attention", q, k, v, **kw)
+    _assert_kernel_close(got, want)
+
+
+def test_flash_attention_refuses_what_it_does_not_take(cuda_device):
+    q = torch.randn((1, 64, 4, 64), device=cuda_device)
+    k = torch.randn((1, 64, 2, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        api.call("flash_attention", q[..., :48].contiguous(), k[..., :48].contiguous(),
+                 k[..., :48].contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        api.call("flash_attention", q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="does not fit"):
+        api.call("flash_attention", q[:, :, :3].contiguous(), k, k)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        api.call("flash_attention", q, k.cpu(), k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plus_one", [False, True])
+@pytest.mark.parametrize("shape", [(7, 2304), (2, 3, 5, 512), (1, 1000), (33, 100)])
+def test_rms_norm_matches_plain(shape, plus_one, dtype, cuda_device):
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(shape, generator=gen).to(dtype).to(cuda_device)
+    w = torch.randn(shape[-1:], generator=gen).to(cuda_device)
+    api.reset_counters()
+    got = api.call("rms_norm", x, w, eps=1e-6, plus_one=plus_one)
+    torch.cuda.synchronize()
+    assert api.launch_counts() == {"rms_norm": 1}
+    with api.dispatch_mode("ref"):
+        want = api.call("rms_norm", x, w, eps=1e-6, plus_one=plus_one)
+    _assert_kernel_close(got, want)
+
+
+def test_both_cuda_sources_build_side_by_side(cuda_device):
+    """top_k.cu and flash_attention.cu build together into build/cuda, each
+    with its ptxas report; no kernel spills registers to local memory."""
+    from repro_torch.kernels import _cuda
+
+    paths = _cuda.build(["top_k", "flash_attention"])
+    assert paths["top_k"].parent == paths["flash_attention"].parent
+    for name in paths:
+        spills = [line for line in _cuda.build_log(name).splitlines() if "spill stores" in line]
+        assert spills, name
+        for line in spills:
+            assert re.search(r"(?<!\d)0 bytes spill stores, 0 bytes spill loads", line), line
+
+
+def test_reduced_prefill_launches_one_flash_attention_per_layer(cuda_device):
+    """Gemma-2 reduced (D = 32) at S = 160: the kernel path's prefill
+    launches one flash_attention per layer and agrees with the plain path."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import make_serve_job
+
+    cfg = dataclasses.replace(get_reduced("gemma2-2b"), attn_impl="pallas")
+    job = make_serve_job(cfg, device=cuda_device, param_dtype=torch.float32)
+    params = job.init_params(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 160), device=cuda_device)
+    with torch.inference_mode():
+        api.reset_counters()
+        logits, _ = job.model.prefill(params, {"tokens": tokens}, dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert api.launch_counts() == {"flash_attention": cfg.n_layers}
+        with api.dispatch_mode("ref"):
+            want, _ = job.model.prefill(params, {"tokens": tokens}, dtype=torch.float32)
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)

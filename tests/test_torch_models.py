@@ -1,0 +1,159 @@
+"""The port's LM model stack against the reference's, on the CPU.
+
+For the archs the port runs (reduced Gemma-2 2B, Yi-9B, Minitron-8B and
+Command R+), the reference's parameters (``model.init(jax.random.key(0))``)
+go through numpy to the port, and the same tokens go to both models:
+
+  * ``forward`` logits, fp32;
+  * ``prefill`` with ``attn_impl="pallas"`` -- the reference's Pallas flash
+    kernel in interpret mode, the port's flash op (its plain version on the
+    CPU) -- at B = 2, S = 128: the last logits and every cache leaf
+    (Gemma-2's reduced window of 16 masks at that length);
+  * 12 ``decode_step``s from ``init_cache`` with an 8-slot ring buffer, so
+    both the local and the global caches wrap: logits at every step and the
+    final caches, ``pos`` exactly;
+  * the port's own ``init`` makes the reference's tree of shapes.
+
+Tolerances: logits rtol 1e-4 / atol 1e-5 (fp32 through a few layers, each
+side summing in its own order); cache k and v rtol 1e-5 / atol 1e-5.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced as j_reduced
+from repro.kernels import api as japi
+from repro.models import Model as JModel
+from repro_torch.configs import PORTED, get_config, get_reduced
+from repro_torch.convert import cache_from_numpy, params_from_numpy
+from repro_torch.models import Model, ModelConfig
+from repro_torch.models.attention import AttentionConfig
+from repro_torch.models.mlp import MoEConfig, moe_forward
+from repro_torch.tree import tree_flatten
+
+B, S, DECODE_STEPS, RING = 2, 128, 12, 8
+LOGITS = dict(rtol=1e-4, atol=1e-5)
+CACHE = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def built():
+    """(reference model, its params, port model, port params, tokens) per
+    arch, cached across the module."""
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            jcfg = j_reduced(arch)
+            jm = JModel(jcfg)
+            jp = jm.init(jax.random.key(0))
+            tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+            tokens = np.random.default_rng(1).integers(0, jcfg.vocab_size, (B, S))
+            cache[arch] = (jm, jp, Model(get_reduced(arch)), tp, tokens.astype(np.int32))
+        return cache[arch]
+
+    return get
+
+
+def _close_tree(got, want, tol):
+    g_leaves, g_def = tree_flatten(got)
+    w_leaves = jax.tree.leaves(want)
+    assert len(g_leaves) == len(w_leaves)
+    for g, w in zip(g_leaves, w_leaves):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape
+        if w.dtype == np.int32:
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), w)
+        else:
+            np.testing.assert_allclose(g.numpy(), w, **tol)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_forward_matches_reference(arch, built):
+    jm, jp, tm, tp, tokens = built(arch)
+    jl, _ = jm.forward(jp, {"tokens": jnp.asarray(tokens)}, dtype=jnp.float32)
+    tl, aux = tm.forward(tp, {"tokens": torch.from_numpy(tokens)}, dtype=torch.float32)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
+    assert float(aux) == 0.0
+    targets = np.roll(tokens, -1, axis=1)
+    jloss = jm.loss(jp, {"tokens": jnp.asarray(tokens), "targets": jnp.asarray(targets)},
+                    dtype=jnp.float32)
+    tloss = tm.loss(tp, {"tokens": torch.from_numpy(tokens),
+                         "targets": torch.from_numpy(targets)}, dtype=torch.float32)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_prefill_through_flash_attention_matches_reference(arch, built):
+    jm, jp, tm, tp, tokens = built(arch)
+    jm = JModel(dataclasses.replace(jm.cfg, attn_impl="pallas"))
+    tm = Model(dataclasses.replace(tm.cfg, attn_impl="pallas"))
+    with japi.dispatch_mode("interpret"):
+        jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(tokens)}, dtype=jnp.float32)
+    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(tokens)}, dtype=torch.float32)
+    assert tl.shape == (B, 1, tm.cfg.vocab_size)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
+    _close_tree(tc, jc, CACHE)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_decode_steps_match_reference(arch, built):
+    jm, jp, tm, tp, tokens = built(arch)
+    jc = jm.init_cache(B, RING, dtype=jnp.float32)
+    tc = tm.init_cache(B, RING, dtype=torch.float32, device="cpu")
+    _close_tree(tc, jc, CACHE)
+    # the port starts from the reference's (empty) caches carried over
+    tc = cache_from_numpy(jax.tree.map(np.asarray, jc), "cpu")
+    decode = jax.jit(lambda p, c, t, pos: jm.decode_step(p, c, t, pos, dtype=jnp.float32))
+    for step in range(DECODE_STEPS):
+        pos = np.full((B,), step, np.int32)
+        jl, jc = decode(jp, jc, jnp.asarray(tokens[:, step:step + 1]), jnp.asarray(pos))
+        tl, tc = tm.decode_step(tp, tc, torch.from_numpy(tokens[:, step:step + 1]),
+                                torch.from_numpy(pos), dtype=torch.float32)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
+    _close_tree(tc, jc, CACHE)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_init_makes_the_reference_tree(arch, built):
+    jm, jp, _, _, _ = built(arch)
+    tp = Model(get_reduced(arch)).init(0, device="cpu")
+    leaves, _ = tree_flatten(tp)
+    jleaves = jax.tree.leaves(jp)
+    assert [tuple(t.shape) for t in leaves] == [j.shape for j in jleaves]
+    assert all(t.dtype == torch.float32 for t in leaves)
+    assert Model(get_reduced(arch)).cfg.param_count(tp) == jm.cfg.param_count(jp)
+    again = Model(get_reduced(arch)).init(0, dtype=torch.bfloat16, device="cpu")
+    assert torch.equal(again["embed"], tp["embed"].to(torch.bfloat16))
+
+
+def test_unported_kinds_raise():
+    base = dict(name="t", arch_type="dense", n_layers=2, d_model=16, n_heads=2,
+                n_kv_heads=1, d_ff=32, vocab_size=64)
+    for kind, item in (("moe", r"7 \(b\)"), ("mamba", r"7 \(c\)"), ("rwkv", r"7 \(a\)"),
+                       ("shared_attn", r"7 \(c\)")):
+        with pytest.raises(NotImplementedError, match=item):
+            Model(ModelConfig(**base, block_unit=(kind,)))
+    for extra in (dict(audio_frontend_dim=8), dict(n_vision_tokens=4)):
+        with pytest.raises(NotImplementedError, match=r"7 \(d\)"):
+            Model(ModelConfig(**base, **extra))
+    with pytest.raises(NotImplementedError, match=r"7 \(d\)"):
+        AttentionConfig(16, 2, 1, 8, mrope_sections=(2, 1, 1))
+    with pytest.raises(NotImplementedError, match=r"7 \(b\)"):
+        MoEConfig(16, 32, 4, 2)
+    with pytest.raises(NotImplementedError, match=r"7 \(b\)"):
+        moe_forward(None, None, None)
+    for arch, item in (("rwkv6-3b", r"7 \(a\)"), ("arctic-480b", r"7 \(b\)"),
+                       ("qwen2-moe-a2-7b", r"7 \(b\)"), ("zamba2-7b", r"7 \(c\)"),
+                       ("qwen2-vl-2b", r"7 \(d\)"), ("hubert-xlarge", r"7 \(d\)")):
+        with pytest.raises(NotImplementedError, match=item):
+            get_config(arch)
+        with pytest.raises(NotImplementedError, match=item):
+            get_reduced(arch)
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("gpt-2")
