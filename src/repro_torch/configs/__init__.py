@@ -3,8 +3,9 @@ port's model stack runs, each with its full ``config()`` and its CPU-sized
 ``reduced()``.
 
 The port has the dense and sliding-window attention blocks, which is all
-Gemma-2 2B, Yi-9B, Minitron-8B and Command R+ use.  The six other archs
-raise ``NotImplementedError`` naming the ROADMAP item they wait for.
+Gemma-2 2B, Yi-9B, Minitron-8B and Command R+ use, and the RWKV-6 block of
+RWKV-6 3B.  The five other archs raise ``NotImplementedError`` naming the
+ROADMAP item they wait for.
 """
 from importlib import import_module
 
@@ -20,9 +21,8 @@ ARCH_IDS = [
     "hubert_xlarge",
     "minitron_8b",
 ]
-PORTED = ("gemma2_2b", "yi_9b", "minitron_8b", "command_r_plus_104b")
+PORTED = ("gemma2_2b", "yi_9b", "minitron_8b", "command_r_plus_104b", "rwkv6_3b")
 WAITING = {
-    "rwkv6_3b": "RWKV-6 blocks and the wkv_chunk kernel (ROADMAP queue 1 item 7 (a))",
     "arctic_480b": "mixture-of-experts blocks (ROADMAP queue 1 item 7 (b))",
     "qwen2_moe_a2_7b": "mixture-of-experts blocks (ROADMAP queue 1 item 7 (b))",
     "zamba2_7b": "Mamba-2 and Zamba2's shared block (ROADMAP queue 1 item 7 (c))",

@@ -40,11 +40,21 @@ def params_from_numpy(tree: Any, device) -> Any:
 
 
 def cache_from_numpy(caches: Any, device) -> Any:
-    """A reference model's decode caches as the port's: per block element
-    ``b{i}`` an ``{"attn": {"k", "v", "pos"}}`` dict stacked over repeats,
-    k and v in their dtype and ``pos`` int32 (-1 marks an empty slot)."""
+    """A reference model's decode caches as the port's, per block element
+    ``b{i}`` stacked over repeats: an ``{"attn": {"k", "v", "pos"}}`` dict,
+    k and v in their dtype and ``pos`` int32 (-1 marks an empty slot), or an
+    ``{"rwkv": {"wkv", "shift_t", "shift_c"}}`` dict, the state fp32 and the
+    token shifts in their dtype."""
     out = {}
     for key, one in caches.items():
+        if "rwkv" in one:
+            rwkv = one["rwkv"]
+            wkv = np.asarray(rwkv["wkv"])
+            if wkv.dtype != np.float32:
+                raise ValueError(f"{key}: the RWKV state must be float32, got {wkv.dtype}")
+            out[key] = {"rwkv": {name: _tensor(rwkv[name], device)
+                                 for name in ("wkv", "shift_t", "shift_c")}}
+            continue
         attn = one["attn"]
         pos = np.asarray(attn["pos"])
         if pos.dtype != np.int32:

@@ -113,7 +113,7 @@ class FusedOp:
             raise ValueError(f"{self.name}: give exactly one of launch, launch_shaped")
         if self.n_inputs <= 0:
             raise ValueError(f"{self.name}: ops need n_inputs")
-        if len(self.out_dtype_from) != self.n_outputs:
+        if self.launch is not None and len(self.out_dtype_from) != self.n_outputs:
             raise ValueError(f"{self.name}: out_dtype_from vs n_outputs")
 
     @property

@@ -5,10 +5,11 @@ Counterpart of ``repro.models.transformer`` for the kinds the port has:
 
   'attn'    full attention + dense FFN
   'local'   sliding-window attention + dense FFN (Gemma-2's local layers)
+  'rwkv'    RWKV-6 time-mix + channel-mix (RWKV-6 3B)
 
 The other kinds raise ``NotImplementedError`` naming their ROADMAP item:
-'rwkv' (queue 1 item 7 (a)), 'moe' (7 (b)), 'mamba' and 'shared_attn'
-(7 (c)); so do the audio and vision front ends (7 (d)).
+'moe' (queue 1 item 7 (b)), 'mamba' and 'shared_attn' (7 (c)); so do the
+audio and vision front ends (7 (d)).
 
 Parameters are a plain dict tree with the reference's names and its stacked
 layout -- every block element's leaves carry a leading ``(repeats,)`` axis
@@ -31,6 +32,7 @@ from ..device import resolve_device
 from ..tree import tree_leaves, tree_map
 from . import attention as attn_lib
 from . import mlp as mlp_lib
+from . import rwkv as rwkv_lib
 from .common import Initializer, cross_entropy_loss, rms_norm, softcap
 
 Tree = Any
@@ -39,7 +41,6 @@ __all__ = ["ModelConfig", "Model", "UNPORTED_KINDS"]
 
 ATTN_KINDS = ("attn", "local")
 UNPORTED_KINDS = {
-    "rwkv": "RWKV-6 blocks wait for ROADMAP queue 1 item 7 (a)",
     "moe": mlp_lib.MOE_TODO,
     "mamba": "Mamba-2 blocks wait for ROADMAP queue 1 item 7 (c)",
     "shared_attn": "Zamba2's shared attention block waits for ROADMAP queue 1 item 7 (c)",
@@ -136,6 +137,12 @@ class ModelConfig:
     def mlp_cfg(self) -> mlp_lib.MLPConfig:
         return mlp_lib.MLPConfig(self.d_model, self.d_ff, self.activation, self.use_bias)
 
+    def rwkv_cfg(self) -> rwkv_lib.RWKVConfig:
+        return rwkv_lib.RWKVConfig(
+            self.d_model, self.d_ff, head_dim=64, chunk=self.rwkv_chunk,
+            chunk_bf16=self.rwkv_chunk_bf16, use_pallas=self.rwkv_pallas,
+        )
+
     def param_count(self, params: Tree) -> int:
         return sum(int(p.numel()) for p in tree_leaves(params))
 
@@ -147,7 +154,7 @@ class Model:
         for kind in cfg.block_unit:
             if kind in UNPORTED_KINDS:
                 raise NotImplementedError(f"{cfg.name}: {UNPORTED_KINDS[kind]}")
-            if kind not in ATTN_KINDS:
+            if kind not in ATTN_KINDS + ("rwkv",):
                 raise ValueError(kind)
         if cfg.audio_frontend_dim or cfg.n_vision_tokens:
             raise NotImplementedError(f"{cfg.name}: {FRONTEND_TODO}")
@@ -162,6 +169,10 @@ class Model:
         cfg = self.cfg
         d = cfg.d_model
         p: Dict[str, Any] = {"norm1": ini.param((d,), init="ones")}
+        if kind == "rwkv":
+            p["norm2"] = ini.param((d,), init="ones")
+            p["rwkv"] = rwkv_lib.init_rwkv(cfg.rwkv_cfg(), ini)
+            return p
         p["attn"] = attn_lib.init_attention(cfg.attn_cfg(kind), ini)
         p["norm2"] = ini.param((d,), init="ones")
         p["ffn"] = mlp_lib.init_mlp(cfg.mlp_cfg(), ini)
@@ -224,6 +235,8 @@ class Model:
         """Apply one block.  mode: 'fwd' | 'prefill' | 'decode'.
         Returns (x, new_cache)."""
         cfg = self.cfg
+        if kind == "rwkv":
+            return self._apply_rwkv(bp, x, mode, cache)
         acfg = cfg.attn_cfg(kind)
         h = self._norm(x, bp["norm1"])
         if mode == "decode":
@@ -243,6 +256,24 @@ class Model:
             y = self._norm(y, bp["post_norm2"])
         x = x + y
         return x, (None if new_cache is None else {"attn": new_cache})
+
+    def _apply_rwkv(self, bp, x, mode, cache=None):
+        """One RWKV block: time-mix then channel-mix, each behind its norm.
+        The cache is ``{"rwkv": {"wkv", "shift_t", "shift_c"}}``."""
+        rcfg = self.cfg.rwkv_cfg()
+        h = self._norm(x, bp["norm1"])
+        if mode == "decode":
+            y, tc = rwkv_lib.timemix_decode(rcfg, bp["rwkv"], h, cache["rwkv"])
+        else:
+            y, tc = rwkv_lib.timemix_forward(rcfg, bp["rwkv"], h, return_cache=True)
+        x = x + y
+        h = self._norm(x, bp["norm2"])
+        if mode == "decode":
+            y, cc = rwkv_lib.chanmix_decode(rcfg, bp["rwkv"], h, cache["rwkv"])
+        else:
+            y, cc = rwkv_lib.chanmix_forward(rcfg, bp["rwkv"], h, return_cache=True)
+        x = x + y
+        return x, (None if mode == "fwd" else {"rwkv": {**tc, **cc}})
 
     def _scan_blocks(self, params, x, positions, mode, caches=None, position=None):
         """Loop over repeats; within a repeat apply each unit element in
@@ -279,20 +310,28 @@ class Model:
     def prefill(self, params, batch, dtype=torch.bfloat16):
         """Last-token logits (B, 1, V) and the prompt's caches: per block
         element ``{"attn": {"k", "v" (repeats, B, S, K, hd), "pos"
-        (repeats, B, S) int32}}``, full length (not ring buffers)."""
+        (repeats, B, S) int32}}``, full length (not ring buffers), or
+        ``{"rwkv": {"wkv" (repeats, B, H, P, P) fp32, "shift_t", "shift_c"
+        (repeats, B, 1, d)}}``."""
         x, positions = self._embed_inputs(params, batch, dtype)
         x, caches = self._scan_blocks(params, x, positions, "prefill")
         return self._head(params, x[:, -1:]), caches
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
-        """Empty ring-buffer caches for decode, stacked over repeats."""
+        """Empty decode caches, stacked over repeats: ring buffers for
+        attention; RWKV's state (fp32 whatever ``dtype``) and token shifts,
+        which do not depend on ``max_len``."""
         cfg = self.cfg
         dev = resolve_device(device)
         caches = {}
         for i, kind in enumerate(cfg.block_unit):
-            one = attn_lib.init_kv_cache(cfg.attn_cfg(kind), batch, max_len, dtype, dev)
-            caches[f"b{i}"] = {"attn": tree_map(
-                lambda t: t.unsqueeze(0).repeat((cfg.repeats,) + (1,) * t.dim()), one)}
+            if kind == "rwkv":
+                one = {"rwkv": rwkv_lib.init_rwkv_cache(cfg.rwkv_cfg(), batch, dtype, dev)}
+            else:
+                one = {"attn": attn_lib.init_kv_cache(cfg.attn_cfg(kind), batch, max_len,
+                                                      dtype, dev)}
+            caches[f"b{i}"] = tree_map(
+                lambda t: t.unsqueeze(0).repeat((cfg.repeats,) + (1,) * t.dim()), one)
         return caches
 
     def decode_step(self, params, caches, tokens, position, dtype=torch.bfloat16):

@@ -12,7 +12,8 @@ Counterpart of ``repro.serving.driver``:
     advances all slots by one token (prompt tokens are teacher-forced
     through the same decode path), a finished request frees its slot, and a
     queued request is admitted into a freed slot whose cache lanes are reset
-    to their empty values (ring-buffer ``pos`` to -1).
+    to their empty values, whatever the cache holds (ring-buffer ``pos`` to
+    -1, an RWKV-6 state and token shifts to zero).
 
 Greedy only, as the reference's driver.  The driver's telemetry spans and
 serving metrics wait for the telemetry hub (ROADMAP queue 1 item 6).

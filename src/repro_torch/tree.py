@@ -15,28 +15,30 @@ Tree = Any
 TreeDef = Any    # None for a leaf, else a tuple of (key, child TreeDef)
 
 
+def _walk(t: Tree, leaves: List[Any]) -> TreeDef:
+    if isinstance(t, dict):
+        return tuple((k, _walk(t[k], leaves)) for k in sorted(t))
+    leaves.append(t)
+    return None
+
+
+def _build(d: TreeDef, it) -> Tree:
+    if d is None:
+        return next(it)
+    return {k: _build(c, it) for k, c in d}
+
+
+# the recursion is in module-level functions: a nested function that calls
+# itself is a reference cycle, which would hold every leaf it touched (whole
+# parameter and cache trees) until the garbage collector runs
 def tree_flatten(tree: Tree) -> Tuple[List[Any], TreeDef]:
     """``(leaves, treedef)``; two trees share a structure iff treedefs are equal."""
     leaves: List[Any] = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            return tuple((k, walk(t[k])) for k in sorted(t))
-        leaves.append(t)
-        return None
-
-    return leaves, walk(tree)
+    return leaves, _walk(tree, leaves)
 
 
 def tree_unflatten(treedef: TreeDef, leaves) -> Tree:
-    it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return next(it)
-        return {k: build(c) for k, c in d}
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree: Tree) -> List[Any]:

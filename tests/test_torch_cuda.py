@@ -13,7 +13,11 @@ the quantize is built without FMA contraction); the top-k pack and unpack
 exactly (a gather copies bits; with distinct indices each unpacked slot is
 one add into zero); flash attention and rms_norm in fp32 within rtol 1e-5 /
 atol 1e-5 (other summation orders, the hardware's rsqrt) and in bf16 within
-one bf16 ulp beyond that (both compute in fp32 and round once).
+one bf16 ulp beyond that (both compute in fp32 and round once); wkv_chunk
+within rtol / atol 1e-5 of the plain chunked form under any decay (the same
+fp32 arithmetic in other orders) and within rtol 2e-4 / atol 2e-5 of the
+per-token recurrence inside the clamp envelope (the reference's own
+kernel-test tolerance).
 """
 import re
 
@@ -327,12 +331,13 @@ def test_rms_norm_matches_plain(shape, plus_one, dtype, cuda_device):
 
 
 def test_both_cuda_sources_build_side_by_side(cuda_device):
-    """top_k.cu and flash_attention.cu build together into build/cuda, each
-    with its ptxas report; no kernel spills registers to local memory."""
+    """The CUDA sources (top_k.cu, flash_attention.cu and wkv_chunk.cu)
+    build together into build/cuda, each with its ptxas report; no kernel
+    spills registers to local memory."""
     from repro_torch.kernels import _cuda
 
-    paths = _cuda.build(["top_k", "flash_attention"])
-    assert paths["top_k"].parent == paths["flash_attention"].parent
+    paths = _cuda.build(["top_k", "flash_attention", "wkv_chunk"])
+    assert len({path.parent for path in paths.values()}) == 1
     for name in paths:
         spills = [line for line in _cuda.build_log(name).splitlines() if "spill stores" in line]
         assert spills, name
@@ -360,3 +365,100 @@ def test_reduced_prefill_launches_one_flash_attention_per_layer(cuda_device):
         with api.dispatch_mode("ref"):
             want, _ = job.model.prefill(params, {"tokens": tokens}, dtype=torch.float32)
     torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+
+
+# ----------------------------------------------------------- wkv_chunk (CUDA C++)
+def _wkv_case(b, s, h, p, dtype, w_dtype, decay, device, seed=11):
+    gen = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn((b, s, h, p), generator=gen).mul_(0.5).to(dtype).to(device)
+               for _ in range(3))
+    w = -decay * torch.exp(torch.randn((b, s, h, p), generator=gen) * 0.3)
+    return r, k, v, w.to(w_dtype).to(device)
+
+
+WKV_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("dtypes", WKV_DTYPES, ids=["fp32", "bf16", "bf16_fp32_logw"])
+@pytest.mark.parametrize("p,chunk", [(16, 8), (32, 16), (64, 16), (64, 32), (32, 8)])
+def test_wkv_chunk_matches_plain_chunked_form(p, chunk, dtypes, cuda_device):
+    """Under strong decay (the clamp bites at chunk 16 and 32) and weak."""
+    from repro_torch.kernels.wkv_chunk.ref import wkv_chunked_ref
+
+    for decay in (0.3, 3.0):
+        x = _wkv_case(2, 4 * chunk, 3, p, *dtypes, decay, cuda_device)
+        api.reset_counters()
+        y, state = api.call("wkv_chunk", *x, chunk=chunk)
+        torch.cuda.synchronize()
+        assert api.launch_counts() == {"wkv_chunk": 1}
+        assert y.dtype == state.dtype == torch.float32
+        y_want, s_want = wkv_chunked_ref(*x, chunk)
+        torch.testing.assert_close(y, y_want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(state, s_want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtypes", WKV_DTYPES, ids=["fp32", "bf16", "bf16_fp32_logw"])
+@pytest.mark.parametrize("p,chunk", [(16, 8), (32, 16), (64, 16), (64, 32)])
+def test_wkv_chunk_matches_per_token_recurrence_in_the_envelope(p, chunk, dtypes, cuda_device):
+    """Mild decay: no chunk's log-decay sums past -25, where the chunked
+    form is the exact recurrence (the op's plain version)."""
+    x = _wkv_case(1, 96, 2, p, *dtypes, 0.3, cuda_device, seed=12)
+    sums = x[3].float().reshape(1, 96 // chunk, chunk, 2, p).sum(dim=2)
+    assert bool((sums > -25).all())
+    y, state = api.call("wkv_chunk", *x, chunk=chunk)
+    with api.dispatch_mode("ref"):
+        y_want, s_want = api.call("wkv_chunk", *x, chunk=chunk)
+    torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(state, s_want, rtol=2e-4, atol=2e-5)
+
+
+def test_wkv_chunk_refuses_what_it_does_not_take(cuda_device):
+    r, k, v, w = _wkv_case(1, 64, 2, 64, torch.float32, torch.float32, 1.0, cuda_device)
+    with pytest.raises(ValueError, match="not a multiple of chunk"):
+        api.call("wkv_chunk", r[:, :60].contiguous(), k[:, :60].contiguous(),
+                 v[:, :60].contiguous(), w[:, :60].contiguous(), chunk=16)
+    with pytest.raises(ValueError, match="head size"):
+        q = [t[..., :48].contiguous() for t in (r, k, v, w)]
+        api.call("wkv_chunk", *q, chunk=16)
+    with pytest.raises(ValueError, match="chunk"):
+        api.call("wkv_chunk", r, k, v, w, chunk=128)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        api.call("wkv_chunk", r, k.cpu(), v, w, chunk=16)
+    with pytest.raises(ValueError, match="dtype"):
+        api.call("wkv_chunk", r, k, v, w.to(torch.bfloat16), chunk=16)
+    with pytest.raises(ValueError, match="dtype"):
+        api.call("wkv_chunk", r.half(), k.half(), v.half(), w, chunk=16)
+    # the op's adapter makes strided views contiguous: the same answer
+    strided = k.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not strided.is_contiguous()
+    for got, want in zip(api.call("wkv_chunk", r, strided, v, w, chunk=16),
+                         api.call("wkv_chunk", r, k, v, w, chunk=16)):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="shape"):
+        api.call("wkv_chunk", r, k[:, :32].contiguous(), v, w, chunk=16)
+
+
+def test_reduced_rwkv_prefill_launches_one_wkv_chunk_per_layer(cuda_device):
+    """RWKV-6 3B reduced at S = 64: the kernel path's prefill launches one
+    wkv_chunk per layer and agrees with the plain chunked path."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import make_serve_job
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_reduced("rwkv6-3b"), rwkv_chunk=16, rwkv_pallas=True)
+    job = make_serve_job(cfg, device=cuda_device, param_dtype=torch.float32)
+    params = job.init_params(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda_device)
+    twin = Model(dataclasses.replace(cfg, rwkv_pallas=False))
+    with torch.inference_mode():
+        api.reset_counters()
+        logits, caches = job.model.prefill(params, {"tokens": tokens}, dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert api.launch_counts() == {"wkv_chunk": cfg.n_layers}
+        want, want_caches = twin.prefill(params, {"tokens": tokens}, dtype=torch.float32)
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(caches["b0"]["rwkv"]["wkv"], want_caches["b0"]["rwkv"]["wkv"],
+                               rtol=1e-4, atol=1e-4)

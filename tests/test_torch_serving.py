@@ -1,7 +1,7 @@
 """The port's serving path against the reference's, on the CPU.
 
-On the reduced Gemma-2 2B and Yi-9B, with the reference's parameters carried
-over through numpy:
+On the reduced Gemma-2 2B, Yi-9B and RWKV-6 3B, with the reference's
+parameters carried over through numpy:
 
   * ``scan_prefill`` (decode steps into ring-buffer caches) against the
     reference's ``scan_prefill``: last logits rtol 1e-4 / atol 1e-5 and
@@ -32,7 +32,7 @@ from repro_torch.models import Model, ModelConfig
 from repro_torch.serving import RequestDriver, scan_prefill
 from repro_torch.tree import tree_flatten
 
-ARCHS = ("gemma2_2b", "yi_9b")
+ARCHS = ("gemma2_2b", "yi_9b", "rwkv6_3b")
 
 
 @pytest.fixture(scope="module")
@@ -125,7 +125,30 @@ def test_serve_job_on_cpu(built):
     assert out["completed"] == 3 and all(len(o) == 5 for o in out["outputs"].values())
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "minitron-8b"])
+def test_rwkv_serve_job_on_cpu(built):
+    """RWKV-6's prefill_fn with the wkv op (its plain version on the CPU),
+    bf16; its caches continue through decode_fn as the driver's do."""
+    _, _, tm, _ = built("rwkv6_3b")
+    cfg = dataclasses.replace(tm.cfg, rwkv_chunk=16, rwkv_pallas=True)
+    job = serve.make_serve_job(cfg, device="cpu")
+    params = job.init_params(0)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 32)))
+    logits, caches = job.prefill_fn(params, {"tokens": tokens})
+    want, _ = Model(cfg).prefill(params, {"tokens": tokens}, dtype=torch.bfloat16)
+    assert logits.dtype == torch.bfloat16 and torch.equal(logits, want)
+    rwkv = caches["b0"]["rwkv"]
+    assert rwkv["wkv"].dtype == torch.float32 and rwkv["shift_t"].dtype == torch.bfloat16
+    assert rwkv["wkv"].shape == (cfg.repeats, 2, cfg.d_model // 64, 64, 64)
+    # one more token from the prefill's caches: the decode path reads them
+    step, _ = job.decode_fn(params, caches, tokens[:, -1:], torch.full((2,), 32, dtype=torch.int32))
+    assert step.shape == (2, 1, cfg.vocab_size) and bool(torch.isfinite(step.float()).all())
+    driver = RequestDriver(job.model, slots=2, max_len=16, dtype=torch.bfloat16,
+                           decode_fn=job.decode_fn, device="cpu")
+    out = driver.run(params, _workload(cfg.vocab_size)[:3])
+    assert out["completed"] == 3 and all(len(o) == 5 for o in out["outputs"].values())
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "minitron-8b", "rwkv6-3b"])
 def test_serve_cli_runs_on_cpu(arch, capsys):
     out = serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "3",
                       "--prompt-len", "6", "--new-tokens", "5"])

@@ -21,6 +21,7 @@ for name in names:
     __import__(name)
 for want in ("repro_torch.kernels.mvr_update.kernel", "repro_torch.kernels.comm_compress.kernel",
              "repro_torch.kernels.flash_attention.kernel", "repro_torch.kernels.rms_norm.kernel",
+             "repro_torch.kernels.wkv_chunk.kernel", "repro_torch.models.rwkv",
              "repro_torch.models.transformer", "repro_torch.launch.serve"):
     assert want in names, (want, names)
 assert "jax" not in sys.modules, "jax was imported"
