@@ -20,12 +20,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    N=8, d=2**24+3, k=ceil(0.1 d), in fp32 and bf16, with indices in
    magnitude order as the codec makes them, and timed there beside their
    bounds and the torch.gather / torch.zeros + scatter_add_ yardsticks;
-   flash_attention (CUDA C++, src/repro_torch/csrc/flash_attention.cu,
-   built with top_k.cu by two nvcc processes started together) is held
+   flash_attention (CUDA C++, src/repro_torch/csrc/flash_attention.cu:
+   in bf16 at D=128 and 256 a warp-specialised TMA + wgmma kernel) is held
    against its plain version on Gemma-2 2B's global and local layer shapes
-   (B=2, H=8, K=4, S=8192, D=256, softcap 50, window 4096) and on Yi-9B's
-   (H=32, K=4, D=128), bf16, and checked untimed in fp32 at S=1024 and at a
-   ragged S=1000; rms_norm (Triton) on 16,384 rows of Gemma-2's 2304 in
+   (B=2, H=8, K=4, S=8192, D=256, softcap 50, window 4096), on the global
+   shape without softcap and on Yi-9B's (H=32, K=4, D=128), bf16, SDPA
+   timed beside the two cases it computes, and checked untimed in fp32 at
+   S=1024 and at a ragged S=1000, the first call of each case under
+   torch.profiler to print its launch's grid, block, registers and shared
+   memory; rms_norm (Triton) on 16,384 rows of Gemma-2's 2304 in
    bf16 and untimed in fp32 on an odd row count; wkv_chunk (CUDA C++,
    src/repro_torch/csrc/wkv_chunk.cu, the third source built alongside) at
    RWKV-6 3B's layer shape (B=2, S=8192, H=40, P=64, chunk 16, bf16 r/k/v
@@ -53,7 +56,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    vocab 256,000; random bf16 weights from a seed): ``make_serve_job(...).
    prefill_fn`` with ``attn_impl="pallas"`` on 2 prompts of 8192 tokens,
    through the kernel (26 flash_attention launches a call) and through the
-   plain version on the card; the same prefill in fp32 at B=1, kernel
+   plain version on the card; one more kernel call under torch.profiler:
+   device time by kernel (top 10), the attention, GEMM and other shares and
+   the device's idle share; the same prefill in fp32 at B=1, kernel
    against plain (at 6 layers within 1e-3, at 26 within twice the gap of
    the plain path's blockwise twin); the kernel prefill against
    ``scan_prefill`` through
@@ -135,8 +140,13 @@ BF16_PEAK_FLOPS = 989e12         # H100 SXM, dense bf16 tensor cores
 FLASH_CASES = (
     ("gemma2_global", 2, 8, 4, LM_SEQ, 256, None, 50.0),
     ("gemma2_local", 2, 8, 4, LM_SEQ, 256, 4096, 50.0),
+    ("gemma2_global_nocap", 2, 8, 4, LM_SEQ, 256, None, None),
     ("yi_9b", 2, 32, 4, LM_SEQ, 128, None, None),
 )
+# the kernels of a traced prefill by name: the bf16 attention kernel, and
+# the GEMMs by the substrings of cuBLAS's and CUTLASS's kernel names
+ATTENTION_KERNEL = "fa_hopper_kernel"
+GEMM_KERNELS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
 # RWKV-6 3B at full width: 2 prompts of 8192 tokens, the wkv chunk of 16
 RWKV_ARCH, RWKV_BATCH, RWKV_SEQ, WKV_CHUNK = "rwkv6-3b", 2, 8192, 16
 # wkv_chunk vs the plain chunked form: the same fp32 arithmetic in other
@@ -472,8 +482,8 @@ def attention_pairs(s: int, window) -> int:
 
 
 def ptxas_summary(log: str) -> list:
-    """(kernel, registers, spill-store bytes) per entry function of an
-    nvcc -Xptxas -v report."""
+    """(kernel, registers, spill-store bytes, static shared-memory bytes) per
+    entry function of an nvcc -Xptxas -v report."""
     out, name, spill = [], None, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -481,8 +491,47 @@ def ptxas_summary(log: str) -> list:
         elif "spill stores" in line:
             spill = int(line.split("bytes spill stores")[0].split(",")[-1])
         elif "Used" in line and "registers" in line and name:
-            out.append((name, int(line.split("Used")[1].split("registers")[0]), spill))
+            smem = line.split("bytes smem")[0].split(",")[-1] if "bytes smem" in line else "0"
+            out.append((name, int(line.split("Used")[1].split("registers")[0]), spill,
+                        int(smem)))
     return out
+
+
+def sass_counts(sass: str, ops) -> dict:
+    """{kernel: {op: instructions}} from a ``cuobjdump -sass`` listing, an
+    instruction counted under each op its opcode starts with (``HGMMA`` for
+    ``HGMMA.64x256x16.F32.BF16``)."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            out[name] = dict.fromkeys(ops, 0)
+        elif name and "*/" in line:
+            words = [w for w in line.split("*/", 1)[1].split() if not w.startswith("@")]
+            opcode = words[0].split(".")[0] if words else ""
+            if opcode in out[name]:
+                out[name][opcode] += 1
+    return out
+
+
+def launch_record(fn, kernel: str):
+    """``fn()`` run once under ``torch.profiler``, and the one launch of a
+    kernel whose name holds ``kernel`` as CUPTI recorded it: grid, block,
+    registers a thread and shared memory (static and dynamic together)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    path = ROOT / "build" / "launch_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    launches = [e for e in json.loads(path.read_text())["traceEvents"]
+                if e.get("cat") == "kernel" and kernel in e.get("name", "")]
+    assert len(launches) == 1, (kernel, [e.get("name") for e in launches])
+    args = launches[0].get("args", {})
+    return out, {"kernel": launches[0]["name"], **{
+        k: args.get(k) for k in ("grid", "block", "registers per thread", "shared memory")}}
 
 
 def check_attention_kernels(api, bw) -> dict:
@@ -523,7 +572,8 @@ def check_attention_kernels(api, bw) -> dict:
     ):
         q, k, v = qkv(b, h, kh, s, d, dtype)
         kw = dict(causal=True, sliding_window=window, softcap=cap)
-        got = api.call("flash_attention", q, k, v, **kw)
+        got, launch = launch_record(lambda: api.call("flash_attention", q, k, v, **kw), "fa_")
+        print(f"launch flash_attention {dtype} S={s} D={d}: " + json.dumps(launch))
         with api.dispatch_mode("ref"):
             want = api.call("flash_attention", q, k, v, **kw)
         err = held(got, want, f"flash_attention {dtype} S={s} D={d}")
@@ -535,7 +585,8 @@ def check_attention_kernels(api, bw) -> dict:
     for label, b, h, kh, s, d, window, cap in FLASH_CASES:
         q, k, v = qkv(b, h, kh, s, d, torch.bfloat16)
         kw = dict(causal=True, sliding_window=window, softcap=cap)
-        got = api.call("flash_attention", q, k, v, **kw)
+        got, launch = launch_record(lambda: api.call("flash_attention", q, k, v, **kw), "fa_")
+        print(f"launch flash_attention {label}: " + json.dumps(launch))
         with api.dispatch_mode("ref"):
             want = api.call("flash_attention", q, k, v, **kw)
         bf16_err = max(bf16_err, held(got, want, f"flash_attention {label}"))
@@ -628,6 +679,42 @@ def run_prefill(api, runs, mode, p, batch, fn, expect):
     return logits, caches, dt, torch.cuda.max_memory_allocated()
 
 
+def trace_prefill(api, fn, params, batch, layers) -> None:
+    """One prefill call through the kernels under ``torch.profiler``: device
+    time by kernel name (top 10), the attention, GEMM and other shares of
+    it, and the device's idle share of the call's span (CUDA events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    api.reset_counters()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        with api.dispatch_mode("kernel"):
+            out = fn(params, batch)
+        end.record()
+        torch.cuda.synchronize()
+    del out
+    assert api.launch_counts() == {"flash_attention": layers}, api.launch_counts()
+    span_ms = start.elapsed_time(end)
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    assert rows, "torch.profiler recorded no device time"
+    busy = sum(ms for _, ms, _ in rows)
+    attn = sum(ms for k, ms, _ in rows if ATTENTION_KERNEL in k)
+    gemm = sum(ms for k, ms, _ in rows if any(g in k.lower() for g in GEMM_KERNELS))
+    print(f"trace prefill bf16 {LM_BATCH}x{LM_SEQ}: device busy {busy:.3f} ms of a "
+          f"{span_ms:.3f} ms span (idle share {1 - busy / span_ms:.4f}); attention "
+          f"{attn:.3f} ms ({attn / busy:.4f}), GEMMs {gemm:.3f} ms ({gemm / busy:.4f}), "
+          f"rest {busy - attn - gemm:.3f} ms ({(busy - attn - gemm) / busy:.4f}); "
+          f"{len(rows)} kernel names")
+    print("trace prefill top 10 by device ms: " + json.dumps(
+        [{"kernel": k[:120], "ms": round(ms, 4), "calls": n} for k, ms, n in rows[:10]]))
+
+
 def serving_path(api) -> list:
     """Phase 4: the LM serving path at Gemma-2 2B's full width.  Returns the
     launch counts of each run through the kernels."""
@@ -673,7 +760,9 @@ def serving_path(api) -> list:
           f"{float((kernel_logits - plain_logits).abs().max()):.4g} ({cfg.n_layers} layers "
           "of bf16 rounding on random weights; the kernel is held at the op level)")
     print("serve prefill tokens/s: " + json.dumps(rates))
-    del params, logits
+    del logits
+    trace_prefill(api, job.prefill_fn, params, batch, cfg.n_layers)
+    del params
     torch.cuda.empty_cache()
 
     # 2. fp32 prefill at B=1, S=8192: kernel vs plain, last-token logits.
@@ -1077,8 +1166,17 @@ def main() -> int:
     print(f"nvcc built top_k.cu, flash_attention.cu and wkv_chunk.cu in "
           f"{time.perf_counter() - t0:.1f} s")
     for name in sources:
-        for fn, regs, spill in ptxas_summary(_cuda.build_log(name)):
-            print(f"ptxas {name}: {fn}: {regs} registers, {spill} bytes spill stores")
+        for fn, regs, spill, smem in ptxas_summary(_cuda.build_log(name)):
+            print(f"ptxas {name}: {fn}: {regs} registers, {spill} bytes spill stores, "
+                  f"{smem} bytes static shared memory")
+    # the bf16 kernels at D=128 and 256 load by TMA and multiply by wgmma
+    cuobjdump = Path(_cuda.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_cuda.build(["flash_attention"])[
+        "flash_attention"])], capture_output=True, text=True, check=True, timeout=300).stdout
+    for fn, counts in sass_counts(sass, ("UTMALDG", "HGMMA", "HMMA")).items():
+        print(f"sass flash_attention: {fn}: " + json.dumps(counts))
+        if "fa_hopper_kernel" in fn:
+            assert counts["UTMALDG"] and counts["HGMMA"] and not counts["HMMA"], (fn, counts)
 
     # ---------------------------------------------------------------- 2
     spin_up()

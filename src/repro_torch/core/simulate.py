@@ -74,6 +74,21 @@ def consensus_distance(tree: Tree) -> torch.Tensor:
     return sum(tree_leaves(tree_map(one, tree, mean)))
 
 
+def _node_grad_fn(loss_fn: LossFn) -> Callable[[Tree, Any], Tree]:
+    """Per-node gradients: grad of the node-summed loss (slice i of the
+    result depends only on node i's loss)."""
+
+    def vgrad(params: Tree, batch) -> Tree:
+        leaves, treedef = tree_flatten(params)
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss = loss_fn(tree_unflatten(treedef, leaves), batch).sum()
+            grads = torch.autograd.grad(loss, leaves)
+        return tree_unflatten(treedef, list(grads))
+
+    return vgrad
+
+
 @dataclasses.dataclass
 class NodeData:
     """Per-node datasets: features (N, n_i, ...), labels (N, n_i, ...).
@@ -142,6 +157,12 @@ class Simulator:
         self.index_fn = index_fn
         self.comm_seed_fn = comm_seed_fn or default_comm_seed_fn(seed)
 
+        # the step functions close over the loss and the data, never over
+        # self: a bound method stored on self would make every Simulator a
+        # reference cycle that keeps its device data until the collector runs
+        self._vgrad = vgrad = _node_grad_fn(loss_fn)
+        x, y = self._x, self._y
+        self._full_grad_fn = lambda params: vgrad(params, (x, y))
         self._round_step, self.round_len = make_round_step(
             algorithm, self.mix_fn,
             grad_of_batch=self._vgrad,
@@ -150,19 +171,6 @@ class Simulator:
         )
 
     # ------------------------------------------------------------------
-    def _vgrad(self, params: Tree, batch) -> Tree:
-        """Per-node gradients: grad of the node-summed loss (slice i of the
-        result depends only on node i's loss)."""
-        leaves, treedef = tree_flatten(params)
-        leaves = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            loss = self.loss_fn(tree_unflatten(treedef, leaves), batch).sum()
-            grads = torch.autograd.grad(loss, leaves)
-        return tree_unflatten(treedef, list(grads))
-
-    def _full_grad_fn(self, params: Tree) -> Tree:
-        return self._vgrad(params, (self._x, self._y))
-
     def _batch(self, step: int):
         """The minibatch of iteration ``step``: (x (N, b, ...), y (N, b))."""
         idx = self.index_fn(step).to(device=self.device, dtype=torch.long)

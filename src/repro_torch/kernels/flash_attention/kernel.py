@@ -1,12 +1,16 @@
 """The flash-attention forward's launcher: a ``ctypes`` wrapper of the CUDA
-C++ kernel ``repro_torch/csrc/flash_attention.cu``, whose header says what
-it replaces (``repro/kernels/flash_attention/kernel.py::flash_attention_fwd``),
-what bounds it on the H100 and how it is built.
+C++ kernels in ``repro_torch/csrc/flash_attention.cu``, whose header says
+what they replace (``repro/kernels/flash_attention/kernel.py::
+flash_attention_fwd``), what bounds them on the H100 and how they are built:
+in bf16 at D = 128 and 256 a warp-specialised kernel that loads by TMA and
+multiplies by ``wgmma``, at D = 32 and 64 an ``mma.sync`` one, and in fp32 a
+kernel of plain FMAs.
 
 The wrapper checks device, dtype, shapes, contiguity and alignment, allocates
 the output with ``torch.empty``, launches on the current stream and raises
-on a launch error.  The library is compiled by ``nvcc`` on the first launch
-(``kernels/_cuda.py``).
+on a launch error, a refused shared-memory size or a failed tensor-map
+encode alike; nothing falls back to another kernel or the plain version.
+The library is compiled by ``nvcc`` on the first launch (``kernels/_cuda.py``).
 """
 from __future__ import annotations
 

@@ -255,8 +255,12 @@ def test_choco_top_k_comm_event_launches_eight_of_each_top_k_op(cuda_device):
 
 
 # ----------------------------------------- flash attention (CUDA C++), rms_norm
-# (b, s, h, kh, d, window, softcap, causal): Gemma-2's D = 256 with GQA 2,
-# window and softcap; D = 128 (Yi, Minitron); ragged lengths; D 32 / 64
+# (b, s, h, kh, d, window, softcap, causal[, skv]): Gemma-2's D = 256 with
+# GQA 2, window and softcap; D = 128 (Yi, Minitron); ragged lengths; D 32 /
+# 64; a sequence that wraps the kv stage ring many times with the window's
+# edge mid-sequence; Skv tails that are no multiple of any tile; GQA 12 as
+# in Command R+; Sq != Skv without causality, both ways round; sequences
+# shorter than one tile (the TMA boxes reach past the end)
 FLASH_SHAPES = [
     (2, 256, 8, 4, 256, None, 50.0, True),
     (2, 300, 8, 4, 256, 64, 50.0, True),
@@ -264,15 +268,24 @@ FLASH_SHAPES = [
     (2, 129, 4, 4, 128, 48, None, True),
     (1, 77, 4, 1, 64, None, 30.0, False),
     (1, 200, 2, 2, 32, 16, 50.0, True),
+    (1, 2048, 16, 2, 256, 1024, 50.0, True),
+    (1, 333, 8, 4, 256, None, 50.0, True),
+    (2, 999, 8, 2, 128, 200, None, True),
+    (1, 384, 12, 1, 128, None, None, True),
+    (1, 200, 8, 4, 128, None, None, False, 517),
+    (2, 300, 8, 2, 256, None, 30.0, False, 97),
+    (1, 10, 8, 4, 256, None, 50.0, True),
+    (2, 33, 4, 2, 128, None, None, True),
 ]
 
 
 def _flash_case(case, dtype, device, seed=7):
     b, s, h, kh, d = case[:5]
+    skv = case[8] if len(case) > 8 else s
     gen = torch.Generator().manual_seed(seed)
     q = (torch.randn((b, s, h, d), generator=gen) * 4).to(dtype).to(device)
-    k = torch.randn((b, s, kh, d), generator=gen).to(dtype).to(device)
-    v = torch.randn((b, s, kh, d), generator=gen).to(dtype).to(device)
+    k = torch.randn((b, skv, kh, d), generator=gen).to(dtype).to(device)
+    v = torch.randn((b, skv, kh, d), generator=gen).to(dtype).to(device)
     return q, k, v, dict(causal=case[7], sliding_window=case[5], softcap=case[6])
 
 
@@ -298,6 +311,24 @@ def test_flash_attention_matches_plain(case, dtype, cuda_device):
     with api.dispatch_mode("ref"):
         want = api.call("flash_attention", q, k, v, **kw)
     _assert_kernel_close(got, want)
+
+
+# causal with a window and Sq > Skv + window: the last q-tiles hold no kv
+# tile at all, and rows from Skv + window - 1 on see no key.  Such a row is 0
+# in the kernel (as in the TPU kernel for a q-tile with no tile), where the
+# plain version's -2e38 fill averages all of v; the rows that see a key are
+# held to the plain version as everywhere.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_attention_rows_that_see_no_key(d, dtype, cuda_device):
+    sq, skv, window = 512, 64, 64
+    q, k, v, kw = _flash_case((1, sq, 8, 4, d, window, 50.0, True, skv), dtype, cuda_device)
+    got = api.call("flash_attention", q, k, v, **kw)
+    with api.dispatch_mode("ref"):
+        want = api.call("flash_attention", q, k, v, **kw)
+    sees = torch.arange(sq, device=cuda_device) < skv + window - 1
+    _assert_kernel_close(got[:, sees], want[:, sees])
+    assert bool((got[:, ~sees] == 0).all())
 
 
 def test_flash_attention_refuses_what_it_does_not_take(cuda_device):

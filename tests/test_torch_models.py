@@ -201,3 +201,31 @@ def test_dropped_outputs_are_freed_without_the_garbage_collector(arch, built):
         assert all(ref() is None for ref in refs)
     finally:
         gc.enable()
+
+
+def test_dropped_simulator_is_freed_without_the_garbage_collector():
+    """No reference cycle holds a Simulator (its round step closes over the
+    loss and the data, not over the Simulator): after a round, dropping it
+    frees its copies of the data at once."""
+    import gc
+    import weakref
+
+    from repro_torch import paper_problem as tproblem
+    from repro_torch.core import NodeData, Simulator, ring
+
+    n, per_node, batch, tau = 4, 16, 4, 2
+    rng = np.random.default_rng(0)
+    data = NodeData(rng.normal(size=(n, per_node, tproblem.DIM)).astype(np.float32),
+                    rng.integers(0, tproblem.CLASSES, (n, per_node)).astype(np.int32))
+    alg = tproblem.make_algorithm("dse_mvr", 0.3, tau, 8)
+    gc.collect()
+    gc.disable()
+    try:
+        sim = Simulator(alg, ring(n), tproblem.mlp_loss, data, batch, device="cpu")
+        state = sim.run_rounds(sim.init_state(tproblem.mlp_init(0, hidden=8)), 1)
+        assert state.step == tau
+        refs = [weakref.ref(t) for t in (sim, sim._x, sim._y) + sim._full_flat]
+        del sim, state
+        assert all(ref() is None for ref in refs)
+    finally:
+        gc.enable()
