@@ -28,15 +28,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    timed beside the two cases it computes, and checked untimed in fp32 at
    S=1024 and at a ragged S=1000, the first call of each case under
    torch.profiler to print its launch's grid, block, registers and shared
-   memory; rms_norm (Triton) on 16,384 rows of Gemma-2's 2304 in
-   bf16 and untimed in fp32 on an odd row count; wkv_chunk (CUDA C++,
-   src/repro_torch/csrc/wkv_chunk.cu, the third source built alongside) at
-   RWKV-6 3B's layer shape (B=2, S=8192, H=40, P=64, chunk 16, bf16 r/k/v
-   and fp32 logw from the model's first layer on random weights) against
-   the plain chunked form, untimed in fp32 too, and against the per-token
-   recurrence on decays scaled into the clamp envelope.  Each is timed
-   beside its bound, its plain version (and wkv_chunk's plain chunked form)
-   and, where one PyTorch call computes the same function, that call;
+   memory; rms_norm (CUDA C++, src/repro_torch/csrc/rms_norm.cu) on 16,384
+   rows of Gemma-2's 2304 in bf16, timed with its spread beside F.rms_norm
+   (both as CUDA-graph replays of one call),
+   and untimed in fp32 on an odd row count; wkv_chunk (CUDA C++,
+   src/repro_torch/csrc/wkv_chunk.cu: three passes over groups of chunks)
+   at RWKV-6 3B's layer shape (B=2, S=8192, H=40, P=64, chunk 16, bf16
+   r/k/v and fp32 logw from the model's first layer on random weights)
+   against the plain chunked form, untimed in fp32 too, and against the
+   per-token recurrence on decays scaled into the clamp envelope, with the
+   grouped carry's PyTorch mirror held to the plain chunked form and each
+   pass's launch and device time printed.  The four CUDA sources are built
+   side by side, one nvcc each, and each kernel's ptxas report printed.
+   Each kernel is timed beside its bound, its plain version (and
+   wkv_chunk's plain chunked form) and, where one PyTorch call computes the
+   same function, that call (axpby's and rms_norm's with their spread);
 3. main paths, each through ``run_method`` at the MLP's full width:
    DSE-MVR (omega=0.5, tau=4, b=16, 200 steps) through the kernels against
    the unfused path on the card and on the CPU from the same index stream,
@@ -68,7 +74,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    65,536; random bf16 weights from a seed): ``prefill_fn`` with
    ``rwkv_chunk=16, rwkv_pallas=True`` on 2 prompts of 8192 tokens, three
    calls of 32 wkv_chunk launches, against the plain chunked twin (layer
-   0's state within 1e-5); the share of clamped (chunk, channel) pairs at
+   0's state within 1e-5); one more kernel call under torch.profiler:
+   device time by kernel (top 10), the wkv, GEMM and other shares and the
+   device's idle share; the share of clamped (chunk, channel) pairs at
    three layers; the fp32 prefill at B=1, S=2048, kernel against the plain
    chunked path (relative 1e-3 at 4 layers, 1e-2 at 32); the kernel
    prefill's caches against ``scan_prefill`` and 4 decode steps on (fp32,
@@ -153,6 +161,9 @@ RWKV_ARCH, RWKV_BATCH, RWKV_SEQ, WKV_CHUNK = "rwkv6-3b", 2, 8192, 16
 # summation orders; vs the per-token recurrence inside the clamp envelope:
 # the reference's kernel-test tolerance (tests/test_kernels.py)
 WKV_TOL, WKV_REF_RTOL, WKV_REF_ATOL = 1e-5, 2e-4, 2e-5
+# the kernel's three launches a call, in order, each timed over this many calls
+WKV_PASSES, WKV_PASS_CALLS = ("wkv_pass_a", "wkv_pass_b", "wkv_pass_c"), 10
+WKV_KERNEL = "wkv_pass"   # the name the three share in a trace
 # the model's decays scaled into the envelope (no chunk sum past -25) for
 # the check against the per-token recurrence
 WKV_ENVELOPE_SCALE = 0.25
@@ -267,13 +278,36 @@ def cuda_times(fn) -> list:
     return [s.elapsed_time(e) for s, e in events]
 
 
-def abba_ms(*fns) -> list:
-    """Median ms of each function, timed in turns (a, b, ..., ..., b, a)."""
+def abba_samples(*fns) -> list:
+    """Per-call ms of each function, timed in turns (a, b, ..., ..., b, a)."""
     samples = [[] for _ in fns]
     order = list(range(len(fns)))
     for i in order + order[::-1]:
         samples[i] += cuda_times(fns[i])
-    return [statistics.median(x) for x in samples]
+    return samples
+
+
+def abba_ms(*fns) -> list:
+    """Median ms of each function, timed in turns (a, b, ..., ..., b, a)."""
+    return [statistics.median(x) for x in abba_samples(*fns)]
+
+
+def graphed(fn):
+    """``fn``'s launches captured once in a CUDA graph; returns its replay.
+    For a kernel shorter than the host's dispatch of it, replays time the
+    device and not the Python in front of it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def spread(samples) -> list:
+    """[10th percentile, 90th percentile] of timing samples (ms)."""
+    q = statistics.quantiles(samples, n=10)
+    return [q[0], q[-1]]
 
 
 def bf16_excess_ulps(got: torch.Tensor, want: torch.Tensor, rtol: float = 0.0,
@@ -386,9 +420,16 @@ def check_elementwise(api, bw) -> dict:
                     x, y = trees[0]["x"], trees[1]["x"]
                     out = torch.empty_like(y)
                     fns.append(lambda: torch.add(y, x, alpha=scalars[0], out=out))
-                times = abba_ms(*fns)
+                samples = abba_samples(*fns)
+                times = [statistics.median(x) for x in samples]
                 row["ms"], row["plain_ms"] = times[:2]
                 row["library_ms"] = times[2] if len(times) > 2 else None
+                if name == "axpby":   # a tie with torch.add: keep the spread
+                    row["ms_p10_p90"] = spread(samples[0])
+                    row["library_ms_p10_p90"] = spread(samples[2])
+                    print(f"kernel axpby vs torch.add, {2 * REPS} calls each in turns: "
+                          f"median {times[0]:.4f} ms (p10-p90 {row['ms_p10_p90']}) vs "
+                          f"{times[2]:.4f} ms (p10-p90 {row['library_ms_p10_p90']})")
             del trees, got, want
         row["max_abs_err"] = max_err
         if name == "qsgd_quantize":
@@ -514,28 +555,43 @@ def sass_counts(sass: str, ops) -> dict:
     return out
 
 
-def launch_record(fn, kernel: str):
-    """``fn()`` run once under ``torch.profiler``, and the one launch of a
-    kernel whose name holds ``kernel`` as CUPTI recorded it: grid, block,
-    registers a thread and shared memory (static and dynamic together)."""
+def launch_records(fn, kernel: str, calls: int = 2):
+    """``fn()`` run ``calls`` times under ``torch.profiler`` (after one call
+    outside it, so its kernels are loaded), and each launch of a kernel
+    whose name holds ``kernel`` as CUPTI recorded it, in order: grid, block,
+    registers a thread, shared memory (static and dynamic together) and
+    device time.  CUPTI can miss the first launches of a session, so
+    callers read the last call's."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
+        for _ in range(calls):
+            out = fn()
         torch.cuda.synchronize()
     path = ROOT / "build" / "launch_trace.json"
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
     launches = [e for e in json.loads(path.read_text())["traceEvents"]
                 if e.get("cat") == "kernel" and kernel in e.get("name", "")]
-    assert len(launches) == 1, (kernel, [e.get("name") for e in launches])
-    args = launches[0].get("args", {})
-    return out, {"kernel": launches[0]["name"], **{
-        k: args.get(k) for k in ("grid", "block", "registers per thread", "shared memory")}}
+    return out, [{"kernel": e["name"], "ms": e.get("dur", 0) / 1e3, **{
+        k: e.get("args", {}).get(k)
+        for k in ("grid", "block", "registers per thread", "shared memory")}}
+        for e in launches]
+
+
+def launch_record(fn, kernel: str):
+    """The launch of a kernel whose name holds ``kernel`` in the last of
+    two profiled calls of ``fn`` (``launch_records``); each call makes one."""
+    out, launches = launch_records(fn, kernel)
+    assert 1 <= len(launches) <= 2, (kernel, [e["kernel"] for e in launches])
+    launches[-1].pop("ms")
+    return out, launches[-1]
 
 
 def check_attention_kernels(api, bw) -> dict:
-    """Phase 2 for flash_attention (CUDA C++) and rms_norm (Triton):
+    """Phase 2 for flash_attention and rms_norm (both CUDA C++):
     agreement with the plain versions on the card, and timing at the
     serving path's shapes."""
     import torch.nn.functional as F
@@ -560,6 +616,47 @@ def check_attention_kernels(api, bw) -> dict:
         else:
             torch.testing.assert_close(got, want, rtol=ATT_RTOL, atol=ATT_ATOL)
         return float((got.float() - want.float()).abs().max())
+
+    # rms_norm first (on inputs of its own): timed right after the flash
+    # cases' heavy runs, its first turn read slower than the rest
+    norm = {"name": "rms_norm", "route": "cuda", "source": "src/repro_torch/csrc/rms_norm.cu",
+            "replaces": "src/repro/kernels/rms_norm/kernel.py:29", "bound_by": "bytes"}
+    norm_gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((1001, 2304), generator=norm_gen, device="cuda")
+    w = torch.randn((2304,), generator=norm_gen, device="cuda")
+    got = api.call("rms_norm", x, w, eps=1e-6, plus_one=False)
+    with api.dispatch_mode("ref"):
+        want = api.call("rms_norm", x, w, eps=1e-6, plus_one=False)
+    norm["max_abs_err"] = held(got, want, "rms_norm fp32")
+    rows, d = 16384, 2304
+    x = torch.randn((rows, d), generator=norm_gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((d,), generator=norm_gen, device="cuda") * 0.1).to(torch.bfloat16)
+    got = api.call("rms_norm", x, w, eps=1e-6, plus_one=True)
+    with api.dispatch_mode("ref"):
+        want = api.call("rms_norm", x, w, eps=1e-6, plus_one=True)
+    norm["bf16_max_abs_err"] = held(got, want, "rms_norm bf16")
+    w1 = w + 1
+    def plain_norm():
+        with api.dispatch_mode("ref"):
+            return api.call("rms_norm", x, w, eps=1e-6, plus_one=True)
+
+    # the kernel (0.06 ms) can be shorter than its dispatch from Python, so
+    # it and F.rms_norm are timed as graph replays of one call each
+    samples = abba_samples(graphed(lambda: api.call("rms_norm", x, w, eps=1e-6, plus_one=True)),
+                           plain_norm, graphed(lambda: F.rms_norm(x, (d,), w1, 1e-6)))
+    times = [statistics.median(t) for t in samples]
+    n_bytes = 2 * x.numel() * 2 + d * 2
+    ops_ms = 4 * x.numel() / FP32_PEAK_FLOPS * 1e3
+    norm.update(ms=times[0], plain_ms=times[1], library_ms=times[2],
+                bound_ms=max(n_bytes / bw * 1e3, ops_ms), ms_p10_p90=spread(samples[0]),
+                library_ms_p10_p90=spread(samples[2]))
+    print(f"kernel rms_norm {rows}x{d} bf16: max_abs_err={norm['max_abs_err']:.3g} "
+          f"bf16_max_abs_err={norm['bf16_max_abs_err']:.3g} ms={norm['ms']:.4f} "
+          f"(p10-p90 {norm['ms_p10_p90']}) bound_ms={norm['bound_ms']:.4f} "
+          f"plain_ms={norm['plain_ms']:.4f} library_ms={norm['library_ms']:.4f} "
+          f"(F.rms_norm, p10-p90 {norm['library_ms_p10_p90']})")
+    del x, w, w1, got, want
+    torch.cuda.empty_cache()
 
     # untimed: fp32 at S=1024 and ragged lengths, Gemma-2's and Yi's heads
     fp32_err, bf16_err = 0.0, 0.0
@@ -620,39 +717,6 @@ def check_attention_kernels(api, bw) -> dict:
     flash.update({k: main_case[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
     flash.update(max_abs_err=fp32_err, bf16_max_abs_err=bf16_err)
 
-    norm = {"name": "rms_norm", "route": "triton",
-            "source": "src/repro_torch/kernels/rms_norm/kernel.py",
-            "replaces": "src/repro/kernels/rms_norm/kernel.py:29", "bound_by": "bytes"}
-    x = torch.randn((1001, 2304), generator=gen, device="cuda")
-    w = torch.randn((2304,), generator=gen, device="cuda")
-    got = api.call("rms_norm", x, w, eps=1e-6, plus_one=False)
-    with api.dispatch_mode("ref"):
-        want = api.call("rms_norm", x, w, eps=1e-6, plus_one=False)
-    norm["max_abs_err"] = held(got, want, "rms_norm fp32")
-    rows, d = 16384, 2304
-    x = torch.randn((rows, d), generator=gen, device="cuda").to(torch.bfloat16)
-    w = (torch.randn((d,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
-    got = api.call("rms_norm", x, w, eps=1e-6, plus_one=True)
-    with api.dispatch_mode("ref"):
-        want = api.call("rms_norm", x, w, eps=1e-6, plus_one=True)
-    norm["bf16_max_abs_err"] = held(got, want, "rms_norm bf16")
-    w1 = w + 1
-    def plain_norm():
-        with api.dispatch_mode("ref"):
-            return api.call("rms_norm", x, w, eps=1e-6, plus_one=True)
-
-    times = abba_ms(lambda: api.call("rms_norm", x, w, eps=1e-6, plus_one=True),
-                    plain_norm, lambda: F.rms_norm(x, (d,), w1, 1e-6))
-    n_bytes = 2 * x.numel() * 2 + d * 2
-    ops_ms = 4 * x.numel() / FP32_PEAK_FLOPS * 1e3
-    norm.update(ms=times[0], plain_ms=times[1], library_ms=times[2],
-                bound_ms=max(n_bytes / bw * 1e3, ops_ms))
-    print(f"kernel rms_norm {rows}x{d} bf16: max_abs_err={norm['max_abs_err']:.3g} "
-          f"bf16_max_abs_err={norm['bf16_max_abs_err']:.3g} ms={norm['ms']:.4f} "
-          f"bound_ms={norm['bound_ms']:.4f} plain_ms={norm['plain_ms']:.4f} "
-          f"library_ms={norm['library_ms']:.4f}")
-    del x, w, w1, got, want
-    torch.cuda.empty_cache()
     return {"flash_attention": flash, "rms_norm": norm}
 
 
@@ -679,10 +743,12 @@ def run_prefill(api, runs, mode, p, batch, fn, expect):
     return logits, caches, dt, torch.cuda.max_memory_allocated()
 
 
-def trace_prefill(api, fn, params, batch, layers) -> None:
-    """One prefill call through the kernels under ``torch.profiler``: device
-    time by kernel name (top 10), the attention, GEMM and other shares of
-    it, and the device's idle share of the call's span (CUDA events)."""
+def trace_prefill(api, fn, params, batch, expect, label, focus) -> None:
+    """One prefill call through the kernels under ``torch.profiler``, which
+    must launch exactly ``expect``: device time by kernel name (top 10), the
+    shares of the kernels named ``focus`` (a label and a name substring),
+    of the GEMMs and of the rest, and the device's idle share of the call's
+    span (CUDA events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -696,7 +762,7 @@ def trace_prefill(api, fn, params, batch, layers) -> None:
         end.record()
         torch.cuda.synchronize()
     del out
-    assert api.launch_counts() == {"flash_attention": layers}, api.launch_counts()
+    assert api.launch_counts() == expect, api.launch_counts()
     span_ms = start.elapsed_time(end)
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
@@ -704,14 +770,14 @@ def trace_prefill(api, fn, params, batch, layers) -> None:
                   key=lambda r: -r[1])
     assert rows, "torch.profiler recorded no device time"
     busy = sum(ms for _, ms, _ in rows)
-    attn = sum(ms for k, ms, _ in rows if ATTENTION_KERNEL in k)
+    name, pattern = focus
+    hot = sum(ms for k, ms, _ in rows if pattern in k)
     gemm = sum(ms for k, ms, _ in rows if any(g in k.lower() for g in GEMM_KERNELS))
-    print(f"trace prefill bf16 {LM_BATCH}x{LM_SEQ}: device busy {busy:.3f} ms of a "
-          f"{span_ms:.3f} ms span (idle share {1 - busy / span_ms:.4f}); attention "
-          f"{attn:.3f} ms ({attn / busy:.4f}), GEMMs {gemm:.3f} ms ({gemm / busy:.4f}), "
-          f"rest {busy - attn - gemm:.3f} ms ({(busy - attn - gemm) / busy:.4f}); "
-          f"{len(rows)} kernel names")
-    print("trace prefill top 10 by device ms: " + json.dumps(
+    print(f"trace {label}: device busy {busy:.3f} ms of a {span_ms:.3f} ms span (idle share "
+          f"{1 - busy / span_ms:.4f}); {name} {hot:.3f} ms ({hot / busy:.4f}), GEMMs "
+          f"{gemm:.3f} ms ({gemm / busy:.4f}), rest {busy - hot - gemm:.3f} ms "
+          f"({(busy - hot - gemm) / busy:.4f}); {len(rows)} kernel names")
+    print(f"trace {label} top 10 by device ms: " + json.dumps(
         [{"kernel": k[:120], "ms": round(ms, 4), "calls": n} for k, ms, n in rows[:10]]))
 
 
@@ -761,7 +827,8 @@ def serving_path(api) -> list:
           "of bf16 rounding on random weights; the kernel is held at the op level)")
     print("serve prefill tokens/s: " + json.dumps(rates))
     del logits
-    trace_prefill(api, job.prefill_fn, params, batch, cfg.n_layers)
+    trace_prefill(api, job.prefill_fn, params, batch, {"flash_attention": cfg.n_layers},
+                  f"prefill bf16 {LM_BATCH}x{LM_SEQ}", ("attention", ATTENTION_KERNEL))
     del params
     torch.cuda.empty_cache()
 
@@ -882,13 +949,17 @@ def once_ms(fn, n: int = 3) -> float:
 def check_wkv_kernel(api, bw) -> dict:
     """Phase 2 for wkv_chunk (CUDA C++): at RWKV-6 3B's layer shape, against
     the plain chunked form under the model's own decays (the clamp bites)
-    and against the per-token recurrence inside the clamp envelope; timing
-    beside the bound and both plain versions."""
-    from repro_torch.kernels.wkv_chunk.ref import wkv_chunked_ref, wkv_ref
+    and against the per-token recurrence inside the clamp envelope; the
+    grouped carry's PyTorch mirror against the plain chunked form; each of
+    the kernel's three passes as CUPTI records it; timing beside the bound
+    and both plain versions."""
+    from repro_torch.kernels.wkv_chunk.kernel import group_size
+    from repro_torch.kernels.wkv_chunk.ref import wkv_chunked_ref, wkv_grouped_ref
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     row = {"name": "wkv_chunk", "route": "cuda", "source": "src/repro_torch/csrc/wkv_chunk.cu",
-           "replaces": "src/repro/kernels/wkv_chunk/kernel.py:80", "library_ms": None}
+           "replaces": "src/repro/kernels/wkv_chunk/kernel.py:80", "library_ms": None,
+           "group": group_size(WKV_CHUNK)}
     r, k, v, logw = rwkv_layer_inputs(gen)
     b, s, h, p = r.shape
     share = clamped_share(logw)
@@ -924,6 +995,13 @@ def check_wkv_kernel(api, bw) -> dict:
             errs["vs_exact_clamped"] = float((y - y_exact).abs().max())
             errs["y_max_abs"] = float(y_want.abs().max())
             del y_exact
+            # the grouped carry in PyTorch, at the kernel's group size
+            y_g, st_g = wkv_grouped_ref(*x, WKV_CHUNK, row["group"])
+            torch.testing.assert_close(y_g, y_want, rtol=WKV_TOL, atol=WKV_TOL)
+            torch.testing.assert_close(st_g, st_want, rtol=WKV_TOL, atol=WKV_TOL)
+            errs["grouped_ref_y"] = float((y_g - y_want).abs().max())
+            errs["grouped_ref_state"] = float((st_g - st_want).abs().max())
+            del y_g, st_g
         del y, st, y_want, st_want
     # inside the clamp envelope the kernel is the exact recurrence too
     weak = logw * WKV_ENVELOPE_SCALE
@@ -936,6 +1014,19 @@ def check_wkv_kernel(api, bw) -> dict:
     del y, st, y_want, st_want, weak
     torch.cuda.empty_cache()
 
+    # the three passes of a call, then each one's median device time
+    _, launches = launch_records(kernel, "wkv_pass")
+    order = [next((n for n in WKV_PASSES if n in e["kernel"]), None) for e in launches[-3:]]
+    assert order == list(WKV_PASSES), [e["kernel"] for e in launches]
+    for e in launches[-3:]:
+        e.pop("ms")
+        print("launch wkv_chunk: " + json.dumps(e))
+    _, launches = launch_records(kernel, "wkv_pass", calls=WKV_PASS_CALLS)
+    row["pass_ms"] = {}
+    for name in WKV_PASSES:
+        ms = [e["ms"] for e in launches if name in e["kernel"]]
+        assert len(ms) >= WKV_PASS_CALLS - 2, (name, len(ms))
+        row["pass_ms"][name] = statistics.median(ms)
     row["ms"], row["plain_chunked_ms"] = abba_ms(kernel, plain_chunked)
     row["plain_ms"] = once_ms(per_token)
     n_bytes = (3 * r.numel() * r.element_size() + logw.numel() * 4
@@ -951,7 +1042,9 @@ def check_wkv_kernel(api, bw) -> dict:
           + f"; ms={row['ms']:.4f} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}: "
           f"{n_bytes / 1e6:.1f} MB, {bytes_ms:.4f} ms; {flops / 1e9:.3f} GFLOP fp32, "
           f"{ops_ms:.4f} ms) plain_chunked_ms={row['plain_chunked_ms']:.4f} "
-          f"plain_ms={row['plain_ms']:.4f} (per-token) library_ms=None")
+          f"plain_ms={row['plain_ms']:.4f} (per-token) library_ms=None; group of "
+          f"{row['group']} chunks; by pass (CUPTI, median of {WKV_PASS_CALLS} calls) "
+          + json.dumps({k_: round(v_, 4) for k_, v_ in row["pass_ms"].items()}))
     del r, k, v, logw
     torch.cuda.empty_cache()
     return row
@@ -1021,6 +1114,8 @@ def rwkv_serving_path(api) -> list:
           "on random weights; the kernel is held at the op level)")
     print(f"serve {cfg.name} prefill tokens/s: " + json.dumps(rates))
     del caches, kernel_wkv, twin_wkv, logits, kernel_logits
+    trace_prefill(api, job.prefill_fn, params, batch, {"wkv_chunk": cfg.n_layers},
+                  f"{cfg.name} prefill bf16 {RWKV_BATCH}x{RWKV_SEQ}", ("wkv", WKV_KERNEL))
 
     # the decays the model makes: clamped (chunk, channel) pairs by layer
     shares = {}
@@ -1161,9 +1256,9 @@ def main() -> int:
           f"HBM bound at {bw / 1e12} TB/s; host CPU path "
           f"{torch.backends.cpu.get_cpu_capability()} x{torch.get_num_threads()}")
     t0 = time.perf_counter()
-    sources = ("top_k", "flash_attention", "wkv_chunk")
+    sources = ("top_k", "flash_attention", "wkv_chunk", "rms_norm")
     _cuda.build(sources)   # one nvcc per source, together
-    print(f"nvcc built top_k.cu, flash_attention.cu and wkv_chunk.cu in "
+    print(f"nvcc built {', '.join(f'{name}.cu' for name in sources)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name in sources:
         for fn, regs, spill, smem in ptxas_summary(_cuda.build_log(name)):
@@ -1335,7 +1430,8 @@ def main() -> int:
     # ---------------------------------------------------------------- 6
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "bf16_max_abs_err",
-            "flips", "mlp_ms", "mlp_plain_ms", "plain_chunked_ms", "on_path", "cases")
+            "flips", "mlp_ms", "mlp_plain_ms", "plain_chunked_ms", "group", "pass_ms",
+            "ms_p10_p90", "library_ms_p10_p90", "on_path", "cases")
     kernels = []
     for name, row in results.items():
         row["launches"] = sum(r["launches"].get(name, 0) for r in kernel_runs)

@@ -9,7 +9,7 @@ ops: mvr_update, axpby, add_sub, dse_combine, dse_combine_yh (the update
 arithmetic, Triton), qsgd_quantize, qsgd_dequantize (the QSGD codec,
 Triton), top_k_pack, top_k_unpack (the top-k and rand-k codecs' packed
 payload, CUDA C++), flash_attention (the LM prefill's attention, CUDA C++),
-rms_norm (Triton; registered, called by no model, as in the reference) and
+rms_norm (CUDA C++; registered, called by no model, as in the reference) and
 wkv_chunk (RWKV-6's chunked time-mix recurrence in prefill, CUDA C++).
 """
 from . import api

@@ -1,48 +1,30 @@
-"""Triton kernel for the fused RMSNorm.
+"""The fused RMSNorm's launcher: a ``ctypes`` wrapper of the CUDA C++ kernel
+``repro_torch/csrc/rms_norm.cu``, whose header says what it replaces
+(``repro/kernels/rms_norm/kernel.py::rms_norm_fwd``), what bounds it on the
+H100 and how it is built.
 
-Replaces the TPU kernel ``repro/kernels/rms_norm/kernel.py::rms_norm_fwd``
-(its body ``_rms_kernel``):
-
-    y = x * rsqrt(mean(x^2) + eps) * (w or w + 1)     per row, fp32 reduction
-
-Bound on the H100: HBM bytes.  One read of x and one write of y (plus the
-d weights once), against 4 operations per element: at Gemma-2's rows of
-d_model = 2304 in bf16, 16,384 rows move 151 MB, 0.045 ms at 3.35 TB/s.
-Design: one program per row; the whole row (d rounded up to a power of two
-and masked, not padded) is one block held in registers, so x is read once,
-squared and summed in fp32, scaled and stored in x's dtype.  The TPU
-kernel's 256-row tiles and ``ops.py``'s row padding have no counterpart:
-every row is its own program, so any row count works.  The reduction order
-is Triton's tree, not the plain version's, and rsqrt is the hardware's
-approximation (relative error about 2^-23), so fp32 outputs differ from the
-plain version by an ulp or two.
+The wrapper checks shapes, dtypes, device and contiguity, allocates y with
+``torch.empty_like``, launches on the current stream and raises on a launch
+error.  The kernel picks its path itself: a warp per row with the row in
+registers, or a scalar warp-per-row loop for a width that is not a multiple
+of its 16-byte vector, a view that does not start on a 16-byte boundary,
+or a row too wide for its registers.  The library is compiled by ``nvcc``
+on the first launch (``kernels/_cuda.py``).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from .. import _triton
+from .. import _cuda
 
 __all__ = ["launch_rms_norm"]
 
-tl = None   # triton.language, bound by _triton.jit on the first launch
-_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-
-
-def _rms_norm_kernel(x_ptr, w_ptr, out_ptr, d, eps,
-                     PLUS_ONE: tl.constexpr, BLOCK: tl.constexpr, INT64: tl.constexpr):
-    row = tl.program_id(0)
-    if INT64:
-        row = row.to(tl.int64)
-    cols = tl.arange(0, BLOCK)
-    mask = cols < d
-    x = tl.load(x_ptr + row * d + cols, mask=mask, other=0.0).to(tl.float32)
-    var = tl.sum(x * x, axis=0) / d
-    w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-    if PLUS_ONE:
-        w = w + 1.0
-    y = x * tl.rsqrt(var + eps) * w
-    tl.store(out_ptr + row * d + cols, y.to(out_ptr.dtype.element_ty), mask=mask)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_P, _INT = ctypes.c_void_p, ctypes.c_int
+_FUNCTIONS = {"rms_norm_fwd": (_P, _P, _P, ctypes.c_longlong, _INT, _INT, _INT, _INT,
+                               ctypes.c_float, _P)}
 
 
 def launch_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
@@ -64,10 +46,9 @@ def launch_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    block = 1 << max(4, (d - 1).bit_length())
-    _triton.jit(_rms_norm_kernel)[(rows,)](
-        x, weight, out, d, float(eps),
-        PLUS_ONE=bool(plus_one), BLOCK=block, INT64=_triton.needs_int64(rows * d, block),
-        num_warps=max(1, min(16, block // 256)),
-    )
+    lib = _cuda.library("rms_norm", _FUNCTIONS)
+    err = lib.rms_norm_fwd(x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, d,
+                           _DTYPES[x.dtype], _DTYPES[weight.dtype], int(bool(plus_one)),
+                           float(eps), _cuda.stream_of(x))
+    _cuda.check("rms_norm", "rms_norm", err)
     return out

@@ -12,8 +12,9 @@ within one bf16 ulp beyond that; the QSGD ops exactly (integer levels, and
 the quantize is built without FMA contraction); the top-k pack and unpack
 exactly (a gather copies bits; with distinct indices each unpacked slot is
 one add into zero); flash attention and rms_norm in fp32 within rtol 1e-5 /
-atol 1e-5 (other summation orders, the hardware's rsqrt) and in bf16 within
-one bf16 ulp beyond that (both compute in fp32 and round once); wkv_chunk
+atol 1e-5 (other summation orders, the hardware's rsqrt) and in bf16 (and
+rms_norm in fp16) within one ulp of that type beyond that (both compute in
+fp32 and round once); wkv_chunk
 within rtol / atol 1e-5 of the plain chunked form under any decay (the same
 fp32 arithmetic in other orders) and within rtol 2e-4 / atol 2e-5 of the
 per-token recurrence inside the clamp envelope (the reference's own
@@ -77,9 +78,11 @@ OPS = {
 }
 
 
-def _bf16_ulp(x):
+def _ulp(x, bits=8):
+    """One ulp of x in a float type of ``bits`` significand bits (bf16 8,
+    fp16 11)."""
     _, e = torch.frexp(x.abs())
-    return torch.ldexp(torch.ones_like(x), e - 8)
+    return torch.ldexp(torch.ones_like(x), e - bits)
 
 
 @pytest.mark.parametrize("name", sorted(OPS))
@@ -105,7 +108,7 @@ def test_kernel_matches_plain(name, cuda_device):
             elif dtype == torch.bfloat16:
                 g, w = g.float(), w.float()
                 excess = ((g - w).abs() - 1e-6).clamp(min=0)
-                assert bool(torch.all(excess <= _bf16_ulp(torch.maximum(g.abs(), w.abs()))))
+                assert bool(torch.all(excess <= _ulp(torch.maximum(g.abs(), w.abs()))))
             else:
                 torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
 
@@ -290,12 +293,14 @@ def _flash_case(case, dtype, device, seed=7):
 
 
 def _assert_kernel_close(got, want, rtol=1e-5, atol=1e-5):
-    """fp32 within rtol / atol; bf16 within one bf16 ulp beyond that."""
+    """fp32 within rtol / atol; bf16 and fp16 within one ulp of their own
+    beyond that."""
     assert got.dtype == want.dtype and got.shape == want.shape
     g, w = got.float(), want.float()
     excess = ((g - w).abs() - atol - rtol * w.abs()).clamp(min=0)
-    if got.dtype == torch.bfloat16:
-        assert bool(torch.all(excess <= _bf16_ulp(torch.maximum(g.abs(), w.abs()))))
+    bits = {torch.bfloat16: 8, torch.float16: 11}.get(got.dtype)
+    if bits is not None:
+        assert bool(torch.all(excess <= _ulp(torch.maximum(g.abs(), w.abs()), bits)))
     else:
         assert float(excess.max()) == 0.0, float((g - w).abs().max())
 
@@ -345,9 +350,17 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda_device):
         api.call("flash_attention", q, k.cpu(), k)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# the vector path (a warp per row, the row in registers) at Gemma-2's 2304,
+# 4096 and 8192 (the register cap in 16-bit types; in fp32 past it), with
+# masked lanes at d 64 and enough rows that every warp walks several; the
+# scalar path at an odd d, at d 100 in 16-bit types and past the cap
+RMS_SHAPES = [(7, 2304), (2, 3, 5, 512), (1, 1000), (33, 100), (5, 4096), (3, 8192),
+              (9001, 64), (4, 2301), (2, 16384)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("plus_one", [False, True])
-@pytest.mark.parametrize("shape", [(7, 2304), (2, 3, 5, 512), (1, 1000), (33, 100)])
+@pytest.mark.parametrize("shape", RMS_SHAPES)
 def test_rms_norm_matches_plain(shape, plus_one, dtype, cuda_device):
     gen = torch.Generator().manual_seed(9)
     x = torch.randn(shape, generator=gen).to(dtype).to(cuda_device)
@@ -361,13 +374,31 @@ def test_rms_norm_matches_plain(shape, plus_one, dtype, cuda_device):
     _assert_kernel_close(got, want)
 
 
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_rms_norm_offset_view(dtype, w_dtype, cuda_device):
+    """A contiguous view that starts one element into its buffer (not on a
+    16-byte boundary: the scalar path) and one that starts a row in (the
+    vector path) give the plain version's rows."""
+    gen = torch.Generator().manual_seed(10)
+    rows, d = 6, 2304
+    buf = torch.randn((rows + 1) * d + 1, generator=gen).to(dtype).to(cuda_device)
+    w = (torch.randn(d, generator=gen) * 0.1).to(w_dtype).to(cuda_device)
+    for x in (buf[1:rows * d + 1].view(rows, d), buf[d:].narrow(0, 0, rows * d).view(rows, d)):
+        assert x.is_contiguous()
+        got = api.call("rms_norm", x, w, eps=1e-6, plus_one=True)
+        with api.dispatch_mode("ref"):
+            want = api.call("rms_norm", x, w, eps=1e-6, plus_one=True)
+        _assert_kernel_close(got, want)
+
+
 def test_both_cuda_sources_build_side_by_side(cuda_device):
-    """The CUDA sources (top_k.cu, flash_attention.cu and wkv_chunk.cu)
-    build together into build/cuda, each with its ptxas report; no kernel
-    spills registers to local memory."""
+    """The CUDA sources (top_k.cu, flash_attention.cu, wkv_chunk.cu and
+    rms_norm.cu) build together into build/cuda, each with its ptxas
+    report; no kernel spills registers to local memory."""
     from repro_torch.kernels import _cuda
 
-    paths = _cuda.build(["top_k", "flash_attention", "wkv_chunk"])
+    paths = _cuda.build(["top_k", "flash_attention", "wkv_chunk", "rms_norm"])
     assert len({path.parent for path in paths.values()}) == 1
     for name in paths:
         spills = [line for line in _cuda.build_log(name).splitlines() if "spill stores" in line]
@@ -412,7 +443,7 @@ WKV_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
 
 
 @pytest.mark.parametrize("dtypes", WKV_DTYPES, ids=["fp32", "bf16", "bf16_fp32_logw"])
-@pytest.mark.parametrize("p,chunk", [(16, 8), (32, 16), (64, 16), (64, 32), (32, 8)])
+@pytest.mark.parametrize("p,chunk", [(16, 8), (32, 16), (64, 16), (64, 32), (32, 8), (64, 64)])
 def test_wkv_chunk_matches_plain_chunked_form(p, chunk, dtypes, cuda_device):
     """Under strong decay (the clamp bites at chunk 16 and 32) and weak."""
     from repro_torch.kernels.wkv_chunk.ref import wkv_chunked_ref
@@ -427,6 +458,43 @@ def test_wkv_chunk_matches_plain_chunked_form(p, chunk, dtypes, cuda_device):
         y_want, s_want = wkv_chunked_ref(*x, chunk)
         torch.testing.assert_close(y, y_want, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(state, s_want, rtol=1e-5, atol=1e-5)
+
+
+# (P, chunk, chunks): groups of group_size(chunk) chunks with a ragged last
+# group (37), many groups (300), fewer chunks than a group, odd chunk lengths
+WKV_GROUP_CASES = [(64, 16, 37), (64, 16, 300), (32, 8, 300), (16, 32, 37), (64, 64, 37),
+                   (64, 16, 5), (32, 5, 60), (64, 13, 11)]
+
+
+@pytest.mark.parametrize("dtypes", WKV_DTYPES[1:], ids=["bf16", "bf16_fp32_logw"])
+@pytest.mark.parametrize("p,chunk,n_chunks", WKV_GROUP_CASES)
+def test_wkv_chunk_matches_plain_chunked_form_over_groups(p, chunk, n_chunks, dtypes,
+                                                          cuda_device):
+    """Long sequences cut into many groups, ragged last groups, under weak
+    and strong decay, against the plain chunked form and the grouped
+    carry's PyTorch mirror."""
+    from repro_torch.kernels.wkv_chunk.kernel import group_size
+    from repro_torch.kernels.wkv_chunk.ref import wkv_chunked_ref, wkv_grouped_ref
+
+    for decay in (0.3, 3.0):
+        x = _wkv_case(2, n_chunks * chunk, 3, p, *dtypes, decay, cuda_device, seed=13)
+        y, state = api.call("wkv_chunk", *x, chunk=chunk)
+        for want in (wkv_chunked_ref(*x, chunk), wkv_grouped_ref(*x, chunk, group_size(chunk))):
+            torch.testing.assert_close(y, want[0], rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(state, want[1], rtol=1e-5, atol=1e-5)
+
+
+def test_wkv_chunk_takes_views_at_any_offset(cuda_device):
+    """Inputs that do not start on a 16-byte boundary give the same answer
+    as aligned copies of them."""
+    r, k, v, w = _wkv_case(1, 64, 2, 64, torch.float32, torch.float32, 1.0, cuda_device)
+    buf = torch.empty(r.numel() + 1, device=cuda_device)
+    buf[1:] = k.reshape(-1)
+    shifted = buf[1:].view(k.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    for got, want in zip(api.call("wkv_chunk", r, shifted, v, w, chunk=16),
+                         api.call("wkv_chunk", r, k, v, w, chunk=16)):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtypes", WKV_DTYPES, ids=["fp32", "bf16", "bf16_fp32_logw"])
