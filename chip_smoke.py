@@ -17,9 +17,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    kernels (top_k_pack, top_k_unpack), compiled by nvcc from
    src/repro_torch/csrc/ on first launch, are held bit for bit against
    their plain versions on the MLP's four leaves at ratio 0.1 and on
-   N=8, d=2**24+3, k=ceil(0.1 d), in fp32 and bf16, with indices in
-   magnitude order as the codec makes them, and timed there beside their
-   bounds and the torch.gather / torch.zeros + scatter_add_ yardsticks;
+   N=8, d=2**24+3, k=ceil(0.1 d), in fp32 and bf16 (the pack in fp16
+   too), with indices in magnitude order as the codec makes them, and
+   timed there in fp32 and bf16 beside their bounds and the torch.gather /
+   zero_ + scatter_add_ yardsticks, with each stage's device time (count,
+   scan, place, tile; the pack's one kernel) and the pack's windowed
+   passes against one pass; then repeated indices against the unpack's
+   fp32-accumulate mirror, subnormal values, every index in one tile or
+   window (timed once), k = d, a ragged last tile, out-of-range indices and
+   a row of 4,097 tiles;
    flash_attention (CUDA C++, src/repro_torch/csrc/flash_attention.cu:
    in bf16 at D=128 and 256 a warp-specialised TMA + wgmma kernel) is held
    against its plain version on Gemma-2 2B's global and local layer shapes
@@ -444,9 +450,121 @@ def check_elementwise(api, bw) -> dict:
     return results
 
 
+def check_top_k_cases(api) -> dict:
+    """The cases the tile-owning unpack and the windowed pack make risky,
+    each held to the right result: repeated indices to the fp32-accumulate
+    mirror (values whose fp32 sums are exact in any order, so bit for bit),
+    subnormal values (the unpack to the plain version on the CPU: on the
+    card the plain scatter_add_ adds by fp32 atomics that flush), every
+    index in one unpack tile or one pack window (timed once), k = d, a
+    ragged last tile, indices outside [0, d), and rows of more than 4,096
+    tiles."""
+    from repro_torch.kernels.comm_compress.kernel import UNPACK_TILE, pack_window
+    from repro_torch.kernels.comm_compress.ref import top_k_unpack_tiled_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+
+    def pack(x, i, mode="kernel"):
+        with api.dispatch_mode(mode):
+            return api.call("top_k_pack", x, i)
+
+    def unpack(i, v, d, mode="kernel"):
+        with api.dispatch_mode(mode):
+            return api.call("top_k_unpack", i, v, d=d)
+
+    def perm_rows(n, d, k, lo=0):
+        return torch.stack([torch.randperm(d, generator=gen, device="cuda")[:k] + lo
+                            for _ in range(n)]).to(torch.int32)
+
+    for d, k in ((12544, 5000), (1_000_003, 100_000)):   # one tile; 62 tiles
+        i = torch.randint(0, d, (8, k), generator=gen, device="cuda", dtype=torch.int32)
+        i[:, : k // 4] = i[:, :1]
+        for dtype in (torch.float32, torch.bfloat16):
+            v = (torch.randint(-63, 64, (8, k), generator=gen, device="cuda").float() / 64
+                 ).to(dtype)
+            got, want = unpack(i, v, d), top_k_unpack_tiled_ref(i, v, d, UNPACK_TILE)
+            assert same_bits(got, want), f"top_k_unpack repeated d={d} {dtype}"
+    out["repeated"] = "bit-equal to top_k_unpack_tiled_ref (fp32 sums), d 12544 and 1000003"
+
+    flushed = {}
+    for d in (12544, 1_000_003):
+        for dtype in (torch.float32, torch.bfloat16):
+            tiny = torch.finfo(dtype).tiny
+            x = ((torch.rand((8, d), generator=gen, device="cuda") * 2 - 1) * tiny).to(dtype)
+            i = perm_rows(8, d, d // 10)
+            v = pack(x, i)
+            assert same_bits(v, pack(x, i, "ref")), f"top_k_pack subnormal d={d} {dtype}"
+            got = unpack(i, v, d)
+            assert same_bits(got.cpu(), unpack(i.cpu(), v.cpu(), d)), \
+                f"top_k_unpack subnormal d={d} {dtype}"
+            assert bool(((got != 0) & (got.abs() < tiny)).any())
+            card_plain = unpack(i, v, d, "ref")
+            flushed[f"{d}_{str(dtype)[6:]}"] = int(((card_plain == 0) & (got != 0)).sum())
+    out["subnormal_flushed_by_card_plain"] = flushed
+    print("top_k subnormals: kernels bit-equal to the plain versions on the CPU; the card's "
+          "plain scatter_add_ flushed " + json.dumps(flushed) + " of the kept subnormals")
+
+    n, d = 8, TOP_K_BIG_D
+    k = math.ceil(TOP_K_RATIO * d)
+    # skew: every unpack entry of a row in tile 500 of 1,025, every pack
+    # index in the second of its two windows
+    i = perm_rows(n, UNPACK_TILE, UNPACK_TILE, 500 * UNPACK_TILE)
+    v = torch.randn((n, UNPACK_TILE), generator=gen, device="cuda")
+    assert same_bits(unpack(i, v, d), unpack(i, v, d, "ref")), "top_k_unpack skew"
+    out["unpack_skew_ms"] = once_ms(lambda: unpack(i, v, d))
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    window = pack_window(d, 4)
+    i = perm_rows(n, d - window, k, window)
+    assert same_bits(pack(x, i), pack(x, i, "ref")), "top_k_pack skew"
+    out["pack_skew_ms"] = once_ms(lambda: pack(x, i))
+    del x, i, v
+    torch.cuda.empty_cache()
+
+    # k = d over two tiles, a ragged last tile, indices outside [0, d)
+    for d, k in ((20000, 20000), (5 * UNPACK_TILE + 9, 8200), (100_003, 10_000)):
+        x = torch.randn((8, d), generator=gen, device="cuda")
+        i = perm_rows(8, d, k)
+        if d == 100_003:
+            stray = torch.zeros((8, k), dtype=torch.bool, device="cuda")
+            stray[:, ::4] = True
+            bad = torch.tensor([-1, d, d + 600, 2**31 - 1, -(2**31)], dtype=torch.int32,
+                               device="cuda").repeat(k)[:k]
+            i_ok = i
+            i = torch.where(stray, bad, i)
+            want = torch.where(stray, 0.0, pack(x, i_ok, "ref"))
+            assert same_bits(pack(x, i), want), "top_k_pack out-of-range"
+            v = torch.randn((8, k), generator=gen, device="cuda")
+            want = unpack(torch.where(stray, 0, i), torch.where(stray, 0.0, v), d, "ref")
+            assert same_bits(unpack(i, v, d), want), "top_k_unpack out-of-range"
+            continue
+        v = pack(x, i)
+        assert same_bits(v, pack(x, i, "ref")), f"top_k_pack d={d} k={k}"
+        assert same_bits(unpack(i, v, d), unpack(i, v, d, "ref")), f"top_k_unpack d={d} k={k}"
+
+    # a row of 4,097 tiles: one global atomic per entry for counts and cursors
+    d = 4097 * UNPACK_TILE + 5
+    i = perm_rows(1, d, 20000)
+    v = torch.randn((1, 20000), generator=gen, device="cuda")
+    assert same_bits(unpack(i, v, d), unpack(i, v, d, "ref")), "top_k_unpack 4097 tiles"
+    del i, v
+    torch.cuda.empty_cache()
+    print("top_k cases: repeated, subnormal, skew, k = d, ragged last tile, out-of-range and "
+          "4,097-tile rows held; skew ms " + json.dumps(
+              {k_: round(out[k_], 4) for k_ in ("unpack_skew_ms", "pack_skew_ms")}))
+    return out
+
+
 def check_top_k(api, bw) -> dict:
     """Phase 2 for the CUDA C++ pair: build, bit-equality against the plain
-    versions on the MLP's leaves and the large shape, and timing."""
+    versions on the MLP's leaves and the large shape (the pack in fp16 too),
+    the cases of ``check_top_k_cases``, and timing: the MLP's leaves and
+    the large shape in fp32 and bf16 beside the plain versions and library
+    calls, each stage's device time, and the pack's windowed passes
+    against one pass over the row."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.comm_compress import kernel as top_k_kernel
+
     gen = torch.Generator(device="cuda").manual_seed(1)
     t0 = time.perf_counter()
     x, idx = top_k_case(2, 5, torch.float32, gen)
@@ -458,7 +576,7 @@ def check_top_k(api, bw) -> dict:
             for name, (src, rep) in TOP_K_OPS.items()}
     mlp_d = {k: math.prod(s[1:]) for k, s in MLP_SHAPES.items()}
     for label, shapes in (("mlp", mlp_d), ("big", {"x": TOP_K_BIG_D})):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             cases = {k: top_k_case(8, d, dtype, gen) for k, d in shapes.items()}
 
             def pack(mode="kernel"):
@@ -467,6 +585,11 @@ def check_top_k(api, bw) -> dict:
 
             vals = pack()
             want = pack("ref")
+            for k in cases:
+                assert same_bits(vals[k], want[k]), f"top_k_pack {label} {dtype} {k} differs"
+            if dtype == torch.float16:   # the unpack takes fp32 and bf16
+                del cases, vals, want
+                continue
 
             def unpack(mode="kernel"):
                 with api.dispatch_mode(mode):
@@ -476,41 +599,89 @@ def check_top_k(api, bw) -> dict:
             dense, dense_want = unpack(), unpack("ref")
             torch.cuda.synchronize()
             for k in cases:
-                assert same_bits(vals[k], want[k]), f"top_k_pack {label} {dtype} {k} differs"
                 assert same_bits(dense[k], dense_want[k]), \
                     f"top_k_unpack {label} {dtype} {k} differs"
-            if dtype != torch.float32:
-                continue
             if label == "mlp":
-                for name, fn in (("top_k_pack", pack), ("top_k_unpack", unpack)):
-                    rows[name]["mlp_ms"], rows[name]["mlp_plain_ms"] = abba_ms(
-                        fn, lambda fn=fn: fn("ref"))
+                if dtype == torch.float32:   # host-bound: keep the spreads
+                    for name, fn in (("top_k_pack", pack), ("top_k_unpack", unpack)):
+                        got, plain = abba_samples(fn, lambda fn=fn: fn("ref"))
+                        rows[name].update(
+                            mlp_ms=statistics.median(got), mlp_plain_ms=statistics.median(plain),
+                            mlp_ms_p10_p90=spread(got), mlp_plain_ms_p10_p90=spread(plain))
+                del cases, vals, want, dense, dense_want
                 continue
             (x, i), v, d = cases["x"], vals["x"], shapes["x"]
+            del dense, dense_want
+            torch.cuda.empty_cache()
             i64 = i.long()
             n, kk = i.shape
-            out = torch.empty((n, d), device="cuda")
-            pack_bytes = n * kk * (4 + 4 + 4)
-            unpack_bytes = n * d * 4 + n * kk * (4 + 4)
-            times = abba_ms(lambda: api.call("top_k_pack", x, i),
-                            lambda: pack("ref"),
-                            lambda: torch.gather(x, 1, i64, out=v))
-            rows["top_k_pack"].update(ms=times[0], plain_ms=times[1], library_ms=times[2],
+            eb = x.element_size()
+            out = torch.empty((n, d), device="cuda", dtype=dtype)
+            pack_bytes = n * kk * (4 + 2 * eb)
+            unpack_bytes = n * d * eb + n * kk * (4 + eb)
+            pack_times = abba_ms(lambda: api.call("top_k_pack", x, i),
+                                 lambda: pack("ref"),
+                                 lambda: torch.gather(x, 1, i64, out=v))
+            unpack_times = abba_ms(lambda: api.call("top_k_unpack", i, v, d=d),
+                                   lambda: unpack("ref"),
+                                   lambda: out.zero_().scatter_add_(1, i64, v))
+            if dtype == torch.bfloat16:
+                rows["top_k_pack"]["bf16"] = dict(zip(("ms", "plain_ms", "library_ms"),
+                                                      pack_times),
+                                                  bound_ms=pack_bytes / bw * 1e3)
+                rows["top_k_unpack"]["bf16"] = dict(zip(("ms", "plain_ms", "library_ms"),
+                                                        unpack_times),
+                                                    bound_ms=unpack_bytes / bw * 1e3)
+                del out, i64, cases, vals, want
+                continue
+            rows["top_k_pack"].update(ms=pack_times[0], plain_ms=pack_times[1],
+                                      library_ms=pack_times[2],
                                       bound_ms=pack_bytes / bw * 1e3, bytes=pack_bytes)
-            times = abba_ms(lambda: api.call("top_k_unpack", i, v, d=d),
-                            lambda: unpack("ref"),
-                            lambda: out.zero_().scatter_add_(1, i64, v))
-            rows["top_k_unpack"].update(ms=times[0], plain_ms=times[1], library_ms=times[2],
+            rows["top_k_unpack"].update(ms=unpack_times[0], plain_ms=unpack_times[1],
+                                        library_ms=unpack_times[2],
                                         bound_ms=unpack_bytes / bw * 1e3, bytes=unpack_bytes)
-            del out, i64
-        del cases, vals, want, dense, dense_want
+            rows["top_k_unpack"]["pass_ms"] = stage_ms(
+                lambda: api.call("top_k_unpack", i, v, d=d),
+                ("count_kernel", "scan_kernel", "place_kernel", "tile_kernel"))
+            rows["top_k_pack"]["pass_ms"] = stage_ms(
+                lambda: api.call("top_k_pack", x, i), ("pack_kernel",))
+            # the windowed passes against one pass over each row, straight
+            # through the library (uncounted)
+            lib = top_k_kernel._top_k_lib()
+            window = top_k_kernel.pack_window(d, eb)
+            one = torch.empty_like(v)
+
+            def pack_with(w, dst):
+                err = lib.top_k_pack(x.data_ptr(), i.data_ptr(), dst.data_ptr(), n, d, kk, eb,
+                                     w, _cuda.stream_of(x))
+                _cuda.check("top_k", "top_k_pack", err)
+
+            pack_with(d, one)
+            assert same_bits(one, want["x"]), "top_k_pack one pass differs"
+            windowed_ms, one_pass_ms = abba_ms(lambda: pack_with(window, v),
+                                               lambda: pack_with(d, one))
+            rows["top_k_pack"].update(windows=-(-d // window), windowed_ms=windowed_ms,
+                                      one_pass_ms=one_pass_ms)
+            del out, i64, one, cases, vals, want
+        torch.cuda.empty_cache()
+    cases = check_top_k_cases(api)
+    rows["top_k_unpack"]["skew_ms"] = cases["unpack_skew_ms"]
+    rows["top_k_pack"]["skew_ms"] = cases["pack_skew_ms"]
     for row in rows.values():
         row["bound_by"] = "bytes"   # no arithmetic: the bytes are the bound
         print(f"kernel {row['name']}: bit-equal to plain (mlp leaves and N=8 d={TOP_K_BIG_D} "
-              f"k={math.ceil(TOP_K_RATIO * TOP_K_BIG_D)}, fp32 and bf16) "
+              f"k={math.ceil(TOP_K_RATIO * TOP_K_BIG_D)}, fp32 and bf16"
+              + (", fp16" if row["name"] == "top_k_pack" else "") + ") "
               f"ms={row['ms']:.4f} bound_ms={row['bound_ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
-              f"mlp_ms={row['mlp_ms']:.4f} mlp_plain_ms={row['mlp_plain_ms']:.4f}")
+              f"mlp_ms={row['mlp_ms']:.4f} (p10-p90 {row['mlp_ms_p10_p90']}) "
+              f"mlp_plain_ms={row['mlp_plain_ms']:.4f} (p10-p90 {row['mlp_plain_ms_p10_p90']}) "
+              f"skew_ms={row['skew_ms']:.4f}; by stage (CUPTI, median of 10 calls) "
+              + json.dumps({k_: round(v_, 4) for k_, v_ in row["pass_ms"].items()})
+              + "; bf16 " + json.dumps({k_: round(v_, 4) for k_, v_ in row["bf16"].items()}))
+    pack_row = rows["top_k_pack"]
+    print(f"top_k_pack fp32, {pack_row['windows']} windows against one pass, same ABBA turn: "
+          f"{pack_row['windowed_ms']:.4f} ms against {pack_row['one_pass_ms']:.4f} ms")
     torch.cuda.empty_cache()
     return rows
 
@@ -579,6 +750,19 @@ def launch_records(fn, kernel: str, calls: int = 2):
         k: e.get("args", {}).get(k)
         for k in ("grid", "block", "registers per thread", "shared memory")}}
         for e in launches]
+
+
+def stage_ms(fn, stages, calls: int = 10) -> dict:
+    """Median device ms of each stage (the kernels whose names hold the
+    stage's name) over ``calls`` profiled calls of ``fn``.  CUPTI can miss
+    the first launches it traces, so two calls may go unrecorded."""
+    _, launches = launch_records(fn, "", calls=calls)
+    out = {}
+    for stage in stages:
+        ms = [e["ms"] for e in launches if stage in e["kernel"]]
+        assert len(ms) >= calls - 2, (stage, [e["kernel"] for e in launches])
+        out[stage] = statistics.median(ms)
+    return out
 
 
 def launch_record(fn, kernel: str):
@@ -1021,12 +1205,7 @@ def check_wkv_kernel(api, bw) -> dict:
     for e in launches[-3:]:
         e.pop("ms")
         print("launch wkv_chunk: " + json.dumps(e))
-    _, launches = launch_records(kernel, "wkv_pass", calls=WKV_PASS_CALLS)
-    row["pass_ms"] = {}
-    for name in WKV_PASSES:
-        ms = [e["ms"] for e in launches if name in e["kernel"]]
-        assert len(ms) >= WKV_PASS_CALLS - 2, (name, len(ms))
-        row["pass_ms"][name] = statistics.median(ms)
+    row["pass_ms"] = stage_ms(kernel, WKV_PASSES, WKV_PASS_CALLS)
     row["ms"], row["plain_chunked_ms"] = abba_ms(kernel, plain_chunked)
     row["plain_ms"] = once_ms(per_token)
     n_bytes = (3 * r.numel() * r.element_size() + logw.numel() * 4
@@ -1431,6 +1610,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "bf16_max_abs_err",
             "flips", "mlp_ms", "mlp_plain_ms", "plain_chunked_ms", "group", "pass_ms",
+            "bf16", "skew_ms", "windows", "windowed_ms", "one_pass_ms", "mlp_ms_p10_p90",
+            "mlp_plain_ms_p10_p90",
             "ms_p10_p90", "library_ms_p10_p90", "on_path", "cases")
     kernels = []
     for name, row in results.items():

@@ -143,9 +143,11 @@ def check(name: str, what: str, err: int) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch: {msg}")
 
 
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    """The current stream of ``t``'s device, as a raw handle."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_of(t: torch.Tensor) -> int:
+    """The current stream of ``t``'s device, as a raw handle (the call
+    Triton's launcher makes: a microsecond less than building a
+    ``torch.cuda.Stream``)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_tensors(name: str, tensors: Tuple[Tuple[str, torch.Tensor, tuple, Optional[tuple]], ...]):

@@ -25,10 +25,14 @@ the levels agree bit for bit.
 
 Top-k pack / unpack (CUDA C++, ``repro_torch/csrc/top_k.cu``, whose header
 says what they replace, their bound and their design): the wrappers here
-check device, dtype, shape and contiguity, allocate the output with
-``torch.empty``, launch on the current stream through ``ctypes`` and raise
-on a launch error.  The library is compiled by ``nvcc`` on the first launch
-(``kernels/_cuda.py``).
+check device, dtype, shape and contiguity, allocate the output (and the
+unpack's sort scratch for rows longer than one tile) with ``torch.empty``,
+launch on the current stream through ``ctypes`` and raise on a launch
+error.  The library is compiled by ``nvcc`` on the first launch
+(``kernels/_cuda.py``).  The wrappers are on the codecs' per-leaf path,
+where a call costs its host time, so the checks that pass take one
+expression and only a failing one walks ``_cuda.check_tensors`` for its
+message.
 """
 from __future__ import annotations
 
@@ -39,7 +43,8 @@ import torch
 from .. import _cuda, _triton
 
 __all__ = ["launch_qsgd_quantize", "launch_qsgd_dequantize",
-           "launch_top_k_pack", "launch_top_k_unpack"]
+           "launch_top_k_pack", "launch_top_k_unpack", "UNPACK_TILE", "UNPACK_TILE_SHIFT",
+           "PACK_SPLIT_BYTES", "pack_window", "unpack_scratch_bytes"]
 
 BLOCK = 1024
 tl = None   # triton.language, bound by _triton.jit on the first launch
@@ -96,15 +101,41 @@ def launch_qsgd_dequantize(scalars, ins, outs) -> None:
 # ------------------------------------------------------- top-k (CUDA C++)
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _TOP_K_FUNCTIONS = {
-    "top_k_pack": (_P, _P, _P, _I64, _I64, _I64, _INT, _P),
-    "top_k_unpack": (_P, _P, _P, _I64, _I64, _I64, _INT, _P),
+    "top_k_pack": (_P, _P, _P, _I64, _I64, _I64, _INT, _I64, _P),
+    "top_k_unpack": (_P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P, _I64, _P),
 }
 _PACK_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _UNPACK_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the unpack's output tile: 2**14 elements, a 64 KB fp32 accumulator in
+# shared memory (every leaf of the paper's MLP is one tile)
+UNPACK_TILE_SHIFT = 14
+UNPACK_TILE = 1 << UNPACK_TILE_SHIFT
+# the pack gathers a row of x of more than this many bytes in two passes,
+# one over each half (on the H100 two passes beat one and three over rows of
+# 33.5 and 67 MB: fewer misses in L2 against one more read of the row's idx)
+PACK_SPLIT_BYTES = 20_000_000
 
 
 def _top_k_lib():
     return _cuda.library("top_k", _TOP_K_FUNCTIONS)
+
+
+def pack_window(d: int, elem_bytes: int) -> int:
+    """Elements per window of the pack's passes over a row of d elements:
+    half the row above ``PACK_SPLIT_BYTES``, else the whole row."""
+    return max(1, -(-d // 2) if d * elem_bytes > PACK_SPLIT_BYTES else d)
+
+
+def unpack_scratch_bytes(n: int, d: int, k: int, dtype: torch.dtype) -> int:
+    """Bytes of sort scratch the unpack needs (0 for rows of one tile): the
+    (row, tile) counts as uint32 (padded to 8 B), their bucket cursors as
+    uint64, and one entry per kept element (8 B fp32, 4 B bf16), as
+    ``top_k_unpack`` in ``csrc/top_k.cu`` lays them out."""
+    tiles = -(-d // UNPACK_TILE)
+    if tiles <= 1:
+        return 0
+    nt = n * tiles
+    return (4 * nt + 7) // 8 * 8 + 8 * nt + n * k * (8 if dtype == torch.float32 else 4)
 
 
 def launch_top_k_pack(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -112,31 +143,42 @@ def launch_top_k_pack(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if x.dim() != 2 or idx.dim() != 2 or idx.shape[0] != x.shape[0]:
         raise ValueError(f"top_k_pack: x (N, d) and idx (N, k), got {tuple(x.shape)} "
                          f"and {tuple(idx.shape)}")
+    if not (x.is_cuda and idx.device == x.device and x.dtype in _PACK_DTYPES
+            and idx.dtype == torch.int32 and x.is_contiguous() and idx.is_contiguous()):
+        _cuda.check_tensors("top_k_pack", (("x", x, _PACK_DTYPES, None),
+                                           ("idx", idx, (torch.int32,), None)))
     n, d = x.shape
     k = idx.shape[1]
-    _cuda.check_tensors("top_k_pack", (("x", x, _PACK_DTYPES, None),
-                                       ("idx", idx, (torch.int32,), None)))
     vals = torch.empty((n, k), dtype=x.dtype, device=x.device)
-    lib = _top_k_lib()
-    err = lib.top_k_pack(x.data_ptr(), idx.data_ptr(), vals.data_ptr(), n, d, k,
-                         x.element_size(), _cuda.stream_of(x))
-    _cuda.check("top_k", "top_k_pack", err)
+    eb = x.element_size()
+    err = _top_k_lib().top_k_pack(x.data_ptr(), idx.data_ptr(), vals.data_ptr(), n, d, k, eb,
+                                  pack_window(d, eb), _cuda.stream_of(x))
+    if err:
+        _cuda.check("top_k", "top_k_pack", err)
     return vals
 
 
 def launch_top_k_unpack(idx: torch.Tensor, vals: torch.Tensor, d: int) -> torch.Tensor:
-    """Dense (N, d) in vals' dtype: zeros, plus vals[i, j] at idx[i, j]."""
+    """Dense (N, d) in vals' dtype: zeros, plus vals[i, j] at idx[i, j],
+    summed in fp32 and rounded once."""
     if idx.dim() != 2:
         raise ValueError(f"top_k_unpack: idx must be (N, k), got {tuple(idx.shape)}")
     n, k = idx.shape
     d = int(d)
     if d < 0:
         raise ValueError(f"top_k_unpack: d must be >= 0, got {d}")
-    _cuda.check_tensors("top_k_unpack", (("idx", idx, (torch.int32,), None),
-                                         ("vals", vals, tuple(_UNPACK_DTYPES), (n, k))))
+    if not (idx.is_cuda and vals.device == idx.device and idx.dtype == torch.int32
+            and vals.dtype in _UNPACK_DTYPES and vals.shape == idx.shape
+            and idx.is_contiguous() and vals.is_contiguous()):
+        _cuda.check_tensors("top_k_unpack", (("idx", idx, (torch.int32,), None),
+                                             ("vals", vals, tuple(_UNPACK_DTYPES), (n, k))))
     out = torch.empty((n, d), dtype=vals.dtype, device=vals.device)
-    lib = _top_k_lib()
-    err = lib.top_k_unpack(idx.data_ptr(), vals.data_ptr(), out.data_ptr(), n, d, k,
-                           _UNPACK_DTYPES[vals.dtype], _cuda.stream_of(vals))
-    _cuda.check("top_k", "top_k_unpack", err)
+    n_scratch = unpack_scratch_bytes(n, d, k, vals.dtype)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=vals.device) if n_scratch else None
+    err = _top_k_lib().top_k_unpack(
+        idx.data_ptr(), vals.data_ptr(), out.data_ptr(), n, d, k, _UNPACK_DTYPES[vals.dtype],
+        UNPACK_TILE_SHIFT, scratch.data_ptr() if n_scratch else None, n_scratch,
+        _cuda.stream_of(vals))
+    if err:
+        _cuda.check("top_k", "top_k_unpack", err)
     return out

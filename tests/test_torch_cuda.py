@@ -11,7 +11,8 @@ atol 1e-6 (Triton may contract a multiply-add into an FMA, one ulp); bf16
 within one bf16 ulp beyond that; the QSGD ops exactly (integer levels, and
 the quantize is built without FMA contraction); the top-k pack and unpack
 exactly (a gather copies bits; with distinct indices each unpacked slot is
-one add into zero); flash attention and rms_norm in fp32 within rtol 1e-5 /
+one add into zero; with repeated ones the unpack's fp32 sums are held to its
+tiled mirror on values whose sums are exact in any order); flash attention and rms_norm in fp32 within rtol 1e-5 /
 atol 1e-5 (other summation orders, the hardware's rsqrt) and in bf16 (and
 rms_norm in fp16) within one ulp of that type beyond that (both compute in
 fp32 and round once); wkv_chunk
@@ -157,9 +158,13 @@ def test_compressed_comm_event_launches_eight_of_each_qsgd_op(cuda_device):
 
 
 # --------------------------------------------------------- top-k (CUDA C++)
-# (N, d, k): the MLP's leaves at ratio 0.1, ragged sizes, k = d, and one row
+# (N, d, k): the MLP's leaves at ratio 0.1, ragged sizes, k = d, and one row;
+# rows just under, at and just over the unpack's tile of 16,384, several
+# tiles with a ragged last one, and k = d over several tiles
 TOP_K_SHAPES = [(8, 12544, 1255), (8, 64, 7), (8, 640, 64), (8, 10, 1), (3, 777, 13),
-                (5, 33, 33), (1, 1001, 100)]
+                (5, 33, 33), (1, 1001, 100),
+                (2, 16383, 1639), (2, 16384, 1639), (2, 16385, 1639),
+                (3, 3 * 16384 + 7, 5000), (2, 20000, 20000)]
 
 
 def _distinct_indices(gen, n, d, k, device):
@@ -207,8 +212,8 @@ def test_top_k_unpack_matches_plain_bit_for_bit(shape, dtype, cuda_device):
 
 
 def test_top_k_kernels_handle_odd_offsets_and_empty_shapes(cuda_device):
-    """Small odd outputs drive the fill's single-byte tail; k = 0 launches
-    no scatter and leaves the zero fill."""
+    """Small odd outputs drive the tile store's single-element head and
+    tail; k = 0 leaves zeros, on rows of one tile and of several."""
     gen = torch.Generator().manual_seed(5)
     for n, d in ((1, 1), (1, 3), (2, 5), (3, 7), (1, 9)):
         idx = _distinct_indices(gen, n, d, 1, cuda_device)
@@ -222,6 +227,8 @@ def test_top_k_kernels_handle_odd_offsets_and_empty_shapes(cuda_device):
     assert api.call("top_k_pack", x, empty).shape == (4, 0)
     dense = api.call("top_k_unpack", empty, torch.empty((4, 0), device=cuda_device), d=6)
     assert torch.equal(dense, torch.zeros((4, 6), device=cuda_device))
+    dense = api.call("top_k_unpack", empty, torch.empty((4, 0), device=cuda_device), d=40000)
+    assert torch.equal(dense, torch.zeros((4, 40000), device=cuda_device))
 
 
 def test_top_k_kernels_refuse_what_they_do_not_take(cuda_device):
@@ -238,6 +245,139 @@ def test_top_k_kernels_refuse_what_they_do_not_take(cuda_device):
                                                   device=cuda_device), d=10)
     with pytest.raises(ValueError, match="shape"):
         api.call("top_k_unpack", idx, torch.zeros((4, 2), device=cuda_device), d=10)
+
+
+def _same_bits(a, b):
+    bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(bits), b.view(bits))
+
+
+def _plain(name, *args, **kw):
+    with api.dispatch_mode("ref"):
+        return api.call(name, *args, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 12544, 3000), (3, 50, 200), (2, 3 * 16384 + 7, 20000)])
+def test_top_k_unpack_sums_repeated_indices_as_the_tiled_mirror(shape, dtype, cuda_device):
+    """Repeated indices, a quarter of each row on one slot, on rows of one
+    tile and of several: the fp32 sums of the tiled mirror (the Pallas
+    kernel's order of rounding).  The values are multiples of 2**-6 below 1,
+    so the fp32 sums are exact in any order and the check is bit for bit."""
+    from repro_torch.kernels.comm_compress.kernel import UNPACK_TILE
+    from repro_torch.kernels.comm_compress.ref import top_k_unpack_tiled_ref
+
+    n, d, k = shape
+    gen = torch.Generator().manual_seed(d + k)
+    idx = torch.randint(0, d, (n, k), generator=gen, dtype=torch.int32)
+    idx[:, : k // 4] = idx[:, :1]
+    vals = (torch.randint(-63, 64, (n, k), generator=gen).float() / 64).to(dtype)
+    idx, vals = idx.to(cuda_device), vals.to(cuda_device)
+    got = api.call("top_k_unpack", idx, vals, d=d)
+    want = top_k_unpack_tiled_ref(idx, vals, d, UNPACK_TILE)
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [12544, 3 * 16384 + 7])
+def test_top_k_kernels_keep_subnormals_bit_for_bit(d, dtype, cuda_device):
+    """Subnormal values (and their negatives) go through the pack's copy
+    and the unpack's fp32 adds unflushed, on rows of one tile and of
+    several.  The unpack is held to the plain version on the CPU: on the
+    card the plain scatter_add_ adds by fp32 atomics, which may flush."""
+    n, k = 4, 2000
+    gen = torch.Generator().manual_seed(d)
+    tiny = torch.finfo(dtype).tiny
+    x = (torch.rand((n, d), generator=gen) * 2 - 1) * tiny   # |x| < the smallest normal
+    x = x.to(dtype).to(cuda_device)
+    assert bool(((x != 0) & (x.abs() < tiny)).sum() > n * d // 2)
+    idx = _distinct_indices(gen, n, d, k, cuda_device)
+    vals = api.call("top_k_pack", x, idx)
+    assert _same_bits(vals, _plain("top_k_pack", x, idx))
+    assert bool((vals != 0).any())
+    got = api.call("top_k_unpack", idx, vals, d=d)
+    assert _same_bits(got.cpu(), _plain("top_k_unpack", idx.cpu(), vals.cpu(), d=d))
+    assert bool(((got != 0) & (got.abs() < tiny)).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_top_k_kernels_with_every_index_in_one_tile_or_window(dtype, cuda_device):
+    """Skew: every index of a row in tile 3 of the unpack's 9, and (x at
+    12M elements: two or three pack windows) in the pack's last window."""
+    from repro_torch.kernels.comm_compress.kernel import UNPACK_TILE, pack_window
+
+    gen = torch.Generator().manual_seed(3)
+    n, d, k = 3, 9 * UNPACK_TILE - 5, 8000
+    idx = torch.stack([torch.randperm(UNPACK_TILE, generator=gen)[:k] + 3 * UNPACK_TILE
+                       for _ in range(n)]).to(cuda_device, torch.int32)
+    vals = torch.randn((n, k), generator=gen).to(cuda_device, dtype)
+    assert _same_bits(api.call("top_k_unpack", idx, vals, d=d),
+                      _plain("top_k_unpack", idx, vals, d=d))
+    d = 12_000_000
+    x = torch.randn((n, d), generator=gen).to(cuda_device, dtype)
+    window = pack_window(d, x.element_size())
+    assert window < d
+    idx = torch.stack([torch.randperm(d - (d - 1) // window * window, generator=gen)[:k]
+                       + (d - 1) // window * window for _ in range(n)]).to(cuda_device,
+                                                                         torch.int32)
+    assert _same_bits(api.call("top_k_pack", x, idx), _plain("top_k_pack", x, idx))
+
+
+@pytest.mark.parametrize("d", [777, 3 * 16384 + 7, 12_000_000])
+def test_top_k_kernels_take_indices_outside_the_row(d, cuda_device):
+    """An index outside [0, d) gives 0 in the pack and is ignored by the
+    unpack: on one tile, several tiles, and several pack windows."""
+    gen = torch.Generator().manual_seed(d)
+    n, k = 2, 500
+    x = torch.randn((n, d), generator=gen).to(cuda_device)
+    idx = _distinct_indices(gen, n, d, k, cuda_device)
+    stray = torch.zeros((n, k), dtype=torch.bool, device=cuda_device)
+    stray[:, ::4] = True
+    bad = torch.tensor([-1, d, d + 600, 2**31 - 1, -(2**31)], dtype=torch.int32,
+                       device=cuda_device)
+    idx = torch.where(stray, bad.repeat(k)[:k], idx)
+    vals = api.call("top_k_pack", x, idx)
+    want = torch.where(stray, 0.0, _plain("top_k_pack", x, torch.where(stray, 0, idx)))
+    assert _same_bits(vals, want)
+    vals = torch.randn((n, k), generator=gen).to(cuda_device)
+    got = api.call("top_k_unpack", idx, vals, d=d)
+    assert _same_bits(got, _plain("top_k_unpack", torch.where(stray, 0, idx),
+                                  torch.where(stray, 0.0, vals), d=d))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_top_k_unpack_rows_of_more_than_4096_tiles(dtype, cuda_device):
+    """Rows longer than 4,096 tiles count and reserve bucket space with one
+    global atomic per entry instead of a shared-memory histogram."""
+    from repro_torch.kernels.comm_compress.kernel import UNPACK_TILE
+
+    gen = torch.Generator().manual_seed(4097)
+    n, d, k = 1, 4097 * UNPACK_TILE + 5, 20000
+    idx = _distinct_indices(gen, n, d, k, cuda_device)
+    idx[0, :10] = torch.arange(d - 10, d, dtype=torch.int32, device=cuda_device)
+    vals = torch.randn((n, k), generator=gen).to(cuda_device, dtype)
+    assert _same_bits(api.call("top_k_unpack", idx, vals, d=d),
+                      _plain("top_k_unpack", idx, vals, d=d))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_top_k_kernels_at_the_large_shape(dtype, cuda_device):
+    """N = 8, d = 2**24 + 3, k = ceil(0.1 d), indices in magnitude order as
+    the codec makes them: one 67 MB fp32 row is four pack windows and 1,025
+    unpack tiles, bit for bit against the plain versions."""
+    n, d = 8, 2**24 + 3
+    k = -(-d // 10)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    x = torch.randn((n, d), generator=gen, device=cuda_device).to(dtype)
+    idx = torch.sort(-x.float().abs(), dim=1, stable=True).indices[:, :k]
+    idx = idx.to(torch.int32).contiguous()
+    api.reset_counters()
+    vals = api.call("top_k_pack", x, idx)
+    dense = api.call("top_k_unpack", idx, vals, d=d)
+    torch.cuda.synchronize()
+    assert api.launch_counts() == {"top_k_pack": 1, "top_k_unpack": 1}
+    assert _same_bits(vals, _plain("top_k_pack", x, idx))
+    assert _same_bits(dense, _plain("top_k_unpack", idx, vals, d=d))
 
 
 def test_choco_top_k_comm_event_launches_eight_of_each_top_k_op(cuda_device):
