@@ -64,6 +64,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    round; ``compression="identity"`` and ``channel="async:1"`` against the
    uncompressed run, bit for bit.  Launch counts are reset just before and
    read just after each run through the kernels;
+3b. the scenario engine on the same problem: ``run_method`` with
+   ``scenario=make_scenario(name)`` (no static topology; the same index and
+   codec-seed streams).  The ``baseline`` scenario through the kernels
+   against the static ring(8) run, bit for bit (metrics, state, launch
+   counts); DSE-MVR under ``dropout_ring``, ``straggler_ring``, ``one_peer``,
+   ``hetero_clients`` and ``hostile``, GT-HSGD under ``dropout_ring``,
+   ``warmup_compress`` with ``top_k:0.1`` and ``async_lossy`` with
+   ``async:3``, 64 steps each through the kernels, plain on the card and
+   plain on the CPU: final metrics and the consensus, tracking-error and
+   spectral-gap streams card against CPU within the run's band,
+   ``active_nodes`` exactly, 8 top-k packs and unpacks per event, the async
+   run's send-rate and staleness gaps printed, and steps/s on each path;
+   then the six uncompressed ones over 200 steps through the kernels and on
+   the CPU, the spectral-gap and active-node streams held, the rest printed
+   beside the gap a one-ulp change of the initial weights makes on the CPU;
 4. the LM serving path at Gemma-2 2B's full width (26 layers, d 2304,
    vocab 256,000; random bf16 weights from a seed): ``make_serve_job(...).
    prefill_fn`` with ``attn_impl="pallas"`` on 2 prompts of 8192 tokens,
@@ -122,6 +137,14 @@ FLIP_BUDGET = 1e-4
 # run vs run (kernels vs plain on the card vs plain on the CPU): fp32
 # reassociation (cuBLAS vs CPU GEMM, FMA) drifts over 200 steps
 RUN_RTOL, RUN_ATOL, ACC_TOL = 5e-4, 1e-5, 2e-3
+# the scenario phase's fault and heterogeneity presets on DSE-MVR.  They
+# are held card against CPU over SCENARIO_STEPS: over STEPS these dynamics
+# amplify a one-ulp change of the initial weights on the CPU alone to 5e-4
+# (dropout_ring) up to 0.4 (one_peer) of the consensus stream (ROADMAP
+# queue 3), so there the runs are compared only where the trajectory does
+# not enter (the spectral-gap and active-node streams) and printed
+SCENARIO_RUNS = ("dropout_ring", "straggler_ring", "one_peer", "hetero_clients", "hostile")
+SCENARIO_STEPS = 64
 # compressed runs, held over QSGD_STEPS: an ulp that moves |x|*L + u across
 # an integer flips one int8 level, error feedback carries it and later
 # steps compound it.  On the CPU the port lies 1e-3 from the reference after
@@ -1408,6 +1431,120 @@ def rwkv_serving_path(api) -> list:
     return runs
 
 
+def scenario_path(run, agree) -> None:
+    """Phase 3b: the scenario engine through the kernels against the static
+    executor, the plain path on the card and the CPU (``run`` resets the
+    launch counts just before each run and reads them just after)."""
+    import numpy as np
+    from repro_torch.paper_problem import mlp_init
+    from repro_torch.scenarios import make_scenario
+
+    def streams_agree(a, b, what, rtol, fields=("consensus", "tracking_err", "spectral_gap")):
+        for k in fields:
+            x, y = a["streams"][k], b["streams"][k]
+            assert x.shape == y.shape and np.isfinite(x).all(), (what, k)
+            gap = np.abs(x - y)
+            print(f"scenario {what} stream {k}: max relative gap "
+                  f"{float(np.max(gap / np.abs(y)))}")
+            assert (gap <= RUN_ATOL + rtol * np.abs(y)).all(), (what, k, x, y)
+        assert np.array_equal(a["streams"]["active_nodes"], b["streams"]["active_nodes"]), what
+
+    def three(name, scen, steps=SCENARIO_STEPS, **kw):
+        """Through the kernels, plain on the card, plain on the CPU: the same
+        fused update formulas each time (``use_fused=True``), so the three
+        differ only in each device's arithmetic."""
+        kw.update(scenario=make_scenario(scen), use_fused=True)
+        got = run(name, "cuda", steps=steps, **kw)
+        plain = run(name, "cuda", steps=steps, mode="ref", **kw)
+        cpu = run(name, "cpu", steps=steps, **kw)
+        assert not plain["launches"] and not cpu["launches"]
+        rates[f"{name}/{scen}/{steps}"] = (
+            got["steps_per_s"], plain["steps_per_s"], cpu["steps_per_s"])
+        return got, plain, cpu
+
+    def long_run(name, scen):
+        """STEPS steps through the kernels and on the CPU, and on the CPU
+        again from w1 one ulp (2**-23 relative) away: the trajectory-free
+        streams are held, the rest printed beside the CPU's own spread."""
+        kw = dict(scenario=make_scenario(scen), use_fused=True)
+        got = run(name, "cuda", **kw)
+        cpu = run(name, "cpu", **kw)
+        nudged = {k: v * (1 + 2.0**-23) if k == "w1" else v for k, v in mlp_init(0).items()}
+        spread = run(name, "cpu", init_params=nudged, **kw)
+        streams_agree(got, cpu, f"{name} {scen} {STEPS} steps kernels vs cpu", RUN_RTOL,
+                      fields=("spectral_gap",))
+        for k in ("train_loss", "consensus", "test_acc"):
+            assert math.isfinite(got[k]), (name, scen, k)
+        rel = {}
+        for k in ("train_loss", "consensus"):
+            rel[k] = (abs(got[k] - cpu[k]) / abs(cpu[k]), abs(spread[k] - cpu[k]) / abs(cpu[k]))
+        for k in ("consensus", "tracking_err"):
+            ref = np.abs(cpu["streams"][k])
+            rel[f"stream {k}"] = (float(np.max(np.abs(got["streams"][k] - cpu["streams"][k]) / ref)),
+                                  float(np.max(np.abs(spread["streams"][k] - cpu["streams"][k]) / ref)))
+        print(f"scenario {name} {scen} {STEPS} steps: relative gap to the cpu, card vs one-ulp "
+              f"nudge of w1 on the cpu: " + json.dumps(rel))
+        rates[f"{name}/{scen}/{STEPS}"] = (got["steps_per_s"], None, cpu["steps_per_s"])
+
+    rates = {}
+    # the fault-free scenario is the static executor, bit for bit
+    static = run("dse_mvr", "cuda", use_fused=True, keep_state=True)
+    base = run("dse_mvr", "cuda", use_fused=True, keep_state=True,
+               scenario=make_scenario("baseline"))
+    for k in ("train_loss", "consensus", "test_acc"):
+        assert base[k] == static[k], f"baseline vs static ring: {k}"
+    assert base["launches"] == static["launches"], (base["launches"], static["launches"])
+    for field in ("params", "x_ref", "v", "y", "h_prev"):
+        for leaf, t in getattr(static["state"], field).items():
+            assert torch.equal(getattr(base["state"], field)[leaf], t), (field, leaf)
+    assert base["state"].step == static["state"].step == STEPS
+    print(f"scenario baseline: bit for bit the static ring; launches "
+          f"{json.dumps(base['launches'])}; steps/s {base['steps_per_s']:.1f} "
+          f"(static {static['steps_per_s']:.1f})")
+
+    for scen in SCENARIO_RUNS:
+        got, plain, cpu = three("dse_mvr", scen)
+        for a, b, what in ((got, cpu, "kernels vs cpu"), (plain, cpu, "plain cuda vs cpu")):
+            agree(a, b, f"dse_mvr {scen} {what}")
+            streams_agree(a, b, f"dse_mvr {scen} {what}", RUN_RTOL)
+        for op in ("mvr_update", "axpby", "dse_combine_yh"):
+            assert got["launches"].get(op, 0) > 0, f"{scen}: dse_mvr did not launch {op}"
+        print(f"scenario {scen}: active nodes per round min "
+              f"{got['streams']['active_nodes'].min():.0f}, spectral gap mean "
+              f"{got['streams']['spectral_gap'].mean():.6f}")
+        long_run("dse_mvr", scen)
+
+    # add_sub under a gated round: GT-HSGD communicates every step
+    got, plain, cpu = three("gt_hsgd", "dropout_ring")
+    for a, b, what in ((got, cpu, "kernels vs cpu"), (plain, cpu, "plain cuda vs cpu")):
+        agree(a, b, f"gt_hsgd dropout_ring {what}")
+        streams_agree(a, b, f"gt_hsgd dropout_ring {what}", RUN_RTOL)
+    want = {op: SCENARIO_STEPS for op in ("axpby", "mvr_update", "add_sub")}
+    assert got["launches"] == want, got["launches"]
+    long_run("gt_hsgd", "dropout_ring")
+
+    # per-round codec knobs: top-k spends a shrinking share of its payload
+    got, plain, cpu = three("dse_mvr", "warmup_compress", steps=QSGD_STEPS,
+                            compression="top_k:0.1")
+    for a, b, what in ((got, cpu, "kernels vs cpu"), (plain, cpu, "plain cuda vs cpu")):
+        agree(a, b, f"warmup_compress {what}", rtol=QSGD_RTOL, acc_tol=QSGD_ACC_TOL)
+        streams_agree(a, b, f"warmup_compress {what}", QSGD_RTOL)
+    events = QSGD_STEPS // TAU
+    for op in ("top_k_pack", "top_k_unpack"):
+        assert got["launches"].get(op) == 8 * events, got["launches"]
+
+    # async gossip under lossy links with a per-round trigger schedule
+    got, plain, cpu = three("dse_mvr", "async_lossy", steps=QSGD_STEPS, channel="async:3")
+    for a, b, what in ((got, cpu, "kernels vs cpu"), (plain, cpu, "plain cuda vs cpu")):
+        agree(a, b, f"async_lossy {what}", rtol=QSGD_RTOL, acc_tol=QSGD_ACC_TOL)
+        gaps = {k: float(np.max(np.abs(a["streams"][k] - b["streams"][k])))
+                for k in ("send_rate", "staleness", "consensus", "replica_drift")}
+        print(f"scenario async_lossy {what}: max abs stream gaps " + json.dumps(gaps))
+    print(f"scenario async_lossy: send rate mean {got['streams']['send_rate'].mean():.4f}, "
+          f"staleness mean {got['streams']['staleness'].mean():.4f}")
+    print("scenario steps/s (kernels, plain cuda, plain cpu): " + json.dumps(rates))
+
+
 def main() -> int:
     # ---------------------------------------------------------------- 1
     if not torch.cuda.is_available():
@@ -1477,10 +1614,12 @@ def main() -> int:
                              index_fn=lambda s: idx[s], comm_seed_fn=seed_fn, **kw)
         out["launches"] = api.launch_counts()
         out["steps_per_s"] = steps / out["wall_s"]
-        print(f"run {name} device={device} mode={mode} steps={steps} {kw}: " + json.dumps(out))
+        kept = {k: out.pop(k) for k in ("streams", "state") if k in out}
+        shown = {k: "given" if k == "init_params" else v for k, v in kw.items()}
+        print(f"run {name} device={device} mode={mode} steps={steps} {shown}: " + json.dumps(out))
         if out["launches"]:
             kernel_runs.append(out)
-        return out
+        return dict(out, **kept)
 
     def agree(a, b, what, rtol=RUN_RTOL, acc_tol=ACC_TOL):
         for k in ("train_loss", "consensus"):
@@ -1599,6 +1738,9 @@ def main() -> int:
     print(f"link bytes per round (8 nodes, both buffers): raw fp32 {raw:.0f} "
           f"{json.dumps(link[None])}, qsgd {qsgd:.0f} {json.dumps(link['qsgd'])}, "
           f"ratio {raw / qsgd:.3f}")
+
+    # --------------------------------------------------------------- 3b
+    scenario_path(run, agree)
 
     # ---------------------------------------------------------------- 4
     kernel_runs += [{"launches": launches} for launches in serving_path(api)]

@@ -223,15 +223,23 @@ def attach_channel_state(algorithm, state):
     return dataclasses.replace(state, comp=ChannelState(wire=wire))
 
 
+def _wire_entries(state, kind: str):
+    """All ``kind`` subtrees ("res", "hat", "age", "sent") across the wire
+    state's buffers; empty when no channel state is attached."""
+    comp = getattr(state, "comp", None)
+    if comp is None:
+        return []
+    return [w[kind] for w in comp.wire if isinstance(w, dict) and w.get(kind) is not None]
+
+
 def compression_error(state) -> torch.Tensor:
     """Sum of ||e||^2 over all error-feedback residuals, as an fp32 0-d
-    tensor; NaN when the state carries no residual wire state."""
-    comp = getattr(state, "comp", None)
-    residuals = [] if comp is None else [
-        w["res"] for w in comp.wire if isinstance(w, dict) and w.get("res") is not None
-    ]
+    tensor on the state's device; NaN when the state carries no residual
+    wire state."""
+    residuals = _wire_entries(state, "res")
     if not residuals:
-        return torch.tensor(float("nan"))
+        dev = tree_leaves(state.params)[0].device
+        return torch.full((), float("nan"), dtype=torch.float32, device=dev)
     return sum(
         torch.sum(leaf.float() ** 2) for tree in residuals for leaf in tree_leaves(tree)
     )

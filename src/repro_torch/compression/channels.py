@@ -25,9 +25,14 @@ Channels:
 applies the message encoded in the previous one.  The sharded engine's wire
 modes (``neighbor_shifts``, ``replicated_wire``, ``defer_roll``) and
 transport hooks raise ``NotImplementedError`` (ROADMAP queue 1 item 8);
-nothing else here does.  The scenario engine's per-round knobs (``comp_scale``,
-``trigger``) come with ROADMAP queue 1 item 4, so ``gossip`` takes no
-round context yet.
+nothing else here does.
+
+Under the scenario engine every gossip gets the round's context ``ctx``
+(:class:`~repro_torch.core.algorithm.RoundCtx`): the transport mixes with
+its W_t, the codecs spend ``ctx.comp_scale`` of their payload, and the async
+trigger takes ``ctx.trigger`` in place of its threshold.  Both knobs are host
+``np.float32`` scalars, so no codec decision waits on the device; with no
+context (the static executor) the channels run at their static settings.
 
 :class:`ChannelSession` drives one communication event: the k-th ``mix``
 call inside ``comm_update`` is the k-th entry of ``CommSpec.buffers``, and
@@ -59,6 +64,10 @@ def _n_nodes(tree: Tree) -> int:
     return tree_leaves(tree)[0].shape[0]
 
 
+def _ctx_scale(ctx):
+    return getattr(ctx, "comp_scale", None) if ctx is not None else None
+
+
 def _tree_sub_f32(a: Tree, b: Tree) -> Tree:
     """a − b in fp32, cast back to a's leaf dtypes."""
     return tree_map(lambda x, y: (x.float() - y.float()).to(x.dtype), a, b)
@@ -73,24 +82,28 @@ class Transport:
 
     ``mix`` is the engine's linear gossip on a raw tree; ``mix_payload``
     delivers an encoded message, which on the dense engine means mixing the
-    locally decoded message.  The sharded engine's hooks (``neighbor``,
-    ``gather_payload``, ``run_local``) raise ``NotImplementedError`` when
-    given."""
+    locally decoded message.  With ``scheduled=True`` the engine's mix takes
+    ``(tree, ctx)``, the round context.  The sharded engine's hooks
+    (``neighbor``, ``gather_payload``, ``run_local``) raise
+    ``NotImplementedError`` when given."""
 
-    def __init__(self, mix_fn: Callable[[Tree], Tree], *, neighbor=None,
-                 gather_payload=None, run_local=None):
+    def __init__(self, mix_fn: Callable[..., Tree], scheduled: bool = False, *,
+                 neighbor=None, gather_payload=None, run_local=None):
         hooks = dict(neighbor=neighbor, gather_payload=gather_payload, run_local=run_local)
         given = sorted(k for k, v in hooks.items() if v is not None)
         if given:
             raise NotImplementedError(f"the transport hooks {given} {NOT_PORTED}")
         self._mix_fn = mix_fn
+        self._scheduled = scheduled
 
-    def mix(self, tree: Tree) -> Tree:
+    def mix(self, tree: Tree, ctx=None) -> Tree:
+        if self._scheduled:
+            return self._mix_fn(tree, ctx)
         return self._mix_fn(tree)
 
-    def mix_payload(self, payload: Tree, dec: Tree) -> Tree:
+    def mix_payload(self, payload: Tree, dec: Tree, ctx=None) -> Tree:
         del payload
-        return self.mix(dec)
+        return self.mix(dec, ctx)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,8 +148,10 @@ class GossipChannel:
     def init_wire(self, params: Tree) -> Optional[Tree]:
         return None
 
-    def gossip(self, tree: Tree, wire, seed_of_leaf, transport: Transport):
-        """One buffer's communication: ``(mixed_tree, new_wire)``."""
+    def gossip(self, tree: Tree, wire, seed_of_leaf, transport: Transport, ctx=None):
+        """One buffer's communication: ``(mixed_tree, new_wire)``; ``ctx`` is
+        the scenario engine's round context (None under the static
+        executor)."""
         raise NotImplementedError
 
 
@@ -159,14 +174,14 @@ class SyncChannel(GossipChannel):
             return {"res": tree_map(torch.zeros_like, params)}
         return None
 
-    def gossip(self, tree, wire, seed_of_leaf, transport):
+    def gossip(self, tree, wire, seed_of_leaf, transport, ctx=None):
         comp = self.compression
         if comp is None or comp.is_identity:
             # a raw sync buffer inside a per-buffer mapping: the plain path
-            return transport.mix(tree), None
+            return transport.mix(tree, ctx), None
         res = wire["res"] if wire is not None else None
-        payload, dec, new_res = comp.roundtrip(tree, res, seed_of_leaf)
-        mixed = transport.mix_payload(payload, dec)
+        payload, dec, new_res = comp.roundtrip(tree, res, seed_of_leaf, scale=_ctx_scale(ctx))
+        mixed = transport.mix_payload(payload, dec, ctx)
         return mixed, (None if new_res is None else {"res": new_res})
 
 
@@ -250,10 +265,10 @@ class ChocoChannel(GossipChannel):
         return wire
 
     # -- shared protocol pieces --------------------------------------------
-    def _encode(self, diff, seed_of_leaf):
+    def _encode(self, diff, seed_of_leaf, ctx):
         if self._raw:
             return diff
-        return self.compression.encode_tree(diff, seed_of_leaf)
+        return self.compression.encode_tree(diff, seed_of_leaf, scale=_ctx_scale(ctx))
 
     def _decode(self, payload):
         if self._raw:
@@ -286,32 +301,32 @@ class ChocoChannel(GossipChannel):
         applied this round."""
         return None, {}
 
-    def _overlap_send(self, tree, diff, extra):
+    def _overlap_send(self, tree, diff, extra, ctx):
         """The send decision for the next in-flight message (None: always)."""
         return None
 
-    def _gossip_overlap(self, tree, wire, seed_of_leaf, transport):
+    def _gossip_overlap(self, tree, wire, seed_of_leaf, transport, ctx):
         hat, fly = wire["hat"], wire["fly"]
         sent_in, extra = self._overlap_pre(wire)
         # 1. apply the message encoded last round (zeros on round 0)
         hat_new = self._gated_add(hat, self._decode(fly["payload"]), sent_in)
-        out = self._consensus_from(tree, transport.mix(hat_new), hat_new)
+        out = self._consensus_from(tree, transport.mix(hat_new, ctx), hat_new)
         # 2. encode the next in-flight message from the new iterate; it is
         #    decoded when the next round applies it
         diff = _tree_sub_f32(out, hat_new)
-        send = self._overlap_send(out, diff, extra)
-        fly_new = {"payload": self._encode(diff, seed_of_leaf)}
+        send = self._overlap_send(out, diff, extra, ctx)
+        fly_new = {"payload": self._encode(diff, seed_of_leaf, ctx)}
         if send is not None:
             fly_new["sent"] = send
         return out, {"hat": hat_new, "fly": fly_new, **extra}
 
-    def gossip(self, tree, wire, seed_of_leaf, transport):
+    def gossip(self, tree, wire, seed_of_leaf, transport, ctx=None):
         if self.overlap:
-            return self._gossip_overlap(tree, wire, seed_of_leaf, transport)
+            return self._gossip_overlap(tree, wire, seed_of_leaf, transport, ctx)
         hat = wire["hat"]
-        payload = self._encode(_tree_sub_f32(tree, hat), seed_of_leaf)
+        payload = self._encode(_tree_sub_f32(tree, hat), seed_of_leaf, ctx)
         hat_new = self._gated_add(hat, self._decode(payload), None)
-        out = self._consensus_from(tree, transport.mix(hat_new), hat_new)
+        out = self._consensus_from(tree, transport.mix(hat_new, ctx), hat_new)
         return out, {"hat": hat_new}
 
 
@@ -323,7 +338,8 @@ class AsyncChannel(ChocoChannel):
         send_i = (age_i + 1 ≥ max_staleness)  OR  ‖x_i − x̂_i‖² > θ² (‖x_i‖² + 1e-12)
 
     (sums over all leaves), so between events its neighbours mix against the
-    stale snapshot.  ``max_staleness=1`` with no codec is the synchronous
+    stale snapshot.  A round context's ``trigger`` of 0 or more replaces θ
+    for that round; a negative one keeps the static θ.  ``max_staleness=1`` with no codec is the synchronous
     mix, bit for bit.  Wire state per buffer: the snapshot ``hat``, per-node
     ``age`` (int32, rounds since the last send) and ``sent`` (bool, the last
     round's mask)."""
@@ -361,12 +377,15 @@ class AsyncChannel(ChocoChannel):
         # is synchronous gossip, so the executor takes the plain path
         return int(self.max_staleness) == 1 and self._raw
 
-    def _trigger_send(self, tree, diff, age):
+    def _trigger_send(self, tree, diff, age, ctx):
         """Forced when the age hits the bound, or on relative drift."""
         n = _n_nodes(tree)
         drift2 = sum(torch.sum(d.float().reshape(n, -1) ** 2, dim=1) for d in tree_leaves(diff))
         ref2 = sum(torch.sum(x.float().reshape(n, -1) ** 2, dim=1) for x in tree_leaves(tree))
         thr = np.float32(self.threshold)
+        ctx_thr = getattr(ctx, "trigger", None) if ctx is not None else None
+        if ctx_thr is not None and ctx_thr >= 0:
+            thr = np.float32(ctx_thr)
         thr2 = float(thr * thr)   # squared in fp32, as the reference does
         forced = (age + 1) >= int(self.max_staleness)
         return forced | (drift2 > thr2 * (ref2 + 1e-12))
@@ -377,27 +396,27 @@ class AsyncChannel(ChocoChannel):
         # ``sent`` reports the mask applied this round: the in-flight one
         return sent_in, {"age": age_new, "sent": sent_in}
 
-    def _overlap_send(self, tree, diff, extra):
-        return self._trigger_send(tree, diff, extra["age"])
+    def _overlap_send(self, tree, diff, extra, ctx):
+        return self._trigger_send(tree, diff, extra["age"], ctx)
 
-    def gossip(self, tree, wire, seed_of_leaf, transport):
+    def gossip(self, tree, wire, seed_of_leaf, transport, ctx=None):
         if int(self.max_staleness) == 1 and self._raw:
             # every round is a forced send: the snapshot is the fresh value,
             # so mix it directly, bit for bit the sync channel
             n, dev = _n_nodes(tree), tree_leaves(tree)[0].device
-            return transport.mix(tree), {
+            return transport.mix(tree, ctx), {
                 "hat": tree,
                 "age": torch.zeros(n, dtype=torch.int32, device=dev),
                 "sent": torch.ones(n, dtype=torch.bool, device=dev),
             }
         if self.overlap:
-            return self._gossip_overlap(tree, wire, seed_of_leaf, transport)
+            return self._gossip_overlap(tree, wire, seed_of_leaf, transport, ctx)
         hat, age = wire["hat"], wire["age"]
         diff = _tree_sub_f32(tree, hat)
-        send = self._trigger_send(tree, diff, age)
-        payload = self._encode(diff, seed_of_leaf)
+        send = self._trigger_send(tree, diff, age, ctx)
+        payload = self._encode(diff, seed_of_leaf, ctx)
         hat_new = self._gated_add(hat, self._decode(payload), send)
-        out = self._consensus_from(tree, transport.mix(hat_new), hat_new)
+        out = self._consensus_from(tree, transport.mix(hat_new, ctx), hat_new)
         age_new = torch.where(send, 0, age + 1).to(torch.int32)
         return out, {"hat": hat_new, "age": age_new, "sent": send}
 
@@ -449,7 +468,7 @@ class PerBufferChannel(GossipChannel):
     def init_wire(self, params):
         self._no_aggregate()
 
-    def gossip(self, tree, wire, seed_of_leaf, transport):
+    def gossip(self, tree, wire, seed_of_leaf, transport, ctx=None):
         self._no_aggregate()
 
     def message_bytes(self, tree):
@@ -551,7 +570,7 @@ class ChannelSession:
         self._new_wire = []
         self._calls = 0
 
-    def mix(self, tree: Tree) -> Tree:
+    def mix(self, tree: Tree, ctx=None) -> Tree:
         i = self._calls
         if i >= self._n_buffers:
             raise ValueError(
@@ -563,7 +582,7 @@ class ChannelSession:
         wire = self._wire[i] if i < len(self._wire) else None
         event = self._event
         mixed, new_wire = self._channel.for_buffer(i).gossip(
-            tree, wire, lambda leaf: self._seed_fn(event, i, leaf), self._transport
+            tree, wire, lambda leaf: self._seed_fn(event, i, leaf), self._transport, ctx
         )
         self._new_wire.append(new_wire)
         return mixed

@@ -17,10 +17,10 @@ from .topology import (
     Topology, check_mixing_matrix, fully_connected, metropolis_hastings, ring,
     spectral_gap, star, torus,
 )
-from .algorithm import CommSpec, DecentralizedAlgorithm, make_round_step
+from .algorithm import CommSpec, DecentralizedAlgorithm, RoundCtx, make_round_step
 from .dse import DSEMVR, DSESGD, DSEState
 from .baselines import DLSGD, DSGD, GTDSGD, GTHSGD, PDSGDM, SlowMoD
-from .mixing import dense_mix
+from .mixing import Rotation, dense_mix, scheduled_dense_mix
 from .simulate import NodeData, Simulator, consensus_distance, node_mean
 
 ALGORITHMS = {
@@ -56,8 +56,9 @@ def make_algorithm(name: str, **hyperparams) -> DecentralizedAlgorithm:
 __all__ = [
     "Topology", "ring", "torus", "fully_connected", "star",
     "metropolis_hastings", "spectral_gap", "check_mixing_matrix",
-    "CommSpec", "DecentralizedAlgorithm", "make_round_step",
+    "CommSpec", "DecentralizedAlgorithm", "RoundCtx", "make_round_step",
     "make_algorithm", "DSEMVR", "DSESGD", "DSEState",
     "DSGD", "DLSGD", "GTDSGD", "GTHSGD", "PDSGDM", "SlowMoD", "dense_mix",
+    "scheduled_dense_mix", "Rotation",
     "Simulator", "NodeData", "node_mean", "consensus_distance", "ALGORITHMS",
 ]

@@ -14,14 +14,18 @@ messages move on the wire (``compression``, ``channel``).
 Gossip runs through ``repro_torch.compression``: the codecs (identity,
 qsgd, top_k, rand_k, low_rank), the sync, choco and async channels,
 per-buffer channel mappings and comm/compute overlap, on the dense engine.
-The scenario engine's scheduled executor is ROADMAP queue 1 item 4.
+With ``scheduled=True`` the executor takes the scenario engine's per-round
+:class:`RoundCtx` (W_t, node dropout, straggler masks, codec knobs).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Optional, Sequence, Tuple
 
+import torch
+
 from ..compression.base import make_compressor
+from ..compression.base import Packed
 from ..compression.channels import (
     ChannelSession, ChocoChannel, PerBufferChannel, SeedFn, SyncChannel, Transport,
     make_channel,
@@ -31,7 +35,7 @@ Tree = Any
 GradFn = Callable[[Tree], Tree]       # params -> grads (batch closed over)
 MixFn = Callable[[Tree], Tree]        # gossip: tree -> mixed tree
 
-__all__ = ["CommSpec", "DecentralizedAlgorithm", "make_round_step"]
+__all__ = ["CommSpec", "DecentralizedAlgorithm", "RoundCtx", "make_round_step"]
 
 CADENCES = ("every_step", "every_tau")
 RESETS = ("none", "minibatch", "full")
@@ -145,6 +149,80 @@ class CommSpec:
         return None if comp is None else SyncChannel(compression=comp)
 
 
+@dataclasses.dataclass
+class RoundCtx:
+    """One communication round's context under the scenario engine.
+
+    The device tensors are slices of the schedule, copied to the device once
+    per run; the knobs stay on the host, so no codec decision waits on the
+    device.  A static, fault-free scenario carries the same W, all-true
+    masks and no knobs every round, and then the scheduled executor is bit
+    for bit the static one.
+
+    w:          (N, N) fp32 mixing matrix W_t.
+    active:     (N,) bool: nodes that take part in the round at all.  An
+                inactive node keeps its whole state (dropout); W_t is
+                renormalized upstream so the active block stays doubly
+                stochastic.
+    local_mask: (L, N) bool, L >= round_len - 1: per-(local step, node)
+                participation (stragglers, step jitter).
+    pattern:    host int: index into the schedule's rotations (read by the
+                sharded engine's rotation gossip only).
+    comp_scale: host ``np.float32`` in (0, 1], the share of the codec's
+                payload spent this round, or None for the static setting.
+    trigger:    host ``np.float32``, the async trigger's threshold this
+                round (negative keeps the channel's own), or None.
+    """
+
+    w: Optional[torch.Tensor] = None
+    active: Optional[torch.Tensor] = None
+    local_mask: Optional[torch.Tensor] = None
+    pattern: Optional[int] = None
+    comp_scale: Optional[Any] = None
+    trigger: Optional[Any] = None
+
+
+def _select_leaf(mask: torch.Tensor, new: Any, old: Any) -> Any:
+    """The per-node select over one state value: node-stacked tensors take
+    ``new`` on unmasked nodes and ``old`` elsewhere; dataclasses, dicts,
+    tuples and packed payloads are walked; ints, None and tensors
+    without the node axis keep ``new`` (the step counter is global)."""
+    if isinstance(new, torch.Tensor):
+        n = mask.shape[0]
+        if new.dim() == 0 or new.shape[0] != n:
+            return new
+        return torch.where(mask.reshape((n,) + (1,) * (new.dim() - 1)), new, old)
+    if isinstance(new, Packed):
+        return Packed(_select_leaf(mask, new.data, old.data), meta=new.meta)
+    if isinstance(new, dict):
+        return {k: _select_leaf(mask, v, old[k]) for k, v in new.items()}
+    if isinstance(new, tuple):
+        return tuple(_select_leaf(mask, a, b) for a, b in zip(new, old))
+    if dataclasses.is_dataclass(new) and not isinstance(new, type):
+        return dataclasses.replace(new, **{
+            f.name: _select_leaf(mask, getattr(new, f.name), getattr(old, f.name))
+            for f in dataclasses.fields(new)
+        })
+    return new
+
+
+def _select_nodes(mask: Optional[torch.Tensor], new: Any, old: Any) -> Any:
+    """Per-node select between two algorithm states.
+
+    ``mask`` is (N,) bool over the leading node axis: node-stacked tensors,
+    the channel's wire state included, take ``new`` where the node is
+    unmasked and ``old`` elsewhere; values without a node axis (the host
+    step counter, the event count, 0-d tensors, None) take ``new``.  With
+    an all-true mask every value equals ``new``'s; with no mask this
+    returns ``new`` itself.  As in the reference, a non-node tensor whose
+    leading dimension happens to equal N would be gated per node: states
+    hold no such buffers.
+    """
+    if mask is None:
+        return new
+    return _select_leaf(mask, new, old)
+
+
 class DecentralizedAlgorithm:
     """Base class of the decentralized methods.
 
@@ -159,6 +237,10 @@ class DecentralizedAlgorithm:
     compression: Any = None
     channel: Any = None
     overlap: bool = False
+    #: the state field that estimates the global gradient direction, read
+    #: by the scenario engine's tracking-error stream; None where no buffer
+    #: is gradient-scale (momentum sums, displacement trackers)
+    tracking_buffer: Optional[str] = None
 
     def __post_init__(self):
         repl = {}
@@ -196,8 +278,12 @@ def make_round_step(
     grad_of_batch: Callable[[Tree, Any], Tree],
     full_grad_fn: Optional[GradFn] = None,
     comm_seed_fn: Optional[SeedFn] = None,
+    *,
+    scheduled: bool = False,
+    gate_local: bool = True,
+    gate_active: bool = True,
 ):
-    """The round executor (the reference's static branch).
+    """The round executor.
 
     Returns ``(round_step, round_len)``; ``round_step(state, batches)``
     advances one communication round, where ``batches`` holds one minibatch
@@ -211,6 +297,16 @@ def make_round_step(
     and writes the wire state in ``state.comp`` and takes its codec seeds
     from ``comm_seed_fn(event, buffer, leaf)``.  With no channel the
     executor calls ``comm_update`` with ``mix_fn`` itself.
+
+    With ``scheduled=True`` the executor takes the scenario engine's round
+    context: ``round_step(state, batches, ctx)`` with ``ctx`` a
+    :class:`RoundCtx`, and ``mix_fn`` takes ``(tree, ctx)``.  A node masked
+    in ``ctx.local_mask`` skips that local update, and a node inactive in
+    ``ctx.active`` keeps its whole state through the round's communication
+    step, wire state included.  ``gate_local`` / ``gate_active`` (the
+    scenario's ``needs_local_gate`` / ``needs_active_gate``) leave the
+    selects out where no fault can mask a node, so a fault-free scenario
+    runs exactly the static executor's operations.
     """
     spec = algorithm.comm
     round_len = spec.round_len(getattr(algorithm, "tau", 1))
@@ -228,9 +324,10 @@ def make_round_step(
             return gf
         return None
 
-    def _comm(state, gf):
+    def _comm(state, gf, ctx=None):
         if channel is None:
-            return algorithm.comm_update(state, mix_fn, gf, _reset_fn(gf))
+            mfn = (lambda tree: mix_fn(tree, ctx)) if scheduled else mix_fn
+            return algorithm.comm_update(state, mfn, gf, _reset_fn(gf))
         chan_state = getattr(state, "comp", None)
         if chan_state is None:
             raise ValueError(
@@ -239,17 +336,47 @@ def make_round_step(
                 "repro_torch.compression.attach_channel_state(algorithm, state)"
             )
         session = ChannelSession(
-            channel, len(spec.buffers), chan_state, Transport(mix_fn), comm_seed_fn
+            channel, len(spec.buffers), chan_state, Transport(mix_fn, scheduled=scheduled),
+            comm_seed_fn,
         )
-        new = algorithm.comm_update(state, session.mix, gf, _reset_fn(gf))
+        new = algorithm.comm_update(
+            state, lambda tree: session.mix(tree, ctx), gf, _reset_fn(gf)
+        )
         return dataclasses.replace(new, comp=session.final_state())
 
-    def round_step(state, batches: Sequence):
+    def _check(batches):
         if len(batches) != round_len:
             raise ValueError(f"expected {round_len} batches, got {len(batches)}")
-        for mb in batches[: round_len - 1]:
-            state = algorithm.local_update(state, lambda p, mb=mb: grad_of_batch(p, mb))
-        last = batches[round_len - 1]
-        return _comm(state, lambda p: grad_of_batch(p, last))
 
-    return round_step, round_len
+    if not scheduled:
+
+        def round_step(state, batches: Sequence):
+            _check(batches)
+            for mb in batches[: round_len - 1]:
+                state = algorithm.local_update(state, lambda p, mb=mb: grad_of_batch(p, mb))
+            last = batches[round_len - 1]
+            return _comm(state, lambda p: grad_of_batch(p, last))
+
+        return round_step, round_len
+
+    def round_step_scheduled(state, batches: Sequence, ctx: RoundCtx):
+        _check(batches)
+        masks = ctx.local_mask if gate_local and ctx.local_mask is not None else None
+        for j, mb in enumerate(batches[: round_len - 1]):
+            new = algorithm.local_update(state, lambda p, mb=mb: grad_of_batch(p, mb))
+            if masks is not None:
+                # local updates never touch the channel wire: it passes
+                # through, and only the algorithm's own buffers are gated
+                comp = getattr(new, "comp", None)
+                if comp is not None:
+                    new = dataclasses.replace(_select_nodes(
+                        masks[j], dataclasses.replace(new, comp=None),
+                        dataclasses.replace(state, comp=None)), comp=comp)
+                else:
+                    new = _select_nodes(masks[j], new, state)
+            state = new
+        last = batches[round_len - 1]
+        new = _comm(state, lambda p: grad_of_batch(p, last), ctx)
+        return _select_nodes(ctx.active if gate_active else None, new, state)
+
+    return round_step_scheduled, round_len

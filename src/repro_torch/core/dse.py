@@ -104,6 +104,9 @@ class DSEMVR(DecentralizedAlgorithm):
     overlap: bool = False
 
     comm = CommSpec(cadence="every_tau", buffers=("y", "params"), reset="full")
+    # v estimates the gradient; y tracks the round's displacement (scale
+    # lr * tau), which is not comparable with the gradient
+    tracking_buffer = "v"
 
     # -- state ------------------------------------------------------------
     def init(self, params: Tree, full_grad_fn: Optional[GradFn] = None) -> DSEState:

@@ -4,12 +4,13 @@ Counterpart of the problem in ``benchmarks/common.py``: pseudo-MNIST with
 feature and label noise, Dirichlet(omega) partitioned over an 8-node ring,
 a 196 -> 64 -> 10 tanh MLP, and the paper-tuned DSE-MVR / DSE-SGD and
 baselines, optionally with compressed gossip (``compression="top_k:0.1"``,
-``channel="choco"``, ...).
+``channel="choco"``, ...) and under a scenario of the scenario engine
+(``scenario=make_scenario("dropout_ring")``, which replaces the static ring).
 """
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -116,10 +117,16 @@ def run_method(
     index_fn: Optional[Callable[[int], torch.Tensor]] = None,
     comm_seed_fn: Optional[Callable[[int, int, int], int]] = None,
     init_params: Optional[Dict[str, torch.Tensor]] = None,
-) -> Dict[str, float]:
+    scenario=None,
+    keep_state: bool = False,
+) -> Dict[str, Any]:
     """One paper run: final train loss, test accuracy, consensus and wall
     seconds.  ``init_params``, ``index_fn`` and ``comm_seed_fn`` default to
-    the port's own seeded draws (parity tests pass the reference's)."""
+    the port's own seeded draws (parity tests pass the reference's).
+
+    With a ``scenario`` the Simulator follows its schedule (no static
+    topology) and the result adds ``"streams"``, the per-round metric
+    streams (numpy); ``keep_state=True`` adds the final ``"state"``."""
     dev = resolve_device(device)
     data, (xte, yte) = make_paper_problem(omega, seed=seed)
     alg = make_algorithm(
@@ -129,8 +136,8 @@ def run_method(
     xte_t = torch.as_tensor(xte, device=dev)
     yte_t = torch.as_tensor(yte, device=dev).long()
     sim = Simulator(
-        alg, ring(N_NODES), mlp_loss, data, batch_size=b,
-        eval_fn=lambda p: {"test_acc": accuracy(p, xte_t, yte_t)},
+        alg, None if scenario is not None else ring(N_NODES), mlp_loss, data, batch_size=b,
+        eval_fn=lambda p: {"test_acc": accuracy(p, xte_t, yte_t)}, scenario=scenario,
         device=dev, seed=seed + 1, index_fn=index_fn, comm_seed_fn=comm_seed_fn,
     )
     params = init_params if init_params is not None else mlp_init(seed)
@@ -138,9 +145,14 @@ def run_method(
     out = sim.run(params, steps, eval_every=steps)   # ends in host floats
     wall = time.perf_counter() - t0
     final = out["history"][-1]
-    return {
+    result = {
         "train_loss": final["train_loss"],
         "test_acc": final["test_acc"],
         "consensus": final["consensus"],
         "wall_s": wall,
     }
+    if scenario is not None:
+        result["streams"] = out["streams"]
+    if keep_state:
+        result["state"] = out["state"]
+    return result

@@ -1,0 +1,207 @@
+"""Per-round metric streams of the scenario engine, on the state's device.
+
+Counterpart of ``repro.scenarios.metrics``.  The Simulator computes these
+after every scheduled round and keeps each value as a 0-d tensor on the
+device; a chunk of rounds is stacked and copied to the host once, at the
+next evaluation point, as the reference's scan emits its ys:
+
+  * ``consensus``       sum over active nodes of ||x_i - x̄_active||²;
+  * ``tracking_err``    sum over active nodes of ||b_i - g*||² of the
+                        algorithm's declared ``tracking_buffer`` (v for the
+                        DSE family, y for gradient tracking; NaN where none
+                        is declared), g* = ∇f(x̄) in the Simulator, else the
+                        active mean of the buffer;
+  * ``spectral_gap``    max |eig| of diag(a) W_t diag(a) - a aᵀ/|a|, the
+                        active block's λ_t (``torch.linalg.eigvalsh`` in
+                        fp32, as the reference calls ``jnp.linalg.eigvalsh``
+                        outside any kernel); it depends on (W_t, a) alone, so
+                        the Simulator computes a chunk's gaps in one batched
+                        call;
+  * ``active_nodes``    |a|;
+  * ``compression_err`` sum of the error-feedback residuals' ||e||² (NaN
+                        without residuals);
+  * ``replica_drift``   sum of ||b - x̂||² between each gossiped buffer and
+                        its channel replica (NaN without replicas);
+  * ``staleness``       mean snapshot age over async wire buffers (NaN
+                        otherwise);
+  * ``send_rate``       share of (node, buffer) sites whose async trigger
+                        fired this round (NaN otherwise).
+
+``STREAM_FIELDS`` copies the reference's ``TRAINING_STREAM_FIELDS``
+(``repro.telemetry.registry``); the telemetry registry itself is ROADMAP
+queue 1 item 6.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+
+from ..compression.base import _wire_entries, compression_error
+from ..tree import tree_leaves, tree_map
+
+Tree = Any
+
+__all__ = [
+    "STREAM_FIELDS",
+    "masked_consensus",
+    "tracking_buffer",
+    "tracking_error",
+    "effective_spectral_gap",
+    "replica_drift",
+    "staleness",
+    "send_rate",
+    "make_stream_fn",
+]
+
+STREAM_FIELDS = (
+    "consensus", "tracking_err", "spectral_gap", "active_nodes",
+    "compression_err", "replica_drift", "staleness", "send_rate",
+)
+
+
+def _nan(device) -> torch.Tensor:
+    return torch.full((), float("nan"), dtype=torch.float32, device=device)
+
+
+def _weights(n: int, active: Optional[torch.Tensor], device):
+    """(a, k): the fp32 active mask and max(|a|, 1)."""
+    a = (torch.ones(n, dtype=torch.float32, device=device) if active is None
+         else active.float())
+    return a, torch.clamp(a.sum(), min=1.0)
+
+
+def masked_consensus(tree: Tree, active: Optional[torch.Tensor]) -> torch.Tensor:
+    """Σ_{i active} ||x_i - x̄_active||² over the whole tree."""
+    leaves = tree_leaves(tree)
+    n = leaves[0].shape[0]
+    a, k = _weights(n, active, leaves[0].device)
+
+    def one(x):
+        xf = x.float().reshape(n, -1)
+        mean = (a @ xf) / k
+        d = (xf - mean[None]) * a[:, None]
+        return torch.sum(d * d)
+
+    return sum(one(x) for x in leaves)
+
+
+def tracking_buffer(state, name: Optional[str]) -> Optional[Tree]:
+    """The algorithm's declared gradient-direction buffer, if any."""
+    if name is None:
+        return None
+    return getattr(state, name, None)
+
+
+def tracking_error(
+    state,
+    active: Optional[torch.Tensor],
+    grad_at_mean: Optional[Callable[[Tree], Tree]] = None,
+    buffer_name: Optional[str] = None,
+) -> torch.Tensor:
+    """Σ_{i active} ||b_i − g*||² of the declared buffer (NaN when the
+    algorithm declares none).  ``grad_at_mean`` maps the node-mean params
+    x̄ to ∇f(x̄); without it the buffer's active mean is the reference."""
+    buf = tracking_buffer(state, buffer_name)
+    if buf is None:
+        return _nan(tree_leaves(state.params)[0].device)
+    leaves = tree_leaves(buf)
+    n = leaves[0].shape[0]
+    a, k = _weights(n, active, leaves[0].device)
+    if grad_at_mean is not None:
+        xbar = tree_map(lambda p: p.float().mean(dim=0), state.params)
+        ref = [r.float().reshape(-1) for r in tree_leaves(grad_at_mean(xbar))]
+    else:
+        ref = [(a @ x.float().reshape(n, -1)) / k for x in leaves]
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for x, r in zip(leaves, ref):
+        d = (x.float().reshape(n, -1) - r[None]) * a[:, None]
+        total = total + torch.sum(d * d)
+    return total
+
+
+def effective_spectral_gap(w: torch.Tensor, active: Optional[torch.Tensor]) -> torch.Tensor:
+    """λ_t = max |eig|(diag(a) W diag(a) − a aᵀ/|a|) in fp32.
+
+    ``w`` is (..., N, N) and ``active`` (..., N) or None: leading dimensions
+    batch the rounds into one ``eigvalsh`` call.  W is symmetric, so the
+    eigenvalues give the spectral norm exactly; masked rows and columns add
+    zero eigenvalues, which never exceed a connected active block's gap."""
+    w = w.float()
+    a = (torch.ones(w.shape[:-1], dtype=torch.float32, device=w.device) if active is None
+         else active.float())
+    k = torch.clamp(a.sum(dim=-1), min=1.0)
+    outer = a[..., :, None] * a[..., None, :]
+    m = w * a[..., :, None] * a[..., None, :] - outer / k[..., None, None]
+    return torch.linalg.eigvalsh(m).abs().amax(dim=-1)
+
+
+def replica_drift(state, comm_buffers: Optional[Sequence[str]] = None) -> torch.Tensor:
+    """Σ ||b − x̂||² between each gossiped buffer and its channel replica
+    (the ``"hat"`` wire entries, matched to ``comm_buffers`` by position);
+    NaN for channels without replicas."""
+    comp = getattr(state, "comp", None)
+    if comp is None or comm_buffers is None:
+        return _nan(tree_leaves(state.params)[0].device)
+    total = None
+    for name, wire in zip(comm_buffers, comp.wire):
+        if not isinstance(wire, dict) or wire.get("hat") is None:
+            continue
+        buf = getattr(state, name, None)
+        if buf is None:
+            continue
+        for b, h in zip(tree_leaves(buf), tree_leaves(wire["hat"])):
+            d = b.float() - h.float()
+            total = torch.sum(d * d) + (0.0 if total is None else total)
+    return _nan(tree_leaves(state.params)[0].device) if total is None else total
+
+
+def staleness(state) -> torch.Tensor:
+    """Mean per-node snapshot age over async wire buffers (NaN otherwise)."""
+    ages = _wire_entries(state, "age")
+    if not ages:
+        return _nan(tree_leaves(state.params)[0].device)
+    return sum(a.float().mean() for a in ages) / len(ages)
+
+
+def send_rate(state) -> torch.Tensor:
+    """Share of (node, buffer) sites that sent this round (NaN when no
+    async wire state is attached)."""
+    sent = _wire_entries(state, "sent")
+    if not sent:
+        return _nan(tree_leaves(state.params)[0].device)
+    return sum(s.float().mean() for s in sent) / len(sent)
+
+
+def make_stream_fn(
+    grad_at_mean: Optional[Callable[[Tree], Tree]] = None,
+    buffer_name: Optional[str] = None,
+    comm_buffers: Optional[Sequence[str]] = None,
+    spectral_gap: bool = True,
+):
+    """The per-round stream function ``(state, ctx) -> dict`` of 0-d fp32
+    tensors, one per :data:`STREAM_FIELDS` entry.
+
+    ``spectral_gap=False`` leaves that field out, for callers that compute
+    it for a whole chunk of rounds in one batched call."""
+
+    def stream(state, ctx) -> dict:
+        active = ctx.active
+        leaf = tree_leaves(state.params)[0]
+        n, dev = leaf.shape[0], leaf.device
+        out = {
+            "consensus": masked_consensus(state.params, active),
+            "tracking_err": tracking_error(state, active, grad_at_mean, buffer_name),
+        }
+        if spectral_gap:
+            out["spectral_gap"] = (effective_spectral_gap(ctx.w, active)
+                                   if ctx.w is not None else _nan(dev))
+        out["active_nodes"] = (active.float().sum() if active is not None
+                               else torch.tensor(float(n), device=dev))
+        out["compression_err"] = compression_error(state)
+        out["replica_drift"] = replica_drift(state, comm_buffers)
+        out["staleness"] = staleness(state)
+        out["send_rate"] = send_rate(state)
+        return out
+
+    return stream

@@ -157,6 +157,39 @@ def test_compressed_comm_event_launches_eight_of_each_qsgd_op(cuda_device):
     assert np.isfinite(sim.evaluate(state)["train_loss"])
 
 
+def test_dropout_scenario_through_the_kernels_matches_the_cpu(cuda_device):
+    """A reduced ``dropout_ring`` DSE-MVR run (32 steps) through the kernels,
+    with the dropout gate and the streams on the card, against the same
+    formulas' plain versions on the CPU from the same indices: history in the main-path band
+    (rtol 5e-4 / atol 1e-5), the consensus, tracking-error and
+    spectral-gap streams within the same rtol, ``active_nodes`` exactly."""
+    from repro_torch.scenarios import make_scenario
+
+    data, _ = tproblem.make_paper_problem(0.5, seed=0)
+    idx = torch.randint(0, data.samples_per_node, (32, N_NODES, BATCH),
+                        generator=torch.Generator().manual_seed(3))
+    outs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        alg = tproblem.make_algorithm("dse_mvr", 0.3, TAU, 32, use_fused=True)
+        sim = Simulator(alg, None, tproblem.mlp_loss, data, BATCH,
+                        scenario=make_scenario("dropout_ring"), device=dev,
+                        index_fn=lambda s, i=idx.to(dev): i[s])
+        api.reset_counters()
+        outs[dev.type] = (sim.run(tproblem.mlp_init(0), 32, eval_every=16), api.launch_counts())
+    (got, launches), (want, _) = outs["cuda"], outs["cpu"]
+    assert launches["mvr_update"] > 0 and launches["dse_combine_yh"] > 0, launches
+    assert got["state"].params["w1"].is_cuda
+    for g, w in zip(got["history"], want["history"]):
+        for k in ("train_loss", "consensus"):
+            np.testing.assert_allclose(g[k], w[k], rtol=5e-4, atol=1e-5, err_msg=k)
+    for k in ("consensus", "tracking_err", "spectral_gap"):
+        np.testing.assert_allclose(got["streams"][k], want["streams"][k], rtol=5e-4,
+                                   atol=1e-5, err_msg=k)
+    np.testing.assert_array_equal(got["streams"]["active_nodes"],
+                                  want["streams"]["active_nodes"])
+    assert got["streams"]["active_nodes"].min() < N_NODES
+
+
 # --------------------------------------------------------- top-k (CUDA C++)
 # (N, d, k): the MLP's leaves at ratio 0.1, ragged sizes, k = d, and one row;
 # rows just under, at and just over the unpack's tile of 16,384, several

@@ -22,7 +22,10 @@ for name in names:
 for want in ("repro_torch.kernels.mvr_update.kernel", "repro_torch.kernels.comm_compress.kernel",
              "repro_torch.kernels.flash_attention.kernel", "repro_torch.kernels.rms_norm.kernel",
              "repro_torch.kernels.wkv_chunk.kernel", "repro_torch.models.rwkv",
-             "repro_torch.models.transformer", "repro_torch.launch.serve"):
+             "repro_torch.models.transformer", "repro_torch.launch.serve",
+             "repro_torch.scenarios", "repro_torch.scenarios.faults",
+             "repro_torch.scenarios.heterogeneity", "repro_torch.scenarios.schedules",
+             "repro_torch.scenarios.scenario", "repro_torch.scenarios.metrics"):
     assert want in names, (want, names)
 assert "jax" not in sys.modules, "jax was imported"
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
