@@ -113,6 +113,7 @@ from __future__ import annotations
 import importlib.metadata
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -993,10 +994,12 @@ def serving_path(api) -> list:
     launch counts of each run through the kernels."""
     import dataclasses
 
+    import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import Model
-    from repro_torch.serving import RequestDriver, scan_prefill
+    from repro_torch.serving import RequestDriver, ServingMetrics, scan_prefill
+    from repro_torch.telemetry import Telemetry
     from repro_torch.tree import tree_map
 
     runs = []
@@ -1108,6 +1111,27 @@ def serving_path(api) -> list:
           f"{res['elapsed_s'] / res['steps'] * 1e3:.2f} ms/step, "
           f"{res['tokens_per_sec']:.1f} tokens/s, {res['requests_per_sec']:.2f} requests/s, "
           f"every output 16 tokens in the vocabulary: {ok}")
+    # the same driver with a hub (fenced serve/admit and serve/decode spans)
+    # and serving metrics: the same tokens
+    hub = Telemetry(config={"arch": LM_ARCH, "slots": 4})
+    metrics = ServingMetrics((1,), telemetry=hub)
+    driver = RequestDriver(model, slots=4, max_len=96 + 16, dtype=torch.bfloat16,
+                           decode_fn=job.decode_fn, device=job.device, telemetry=hub,
+                           metrics=metrics)
+    got = driver.run(params, requests)
+    for i, o in outs.items():
+        assert np.array_equal(got["outputs"][i], o), f"request {i}: tokens differ with a hub"
+    assert hub.labels("span_seconds") == ("serve/admit", "serve/decode"), hub.labels(
+        "span_seconds")
+    decode = hub.collect()["span_seconds"]["series"]["serve/decode"]["summary"]
+    assert decode["count"] == got["steps"], (decode, got["steps"])
+    prom = metrics.prometheus()
+    rps = [line for line in prom.splitlines()
+           if line.startswith("repro_serving_requests_per_sec ")]
+    assert rps, prom
+    print(f"serve RequestDriver with a hub and ServingMetrics: tokens equal the hub-free "
+          f"driver's; {got['steps']} serve/decode spans, p50 {decode['p50'] * 1e3:.2f} ms, "
+          f"{got['elapsed_s'] / got['steps'] * 1e3:.2f} ms/step; prometheus {rps[0]}")
     del params, driver
     torch.cuda.empty_cache()
     return runs
@@ -1545,6 +1569,183 @@ def scenario_path(run, agree) -> None:
     print("scenario steps/s (kernels, plain cuda, plain cpu): " + json.dumps(rates))
 
 
+def trace_ranges(path: Path, phases, kernels) -> dict:
+    """Launches inside each ``repro/<phase>`` range of a Chrome trace: a
+    kernel belongs to the range whose host time holds the runtime or driver
+    call that launched it (matched by CUPTI's correlation id), or, where no
+    such call was recorded, its own run (a fenced span ends after its
+    kernels do).  Returns ``{phase: {"ranges": n, kernel: launches, ...}}``,
+    a kernel counted where its name holds the key."""
+    events = json.loads(path.read_text())["traceEvents"]
+    ranges = {ph: [(e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("name") == f"repro/{ph}" and e.get("ph") == "X"
+                   and e.get("cat") == "user_annotation"] for ph in phases}
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    out = {ph: {"ranges": len(r), **{k: 0 for k in kernels}} for ph, r in ranges.items()}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        ts = launch_ts.get(e.get("args", {}).get("correlation"), e["ts"])
+        for ph, spans in ranges.items():
+            if any(a <= ts <= b for a, b in spans):
+                for k in kernels:
+                    out[ph][k] += k in e["name"]
+    return out
+
+
+def telemetry_path(run, idx_cuda, seed_fn, smi: str) -> None:
+    """Phase 3c: the telemetry hub and checkpoints on the main path through
+    the kernels (``run`` resets the launch counts just before each run and
+    reads them just after)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.compression import link_bytes_per_round
+    from repro_torch.configs import get_config
+    from repro_torch.core import Simulator, ring
+    from repro_torch.models import Model
+    from repro_torch.paper_problem import make_algorithm, make_paper_problem, mlp_init, mlp_loss
+    from repro_torch.scenarios import STREAM_FIELDS, make_scenario
+    from repro_torch.telemetry import Telemetry, profile_trace
+    from repro_torch.tree import tree_leaves, tree_map
+
+    choco = dict(channel="choco", compression="top_k:0.1")
+    rounds = QSGD_STEPS // TAU
+
+    # three ways bit for bit: no hub, a hub with spans off, spans on
+    runs = {}
+    for mode in ("none", "off", "on"):
+        hub = None if mode == "none" else Telemetry(spans=mode == "on")
+        runs[mode] = (run("dse_mvr", "cuda", steps=QSGD_STEPS, use_fused=True, keep_state=True,
+                          telemetry=hub, **choco), hub)
+    base = runs["none"][0]
+    assert runs["off"][0]["launches"] == base["launches"], (runs["off"][0]["launches"],
+                                                            base["launches"])
+    params = {k: v.unsqueeze(0).repeat((8,) + (1,) * v.dim()) for k, v in mlp_init(0).items()}
+    per_round = link_bytes_per_round(make_algorithm("dse_mvr", 0.3, TAU, QSGD_STEPS,
+                                                    **choco).comm, params)
+    for mode in ("off", "on"):
+        out, hub = runs[mode]
+        for k, t in base["state"].params.items():
+            assert torch.equal(out["state"].params[k], t), (mode, k)
+        links = {lb: hub.total("link_bytes", lb) for lb in hub.labels("link_bytes")}
+        assert links == {lb: b * rounds for lb, b in per_round.items()}, (mode, links)
+        folded = {op: hub.total("kernel_launches", op) for op in hub.labels("kernel_launches")}
+        assert folded == {op: float(n) for op, n in out["launches"].items()}, (mode, folded)
+    spanned = runs["on"][1]
+    phases = spanned.labels("span_seconds")
+    assert {"local", "gossip", "eval"} <= set(phases), phases
+    print("telemetry choco top-k, a hub with spans off and on: params bit for bit the "
+          f"hub-free run's, launches {json.dumps(base['launches'])}; link bytes "
+          f"{json.dumps(links)} (= per round x {rounds}); kernel_launches folded "
+          f"{json.dumps(folded)}; span phases {list(phases)}, gossip span p50 "
+          f"{spanned.collect()['span_seconds']['series']['gossip']['summary']['p50'] * 1e3:.3f} ms")
+
+    # the scheduled executor: dropout_ring with spans against without
+    plain = run("dse_mvr", "cuda", steps=QSGD_STEPS, use_fused=True, keep_state=True,
+                scenario=make_scenario("dropout_ring"))
+    hub = Telemetry(spans=True)
+    sched = run("dse_mvr", "cuda", steps=QSGD_STEPS, use_fused=True, keep_state=True,
+                scenario=make_scenario("dropout_ring"), telemetry=hub)
+    for k, t in plain["state"].params.items():
+        assert torch.equal(sched["state"].params[k], t), ("dropout_ring", k)
+    for k in STREAM_FIELDS:
+        steps_k, vals = hub.series(k)
+        assert steps_k.tolist() == list(range(rounds)), k
+        assert np.array_equal(vals, sched["streams"][k].astype(np.float64), equal_nan=True), k
+        assert np.array_equal(sched["streams"][k], plain["streams"][k], equal_nan=True), k
+    print(f"telemetry dropout_ring: spans on vs off bit for bit, every stream one value a "
+          f"round ({rounds}) equal to the run's; span phases {list(hub.labels('span_seconds'))}")
+
+    # span overhead: steps/s with spans off and on, host clock, in turns
+    rates = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off") * 2:
+        out = run("dse_mvr", "cuda", use_fused=True, telemetry=Telemetry(spans=mode == "on"))
+        rates[mode].append(out["steps_per_s"])
+    med = {m: statistics.median(r) for m, r in rates.items()}
+    print(f"telemetry span overhead, dse_mvr {STEPS} steps through the kernels ({smi}): "
+          f"spans off {med['off']:.1f} steps/s (min {min(rates['off']):.1f}, max "
+          f"{max(rates['off']):.1f}), on {med['on']:.1f} (min {min(rates['on']):.1f}, max "
+          f"{max(rates['on']):.1f}); on/off {med['on'] / med['off']:.4f}; runs "
+          + json.dumps(rates))
+
+    # two spanned rounds under the profiler: kernels inside the phase ranges
+    data, _ = make_paper_problem(OMEGA, seed=0)
+    alg = make_algorithm("dse_mvr", 0.3, TAU, QSGD_STEPS, use_fused=True, **choco)
+    sim = Simulator(alg, ring(8), mlp_loss, data, BATCH, telemetry=Telemetry(spans=True),
+                    device="cuda", index_fn=lambda s: idx_cuda[s], comm_seed_fn=seed_fn)
+    state = sim.run_rounds(sim.init_state(mlp_init(0)), 1)   # kernels loaded first
+    trace_dir = ROOT / "build" / "span_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with profile_trace(str(trace_dir)):
+        state = sim.run_rounds(state, 2)
+        torch.cuda.synchronize()
+    (trace,) = trace_dir.glob("trace_*.json")
+    inside = trace_ranges(trace, ("local", "gossip"),
+                          ("_mvr_update_kernel", "pack_kernel", "tile_kernel"))
+    print("telemetry profiler trace of two spanned rounds, launches inside the ranges: "
+          + json.dumps(inside))
+    assert inside["local"]["ranges"] == inside["gossip"]["ranges"] == 2, inside
+    assert inside["local"]["_mvr_update_kernel"] >= 1, inside
+    assert inside["gossip"]["pack_kernel"] >= 1 and inside["gossip"]["tile_kernel"] >= 1, inside
+
+    # checkpoints: save at round 8, load onto the card, run on to round 16
+    ckpt = ROOT / "build" / "checkpoints"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def timed_save(path, step, tree):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(str(path), step, tree)
+        return time.perf_counter() - t0
+
+    def timed_load(path, like):
+        t0 = time.perf_counter()
+        tree, _ = load_checkpoint(str(path), like=like)
+        torch.cuda.synchronize()
+        return tree, time.perf_counter() - t0
+
+    sim = Simulator(alg, ring(8), mlp_loss, data, BATCH, device="cuda",
+                    index_fn=lambda s: idx_cuda[s], comm_seed_fn=seed_fn)
+    whole = sim.run_rounds(sim.init_state(mlp_init(0)), rounds)
+    half = sim.run_rounds(sim.init_state(mlp_init(0)), rounds // 2)
+    save_s = timed_save(ckpt / "mlp", rounds // 2, half)
+    loaded, load_s = timed_load(ckpt / "mlp", half)
+    assert loaded.step == half.step and loaded.comp.event == half.comp.event
+    resumed = sim.run_rounds(loaded, rounds - rounds // 2)
+    for field in ("params", "x_ref", "v", "y", "h_prev"):
+        for leaf, t in getattr(whole, field).items():
+            assert torch.equal(getattr(resumed, field)[leaf], t), (field, leaf)
+    for b, wire in enumerate(whole.comp.wire):
+        for leaf, t in wire["hat"].items():
+            assert torch.equal(resumed.comp.wire[b]["hat"][leaf], t), (b, leaf)
+    mlp_mb = (ckpt / "mlp" / f"step_{rounds // 2:010d}" / "data.npz").stat().st_size / 1e6
+    print(f"checkpoint choco top-k state saved at round {rounds // 2}, loaded onto the card "
+          f"with like=, run on to round {rounds}: bit for bit the uninterrupted run; "
+          f"{mlp_mb:.2f} MB, save {save_s * 1e3:.1f} ms, load {load_s * 1e3:.1f} ms")
+
+    # one Gemma-2 2B layer's bf16 parameters (the first block of a 2-layer cut)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2)
+    layer = tree_map(lambda t: t[0].contiguous(),
+                     Model(cfg).init(0, dtype=torch.bfloat16, device="cuda")["blocks"]["b0"])
+    torch.cuda.empty_cache()
+    mb = sum(t.numel() * t.element_size() for t in tree_leaves(layer)) / 1e6
+    save_s = timed_save(ckpt / "gemma2_layer", 0, layer)
+    back, load_s = timed_load(ckpt / "gemma2_layer", layer)
+    for a, b in zip(tree_leaves(back), tree_leaves(layer)):
+        assert a.is_cuda and a.dtype == torch.bfloat16 and torch.equal(
+            a.view(torch.int16), b.view(torch.int16))
+    print(f"checkpoint {cfg.name} layer 0, bf16, {mb:.1f} MB ({smi}): bits equal after the "
+          f"round trip; save {save_s:.3f} s ({mb / save_s:.1f} MB/s), load onto the card "
+          f"{load_s:.3f} s ({mb / load_s:.1f} MB/s)")
+    del layer, back
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     # ---------------------------------------------------------------- 1
     if not torch.cuda.is_available():
@@ -1615,7 +1816,9 @@ def main() -> int:
         out["launches"] = api.launch_counts()
         out["steps_per_s"] = steps / out["wall_s"]
         kept = {k: out.pop(k) for k in ("streams", "state") if k in out}
-        shown = {k: "given" if k == "init_params" else v for k, v in kw.items()}
+        shown = {k: "given" if k == "init_params" else
+                 f"Telemetry(spans={v.spans})" if k == "telemetry" and v is not None else v
+                 for k, v in kw.items()}
         print(f"run {name} device={device} mode={mode} steps={steps} {shown}: " + json.dumps(out))
         if out["launches"]:
             kernel_runs.append(out)
@@ -1741,6 +1944,9 @@ def main() -> int:
 
     # --------------------------------------------------------------- 3b
     scenario_path(run, agree)
+
+    # --------------------------------------------------------------- 3c
+    telemetry_path(run, idx_cuda, seed_fn, smi)
 
     # ---------------------------------------------------------------- 4
     kernel_runs += [{"launches": launches} for launches in serving_path(api)]

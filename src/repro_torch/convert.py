@@ -3,12 +3,16 @@
 Inputs are numpy trees, as ``jax.tree.map(np.asarray, ...)`` gives them:
 dicts of arrays for parameters and for a model's decode caches, and for an
 algorithm state an object with the state's fields (or a dict of them).  bfloat16 arrays (numpy's
-``ml_dtypes`` bfloat16) keep their dtype.
+``ml_dtypes`` bfloat16) keep their dtype; tensors are taken as they are.
+:func:`state_from_checkpoint` reads an algorithm state from the nested dict
+``repro_torch.checkpoint.load_checkpoint`` gives for either package's
+checkpoint.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from types import SimpleNamespace
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -18,7 +22,10 @@ from .core.baselines import GTHSGDState, GTState, MomentumState, SGDState, SlowM
 from .core.dse import DSEState
 from .tree import tree_map
 
-__all__ = ["params_from_numpy", "cache_from_numpy", "state_from_numpy", "tree_to_numpy"]
+__all__ = [
+    "params_from_numpy", "cache_from_numpy", "state_from_numpy", "state_from_checkpoint",
+    "tree_to_numpy",
+]
 
 # the port's state classes by name, which is also the reference's name
 _STATE_CLASSES = {
@@ -28,6 +35,8 @@ _STATE_CLASSES = {
 
 
 def _tensor(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.array(a)   # a writable copy: reference arrays are read-only
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
@@ -84,11 +93,12 @@ def _channel_state_from_numpy(comp, device) -> Optional[ChannelState]:
     """A reference ``ChannelState`` (per buffer, None or the channel's wire:
     ``res``, ``hat``, ``age``, ``sent``, ``fly``) as the port's.  The
     reference's PRNG key has no counterpart: the port's codec seeds come
-    from ``comm_seed_fn`` by event number, which starts again at 0."""
+    from ``comm_seed_fn`` by event number, which starts again at 0 (the
+    port's own ``event`` is kept where the input has one)."""
     if comp is None:
         return None
     wire = tuple(None if w is None else _wire_from_numpy(w, device) for w in comp.wire)
-    return ChannelState(wire=wire)
+    return ChannelState(wire=wire, event=int(getattr(comp, "event", 0)))
 
 
 def state_from_numpy(state: Any, device) -> Any:
@@ -98,21 +108,60 @@ def state_from_numpy(state: Any, device) -> Any:
     for a dict of fields).  Absent buffers stay None, the step becomes a
     host int, and a ``comp`` wire state is carried over."""
     if isinstance(state, dict):
-        get = state.get
-        cls = DSEState
-    else:
-        get = lambda k: getattr(state, k, None)  # noqa: E731
-        cls = _STATE_CLASSES[type(state).__name__]
+        return _state_of(DSEState, state.get, device)
+    return _state_of(_STATE_CLASSES[type(state).__name__],
+                     lambda k: getattr(state, k, None), device)
+
+
+def _state_of(cls, get, device) -> Any:
     out = {}
     for f in dataclasses.fields(cls):
         value = get(f.name)
         if f.name == "step":
-            out["step"] = int(np.asarray(value))
+            out["step"] = int(value)
         elif f.name == "comp":
             out["comp"] = _channel_state_from_numpy(value, device)
         else:
             out[f.name] = None if value is None else params_from_numpy(value, device)
     return cls(**out)
+
+
+def state_from_checkpoint(tree: Dict[str, Any], device) -> Any:
+    """An algorithm state from a checkpoint's nested dict (``load_checkpoint``
+    without ``like``, of a reference or a port checkpoint) on ``device``.
+
+    The state class is the smallest whose fields hold every saved field
+    (``DSEState`` for DSE-MVR / DSE-SGD, ``GTHSGDState`` for GT-HSGD, ...).
+    A wire tuple ends at its last saved buffer (buffers after it hold no
+    wire).  A reference ``.comp/.key`` is read past, as in
+    :func:`state_from_numpy`; an in-flight ``Packed`` payload (overlap)
+    needs its codec's meta, which only ``load_checkpoint(..., like=state)``
+    has."""
+    fields = {k.lstrip("."): v for k, v in tree.items()}
+    comp = fields.get("comp")
+    if comp is not None:
+        wire = comp.get(".wire", {})
+        n = max((int(i) for i in wire), default=-1) + 1
+        _reject_payloads(wire)
+        fields["comp"] = SimpleNamespace(
+            wire=tuple(wire.get(str(i)) for i in range(n)), event=int(comp.get(".event", 0)))
+    fitting = [c for c in _STATE_CLASSES.values()
+               if set(fields) <= {f.name for f in dataclasses.fields(c)}]
+    if not fitting:
+        raise ValueError(f"no state class holds the fields {sorted(fields)}")
+    cls = min(fitting, key=lambda c: len(dataclasses.fields(c)))
+    return _state_of(cls, fields.get, device)
+
+
+def _reject_payloads(tree) -> None:
+    if isinstance(tree, dict):
+        if ".data" in tree:
+            raise ValueError(
+                "the checkpoint holds an in-flight Packed payload; load it with "
+                "load_checkpoint(..., like=state), which carries the codec's meta"
+            )
+        for v in tree.values():
+            _reject_payloads(v)
 
 
 def tree_to_numpy(tree: Any) -> Any:

@@ -307,6 +307,14 @@ def make_round_step(
     scenario's ``needs_local_gate`` / ``needs_active_gate``) leave the
     selects out where no fault can mask a node, so a fault-free scenario
     runs exactly the static executor's operations.
+
+    The round is the composition of two phases, ``round_step.phases =
+    (local_phase, comm_phase)``: ``local_phase(state, micro)`` runs the
+    ``round_len - 1`` local updates on the minibatches ``micro`` and
+    ``comm_phase(state, last)`` the communication step; scheduled, both take
+    the round's ``ctx`` as a third argument.  The Simulator's telemetry spans
+    call them one by one; ``round_step`` runs the same operations in the
+    same order.
     """
     spec = algorithm.comm
     round_len = spec.round_len(getattr(algorithm, "tau", 1))
@@ -350,19 +358,25 @@ def make_round_step(
 
     if not scheduled:
 
-        def round_step(state, batches: Sequence):
-            _check(batches)
-            for mb in batches[: round_len - 1]:
+        def local_phase(state, micro: Sequence):
+            for mb in micro:
                 state = algorithm.local_update(state, lambda p, mb=mb: grad_of_batch(p, mb))
-            last = batches[round_len - 1]
+            return state
+
+        def comm_phase(state, last):
             return _comm(state, lambda p: grad_of_batch(p, last))
 
+        def round_step(state, batches: Sequence):
+            _check(batches)
+            state = local_phase(state, batches[: round_len - 1])
+            return comm_phase(state, batches[round_len - 1])
+
+        round_step.phases = (local_phase, comm_phase)
         return round_step, round_len
 
-    def round_step_scheduled(state, batches: Sequence, ctx: RoundCtx):
-        _check(batches)
+    def local_phase_sched(state, micro: Sequence, ctx: RoundCtx):
         masks = ctx.local_mask if gate_local and ctx.local_mask is not None else None
-        for j, mb in enumerate(batches[: round_len - 1]):
+        for j, mb in enumerate(micro):
             new = algorithm.local_update(state, lambda p, mb=mb: grad_of_batch(p, mb))
             if masks is not None:
                 # local updates never touch the channel wire: it passes
@@ -375,8 +389,16 @@ def make_round_step(
                 else:
                     new = _select_nodes(masks[j], new, state)
             state = new
-        last = batches[round_len - 1]
+        return state
+
+    def comm_phase_sched(state, last, ctx: RoundCtx):
         new = _comm(state, lambda p: grad_of_batch(p, last), ctx)
         return _select_nodes(ctx.active if gate_active else None, new, state)
 
+    def round_step_scheduled(state, batches: Sequence, ctx: RoundCtx):
+        _check(batches)
+        state = local_phase_sched(state, batches[: round_len - 1], ctx)
+        return comm_phase_sched(state, batches[round_len - 1], ctx)
+
+    round_step_scheduled.phases = (local_phase_sched, comm_phase_sched)
     return round_step_scheduled, round_len

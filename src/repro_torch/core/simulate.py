@@ -25,7 +25,17 @@ executor and returns dense per-round metric streams.  The schedule goes to
 the device once per run; each round's stream values stay on the device
 until the next evaluation point, where a chunk is copied to the host in one
 transfer.  The static, fault-free ``baseline`` scenario is bit for bit the
-static executor.  Telemetry is a later slice (ROADMAP queue 1 item 6).
+static executor.
+
+With a ``telemetry`` hub (``repro_torch.telemetry.Telemetry``) the run feeds
+it the per-round streams (from each chunk's host copy), analytic link-byte
+counters per buffer and channel, ``eval/*`` gauges and, at the end, the
+kernel launches of the run.  With ``hub.spans`` each round runs as its two
+phases (``make_round_step``'s ``.phases``: the same minibatches and
+operations) in fenced ``local`` / ``gossip`` spans, with ``metrics`` and
+``eval`` spans beside them.  A hub changes no number the run computes, and
+with ``telemetry=None`` the run makes exactly the calls it makes without
+this plumbing.
 """
 from __future__ import annotations
 
@@ -36,8 +46,11 @@ import numpy as np
 import torch
 
 from ..compression.base import attach_channel_state
-from ..compression.channels import SeedFn
+from ..compression.channels import AsyncChannel, SeedFn, link_bytes_per_round
 from ..device import resolve_device
+from ..telemetry.registry import TRAINING_STREAM_FIELDS as STREAM_FIELDS
+from ..telemetry.registry import register_training_streams
+from ..telemetry.spans import span
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .algorithm import RoundCtx, make_round_step
 from .mixing import dense_mix, scheduled_dense_mix
@@ -145,6 +158,7 @@ class Simulator:
         eval_fn: Optional[Callable[[Tree], Dict[str, float]]] = None,
         scenario=None,
         stream_metrics: bool = True,
+        telemetry=None,
         *,
         device=None,
         seed: int = 0,
@@ -167,6 +181,13 @@ class Simulator:
         self.stream_metrics = stream_metrics
         self.n_nodes = n
         self.mix_fn = dense_mix(topology.w, self.device) if topology is not None else None
+        # an optional hub: streams, link-byte counters and, with hub.spans,
+        # fenced per-phase rounds; None leaves every path below as it was
+        self.telemetry = telemetry
+        if telemetry is not None:
+            register_training_streams(telemetry)
+        self._link_per_round: Optional[Dict[str, float]] = None
+        self._rounds_done = 0   # the external run_rounds() hook's span numbering
 
         dev = self.device
         self._x = torch.as_tensor(data.x, device=dev)
@@ -268,15 +289,99 @@ class Simulator:
 
     def run_rounds(self, state, n_rounds: int = 1):
         """Advance ``n_rounds`` communication rounds of the static topology
-        and return the state."""
+        and return the state: the hook for callers that interleave training
+        with other work.  With a hub the link bytes accumulate here too, and
+        with spans on the rounds run phase by phase in fenced spans."""
         if self._round_step is None:
             raise ValueError(
                 "this Simulator has no static topology; a scenario's schedule "
                 "runs through run()"
             )
-        for _ in range(int(n_rounds)):
+        tel, n = self.telemetry, int(n_rounds)
+        if tel is not None and tel.spans:
+            start = self._rounds_done
+            state = self._advance_spanned(state, start, start + n)
+        else:
+            state = self._rounds(state, n)
+            if tel is not None:
+                tel.record_link_bytes(self._link_round_bytes(state), rounds=n,
+                                      factor=self._send_factor(state))
+        if tel is not None:
+            self._rounds_done += n
+        return state
+
+    def _rounds(self, state, n_rounds: int):
+        """``n_rounds`` rounds of the static executor."""
+        for _ in range(n_rounds):
             batches = [self._batch(state.step + j) for j in range(self.round_len)]
             state = self._round_step(state, batches)
+        return state
+
+    # ------------------------------------------------------------------
+    # telemetry plumbing (inert unless a hub is attached)
+    # ------------------------------------------------------------------
+    def _link_round_bytes(self, state) -> Dict[str, float]:
+        """Analytic per-round link bytes per buffer/channel (cached)."""
+        if self._link_per_round is None:
+            self._link_per_round = link_bytes_per_round(self.alg.comm, state.params)
+        return self._link_per_round
+
+    def _has_event_triggered_channel(self) -> bool:
+        """True when realized link bytes depend on a measured send mask (an
+        active async channel) rather than being statically known."""
+        chan = self.alg.comm.resolved_channel()
+        if chan is None:
+            return False
+        return any(
+            isinstance(chan.for_buffer(i), AsyncChannel) and not chan.for_buffer(i).is_passthrough
+            for i in range(len(self.alg.comm.buffers))
+        )
+
+    def _send_factor(self, state) -> float:
+        """Measured fraction of nodes that sent this round (async channels;
+        1.0 when every declared send happens unconditionally).  Reads one
+        value from the device where a channel is event-triggered."""
+        if not self._has_event_triggered_channel():
+            return 1.0
+        from ..scenarios.metrics import send_rate  # lazy: no cycle
+
+        rate = float(send_rate(state))
+        return rate if np.isfinite(rate) else 1.0
+
+    def _record_stream_chunk(self, ys: np.ndarray, start_round: int) -> None:
+        """Fold one chunk's host copy of the streams (``(len(STREAM_FIELDS),
+        rounds)``) into the hub's per-round gauge streams."""
+        tel = self.telemetry
+        for name, row in zip(STREAM_FIELDS, ys):
+            for j, v in enumerate(row):
+                tel.record(name, v, step=start_round + j)
+
+    def _spanned_round(self, state, r: int, slots=None, ctx: Optional[RoundCtx] = None):
+        """One round through the executor's two phases, each in a fenced
+        span: the minibatches and operations of ``round_step``, with the
+        last minibatch gathered after the local phase instead of before."""
+        tel, rl, s0 = self.telemetry, self.round_len, state.step
+        step = self._round_step if ctx is None else self._sched_step
+        local_phase, comm_phase = step.phases
+        more = () if ctx is None else (ctx,)
+        if rl > 1:
+            with span(tel, "local", step=r) as sp:
+                state = local_phase(state, [self._batch(s0 + j, slots) for j in range(rl - 1)],
+                                    *more)
+                sp.fence(state)
+        with span(tel, "gossip", step=r) as sp:
+            state = comm_phase(state, self._batch(s0 + rl - 1, slots), *more)
+            sp.fence(state)
+        return state
+
+    def _advance_spanned(self, state, start: int, stop: int):
+        """Static rounds ``start .. stop - 1`` in fenced phase spans, with
+        the link bytes recorded per round."""
+        tel = self.telemetry
+        link = self._link_round_bytes(state)
+        for r in range(start, stop):
+            state = self._spanned_round(state, r)
+            tel.record_link_bytes(link, rounds=1, factor=self._send_factor(state), step=r)
         return state
 
     def _run_local_tail(self, state, n_steps: int, slots=None):
@@ -308,21 +413,30 @@ class Simulator:
         """Rounds ``start .. stop - 1`` of the schedule; returns the state
         and the chunk's streams, ``(len(STREAM_FIELDS), rounds)`` fp32 on the
         device (None without streams)."""
-        from ..scenarios.metrics import STREAM_FIELDS, effective_spectral_gap  # lazy
+        from ..scenarios.metrics import effective_spectral_gap  # lazy
 
-        rl = self.round_len
+        rl, tel = self.round_len, self.telemetry
+        spanned = tel is not None and tel.spans
         rows = []
         for r in range(start, stop):
-            batches = [self._batch(state.step + j, slots) for j in range(rl)]
             ctx = RoundCtx(
                 w=arrays["w"][r], active=arrays["active"][r],
                 local_mask=arrays["local_mask"][r], pattern=int(schedule.pattern[r]),
                 comp_scale=None if schedule.comp_scale is None else schedule.comp_scale[r],
                 trigger=None if schedule.trigger is None else schedule.trigger[r],
             )
-            state = self._sched_step(state, batches, ctx)
+            if spanned:
+                state = self._spanned_round(state, r, slots, ctx)
+            else:
+                batches = [self._batch(state.step + j, slots) for j in range(rl)]
+                state = self._sched_step(state, batches, ctx)
             if self._stream_fn is not None:
-                rows.append(self._stream_fn(state, ctx))
+                with span(tel, "metrics", step=r) as sp:
+                    rows.append(self._stream_fn(state, ctx))
+                    sp.fence(rows[-1])
+            if spanned:
+                tel.record_link_bytes(self._link_round_bytes(state), rounds=1,
+                                      factor=self._send_factor(state), step=r)
         if not rows:
             return state, None
         gaps = effective_spectral_gap(arrays["w"][start:stop], arrays["active"][start:stop])
@@ -356,6 +470,8 @@ class Simulator:
         history: List[Dict[str, float]] = []
         rl = self.round_len
         n_rounds, tail = divmod(num_steps, rl)
+        tel = self.telemetry
+        spans_on = tel is not None and tel.spans
 
         schedule = slots = None
         if self.scenario is not None:
@@ -365,9 +481,14 @@ class Simulator:
             stream_chunks: List[np.ndarray] = []
 
         def record(steps_done):
-            m = self.evaluate(state)
+            with span(tel, "eval", step=steps_done):
+                m = self.evaluate(state)   # host floats: fenced already
             m["step"] = steps_done
             history.append(m)
+            if tel is not None:
+                for k, v in m.items():
+                    if k != "step":
+                        tel.gauge(f"eval/{k}", v, step=steps_done)
             if verbose:
                 print(
                     f"  step {steps_done:5d}  "
@@ -376,10 +497,30 @@ class Simulator:
 
         def advance(state, start, stop):
             if self.scenario is None:
-                return self.run_rounds(state, stop - start)
+                if spans_on:
+                    return self._advance_spanned(state, start, stop)
+                state = self._rounds(state, stop - start)
+                if tel is not None:
+                    tel.record_link_bytes(self._link_round_bytes(state), rounds=stop - start,
+                                          factor=self._send_factor(state), step=stop - 1)
+                return state
             state, ys = self._run_scheduled(state, schedule, arrays, slots, start, stop)
             if ys is not None:
-                stream_chunks.append(ys.cpu().numpy())   # one transfer a chunk
+                ys = ys.cpu().numpy()   # one transfer a chunk
+                stream_chunks.append(ys)
+            if tel is not None:
+                if ys is not None:
+                    self._record_stream_chunk(ys, start)
+                if not spans_on:   # spanned rounds record their own link bytes
+                    factor = 1.0
+                    if ys is not None:
+                        rate = ys[STREAM_FIELDS.index("send_rate")]
+                        if np.isfinite(rate).any():
+                            factor = float(np.nanmean(rate))
+                    elif self._has_event_triggered_channel():
+                        factor = self._send_factor(state)
+                    tel.record_link_bytes(self._link_round_bytes(state), rounds=stop - start,
+                                          factor=factor, step=stop - 1)
             return state
 
         # a round is an eval boundary when an eval point (a multiple of
@@ -402,13 +543,15 @@ class Simulator:
         if done < n_rounds:
             state = advance(state, done, n_rounds)
         if tail:
-            state = self._run_local_tail(state, tail, slots)
+            with span(tel, "local", step=n_rounds) as sp:
+                state = self._run_local_tail(state, tail, slots)
+                sp.fence(state)
             if eval_every:
                 record(num_steps)
+        if tel is not None:
+            tel.record_kernel_launches()
         out = {"state": state, "history": history}
         if self.scenario is not None:
-            from ..scenarios.metrics import STREAM_FIELDS  # lazy
-
             streams: Dict[str, np.ndarray] = {}
             if stream_chunks:
                 cat = np.concatenate(stream_chunks, axis=1)

@@ -119,6 +119,7 @@ def run_method(
     init_params: Optional[Dict[str, torch.Tensor]] = None,
     scenario=None,
     keep_state: bool = False,
+    telemetry=None,
 ) -> Dict[str, Any]:
     """One paper run: final train loss, test accuracy, consensus and wall
     seconds.  ``init_params``, ``index_fn`` and ``comm_seed_fn`` default to
@@ -126,7 +127,9 @@ def run_method(
 
     With a ``scenario`` the Simulator follows its schedule (no static
     topology) and the result adds ``"streams"``, the per-round metric
-    streams (numpy); ``keep_state=True`` adds the final ``"state"``."""
+    streams (numpy); ``keep_state=True`` adds the final ``"state"``.  A
+    ``telemetry`` hub (``repro_torch.telemetry.Telemetry``) is handed to the
+    Simulator."""
     dev = resolve_device(device)
     data, (xte, yte) = make_paper_problem(omega, seed=seed)
     alg = make_algorithm(
@@ -138,7 +141,8 @@ def run_method(
     sim = Simulator(
         alg, None if scenario is not None else ring(N_NODES), mlp_loss, data, batch_size=b,
         eval_fn=lambda p: {"test_acc": accuracy(p, xte_t, yte_t)}, scenario=scenario,
-        device=dev, seed=seed + 1, index_fn=index_fn, comm_seed_fn=comm_seed_fn,
+        telemetry=telemetry, device=dev, seed=seed + 1, index_fn=index_fn,
+        comm_seed_fn=comm_seed_fn,
     )
     params = init_params if init_params is not None else mlp_init(seed)
     t0 = time.perf_counter()

@@ -27,9 +27,8 @@ next evaluation point, as the reference's scan emits its ys:
   * ``send_rate``       share of (node, buffer) sites whose async trigger
                         fired this round (NaN otherwise).
 
-``STREAM_FIELDS`` copies the reference's ``TRAINING_STREAM_FIELDS``
-(``repro.telemetry.registry``); the telemetry registry itself is ROADMAP
-queue 1 item 6.
+``STREAM_FIELDS`` is the telemetry registry's ``TRAINING_STREAM_FIELDS``
+(``repro_torch.telemetry.registry``), re-exported as the reference does.
 """
 from __future__ import annotations
 
@@ -38,6 +37,7 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 
 from ..compression.base import _wire_entries, compression_error
+from ..telemetry.registry import TRAINING_STREAM_FIELDS
 from ..tree import tree_leaves, tree_map
 
 Tree = Any
@@ -54,10 +54,8 @@ __all__ = [
     "make_stream_fn",
 ]
 
-STREAM_FIELDS = (
-    "consensus", "tracking_err", "spectral_gap", "active_nodes",
-    "compression_err", "replica_drift", "staleness", "send_rate",
-)
+#: re-exported from the registry, the one place stream names are declared
+STREAM_FIELDS = TRAINING_STREAM_FIELDS
 
 
 def _nan(device) -> torch.Tensor:

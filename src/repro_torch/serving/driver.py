@@ -15,9 +15,11 @@ Counterpart of ``repro.serving.driver``:
     to their empty values, whatever the cache holds (ring-buffer ``pos`` to
     -1, an RWKV-6 state and token shifts to zero).
 
-Greedy only, as the reference's driver.  The driver's telemetry spans and
-serving metrics wait for the telemetry hub (ROADMAP queue 1 item 6).
-Everything runs under ``torch.inference_mode()``.
+Greedy only, as the reference's driver.  With a telemetry hub each step
+runs in fenced ``serve/admit`` and ``serve/decode`` spans (the host copy of
+the sampled tokens fences the decode span), and with a ``ServingMetrics``
+each ``run`` lands in its ``requests_per_sec`` and ``tokens_per_sec``
+streams.  Everything runs under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -29,14 +31,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, synchronize
+from ..telemetry.spans import span
 from ..tree import tree_map
 
 Tree = Any
 
 __all__ = ["scan_prefill", "RequestDriver"]
-
-TELEMETRY_TODO = ("the driver's telemetry and serving metrics wait for the telemetry hub "
-                  "(ROADMAP queue 1 item 6)")
 
 
 @torch.inference_mode()
@@ -65,6 +65,11 @@ class RequestDriver:
     decode_fn: optional ``(params, caches, tokens, position) -> (logits,
                caches)`` (e.g. a ``ServeJob.decode_fn``); defaults to the
                model's ``decode_step`` in ``dtype``.
+    telemetry: optional ``repro_torch.telemetry.Telemetry`` hub: fenced
+               ``serve/admit`` and ``serve/decode`` spans per step (the
+               metrics' hub when only ``metrics`` is given).
+    metrics:   optional ``repro_torch.serving.ServingMetrics``: each
+               ``run`` records its requests and tokens per second.
     device:    where the caches live: CUDA unless the CPU is asked for.
     """
 
@@ -72,13 +77,13 @@ class RequestDriver:
                  decode_fn=None, telemetry=None, metrics=None, device=None):
         if model.cfg.head != "lm":
             raise ValueError(f"{model.cfg.name} has no decode path")
-        if telemetry is not None or metrics is not None:
-            raise NotImplementedError(TELEMETRY_TODO)
         self.model = model
         self.slots = int(slots)
         self.max_len = int(max_len)
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.metrics = metrics
+        self.telemetry = telemetry or (metrics.telemetry if metrics is not None else None)
         self._cache_template = model.init_cache(self.slots, self.max_len, dtype=dtype,
                                                 device=self.device)
         self._decode = decode_fn or (
@@ -144,7 +149,9 @@ class RequestDriver:
     def step(self, params: Tree) -> int:
         """Advance every in-flight request one token (one decode step);
         returns how many requests completed this step."""
-        self._admit()
+        tel = self.telemetry
+        with span(tel, "serve/admit", step=self.steps):
+            self._admit()
         tokens = np.zeros((self.slots, 1), np.int32)
         position = np.zeros((self.slots,), np.int32)
         for s, req in enumerate(self._active):
@@ -154,10 +161,11 @@ class RequestDriver:
                 req["prompt"][req["pos"]] if req["pos"] < req["plen"] else req["last"]
             )
             position[s] = req["pos"]
-        sampled, self.caches = self._step(
-            params, self.caches, torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(position).to(self.device))
-        sampled = sampled.cpu().numpy()   # waits for the step
+        with span(tel, "serve/decode", step=self.steps):
+            sampled, self.caches = self._step(
+                params, self.caches, torch.from_numpy(tokens).to(self.device),
+                torch.from_numpy(position).to(self.device))
+            sampled = sampled.cpu().numpy()   # waits for the step: fences the span
         self.steps += 1
 
         done = 0
@@ -188,6 +196,8 @@ class RequestDriver:
         synchronize(self.device)
         elapsed = time.perf_counter() - t0
         tokens = int(sum(self.results[i].size for i in ids))
+        if self.metrics is not None:
+            self.metrics.record_requests(completed, tokens, elapsed)
         return {
             "completed": completed,
             "steps": self.steps,

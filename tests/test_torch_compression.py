@@ -67,6 +67,17 @@ FLIP_BUDGET = 1e-4
 CHANNEL_TAG = 0x636F
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's many small ops: beside other
+    test workers, a pool of one OpenMP thread per core oversubscribes the
+    CPU and spins, which slows these runs by an order of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _seed_of(key) -> int:
     """The uint32 the reference's noise hash reads from a typed key."""
     d = np.asarray(jax.random.key_data(key)).astype(np.uint32).reshape(-1)

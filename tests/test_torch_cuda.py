@@ -734,3 +734,49 @@ def test_reduced_rwkv_prefill_launches_one_wkv_chunk_per_layer(cuda_device):
     torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(caches["b0"]["rwkv"]["wkv"], want_caches["b0"]["rwkv"]["wkv"],
                                rtol=1e-4, atol=1e-4)
+
+
+# ----------------------------------------------- telemetry and checkpoints
+def test_spans_on_and_off_are_bit_for_bit_and_fold_launches(cuda_device):
+    """CHOCO top-k DSE-MVR through the kernels: a hub with spans on or off
+    changes no bit of the run and no launch, and the hub's
+    ``kernel_launches`` totals are the run's launch counts."""
+    from repro_torch.telemetry import Telemetry
+
+    idx = torch.randint(0, 177, (32, N_NODES, BATCH), device=cuda_device,
+                        generator=torch.Generator(device=cuda_device).manual_seed(0))
+    runs = {}
+    for mode in ("none", "off", "on"):
+        hub = None if mode == "none" else Telemetry(spans=mode == "on")
+        api.reset_counters()
+        out = tproblem.run_method("dse_mvr", 0.5, TAU, BATCH, 32, device=cuda_device,
+                                  use_fused=True, channel="choco", compression="top_k:0.1",
+                                  keep_state=True, telemetry=hub, index_fn=lambda s: idx[s])
+        runs[mode] = (out, api.launch_counts(), hub)
+    base, launches, _ = runs["none"]
+    assert launches["top_k_pack"] == launches["top_k_unpack"] == 8 * 32 // TAU, launches
+    for mode in ("off", "on"):
+        out, got, hub = runs[mode]
+        assert got == launches, mode
+        for k, t in base["state"].params.items():
+            assert torch.equal(out["state"].params[k], t), (mode, k)
+        folded = {op: hub.total("kernel_launches", op) for op in hub.labels("kernel_launches")}
+        assert folded == {op: float(n) for op, n in launches.items()}, mode
+    assert {"local", "gossip", "eval"} <= set(runs["on"][2].labels("span_seconds"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_checkpoint_round_trip_on_the_card(dtype, tmp_path, cuda_device):
+    """Leaves saved from the card come back onto it with their dtype and
+    bits (bf16 through its raw 16-bit words)."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    tree = {"w": torch.randn(257, 33, generator=gen, device=cuda_device).to(dtype),
+            "b": {"x": torch.randn(5, generator=gen, device=cuda_device).to(dtype)}, "n": 7}
+    save_checkpoint(str(tmp_path), 4, tree)
+    for like in (tree, None):
+        got, _ = load_checkpoint(str(tmp_path), like=like)
+        for a, b in ((got["w"], tree["w"]), (got["b"]["x"], tree["b"]["x"])):
+            assert a.is_cuda and a.dtype == dtype and torch.equal(a, b)
+    assert got["n"].item() == 7 and load_checkpoint(str(tmp_path), like=tree)[0]["n"] == 7

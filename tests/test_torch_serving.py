@@ -11,7 +11,9 @@ parameters carried over through numpy:
     reference's) against the reference's driver on the same requests: the
     greedy tokens exactly;
   * the serve job and the serving CLI on the CPU, and their refusal to run
-    without a card unless the CPU is asked for.
+    without a card unless the CPU is asked for;
+  * a driver with a ``ServingMetrics`` records each run's requests per
+    second.
 """
 import dataclasses
 
@@ -29,7 +31,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve
 from repro_torch.models import Model, ModelConfig
-from repro_torch.serving import RequestDriver, scan_prefill
+from repro_torch.serving import RequestDriver, ServingMetrics, scan_prefill
 from repro_torch.tree import tree_flatten
 
 ARCHS = ("gemma2_2b", "yi_9b", "rwkv6_3b")
@@ -92,7 +94,7 @@ def test_request_driver_matches_reference(arch, built):
 
 
 def test_request_driver_validation(built):
-    _, _, tm, _ = built("yi_9b")
+    _, _, tm, tp = built("yi_9b")
     driver = RequestDriver(tm, slots=2, max_len=8, device="cpu")
     with pytest.raises(ValueError):
         driver.submit([], 4)
@@ -102,8 +104,11 @@ def test_request_driver_validation(built):
                               n_heads=2, n_kv_heads=2, d_ff=32, vocab_size=32, head="frame"))
     with pytest.raises(ValueError, match="no decode path"):
         RequestDriver(frame, slots=2, max_len=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        RequestDriver(tm, slots=2, max_len=8, device="cpu", metrics=object())
+    metrics = ServingMetrics(bounds=(2,))
+    driver = RequestDriver(tm, slots=2, max_len=8, device="cpu", metrics=metrics)
+    res = driver.run(tp, [([1, 2, 3], 2), ([4, 5], 3)])
+    rps = metrics.streams()["requests_per_sec"]
+    assert rps.shape == (1,) and rps[0] == pytest.approx(res["requests_per_sec"])
 
 
 def test_serve_job_on_cpu(built):

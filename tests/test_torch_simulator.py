@@ -42,6 +42,17 @@ RUN_RTOL, RUN_ATOL, ACC_TOL = 5e-4, 1e-5, 2e-3
 N, B, TAU, OMEGA, SEED = 8, 16, 4, 0.5, 0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's many small ops: beside other
+    test workers, a pool of one OpenMP thread per core oversubscribes the
+    CPU and spins, which slows these runs by an order of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _reference_indices(key, steps, n_nodes, batch, n_i):
     """The reference's (steps, N, b) minibatch indices from ``key``."""
     out = []
