@@ -11,9 +11,18 @@ dataclass fields in declaration order (``.params``), dict keys sorted
 (``['w1']``), tuple items by position (``[0]``); None holds no leaf, and a
 ``Packed`` payload's leaves are its ``.data``.  So a DSE-MVR state with a
 CHOCO wire lists ``.params/['w1']``, ..., ``.step``,
-``.comp/.wire/[0]/['hat']/['w1']``, ..., ``.comp/.event``.  The port's host
-ints (``step``, ``ChannelState.event``) are written as 0-d int32 leaves, as
-the reference's step is an int32 array.  bfloat16 leaves are written as the
+``.comp/.wire/[0]/['hat']/['w1']``, ..., ``.comp/.key``.  The port's host
+step is written as a 0-d int32 leaf, as the reference's step is an int32
+array.  Where the reference keeps its codec's PRNG key, the port keeps
+``ChannelState.event``: it is written at the key's position and under its
+name, as the key's uint32 data of shape (2,) holding ``[0, event]``, so the
+reference loads the state with ``like=`` and wraps a key from it.  The
+manifest's ``event_keys`` lists those leaves' paths, and only the port
+writes it: loading reads the event back from a listed leaf, and from a
+reference's key (whose threefry words hold no event count) gives event 0.
+Older port directories kept the event as a 0-d int32 leaf ``.comp/.event``;
+they still load.  Without ``like`` both kinds of port event come back as
+``.comp/.event``.  bfloat16 leaves are written as the
 reference writes them, a 2-byte void (``V2``) array of the raw bits with
 ``bfloat16`` in the manifest's ``dtypes``, and read back as
 ``torch.bfloat16``.  The
@@ -31,7 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..compression.base import Packed
+from ..compression.base import ChannelState, Packed
 from ..device import resolve_device
 from . import _msgpack
 
@@ -40,11 +49,23 @@ Tree = Any
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_step", "CheckpointManager"]
 
 _BF16 = "bfloat16"
+_EVENT, _KEY = ".event", ".key"
+
+
+class _EventKey(int):
+    """A ``ChannelState.event`` on its way to disk as the key leaf."""
+
+
+def _as_key(path: str) -> str:
+    """A leaf path with a channel's event leaf named as the key leaf."""
+    return path[:-len(_EVENT)] + _KEY if path.endswith(_EVENT) else path
 
 
 def _to_numpy(v) -> np.ndarray:
     """The array a leaf is stored as: tensors on the host (bf16 as its raw
     bits, viewed as 2-byte voids), host ints as 0-d int32."""
+    if isinstance(v, _EventKey):
+        return np.array([0, v], np.uint32)
     if isinstance(v, torch.Tensor):
         t = v.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -67,6 +88,10 @@ def _flatten_with_paths(tree: Tree, path: str = "", out=None) -> List[Tuple[str,
     sep = "/" if path else ""
     if isinstance(tree, Packed):
         return _flatten_with_paths(tree.data, f"{path}{sep}.data", out)
+    if isinstance(tree, ChannelState):
+        _flatten_with_paths(tree.wire, f"{path}{sep}.wire", out)
+        out.append((f"{path}{sep}{_KEY}", _EventKey(tree.event)))
+        return out
     if isinstance(tree, dict):
         for k in sorted(tree):
             _flatten_with_paths(tree[k], f"{path}{sep}[{k!r}]", out)
@@ -87,6 +112,10 @@ def _rebuild(like: Tree, leaves) -> Tree:
         return None
     if isinstance(like, Packed):
         return Packed(_rebuild(like.data, leaves), meta=like.meta)
+    if isinstance(like, ChannelState):
+        wire = _rebuild(like.wire, leaves)
+        event = next(leaves)   # a port's event (0-d), or a reference's key data
+        return ChannelState(wire=wire, event=int(event) if event.dim() == 0 else 0)
     if isinstance(like, dict):
         rebuilt = {k: _rebuild(like[k], leaves) for k in sorted(like)}
         return {k: rebuilt[k] for k in like}
@@ -122,6 +151,9 @@ def save_checkpoint(directory: str, step: int, tree: Tree, metadata: Optional[Di
             "shapes": [list(a.shape) for a in leaves],
             "metadata": metadata or {},
         }
+        events = [p for p, v in flat if isinstance(v, _EventKey)]
+        if events:
+            manifest["event_keys"] = events
         with open(os.path.join(tmp, "manifest.msgpack"), "wb") as f:
             f.write(_msgpack.packb(manifest))
         np.savez(os.path.join(tmp, "data.npz"), **{f"leaf_{i}": a for i, a in enumerate(leaves)})
@@ -153,14 +185,19 @@ def load_checkpoint(directory: str, step: Optional[int] = None, like: Optional[T
     path = os.path.join(directory, f"step_{step:010d}")
     with open(os.path.join(path, "manifest.msgpack"), "rb") as f:
         manifest = _msgpack.unpackb(f.read())
-    paths = manifest["paths"]
+    paths = list(manifest["paths"])
+    events = {paths.index(p) for p in manifest.get("event_keys", ())}
     with np.load(os.path.join(path, "data.npz")) as data:
-        leaves = [_from_numpy(data[f"leaf_{i}"], dt, dev)
+        leaves = [_from_numpy(data[f"leaf_{i}"], dt, dev) if i not in events
+                  else torch.tensor(int(data[f"leaf_{i}"][1]), dtype=torch.int32, device=dev)
                   for i, dt in enumerate(manifest["dtypes"])]
+    for i in events:   # the port's event leaves come back 0-d under .event
+        paths[i] = paths[i][:-len(_KEY)] + _EVENT
     if like is not None:
         like_paths = [p for p, _ in _flatten_with_paths(like)]
-        if like_paths != paths:
-            i = next((i for i, (a, b) in enumerate(zip(like_paths, paths)) if a != b),
+        want, have = [_as_key(p) for p in like_paths], [_as_key(p) for p in paths]
+        if want != have:
+            i = next((i for i, (a, b) in enumerate(zip(want, have)) if a != b),
                      min(len(like_paths), len(paths)))
             raise ValueError(
                 f"checkpoint at {path} has {len(paths)} leaves and `like` has "

@@ -14,7 +14,14 @@ reference's (``repro.checkpoint``): one on-disk format, read both ways.
     its bits are compared through a uint16 view; the port reads it as
     ``torch.bfloat16``;
   * the port's own state round trip with ``like=``, wire, in-flight payload,
-    step and event included: bit for bit.
+    step and event included: bit for bit;
+  * a port CHOCO top-k state after 2 rounds, loaded by the reference with
+    ``like=`` its own state (the event sits at the key's position as uint32
+    key data) and run on one round from the reference's indices, against
+    the port's own next round from the same indices: the one-round band;
+    a port QSGD state read by the reference, leaf for leaf; and an older
+    port directory, whose event leaf was a 0-d ``.comp/.event``, still read
+    by the port.
 """
 import dataclasses
 import os
@@ -43,7 +50,7 @@ from repro_torch.compression import ChocoChannel
 from repro_torch.convert import state_from_checkpoint
 from repro_torch.core import Simulator, ring
 from repro_torch.core.baselines import GTHSGDState
-from test_torch_simulator import _reference_indices
+from test_torch_simulator import _reference_indices, _reference_init
 
 STATE_TOL = dict(rtol=1e-5, atol=1e-6)
 N, B, TAU, OMEGA, SEED = 8, 16, 4, 0.5, 0
@@ -226,10 +233,18 @@ def test_port_state_round_trip(tmp_path, channel):
                     index_fn=lambda s: idx[s])
     state = sim.run_rounds(sim.init_state(tproblem.mlp_init(0)), 2)
     save_checkpoint(str(tmp_path), 2, state)
-    paths = _msgpack.unpackb(_manifest(tmp_path / "step_0000000002"))["paths"]
+    manifest = _msgpack.unpackb(_manifest(tmp_path / "step_0000000002"))
+    paths = manifest["paths"]
     assert paths[0] == ".params/['b1']" and ".step" in paths
     if channel != "none":
-        assert ".comp/.wire/[0]/['hat']/['w1']" in paths and paths[-1] == ".comp/.event"
+        # the event sits where the reference keeps its key: uint32 [0, event]
+        assert ".comp/.wire/[0]/['hat']/['w1']" in paths and paths[-1] == ".comp/.key"
+        assert manifest["event_keys"] == [".comp/.key"]
+        assert manifest["dtypes"][-1] == "uint32" and manifest["shapes"][-1] == [2]
+        with np.load(tmp_path / "step_0000000002" / "data.npz") as npz:
+            assert npz[f"leaf_{len(paths) - 1}"].tolist() == [0, state.comp.event] == [0, 2]
+    else:
+        assert "event_keys" not in manifest
     loaded, _ = load_checkpoint(str(tmp_path), like=state, device="cpu")
     assert loaded.step == state.step == 2 * TAU and type(loaded.step) is int
 
@@ -312,3 +327,104 @@ def test_resync_bundles_round_trip(tmp_path):
     assert torch.equal(back[0], torch.from_numpy(leaves[0])) and back_key.tolist() == [7, 9]
     with pytest.raises(FileNotFoundError):
         load_resync_bundle(str(tmp_path / "none"), device="cpu")
+
+
+def _port_state_and_reference(tmp_path, rounds, **kw):
+    """A port DSE-MVR state after ``rounds`` rounds from the reference's
+    initial parameters and indices, saved; the reference's Simulator, its
+    state from the port's checkpoint (``like=`` its own initial state) and
+    the data."""
+    jsim, data = _reference_sim(**kw)
+    key = jax.random.key(SEED + 1)
+    idx = _reference_indices(key, rounds * TAU, N, B, data.samples_per_node)
+    alg = tproblem.make_algorithm("dse_mvr", 0.3, TAU, 24, **kw)
+    sim = Simulator(alg, ring(N), tproblem.mlp_loss, data, B, device="cpu",
+                    index_fn=lambda s: idx[s])
+    state = sim.run_rounds(sim.init_state(_reference_init(SEED)), rounds)
+    save_checkpoint(str(tmp_path), rounds, state, {"round": rounds})
+    like = jsim.init_state(jcommon.mlp_init(jax.random.key(SEED)), key)
+    loaded, meta = j_load(str(tmp_path), like=like)
+    assert meta == {"round": rounds}
+    return state, alg, jsim, loaded, data
+
+
+def _same_as_port(jtree, ttree, where):
+    for k, t in ttree.items():
+        assert np.array_equal(np.asarray(jtree[k]), t.numpy()), f"{where} {k}"
+
+
+def test_reference_resumes_a_port_choco_checkpoint(tmp_path):
+    """The reference loads a port CHOCO top-k state and runs a round from
+    it; top-k draws nothing, so from the same indices the round lands
+    within the one-round band of the port's own next round."""
+    kw = dict(channel="choco", compression="top_k:0.1")
+    state, alg, jsim, loaded, data = _port_state_and_reference(tmp_path, 2, **kw)
+    assert int(loaded.step) == state.step == 2 * TAU
+    assert jax.random.key_data(loaded.comp.key).tolist() == [0, state.comp.event] == [0, 2]
+    for field in ("params", "x_ref", "v", "y", "h_prev"):
+        _same_as_port(getattr(loaded, field), getattr(state, field), field)
+    for b, wire in enumerate(state.comp.wire):
+        _same_as_port(loaded.comp.wire[b]["hat"], wire["hat"], f"hat {b}")
+
+    key = jax.random.key(SEED + 7)
+    ref, _ = jsim.run_rounds(loaded, key, 1)
+    idx = _reference_indices(key, TAU, N, B, data.samples_per_node)
+    sim = Simulator(alg, ring(N), tproblem.mlp_loss, data, B, device="cpu",
+                    index_fn=lambda s: idx[s - 2 * TAU])
+    got = sim.run_rounds(state, 1)
+    assert got.step == int(ref.step) == 3 * TAU
+    for field in ("params", "x_ref", "v", "y", "h_prev"):
+        for leaf, t in getattr(got, field).items():
+            np.testing.assert_allclose(t.numpy(), np.asarray(getattr(ref, field)[leaf]),
+                                       **STATE_TOL, err_msg=f"{field} {leaf}")
+    for b, wire in enumerate(got.comp.wire):
+        for leaf, t in wire["hat"].items():
+            np.testing.assert_allclose(t.numpy(), np.asarray(ref.comp.wire[b]["hat"][leaf]),
+                                       **STATE_TOL, err_msg=f"hat {b} {leaf}")
+    # the port reads its own key leaf back as the event, and the
+    # reference's (threefry words, no event count) as event 0
+    back, _ = load_checkpoint(str(tmp_path), like=state, device="cpu")
+    assert back.comp.event == 2
+    j_save(str(tmp_path / "ref"), 3, ref)
+    from_ref, _ = load_checkpoint(str(tmp_path / "ref"), like=got, device="cpu")
+    assert from_ref.comp.event == 0 and from_ref.step == 3 * TAU
+
+
+def test_reference_loads_a_port_qsgd_checkpoint(tmp_path):
+    state, _, jsim, loaded, _ = _port_state_and_reference(tmp_path, 1, compression="qsgd")
+    assert jax.random.key_data(loaded.comp.key).tolist() == [0, 1]
+    for field in ("params", "x_ref", "v", "y", "h_prev"):
+        _same_as_port(getattr(loaded, field), getattr(state, field), field)
+    for b, wire in enumerate(state.comp.wire):
+        _same_as_port(loaded.comp.wire[b]["res"], wire["res"], f"res {b}")
+    ref, _ = jsim.run_rounds(loaded, jax.random.key(SEED + 7), 1)
+    assert int(ref.step) == 2 * TAU
+    assert all(np.isfinite(np.asarray(a)).all() for a in jax.tree.leaves(ref.params))
+
+
+def test_older_port_event_leaf_still_loads(tmp_path):
+    """A directory written before the event moved to the key's position
+    (a 0-d int32 ``.comp/.event``, no ``event_keys``) loads in the port,
+    with ``like=`` and through ``state_from_checkpoint``."""
+    data, _ = tproblem.make_paper_problem(OMEGA, seed=SEED)
+    alg = tproblem.make_algorithm("dse_mvr", 0.3, TAU, 16, channel="choco",
+                                  compression="top_k:0.1")
+    sim = Simulator(alg, ring(N), tproblem.mlp_loss, data, B, device="cpu")
+    state = sim.run_rounds(sim.init_state(tproblem.mlp_init(0)), 3)
+    step_dir = save_checkpoint(str(tmp_path), 3, state)
+    manifest = _msgpack.unpackb(_manifest(step_dir))
+    last = len(manifest["paths"]) - 1
+    with np.load(os.path.join(step_dir, "data.npz")) as npz:
+        leaves = {k: npz[k] for k in npz.files}
+    leaves[f"leaf_{last}"] = np.asarray(3, np.int32)
+    manifest["paths"][last] = ".comp/.event"
+    manifest["dtypes"][last], manifest["shapes"][last] = "int32", []
+    del manifest["event_keys"]
+    with open(os.path.join(step_dir, "manifest.msgpack"), "wb") as f:
+        f.write(_msgpack.packb(manifest))
+    np.savez(os.path.join(step_dir, "data.npz"), **leaves)
+    loaded, _ = load_checkpoint(str(tmp_path), like=state, device="cpu")
+    assert loaded.comp.event == state.comp.event == 3
+    assert torch.equal(loaded.comp.wire[0]["hat"]["w1"], state.comp.wire[0]["hat"]["w1"])
+    tree, _ = load_checkpoint(str(tmp_path), device="cpu")
+    assert state_from_checkpoint(tree, "cpu").comp.event == 3
