@@ -1354,7 +1354,7 @@ def rwkv_serving_path(api) -> list:
                 *_, logw = rwkv._timemix_inputs(cfg.rwkv_cfg(), bp["rwkv"], h, rwkv._shift(h))
                 shares[layer] = clamped_share(logw)
                 del h, logw
-            x, _ = model._apply_block("rwkv", bp, x, positions, "fwd")
+            x, _, _ = model._apply_block("rwkv", bp, x, positions, "fwd")
     del x
     print(f"serve {cfg.name} clamped (chunk, channel) pairs by layer (chunk sums of logw "
           f"past -25, {RWKV_BATCH}x{RWKV_SEQ} tokens): "

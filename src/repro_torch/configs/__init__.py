@@ -3,9 +3,11 @@ port's model stack runs, each with its full ``config()`` and its CPU-sized
 ``reduced()``.
 
 The port has the dense and sliding-window attention blocks, which is all
-Gemma-2 2B, Yi-9B, Minitron-8B and Command R+ use, and the RWKV-6 block of
-RWKV-6 3B.  The five other archs raise ``NotImplementedError`` naming the
-ROADMAP item they wait for.
+Gemma-2 2B, Yi-9B, Minitron-8B and Command R+ use, the RWKV-6 block of
+RWKV-6 3B, the mixture-of-experts block of Qwen1.5-MoE-A2.7B and Arctic
+480B, and the Mamba-2 and shared attention blocks of Zamba2-7B.  The two
+other archs raise ``NotImplementedError`` naming the ROADMAP item they
+wait for.
 """
 from importlib import import_module
 
@@ -21,11 +23,9 @@ ARCH_IDS = [
     "hubert_xlarge",
     "minitron_8b",
 ]
-PORTED = ("gemma2_2b", "yi_9b", "minitron_8b", "command_r_plus_104b", "rwkv6_3b")
+PORTED = ("gemma2_2b", "yi_9b", "minitron_8b", "command_r_plus_104b", "rwkv6_3b",
+          "qwen2_moe_a2_7b", "arctic_480b", "zamba2_7b")
 WAITING = {
-    "arctic_480b": "mixture-of-experts blocks (ROADMAP queue 1 item 7 (b))",
-    "qwen2_moe_a2_7b": "mixture-of-experts blocks (ROADMAP queue 1 item 7 (b))",
-    "zamba2_7b": "Mamba-2 and Zamba2's shared block (ROADMAP queue 1 item 7 (c))",
     "qwen2_vl_2b": "M-RoPE and the vision front end (ROADMAP queue 1 item 7 (d))",
     "hubert_xlarge": "the HuBERT audio encoder (ROADMAP queue 1 item 7 (d))",
 }

@@ -44,25 +44,30 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Any, device) -> Any:
-    """A numpy parameter tree as the port's tree of tensors on ``device``."""
+    """A numpy parameter tree as the port's tree of tensors on ``device``:
+    every leaf as it is, the stacked ``(repeats, ...)`` block leaves (a MoE
+    block's ``(repeats, E, d, f)`` experts among them) and a shared block's
+    single copy alike."""
     return tree_map(lambda a: _tensor(a, device), tree)
 
 
 def cache_from_numpy(caches: Any, device) -> Any:
     """A reference model's decode caches as the port's, per block element
     ``b{i}`` stacked over repeats: an ``{"attn": {"k", "v", "pos"}}`` dict,
-    k and v in their dtype and ``pos`` int32 (-1 marks an empty slot), or an
+    k and v in their dtype and ``pos`` int32 (-1 marks an empty slot), an
     ``{"rwkv": {"wkv", "shift_t", "shift_c"}}`` dict, the state fp32 and the
-    token shifts in their dtype."""
+    token shifts in their dtype, or a ``{"mamba": {"conv", "ssm"}}`` dict,
+    the conv window in its dtype and the SSM state fp32."""
     out = {}
     for key, one in caches.items():
-        if "rwkv" in one:
-            rwkv = one["rwkv"]
-            wkv = np.asarray(rwkv["wkv"])
-            if wkv.dtype != np.float32:
-                raise ValueError(f"{key}: the RWKV state must be float32, got {wkv.dtype}")
-            out[key] = {"rwkv": {name: _tensor(rwkv[name], device)
-                                 for name in ("wkv", "shift_t", "shift_c")}}
+        for kind, state, names in (("rwkv", "wkv", ("wkv", "shift_t", "shift_c")),
+                                   ("mamba", "ssm", ("conv", "ssm"))):
+            if kind in one:
+                dtype = np.asarray(one[kind][state]).dtype
+                if dtype != np.float32:
+                    raise ValueError(f"{key}: the {kind} state must be float32, got {dtype}")
+                out[key] = {kind: {name: _tensor(one[kind][name], device) for name in names}}
+        if key in out:
             continue
         attn = one["attn"]
         pos = np.asarray(attn["pos"])

@@ -1,21 +1,40 @@
-"""Feed-forward blocks: the dense GLU / plain MLP.
+"""Feed-forward blocks: the dense GLU / plain MLP and the mixture of experts.
 
-Counterpart of ``repro.models.mlp``'s dense half.  The mixture-of-experts
-block (``MoEConfig``, ``moe_forward``) is ROADMAP queue 1 item 7 (b) and
-raises until then.
+Counterpart of ``repro.models.mlp``.  The MoE is the reference's
+Switch-style capacity dispatch: a router in fp32, top-k experts per token
+with their gates renormalised, each (token, k) entry queued at its
+expert in token-major order (an exclusive prefix count), entries past the
+capacity dropped into a trash row, the experts' GLUs as batched GEMMs over
+(expert, slot), and a gather that combines each token's gated outputs.
+Shared experts (Qwen2-MoE) and a parallel dense branch (Arctic) are added
+on top.
+
+Dispatch layouts:
+  'auto'           one set of queues over all tokens;
+  'gather_tokens'  the reference replicates the tokens first; on one device
+                   that is the identity, so this is 'auto' bit for bit;
+  'grouped'        ``dispatch_groups`` groups of tokens, each with its own
+                   queues and a local capacity (one group when the token
+                   count is not a multiple); the groups' slots go through
+                   the experts' GEMMs together.
+
+The dispatch writes each kept (expert, slot) once, so its scatter is an
+``index_put_`` without accumulation: the reference adds each token into a
+zero queue (0 + x = x, the same bits), and only the discarded trash row
+takes several writes, in no set order.  No atomics are needed.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from .common import Initializer
 
-__all__ = ["MLPConfig", "init_mlp", "mlp_forward", "MoEConfig", "moe_forward"]
-
-MOE_TODO = "mixture-of-experts blocks wait for ROADMAP queue 1 item 7 (b)"
+__all__ = ["MLPConfig", "init_mlp", "mlp_forward", "MoEConfig", "init_moe", "moe_forward",
+           "moe_routing"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,10 +84,129 @@ def mlp_forward(cfg: MLPConfig, params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+# --------------------------------------------------------------------------
+# Mixture of Experts
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
 class MoEConfig:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(MOE_TODO)
+    d_model: int
+    d_ff: int                      # per-expert hidden
+    n_experts: int
+    top_k: int
+    n_shared_experts: int = 0      # qwen2-moe: always-on shared experts
+    dense_residual: bool = False   # arctic: parallel dense FFN branch
+    dense_d_ff: Optional[int] = None
+    capacity_factor: float = 1.25
+    activation: str = "silu"
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
+    dispatch_layout: str = "auto"  # 'auto' | 'gather_tokens' | 'grouped'
+    dispatch_groups: int = 16
 
 
-def moe_forward(*args, **kwargs):
-    raise NotImplementedError(MOE_TODO)
+def init_moe(cfg: MoEConfig, ini: Initializer):
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {
+        "router": ini.param((d, e)),
+        "w_gate": ini.param((e, d, f)),
+        "w_up": ini.param((e, d, f)),
+        "w_down": ini.param((e, f, d)),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(MLPConfig(d, f * cfg.n_shared_experts, cfg.activation), ini)
+    if cfg.dense_residual:
+        p["dense"] = init_mlp(MLPConfig(d, cfg.dense_d_ff or f, cfg.activation), ini)
+    return p
+
+
+def _groups_and_capacity(cfg: MoEConfig, n_tok: int):
+    """The layout's token groups and each group's capacity, as the
+    reference's ``moe_forward`` computes them (a host int)."""
+    groups = cfg.dispatch_groups if cfg.dispatch_layout == "grouped" else 1
+    if n_tok % max(groups, 1):
+        groups = 1
+    per = n_tok // groups
+    capacity = int(max(cfg.top_k, cfg.capacity_factor * per * cfg.top_k / cfg.n_experts))
+    return groups, min(capacity, per)
+
+
+def _route(cfg: MoEConfig, router, tokens, capacity: int):
+    """tokens (G, T, d) -> logits and probs (G, T, E) fp32, gates, experts,
+    queue positions and the kept mask, each (G, T, k).
+
+    Top-k is a stable descending sort, so equal probabilities rank by
+    expert index, as ``lax.top_k`` ranks them."""
+    logits = torch.einsum("gtd,de->gte", tokens.float(), router.float())
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_idx = gate_vals[..., :cfg.top_k], expert_idx[..., :cfg.top_k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    g, t, k = expert_idx.shape
+    flat = F.one_hot(expert_idx.reshape(g, t * k), cfg.n_experts)       # token-major
+    before = torch.cumsum(flat, dim=1) - flat                          # exclusive count
+    pos = before.gather(-1, expert_idx.reshape(g, t * k, 1)).reshape(g, t, k)
+    return logits, probs, gate_vals, expert_idx, pos, pos < capacity
+
+
+def _dispatch_compute_combine(cfg: MoEConfig, params, tokens, capacity: int):
+    """The capacity MoE on token groups (G, T, d), each group with its own
+    queues.  Returns (y (G, T, d), logits, probs, experts)."""
+    g, t, d = tokens.shape
+    k, e = cfg.top_k, cfg.n_experts
+    logits, probs, gate_vals, expert_idx, pos, keep = _route(cfg, params["router"], tokens,
+                                                             capacity)
+    e_flat = expert_idx.reshape(g, t * k)
+    pos_flat = torch.where(keep, pos, capacity).reshape(g, t * k)
+    g_flat = torch.arange(g, device=tokens.device)[:, None].expand(g, t * k)
+    with torch.profiler.record_function("repro/moe_dispatch"):
+        expert_in = tokens.new_zeros((g, e, capacity + 1, d))
+        expert_in.index_put_((g_flat, e_flat, pos_flat), tokens.repeat_interleave(k, dim=1))
+        # (E, G*C, d): every group's slots of an expert in one GEMM
+        expert_in = expert_in[:, :, :capacity].transpose(0, 1).reshape(e, g * capacity, d)
+    dt = expert_in.dtype
+    gate = torch.bmm(expert_in, params["w_gate"].to(dt))
+    up = torch.bmm(expert_in, params["w_up"].to(dt))
+    expert_out = torch.bmm(_act(cfg.activation, gate) * up, params["w_down"].to(dt))
+    with torch.profiler.record_function("repro/moe_combine"):
+        expert_out = expert_out.reshape(e, g, capacity, d)
+        gathered = expert_out[e_flat, g_flat, torch.clamp(pos_flat, max=capacity - 1)]
+        weight = (keep * gate_vals).reshape(g, t * k, 1).to(gathered.dtype)
+        y = (gathered * weight).reshape(g, t, k, d).sum(dim=2)
+    return y, logits, probs, expert_idx
+
+
+def moe_forward(cfg: MoEConfig, params, x: torch.Tensor, return_aux: bool = False):
+    """x: (B, S, d).  Returns ``(y, aux)``: the router's z-loss plus the
+    Switch load-balance loss in fp32 with ``return_aux``, else None."""
+    b, s, d = x.shape
+    n_tok = b * s
+    groups, capacity = _groups_and_capacity(cfg, n_tok)
+    y, logits, probs, expert_idx = _dispatch_compute_combine(
+        cfg, params, x.reshape(groups, n_tok // groups, d), capacity)
+    y = y.reshape(b, s, d)
+    if cfg.n_shared_experts:
+        shared = MLPConfig(cfg.d_model, cfg.d_ff * cfg.n_shared_experts, cfg.activation)
+        y = y + mlp_forward(shared, params["shared"], x)
+    if cfg.dense_residual:
+        dense = MLPConfig(cfg.d_model, cfg.dense_d_ff or cfg.d_ff, cfg.activation)
+        y = y + mlp_forward(dense, params["dense"], x)
+    if not return_aux:
+        return y, None
+    z = torch.logsumexp(logits, dim=-1)
+    z_loss = cfg.router_z_loss * (z * z).mean(dim=1).mean()   # per group, then over groups
+    counts = torch.bincount(expert_idx.reshape(-1), minlength=cfg.n_experts)
+    frac_tokens = counts.float() / n_tok
+    frac_probs = probs.reshape(n_tok, cfg.n_experts).mean(dim=0)
+    lb_loss = cfg.load_balance_loss * cfg.n_experts * torch.sum(frac_tokens * frac_probs)
+    return y, z_loss + lb_loss
+
+
+def moe_routing(cfg: MoEConfig, params, x: torch.Tensor):
+    """The experts each token of x (B, S, d) goes to and whether each
+    entry is kept, as ``moe_forward`` routes them: ``(experts, keep)``, both
+    (B*S, k), in token order."""
+    b, s, d = x.shape
+    groups, capacity = _groups_and_capacity(cfg, b * s)
+    *_, expert_idx, _, keep = _route(cfg, params["router"],
+                                     x.reshape(groups, b * s // groups, d), capacity)
+    return expert_idx.reshape(b * s, cfg.top_k), keep.reshape(b * s, cfg.top_k)

@@ -3,21 +3,27 @@ times, with an embedding in front and an LM head behind.
 
 Counterpart of ``repro.models.transformer`` for the kinds the port has:
 
-  'attn'    full attention + dense FFN
-  'local'   sliding-window attention + dense FFN (Gemma-2's local layers)
-  'rwkv'    RWKV-6 time-mix + channel-mix (RWKV-6 3B)
+  'attn'         full attention + dense FFN
+  'local'        sliding-window attention + dense FFN (Gemma-2's local layers)
+  'moe'          full attention + mixture-of-experts FFN (Qwen2-MoE, Arctic)
+  'mamba'        Mamba-2 SSD mixer block
+  'rwkv'         RWKV-6 time-mix + channel-mix (RWKV-6 3B)
+  'shared_attn'  attention + FFN whose weights are shared across repeats
+                 (Zamba2's shared transformer block)
 
-The other kinds raise ``NotImplementedError`` naming their ROADMAP item:
-'moe' (queue 1 item 7 (b)), 'mamba' and 'shared_attn' (7 (c)); so do the
-audio and vision front ends (7 (d)).
+The audio and vision front ends raise ``NotImplementedError`` naming their
+ROADMAP item (queue 1 item 7 (d)).
 
 Parameters are a plain dict tree with the reference's names and its stacked
-layout -- every block element's leaves carry a leading ``(repeats,)`` axis
+layout -- every block element's leaves carry a leading ``(repeats,)`` axis,
+except a 'shared_attn' element's, which is one copy used at every repeat
 -- so ``convert.params_from_numpy`` carries the reference's parameters over
 unchanged.  The reference's ``lax.scan`` over repeats is a Python loop that
 indexes the stacked leaves.  Entry points: ``forward`` / ``loss`` (training
-and evaluation), ``prefill`` (build caches from a prompt) and
-``decode_step`` (one token against the ring-buffer caches).  ``init`` and
+and evaluation; a MoE block adds its router losses to the auxiliary loss
+there), ``prefill`` (build caches from a prompt) and ``decode_step`` (one
+token against the caches: ring buffers for attention, recurrent states for
+Mamba-2 and RWKV-6, every element's stacked over repeats).  ``init`` and
 ``init_cache`` make tensors on CUDA unless the caller asks for the CPU;
 the rest follow their inputs' device.
 """
@@ -31,20 +37,17 @@ import torch
 from ..device import resolve_device
 from ..tree import tree_leaves, tree_map
 from . import attention as attn_lib
+from . import mamba as mamba_lib
 from . import mlp as mlp_lib
 from . import rwkv as rwkv_lib
 from .common import Initializer, cross_entropy_loss, rms_norm, softcap
 
 Tree = Any
 
-__all__ = ["ModelConfig", "Model", "UNPORTED_KINDS"]
+__all__ = ["ModelConfig", "Model"]
 
-ATTN_KINDS = ("attn", "local")
-UNPORTED_KINDS = {
-    "moe": mlp_lib.MOE_TODO,
-    "mamba": "Mamba-2 blocks wait for ROADMAP queue 1 item 7 (c)",
-    "shared_attn": "Zamba2's shared attention block waits for ROADMAP queue 1 item 7 (c)",
-}
+ATTN_KINDS = ("attn", "local", "moe", "shared_attn")
+KINDS = ATTN_KINDS + ("mamba", "rwkv")
 FRONTEND_TODO = "the audio and vision front ends wait for ROADMAP queue 1 item 7 (d)"
 
 
@@ -137,6 +140,29 @@ class ModelConfig:
     def mlp_cfg(self) -> mlp_lib.MLPConfig:
         return mlp_lib.MLPConfig(self.d_model, self.d_ff, self.activation, self.use_bias)
 
+    def moe_cfg(self) -> mlp_lib.MoEConfig:
+        return mlp_lib.MoEConfig(
+            d_model=self.d_model,
+            d_ff=self.moe_d_ff or self.d_ff,
+            n_experts=self.n_experts,
+            top_k=self.top_k,
+            n_shared_experts=self.n_shared_experts,
+            dense_residual=self.dense_residual,
+            dense_d_ff=self.d_ff,
+            capacity_factor=self.capacity_factor,
+            activation=self.activation,
+            dispatch_layout=self.moe_dispatch,
+        )
+
+    def mamba_cfg(self) -> mamba_lib.MambaConfig:
+        return mamba_lib.MambaConfig(
+            d_model=self.d_model,
+            d_inner=self.ssm_expand * self.d_model,
+            state_dim=self.ssm_state,
+            head_dim=self.ssm_head_dim,
+            chunk=self.ssm_chunk,
+        )
+
     def rwkv_cfg(self) -> rwkv_lib.RWKVConfig:
         return rwkv_lib.RWKVConfig(
             self.d_model, self.d_ff, head_dim=64, chunk=self.rwkv_chunk,
@@ -152,9 +178,7 @@ class Model:
 
     def __init__(self, cfg: ModelConfig):
         for kind in cfg.block_unit:
-            if kind in UNPORTED_KINDS:
-                raise NotImplementedError(f"{cfg.name}: {UNPORTED_KINDS[kind]}")
-            if kind not in ATTN_KINDS + ("rwkv",):
+            if kind not in KINDS:
                 raise ValueError(kind)
         if cfg.audio_frontend_dim or cfg.n_vision_tokens:
             raise NotImplementedError(f"{cfg.name}: {FRONTEND_TODO}")
@@ -173,9 +197,15 @@ class Model:
             p["norm2"] = ini.param((d,), init="ones")
             p["rwkv"] = rwkv_lib.init_rwkv(cfg.rwkv_cfg(), ini)
             return p
+        if kind == "mamba":
+            p["mamba"] = mamba_lib.init_mamba(cfg.mamba_cfg(), ini)
+            return p
         p["attn"] = attn_lib.init_attention(cfg.attn_cfg(kind), ini)
         p["norm2"] = ini.param((d,), init="ones")
-        p["ffn"] = mlp_lib.init_mlp(cfg.mlp_cfg(), ini)
+        if kind == "moe":
+            p["ffn"] = mlp_lib.init_moe(cfg.moe_cfg(), ini)
+        else:
+            p["ffn"] = mlp_lib.init_mlp(cfg.mlp_cfg(), ini)
         if cfg.use_post_norm:
             p["post_norm1"] = ini.param((d,), init="ones")
             p["post_norm2"] = ini.param((d,), init="ones")
@@ -192,8 +222,10 @@ class Model:
             "embed": ini.param((cfg.vocab_size, cfg.d_model), init="embed", scale=0.02),
         }
         stacked = ini.stacked(cfg.repeats)
-        params["blocks"] = {f"b{i}": self._init_element(kind, stacked)
-                            for i, kind in enumerate(cfg.block_unit)}
+        # a shared_attn element is one copy, used at every repeat
+        params["blocks"] = {
+            f"b{i}": self._init_element(kind, ini if kind == "shared_attn" else stacked)
+            for i, kind in enumerate(cfg.block_unit)}
         params["final_norm"] = ini.param((cfg.d_model,), init="ones")
         if not cfg.tie_embeddings:
             params["lm_head"] = ini.param((cfg.d_model, cfg.vocab_size), init="normal")
@@ -233,10 +265,13 @@ class Model:
     # ------------------------------------------------------------------
     def _apply_block(self, kind, bp, x, positions, mode, cache=None, position=None):
         """Apply one block.  mode: 'fwd' | 'prefill' | 'decode'.
-        Returns (x, new_cache)."""
+        Returns (x, new_cache, aux): aux is a MoE block's router losses in
+        'fwd' mode, else None."""
         cfg = self.cfg
         if kind == "rwkv":
-            return self._apply_rwkv(bp, x, mode, cache)
+            return self._apply_rwkv(bp, x, mode, cache) + (None,)
+        if kind == "mamba":
+            return self._apply_mamba(bp, x, mode, cache) + (None,)
         acfg = cfg.attn_cfg(kind)
         h = self._norm(x, bp["norm1"])
         if mode == "decode":
@@ -251,11 +286,28 @@ class Model:
             y = self._norm(y, bp["post_norm1"])
         x = x + y
         h = self._norm(x, bp["norm2"])
-        y = mlp_lib.mlp_forward(cfg.mlp_cfg(), bp["ffn"], h)
+        aux = None
+        if kind == "moe":
+            y, aux = mlp_lib.moe_forward(cfg.moe_cfg(), bp["ffn"], h, return_aux=mode == "fwd")
+        else:
+            y = mlp_lib.mlp_forward(cfg.mlp_cfg(), bp["ffn"], h)
         if cfg.use_post_norm:
             y = self._norm(y, bp["post_norm2"])
         x = x + y
-        return x, (None if new_cache is None else {"attn": new_cache})
+        return x, (None if new_cache is None else {"attn": new_cache}), aux
+
+    def _apply_mamba(self, bp, x, mode, cache=None):
+        """One Mamba-2 block behind its norm.  The cache is ``{"mamba":
+        {"conv", "ssm"}}``."""
+        mcfg = self.cfg.mamba_cfg()
+        h = self._norm(x, bp["norm1"])
+        if mode == "decode":
+            y, new_cache = mamba_lib.mamba_decode(mcfg, bp["mamba"], h, cache["mamba"])
+        elif mode == "prefill":
+            y, new_cache = mamba_lib.mamba_forward(mcfg, bp["mamba"], h, return_cache=True)
+        else:
+            y, new_cache = mamba_lib.mamba_forward(mcfg, bp["mamba"], h), None
+        return x + y, (None if new_cache is None else {"mamba": new_cache})
 
     def _apply_rwkv(self, bp, x, mode, cache=None):
         """One RWKV block: time-mix then channel-mix, each behind its norm.
@@ -277,20 +329,26 @@ class Model:
 
     def _scan_blocks(self, params, x, positions, mode, caches=None, position=None):
         """Loop over repeats; within a repeat apply each unit element in
-        order.  Returns (x, caches stacked over repeats, or None)."""
+        order.  Returns (x, caches stacked over repeats or None, the summed
+        auxiliary loss (fp32) in 'fwd' mode or None)."""
         cfg = self.cfg
         out: Dict[str, list] = {f"b{i}": [] for i in range(len(cfg.block_unit))}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device) if mode == "fwd" else None
         for r in range(cfg.repeats):
             for i, kind in enumerate(cfg.block_unit):
                 key = f"b{i}"
-                bp = tree_map(lambda t: t[r], params["blocks"][key])
+                bp = params["blocks"][key]
+                if kind != "shared_attn":
+                    bp = tree_map(lambda t: t[r], bp)
                 c = None if caches is None else tree_map(lambda t: t[r], caches[key])
-                x, nc = self._apply_block(kind, bp, x, positions, mode, cache=c,
-                                          position=position)
+                x, nc, block_aux = self._apply_block(kind, bp, x, positions, mode, cache=c,
+                                                     position=position)
                 if nc is not None:
                     out[key].append(nc)
+                if block_aux is not None:
+                    aux = aux + block_aux
         if mode == "fwd":
-            return x, None
+            return x, aux
         return x, {key: tree_map(lambda *ts: torch.stack(ts), *layers)
                    for key, layers in out.items()}
 
@@ -298,10 +356,11 @@ class Model:
     # public entry points
     # ------------------------------------------------------------------
     def forward(self, params, batch, dtype=torch.bfloat16):
-        """Logits (B, S, V) and the auxiliary loss (0: no MoE here)."""
+        """Logits (B, S, V) and the auxiliary loss: the MoE blocks' router
+        z-losses and load-balance losses (fp32; 0 without MoE blocks)."""
         x, positions = self._embed_inputs(params, batch, dtype)
-        x, _ = self._scan_blocks(params, x, positions, "fwd")
-        return self._head(params, x), torch.zeros((), device=x.device)
+        x, aux = self._scan_blocks(params, x, positions, "fwd")
+        return self._head(params, x), aux
 
     def loss(self, params, batch, dtype=torch.bfloat16):
         logits, aux = self.forward(params, batch, dtype)
@@ -310,16 +369,19 @@ class Model:
     def prefill(self, params, batch, dtype=torch.bfloat16):
         """Last-token logits (B, 1, V) and the prompt's caches: per block
         element ``{"attn": {"k", "v" (repeats, B, S, K, hd), "pos"
-        (repeats, B, S) int32}}``, full length (not ring buffers), or
-        ``{"rwkv": {"wkv" (repeats, B, H, P, P) fp32, "shift_t", "shift_c"
-        (repeats, B, 1, d)}}``."""
+        (repeats, B, S) int32}}``, full length (not ring buffers),
+        ``{"mamba": {"conv" (repeats, B, W-1, di+2N), "ssm" (repeats, B, H,
+        P, N) fp32}}`` or ``{"rwkv": {"wkv" (repeats, B, H, P, P) fp32,
+        "shift_t", "shift_c" (repeats, B, 1, d)}}``."""
         x, positions = self._embed_inputs(params, batch, dtype)
         x, caches = self._scan_blocks(params, x, positions, "prefill")
         return self._head(params, x[:, -1:]), caches
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
-        """Empty decode caches, stacked over repeats: ring buffers for
-        attention; RWKV's state (fp32 whatever ``dtype``) and token shifts,
+        """Empty decode caches, stacked over repeats (a shared_attn
+        element's too: its weights are shared, its cache is per repeat):
+        ring buffers for attention; Mamba-2's conv window and SSM state and
+        RWKV's state and token shifts (the states fp32 whatever ``dtype``),
         which do not depend on ``max_len``."""
         cfg = self.cfg
         dev = resolve_device(device)
@@ -327,6 +389,8 @@ class Model:
         for i, kind in enumerate(cfg.block_unit):
             if kind == "rwkv":
                 one = {"rwkv": rwkv_lib.init_rwkv_cache(cfg.rwkv_cfg(), batch, dtype, dev)}
+            elif kind == "mamba":
+                one = {"mamba": mamba_lib.init_mamba_cache(cfg.mamba_cfg(), batch, dtype, dev)}
             else:
                 one = {"attn": attn_lib.init_kv_cache(cfg.attn_cfg(kind), batch, max_len,
                                                       dtype, dev)}

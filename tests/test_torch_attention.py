@@ -9,6 +9,11 @@ The same numpy inputs, made from a seed, go to both packages:
     exercised at S = 128 and 256); lengths that are no multiple of 128
     against the reference's plain version only, because the Pallas kernel
     asserts S % 128 == 0;
+  * the zero padding by which the CUDA wrapper runs a head dim between its
+    instances (Zamba2's 112 on the 128 instance, 48 on 64): the plain
+    version on the padded q, k and v, with q scaled so that the scores keep
+    the true head dim's 1/sqrt(D), is the reference's attention at the
+    true D in the first D columns and zero after;
   * the port's plain ``rms_norm`` against ``rms_norm_ref`` and the Pallas
     kernel (through the reference's row-padding ops), odd row counts and
     Gemma-2's width of 2304 included;
@@ -38,6 +43,7 @@ from repro.models.common import Initializer as JInitializer
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import api as tapi
 from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.flash_attention.kernel import kernel_head_dim
 from repro_torch.kernels.rms_norm import rms_norm_ref
 from repro_torch.models import attention as tattn
 
@@ -116,6 +122,26 @@ def test_flash_attention_plain_matches_reference_at_ragged_lengths(case, dtype):
                     causal=causal, sliding_window=window, softcap=softcap)
     want = j_flash_ref(jq, jk, jv, causal=causal, sliding_window=window, softcap=softcap)
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("case", [(1, 128, 4, 4, 112, None, None, True),
+                                  (2, 128, 4, 2, 112, 48, 50.0, True),
+                                  (1, 128, 4, 2, 48, None, None, True)])
+def test_padded_head_dim_is_the_unpadded_attention(case):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(case, "fp32", seed=3)
+    window, softcap, causal = case[5:]
+    d = case[4]
+    dk = kernel_head_dim(d)
+    assert dk == {112: 128, 48: 64}[d]
+    pad = [torch.nn.functional.pad(t, (0, dk - d)) for t in (tq, tk, tv)]
+    pad[0] = pad[0] * (dk / d) ** 0.5   # the wrapper passes 1/sqrt(d) instead
+    got = flash_attention_ref(*pad, causal=causal, sliding_window=window, softcap=softcap)
+    want = j_flash_ref(jq, jk, jv, causal=causal, sliding_window=window, softcap=softcap)
+    _assert_close(got[..., :d], want, "fp32")
+    assert bool((got[..., d:] == 0).all())
+    for bad in (0, 257):
+        with pytest.raises(ValueError, match="head_dim"):
+            kernel_head_dim(bad)
 
 
 def test_flash_attention_rows_see_only_their_window():

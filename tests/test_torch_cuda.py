@@ -452,6 +452,10 @@ FLASH_SHAPES = [
     (2, 300, 8, 2, 256, None, 30.0, False, 97),
     (1, 10, 8, 4, 256, None, 50.0, True),
     (2, 33, 4, 2, 128, None, None, True),
+    # head dims between the instances, zero-padded: Zamba2's 112 to 128, 48 to 64
+    (2, 300, 8, 8, 112, None, None, True),
+    (1, 257, 4, 2, 112, 64, 50.0, True),
+    (1, 200, 4, 2, 48, 16, None, True),
 ]
 
 
@@ -512,9 +516,9 @@ def test_flash_attention_rows_that_see_no_key(d, dtype, cuda_device):
 def test_flash_attention_refuses_what_it_does_not_take(cuda_device):
     q = torch.randn((1, 64, 4, 64), device=cuda_device)
     k = torch.randn((1, 64, 2, 64), device=cuda_device)
+    wide = torch.randn((1, 64, 2, 320), device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
-        api.call("flash_attention", q[..., :48].contiguous(), k[..., :48].contiguous(),
-                 k[..., :48].contiguous())
+        api.call("flash_attention", wide, wide, wide)
     with pytest.raises(ValueError, match="dtype"):
         api.call("flash_attention", q.half(), k.half(), k.half())
     with pytest.raises(ValueError, match="does not fit"):

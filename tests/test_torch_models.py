@@ -1,11 +1,13 @@
 """The port's LM model stack against the reference's, on the CPU.
 
 For the archs the port runs (reduced Gemma-2 2B, Yi-9B, Minitron-8B,
-Command R+ and RWKV-6 3B), the reference's parameters
-(``model.init(jax.random.key(0))``) go through numpy to the port, and the
-same tokens go to both models:
+Command R+, RWKV-6 3B, Qwen1.5-MoE-A2.7B, Arctic 480B and Zamba2-7B), the
+reference's parameters (``model.init(jax.random.key(0))``) go through
+numpy to the port, and the same tokens go to both models (the reduced MoE
+configs' capacity factor of 8 drops no token):
 
-  * ``forward`` logits, fp32;
+  * ``forward`` logits, fp32, the auxiliary loss (the MoE router losses;
+    0 elsewhere) and ``loss``, which adds it, within rtol 1e-5;
   * ``prefill`` with ``attn_impl="pallas"`` -- the reference's Pallas flash
     kernel in interpret mode, the port's flash op (its plain version on the
     CPU) -- at B = 2, S = 128: the last logits and every cache leaf
@@ -19,7 +21,8 @@ same tokens go to both models:
     model's random weights some chunks' decay sums pass the -25 clamp, and
     the two forms differ there by about 6e-2 on the logits);
   * 12 ``decode_step``s from ``init_cache`` with an 8-slot ring buffer, so
-    both the local and the global caches wrap: logits at every step and the
+    both the local and the global caches wrap (Zamba2's shared attention
+    block's cache, one per repeat, too): logits at every step and the
     final caches, ``pos`` exactly;
   * the port's own ``init`` makes the reference's tree of shapes.
 
@@ -41,7 +44,6 @@ from repro_torch.configs import PORTED, get_config, get_reduced
 from repro_torch.convert import cache_from_numpy, params_from_numpy
 from repro_torch.models import Model, ModelConfig
 from repro_torch.models.attention import AttentionConfig
-from repro_torch.models.mlp import MoEConfig, moe_forward
 from repro_torch.tree import tree_flatten, tree_map
 
 B, S, DECODE_STEPS, RING = 2, 128, 12, 8
@@ -85,10 +87,15 @@ def _close_tree(got, want, tol):
 @pytest.mark.parametrize("arch", PORTED)
 def test_forward_matches_reference(arch, built):
     jm, jp, tm, tp, tokens = built(arch)
-    jl, _ = jm.forward(jp, {"tokens": jnp.asarray(tokens)}, dtype=jnp.float32)
+    jl, jaux = jm.forward(jp, {"tokens": jnp.asarray(tokens)}, dtype=jnp.float32)
     tl, aux = tm.forward(tp, {"tokens": torch.from_numpy(tokens)}, dtype=torch.float32)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
-    assert float(aux) == 0.0
+    assert aux.dtype == torch.float32
+    if "moe" in tm.cfg.block_unit:
+        assert float(aux) > 0
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+    else:
+        assert float(aux) == float(jaux) == 0.0
     targets = np.roll(tokens, -1, axis=1)
     jloss = jm.loss(jp, {"tokens": jnp.asarray(tokens), "targets": jnp.asarray(targets)},
                     dtype=jnp.float32)
@@ -157,28 +164,25 @@ def test_init_makes_the_reference_tree(arch, built):
 def test_unported_kinds_raise():
     base = dict(name="t", arch_type="dense", n_layers=2, d_model=16, n_heads=2,
                 n_kv_heads=1, d_ff=32, vocab_size=64)
-    for kind, item in (("moe", r"7 \(b\)"), ("mamba", r"7 \(c\)"),
-                       ("shared_attn", r"7 \(c\)")):
-        with pytest.raises(NotImplementedError, match=item):
-            Model(ModelConfig(**base, block_unit=(kind,)))
     for extra in (dict(audio_frontend_dim=8), dict(n_vision_tokens=4)):
         with pytest.raises(NotImplementedError, match=r"7 \(d\)"):
             Model(ModelConfig(**base, **extra))
     with pytest.raises(NotImplementedError, match=r"7 \(d\)"):
         AttentionConfig(16, 2, 1, 8, mrope_sections=(2, 1, 1))
-    with pytest.raises(NotImplementedError, match=r"7 \(b\)"):
-        MoEConfig(16, 32, 4, 2)
-    with pytest.raises(NotImplementedError, match=r"7 \(b\)"):
-        moe_forward(None, None, None)
-    for arch, item in (("arctic-480b", r"7 \(b\)"),
-                       ("qwen2-moe-a2-7b", r"7 \(b\)"), ("zamba2-7b", r"7 \(c\)"),
-                       ("qwen2-vl-2b", r"7 \(d\)"), ("hubert-xlarge", r"7 \(d\)")):
-        with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match=r"7 \(d\)"):
+        Model(ModelConfig(**base, mrope_sections=(2, 1, 1)))
+    for arch in ("qwen2-vl-2b", "hubert-xlarge"):
+        with pytest.raises(NotImplementedError, match=r"7 \(d\)"):
             get_config(arch)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(NotImplementedError, match=r"7 \(d\)"):
             get_reduced(arch)
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-2")
+    with pytest.raises(ValueError, match="nope"):
+        Model(ModelConfig(**base, block_unit=("nope",)))
+    # the kinds of 7 (b) and 7 (c) build, at full width too (no parameters drawn)
+    for arch in ("qwen2-moe-a2.7b", "arctic-480b", "zamba2-7b"):
+        assert Model(get_config(arch)).cfg.name == arch
 
 
 @pytest.mark.parametrize("arch", ["gemma2_2b", "rwkv6_3b"])

@@ -1,7 +1,8 @@
 """The port's serving path against the reference's, on the CPU.
 
-On the reduced Gemma-2 2B, Yi-9B and RWKV-6 3B, with the reference's
-parameters carried over through numpy:
+On the reduced Gemma-2 2B, Yi-9B, RWKV-6 3B, Qwen1.5-MoE-A2.7B, Arctic
+480B and Zamba2-7B, with the reference's parameters carried over through
+numpy:
 
   * ``scan_prefill`` (decode steps into ring-buffer caches) against the
     reference's ``scan_prefill``: last logits rtol 1e-4 / atol 1e-5 and
@@ -10,8 +11,10 @@ parameters carried over through numpy:
     tokens and 5 new ones, as ``tests/test_serving.py`` drives the
     reference's) against the reference's driver on the same requests: the
     greedy tokens exactly;
-  * the serve job and the serving CLI on the CPU, and their refusal to run
-    without a card unless the CPU is asked for;
+  * the serve job and the serving CLI on the CPU (for the MoE and the
+    Mamba-2 hybrid too: the bf16 prefill through the flash op, its caches
+    continued by ``decode_fn``), and their refusal to run without a card
+    unless the CPU is asked for;
   * a driver with a ``ServingMetrics`` records each run's requests per
     second.
 """
@@ -34,7 +37,18 @@ from repro_torch.models import Model, ModelConfig
 from repro_torch.serving import RequestDriver, ServingMetrics, scan_prefill
 from repro_torch.tree import tree_flatten
 
-ARCHS = ("gemma2_2b", "yi_9b", "rwkv6_3b")
+ARCHS = ("gemma2_2b", "yi_9b", "rwkv6_3b", "qwen2_moe_a2_7b", "arctic_480b", "zamba2_7b")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's many small ops: beside other
+    test workers, a pool of one OpenMP thread per core oversubscribes the
+    CPU and spins, which slows these runs by an order of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -153,7 +167,36 @@ def test_rwkv_serve_job_on_cpu(built):
     assert out["completed"] == 3 and all(len(o) == 5 for o in out["outputs"].values())
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "minitron-8b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "zamba2_7b"])
+def test_moe_and_hybrid_serve_jobs_on_cpu(arch, built):
+    """The bf16 prefill_fn through the flash op builds every element's
+    caches (a MoE block's attention cache; Zamba2's Mamba-2 conv windows and
+    fp32 states, and its shared block's attention cache, one per repeat),
+    and decode_fn continues from them."""
+    _, _, tm, _ = built(arch)
+    cfg = dataclasses.replace(tm.cfg, attn_impl="pallas")
+    job = serve.make_serve_job(cfg, device="cpu")
+    params = job.init_params(0)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 32)))
+    logits, caches = job.prefill_fn(params, {"tokens": tokens})
+    want, _ = Model(cfg).prefill(params, {"tokens": tokens}, dtype=torch.bfloat16)
+    assert logits.dtype == torch.bfloat16 and torch.equal(logits, want)
+    for i, kind in enumerate(cfg.block_unit):
+        cache = caches[f"b{i}"]
+        if kind == "mamba":
+            mcfg = cfg.mamba_cfg()
+            assert cache["mamba"]["ssm"].dtype == torch.float32
+            assert cache["mamba"]["ssm"].shape == (cfg.repeats, 2, mcfg.n_heads,
+                                                   mcfg.head_dim, mcfg.state_dim)
+            assert cache["mamba"]["conv"].dtype == torch.bfloat16
+        else:
+            assert cache["attn"]["k"].shape == (cfg.repeats, 2, 32, cfg.n_kv_heads, cfg.hd)
+    step, _ = job.decode_fn(params, caches, tokens[:, -1:], torch.full((2,), 32, dtype=torch.int32))
+    assert step.shape == (2, 1, cfg.vocab_size) and bool(torch.isfinite(step.float()).all())
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "minitron-8b", "rwkv6-3b", "qwen2-moe-a2.7b",
+                                  "zamba2-7b"])
 def test_serve_cli_runs_on_cpu(arch, capsys):
     out = serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "3",
                       "--prompt-len", "6", "--new-tokens", "5"])
