@@ -30,9 +30,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    in bf16 at D=128 and 256 a warp-specialised TMA + wgmma kernel) is held
    against its plain version on Gemma-2 2B's global and local layer shapes
    (B=2, H=8, K=4, S=8192, D=256, softcap 50, window 4096), on the global
-   shape without softcap and on Yi-9B's (H=32, K=4, D=128), bf16, SDPA
-   timed beside the two cases it computes, and checked untimed in fp32 at
-   S=1024 and at a ragged S=1000, the first call of each case under
+   shape without softcap, on Yi-9B's (H=32, K=4, D=128), Qwen1.5-MoE's
+   (H=16, K=16, D=128), Arctic's (B=1, S=4096, H=56, K=8, D=128) and
+   Zamba2's (H=32, K=32, D=112, zero-padded to the D=128 instance), bf16,
+   SDPA timed beside the five cases it computes, and checked untimed in
+   fp32 at S=1024 and at a ragged S=1000 (D=112 too), the first call of
+   each case under
    torch.profiler to print its launch's grid, block, registers and shared
    memory; rms_norm (CUDA C++, src/repro_torch/csrc/rms_norm.cu) on 16,384
    rows of Gemma-2's 2304 in bf16, timed with its spread beside F.rms_norm
@@ -91,6 +94,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``scan_prefill`` through
    decode steps (fp32, B=2, S=128); then ``serve.main`` and a 4-slot
    ``RequestDriver`` of 8 requests through the bf16 ``decode_fn``;
+4b. Qwen1.5-MoE-A2.7B at full width (24 layers, 60 routed experts top-4
+   and 4 shared, vocab 151,936; random bf16 weights from a seed, about
+   14.3 B parameters): ``prefill_fn`` on 2 prompts of 8192 tokens, kernel,
+   kernel, plain, kernel (24 flash launches a call), one more call under
+   torch.profiler split into the attention kernel, the MoE dispatch
+   scatter and combine gather (the kernels launched inside the model's
+   ``repro/moe_dispatch`` and ``repro/moe_combine`` ranges), the other
+   GEMMs and the rest; one bf16 prefill each in the 'gather_tokens' layout
+   (auto's bits) and the 'grouped' one (16 groups: tokens/s and dropped
+   entries beside auto's); the fp32 prefill at B=1 on the first 4 layers,
+   kernel against plain within twice the blockwise twin's gap, with the
+   tokens whose top-4 sets differ at each layer; ``prefill_fn`` against
+   ``scan_prefill`` (fp32, 2 x 128, 4 layers, capacity factor raised to 8
+   so that the prefill drops no token, which is checked); ``serve.main``
+   (fp32) and a 4-slot bf16 ``RequestDriver``; then Arctic 480B at full
+   width on 1 of its 35 layers (about 14.1 B parameters): the bf16
+   prefill of 1 x 4096, kernel against plain;
+4c. Zamba2-7B at full width (27 x (mamba, mamba, shared_attn), d 3584,
+   vocab 32,000, about 4.5 B parameters): the same bf16 prefill of 2 x
+   8192 (27 flash launches at D=112 a call), traced into the attention
+   kernel, the SSD scan (the kernels inside the ``repro/ssd_scan``
+   ranges), the other GEMMs and the rest; the fp32 prefill at B=1, kernel
+   against plain (1e-3 of the logits' max at 6 layers, twice the blockwise
+   twin's gap at 81); ``prefill_fn`` against ``scan_prefill`` on the 6
+   layers (fp32, 2 x 128, logits and SSM states); ``serve.main`` and a
+   4-slot bf16 ``RequestDriver``;
 5. RWKV-6 3B at full width (32 layers, d 2560, 40 heads of 64, vocab
    65,536; random bf16 weights from a seed): ``prefill_fn`` with
    ``rwkv_chunk=16, rwkv_pallas=True`` on 2 prompts of 8192 tokens, three
@@ -180,11 +209,29 @@ FLASH_CASES = (
     ("gemma2_local", 2, 8, 4, LM_SEQ, 256, 4096, 50.0),
     ("gemma2_global_nocap", 2, 8, 4, LM_SEQ, 256, None, None),
     ("yi_9b", 2, 32, 4, LM_SEQ, 128, None, None),
+    ("qwen2_moe", 2, 16, 16, LM_SEQ, 128, None, None),
+    ("arctic", 1, 56, 8, 4096, 128, None, None),
+    ("zamba2", 2, 32, 32, LM_SEQ, 112, None, None),   # zero-padded to the 128 instance
 )
 # the kernels of a traced prefill by name: the bf16 attention kernel, and
 # the GEMMs by the substrings of cuBLAS's and CUTLASS's kernel names
 ATTENTION_KERNEL = "fa_hopper_kernel"
 GEMM_KERNELS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
+# the mixture-of-experts archs at full width: Qwen1.5-MoE-A2.7B's prefill of
+# 2 x 8192 tokens, Arctic's of 1 x 4096 on one of its 35 layers; the fp32
+# checks on Qwen cut to 4 layers; the prefill-vs-decode check with the
+# capacity factor raised to 8 (a 256-token prefill at the config's 1.25
+# has a capacity of 21 and may drop tokens, in the reference too, where a
+# decode step never drops one)
+MOE_ARCH, MOE_BATCH, MOE_SEQ, MOE_CUT = "qwen2-moe-a2.7b", 2, 8192, 4
+ARCTIC_ARCH, ARCTIC_SEQ = "arctic-480b", 4096
+MOE_NO_DROP_FACTOR, MOE_GROUPS = 8.0, 16
+# Zamba2-7B at full width: 2 x 8192 tokens; fp32 checks on 6 of its 81
+# layers (two repeats of mamba, mamba, shared_attn)
+HYBRID_ARCH, HYBRID_BATCH, HYBRID_SEQ, HYBRID_CUT = "zamba2-7b", 2, 8192, 6
+# the profiler ranges the model code opens around the MoE dispatch scatter,
+# the combine gather and the SSD scan
+MOE_RANGES, SSD_RANGES = ("moe_dispatch", "moe_combine"), ("ssd_scan",)
 # RWKV-6 3B at full width: 2 prompts of 8192 tokens, the wkv chunk of 16
 RWKV_ARCH, RWKV_BATCH, RWKV_SEQ, WKV_CHUNK = "rwkv6-3b", 2, 8192, 16
 # wkv_chunk vs the plain chunked form: the same fp32 arithmetic in other
@@ -803,6 +850,7 @@ def check_attention_kernels(api, bw) -> dict:
     agreement with the plain versions on the card, and timing at the
     serving path's shapes."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import kernel_head_dim
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     flash = {"name": "flash_attention", "route": "cuda",
@@ -874,6 +922,7 @@ def check_attention_kernels(api, bw) -> dict:
         (2, 8, 4, 1000, 256, 400, 50.0, torch.float32),
         (2, 8, 4, 1000, 256, 400, 50.0, torch.bfloat16),
         (1, 32, 4, 1000, 128, None, None, torch.bfloat16),
+        (1, 32, 32, 1000, 112, None, None, torch.float32),
     ):
         q, k, v = qkv(b, h, kh, s, d, dtype)
         kw = dict(causal=True, sliding_window=window, softcap=cap)
@@ -915,10 +964,18 @@ def check_attention_kernels(api, bw) -> dict:
                 "ms": times[0], "plain_ms": times[1],
                 "library_ms": times[2] if len(times) > 2 else None, "bound_ms": bound,
                 "tflops": flops / times[0] / 1e9}
+        padded = ""
+        if kernel_head_dim(d) != d:   # the bound counts the true D's work
+            dk = case["padded_to"] = kernel_head_dim(d)
+            case["pad_ms"] = statistics.median(cuda_times(
+                lambda: [F.pad(t, (0, dk - d)) for t in (q, k, v)]))
+            padded = (f"; D={d} zero-padded to {dk}: the kernel does {dk / d:.4f}x the "
+                      f"work, and the padding copies of q, k and v take "
+                      f"{case['pad_ms']:.4f} ms of the call")
         flash["cases"].append(case)
         print(f"kernel flash_attention {label}: ms={case['ms']:.4f} bound_ms={bound:.4f} "
               f"plain_ms={case['plain_ms']:.4f} library_ms={case['library_ms']} "
-              f"({case['tflops']:.1f} TFLOP/s of {peak / 1e12:.0f})")
+              f"({case['tflops']:.1f} TFLOP/s of {peak / 1e12:.0f}){padded}")
         del q, k, v, fns
         torch.cuda.empty_cache()
     main_case = flash["cases"][0]   # Gemma-2's global layer, the longest
@@ -951,12 +1008,13 @@ def run_prefill(api, runs, mode, p, batch, fn, expect):
     return logits, caches, dt, torch.cuda.max_memory_allocated()
 
 
-def trace_prefill(api, fn, params, batch, expect, label, focus) -> None:
+def trace_prefill(api, fn, params, batch, expect, label, focus, ranges=()) -> None:
     """One prefill call through the kernels under ``torch.profiler``, which
     must launch exactly ``expect``: device time by kernel name (top 10), the
-    shares of the kernels named ``focus`` (a label and a name substring),
-    of the GEMMs and of the rest, and the device's idle share of the call's
-    span (CUDA events)."""
+    shares of the kernels launched inside each ``repro/<range>`` profiler
+    range the model code opens (``ranges``), of the other kernels named
+    ``focus`` (a label and a name substring), of the other GEMMs and of the
+    rest, and the device's idle share of the call's span (CUDA events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -974,19 +1032,62 @@ def trace_prefill(api, fn, params, batch, expect, label, focus) -> None:
     span_ms = start.elapsed_time(end)
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                   and not e.key.startswith("repro/")),   # the ranges, not kernels
                   key=lambda r: -r[1])
     assert rows, "torch.profiler recorded no device time"
-    busy = sum(ms for _, ms, _ in rows)
+    path = ROOT / "build" / "prefill_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    work = [(e["name"], e["dur"] / 1e3, e.get("args", {}).get("correlation"))
+            for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    inside = range_launches(events, ranges)
+    del events
     name, pattern = focus
-    hot = sum(ms for k, ms, _ in rows if pattern in k)
-    gemm = sum(ms for k, ms, _ in rows if any(g in k.lower() for g in GEMM_KERNELS))
+    split = dict.fromkeys(ranges, 0.0)
+    busy = hot = gemm = 0.0
+    for kernel, ms, corr in work:
+        busy += ms
+        where = next((r for r in ranges if corr in inside[r]), None)
+        if where is not None:
+            split[where] += ms
+        elif pattern in kernel:
+            hot += ms
+        elif any(g in kernel.lower() for g in GEMM_KERNELS):
+            gemm += ms
+    rest = busy - hot - gemm - sum(split.values())
+    parts = "".join(f"{r} {ms:.3f} ms ({ms / busy:.4f}), " for r, ms in split.items())
     print(f"trace {label}: device busy {busy:.3f} ms of a {span_ms:.3f} ms span (idle share "
-          f"{1 - busy / span_ms:.4f}); {name} {hot:.3f} ms ({hot / busy:.4f}), GEMMs "
-          f"{gemm:.3f} ms ({gemm / busy:.4f}), rest {busy - hot - gemm:.3f} ms "
-          f"({(busy - hot - gemm) / busy:.4f}); {len(rows)} kernel names")
+          f"{1 - busy / span_ms:.4f}); {name} {hot:.3f} ms ({hot / busy:.4f}), {parts}"
+          f"GEMMs{' outside those' if ranges else ''} {gemm:.3f} ms ({gemm / busy:.4f}), "
+          f"rest {rest:.3f} ms ({rest / busy:.4f}); {len(work)} launches, {len(rows)} kernel "
+          "names" + (("; launches inside the ranges " + json.dumps(
+              {r: len(v) for r, v in inside.items()})) if ranges else ""))
     print(f"trace {label} top 10 by device ms: " + json.dumps(
         [{"kernel": k[:120], "ms": round(ms, 4), "calls": n} for k, ms, n in rows[:10]]))
+
+
+def range_launches(events: list, ranges) -> dict:
+    """``{range: {correlation ids}}``: the launches whose runtime or driver
+    call lies inside a ``repro/<range>`` range of a Chrome trace's events."""
+    import bisect
+
+    calls = sorted((e["ts"], e["args"]["correlation"]) for e in events
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and "correlation" in e.get("args", {}))
+    stamps = [ts for ts, _ in calls]
+    out = {}
+    for r in ranges:
+        ids = set()
+        for e in events:
+            if (e.get("name") == f"repro/{r}" and e.get("ph") == "X"
+                    and e.get("cat") == "user_annotation"):
+                lo = bisect.bisect_left(stamps, e["ts"])
+                hi = bisect.bisect_right(stamps, e["ts"] + e["dur"])
+                ids.update(corr for _, corr in calls[lo:hi])
+        out[r] = ids
+    return out
 
 
 def serving_path(api) -> list:
@@ -1134,6 +1235,375 @@ def serving_path(api) -> list:
           f"{got['elapsed_s'] / got['steps'] * 1e3:.2f} ms/step; prometheus {rps[0]}")
     del params, driver
     torch.cuda.empty_cache()
+    return runs
+
+
+def prefill_in(model, dtype):
+    """``model.prefill`` in ``dtype`` under inference mode, as a prefill_fn."""
+    def fn(p, b):
+        with torch.inference_mode():
+            return model.prefill(p, b, dtype=dtype)
+    return fn
+
+
+def moe_routes(api, mode, model, params, batch, dtype) -> list:
+    """Per layer of a MoE model, the experts each token chose and the kept
+    mask, ``(experts (B*S, k), keep)``, from a layer-by-layer forward whose
+    attention runs in dispatch ``mode`` (the routing input is the block's
+    own: the second norm of x plus the attention's output)."""
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import mlp as mlp_lib
+    from repro_torch.tree import tree_map
+
+    cfg, out = model.cfg, []
+    with torch.inference_mode(), api.dispatch_mode(mode):
+        x, positions = model._embed_inputs(params, batch, dtype)
+        for layer in range(cfg.n_layers):
+            bp = tree_map(lambda t: t[layer], params["blocks"]["b0"])
+            y = attn_lib.attention_forward(cfg.attn_cfg("moe"), bp["attn"],
+                                           model._norm(x, bp["norm1"]), positions)
+            out.append(mlp_lib.moe_routing(cfg.moe_cfg(), bp["ffn"],
+                                           model._norm(x + y, bp["norm2"])))
+            x, _, _ = model._apply_block("moe", bp, x, positions, "fwd")
+    return out
+
+
+def topk_sets_differ(a: list, b: list) -> list:
+    """Per layer, the tokens whose set of chosen experts differs."""
+    return [int((torch.sort(ea, dim=-1).values != torch.sort(eb, dim=-1).values)
+                .any(-1).sum()) for (ea, _), (eb, _) in zip(a, b)]
+
+
+def dropped(routes: list) -> list:
+    """Per layer, the (token, k) entries dropped past their expert's capacity."""
+    return [int((~keep).sum()) for _, keep in routes]
+
+
+def serve_and_drive(cfg, job, arch: str, seed: int) -> None:
+    """``serve.main`` at full width (fp32 parameters, freed after), then a
+    4-slot bf16 ``RequestDriver`` of 8 requests through ``job.decode_fn``:
+    every output 16 tokens in the vocabulary."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import RequestDriver
+
+    torch.cuda.empty_cache()
+    print(f"device memory allocated before serve.main {arch}: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.main(["--arch", arch, "--requests", "4", "--prompt-len", "64",
+                      "--new-tokens", "16"])
+    assert out["finite"], "serve.main: non-finite logits"
+    print(f"serve.main {arch}: decode {out['decode_ms_per_step']:.2f} ms/step, "
+          f"{out['tokens_per_s']:.1f} tokens/s, prefill {out['prefill_s']:.2f} s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, finite logits "
+          f"{out['finite']}")
+    torch.cuda.empty_cache()
+    params = job.init_params(0)
+    rng = torch.Generator().manual_seed(seed)
+    requests = [(torch.randint(0, cfg.vocab_size, (int(n),), generator=rng).tolist(), 16)
+                for n in torch.randint(16, 49, (8,), generator=rng)]
+    driver = RequestDriver(job.model, slots=4, max_len=48 + 16, dtype=torch.bfloat16,
+                           decode_fn=job.decode_fn, device=job.device)
+    res = driver.run(params, requests)
+    ok = all(len(o) == 16 and 0 <= int(o.min()) and int(o.max()) < cfg.vocab_size
+             for o in res["outputs"].values())
+    assert res["completed"] == 8 and ok, res
+    print(f"serve {cfg.name} RequestDriver(slots=4) 8 requests: {res['steps']} steps, "
+          f"{res['elapsed_s'] / res['steps'] * 1e3:.2f} ms/step, "
+          f"{res['tokens_per_sec']:.1f} tokens/s, {res['requests_per_sec']:.2f} requests/s, "
+          f"every output 16 tokens in the vocabulary: {ok}")
+    del params, driver
+    torch.cuda.empty_cache()
+
+
+def moe_serving_path(api) -> list:
+    """Phase 4b: Qwen1.5-MoE-A2.7B serving at full width, and Arctic 480B at
+    full width on one of its layers.  Returns the launch counts of each run
+    through the kernels."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serving import scan_prefill
+
+    print(f"device memory allocated as the phase starts: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    runs = []
+    cfg = dataclasses.replace(get_config(MOE_ARCH), attn_impl="pallas")
+    job = serve.make_serve_job(cfg, device="cuda")
+    model = job.model
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = job.init_params(0)
+    torch.cuda.synchronize()
+    print(f"serve {cfg.name}: {cfg.param_count(params):,} parameters in {job.param_dtype}, "
+          f"initialized in {time.perf_counter() - t0:.1f} s, peak memory while drawn "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (each leaf drawn in fp32)")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ), generator=gen,
+                           device="cuda")
+    n_tok = MOE_BATCH * MOE_SEQ
+
+    def prefill(mode, p, batch, fn, layers=cfg.n_layers):
+        return run_prefill(api, runs, mode, p, batch, fn, {"flash_attention": layers})
+
+    # 1. bf16 prefill of 2 x 8192 tokens: kernel, kernel, plain, kernel
+    batch = {"tokens": tokens}
+    rates = {}
+    for mode in ("kernel", "kernel", "ref", "kernel"):
+        logits, caches, dt, peak = prefill(mode, params, batch, job.prefill_fn)
+        rates.setdefault(mode, []).append(n_tok / dt)
+        print(f"serve {cfg.name} prefill bf16 {mode}: {MOE_BATCH}x{MOE_SEQ} tokens in "
+              f"{dt:.3f} s, {n_tok / dt:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB, "
+              f"launches {api.launch_counts()}")
+        if mode == "ref":
+            plain_logits = logits.float()
+        else:
+            kernel_logits = logits.float()
+        del caches
+    print(f"serve {cfg.name} prefill bf16 last-token logits, kernel vs plain: max abs diff "
+          f"{float((kernel_logits - plain_logits).abs().max()):.4g} of "
+          f"{float(plain_logits.abs().max()):.4g} ({cfg.n_layers} layers of bf16 rounding and "
+          "routing on random weights; the kernel is held at the op level)")
+    print(f"serve {cfg.name} prefill tokens/s: " + json.dumps(rates))
+    del logits, kernel_logits, plain_logits
+    trace_prefill(api, job.prefill_fn, params, batch, {"flash_attention": cfg.n_layers},
+                  f"{cfg.name} prefill bf16 {MOE_BATCH}x{MOE_SEQ}",
+                  ("attention", ATTENTION_KERNEL), MOE_RANGES)
+
+    # 2. the other dispatch layouts, one bf16 prefill each: 'gather_tokens'
+    #    is 'auto' bit for bit; 'grouped' (16 groups, local capacities)
+    #    beside 'auto', with each one's dropped entries over the layers
+    want, _, _, _ = prefill("kernel", params, batch, job.prefill_fn)
+    layouts = {}
+    for layout in ("gather_tokens", "grouped"):
+        got, _, dt, peak = prefill("kernel", params, batch, serve.make_serve_job(
+            dataclasses.replace(cfg, moe_dispatch=layout), device="cuda").prefill_fn)
+        layouts[layout] = (got, dt, peak)
+    assert torch.equal(layouts["gather_tokens"][0], want), "gather_tokens is not auto's bits"
+    drops = {layout: sum(dropped(moe_routes(api, "kernel", Model(dataclasses.replace(
+        cfg, moe_dispatch=layout)), params, batch, torch.bfloat16)))
+        for layout in ("auto", "grouped")}
+    grouped_cfg = dataclasses.replace(cfg, moe_dispatch="grouped").moe_cfg()
+    assert grouped_cfg.dispatch_groups == MOE_GROUPS and n_tok % MOE_GROUPS == 0
+    print(f"serve {cfg.name} dispatch layouts, bf16 prefill {MOE_BATCH}x{MOE_SEQ}: "
+          f"'gather_tokens' equals 'auto' bit for bit; 'grouped' "
+          f"({grouped_cfg.dispatch_groups} groups) {n_tok / layouts['grouped'][1]:.0f} tokens/s, "
+          f"peak {layouts['grouped'][2] / 2**30:.2f} GiB, {drops['grouped']} of "
+          f"{n_tok * cfg.top_k * cfg.n_layers} (token, k) entries dropped over the layers, "
+          f"against 'auto' {drops['auto']} (rates of 'auto' above); last-token logits "
+          f"grouped vs auto max abs diff "
+          f"{float((layouts['grouped'][0].float() - want.float()).abs().max()):.4g}")
+    del layouts, want, got, params
+    torch.cuda.empty_cache()
+
+    # 3. fp32 prefill at B=1, S=8192 on the first MOE_CUT layers at full
+    #    width: kernel vs plain, held within twice the gap of the plain
+    #    blockwise twin (as phase 4 holds Gemma-2 at 26 layers); a routing
+    #    tie can flip under an ulp of attention output and shift the queues,
+    #    so the tokens whose top-k sets differ are counted at each layer
+    cut = dataclasses.replace(cfg, n_layers=MOE_CUT)
+    twin_cut = dataclasses.replace(cut, attn_impl="blockwise")
+    params32 = Model(cut).init(0, dtype=torch.float32, device="cuda")
+    batch1 = {"tokens": tokens[:1]}
+    got, _, dt_k, _ = prefill("kernel", params32, batch1, prefill_in(Model(cut), torch.float32),
+                              cut.n_layers)
+    want, _, dt_p, _ = prefill("ref", params32, batch1, prefill_in(Model(cut), torch.float32))
+    twin, _, dt_b, _ = prefill("ref", params32, batch1, prefill_in(Model(twin_cut),
+                                                                   torch.float32))
+    err, err_twin = float((got - want).abs().max()), float((twin - want).abs().max())
+    routes_plain = moe_routes(api, "ref", Model(cut), params32, batch1, torch.float32)
+    flips = topk_sets_differ(moe_routes(api, "kernel", Model(cut), params32, batch1,
+                                        torch.float32), routes_plain)
+    flips_twin = topk_sets_differ(moe_routes(api, "ref", Model(twin_cut), params32, batch1,
+                                             torch.float32), routes_plain)
+    print(f"serve {cfg.name} prefill fp32 1x{MOE_SEQ} at {cut.n_layers} layers: last-token "
+          f"logits, kernel vs plain max abs diff {err:.3g} of {float(want.abs().max()):.3g}, "
+          f"the plain blockwise twin {err_twin:.3g} (bound: twice the twin's); tokens whose "
+          f"top-{cfg.top_k} sets differ from plain by layer: kernel {flips}, twin "
+          f"{flips_twin}; entries dropped by layer {dropped(routes_plain)}; kernel "
+          f"{dt_k:.3f} s, plain {dt_p:.3f} s, blockwise {dt_b:.3f} s")
+    assert err <= 2 * err_twin, f"fp32 prefill: kernel {err} vs plain, blockwise twin {err_twin}"
+    del got, want, twin, routes_plain
+
+    # 4. the prefill_fn path against scan_prefill (fp32, 2 x 128, the cut),
+    #    at a capacity factor of 8: the prefill drops no token
+    no_drop = dataclasses.replace(cut, capacity_factor=MOE_NO_DROP_FACTOR)
+    short = {"tokens": tokens[:, :128]}
+    print(f"serve {cfg.name} prefill vs decode steps: capacity factor raised from "
+          f"{cfg.capacity_factor} to {MOE_NO_DROP_FACTOR}: at {cfg.capacity_factor} a "
+          f"{MOE_BATCH}x128 prefill has a capacity of "
+          f"{int(cfg.capacity_factor * MOE_BATCH * 128 * cfg.top_k / cfg.n_experts)} a queue "
+          "and may drop tokens (in the reference too), where a decode step never drops one")
+    assert sum(dropped(moe_routes(api, "kernel", Model(no_drop), params32, short,
+                                  torch.float32))) == 0
+    got, _, _, _ = prefill("kernel", params32, short, prefill_in(Model(no_drop), torch.float32),
+                           cut.n_layers)
+    caches = Model(no_drop).init_cache(MOE_BATCH, 128, dtype=torch.float32, device="cuda")
+    want, _ = scan_prefill(Model(no_drop), params32, caches, short["tokens"],
+                           dtype=torch.float32)
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=PREFILL_DECODE_TOL, atol=PREFILL_DECODE_TOL)
+    print(f"serve {cfg.name} prefill_fn path vs scan_prefill (fp32, {MOE_BATCH}x128, "
+          f"{cut.n_layers} layers, no token dropped): last-token logits max abs diff "
+          f"{err:.3g} (tolerance {PREFILL_DECODE_TOL})")
+    del params32, caches, got, want
+    torch.cuda.empty_cache()
+
+    # 5. the serving CLI (fp32, about 53 GiB of parameters) and a 4-slot
+    #    bf16 RequestDriver, both at full width
+    serve_and_drive(cfg, job, MOE_ARCH, seed=12)
+
+    # 6. Arctic 480B at full width on 1 of its 35 layers (the reduction is
+    #    depth only): bf16 prefill of 1 x 4096, kernel vs plain
+    full = get_config(ARCTIC_ARCH)
+    acfg = dataclasses.replace(full, n_layers=1, attn_impl="pallas")
+    ajob = serve.make_serve_job(acfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    aparams = ajob.init_params(0)
+    torch.cuda.synchronize()
+    print(f"serve {acfg.name}: depth cut from {full.n_layers} layers to {acfg.n_layers}, "
+          f"widths as published; {acfg.param_count(aparams):,} parameters in "
+          f"{ajob.param_dtype}, initialized in {time.perf_counter() - t0:.1f} s, peak memory "
+          f"while drawn {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    abatch = {"tokens": torch.randint(0, acfg.vocab_size, (1, ARCTIC_SEQ), generator=gen,
+                                      device="cuda")}
+    arates = {}
+    for mode in ("kernel", "kernel", "ref", "kernel"):
+        logits, caches, dt, peak = prefill(mode, aparams, abatch, ajob.prefill_fn, 1)
+        arates.setdefault(mode, []).append(ARCTIC_SEQ / dt)
+        print(f"serve {acfg.name} prefill bf16 {mode}: 1x{ARCTIC_SEQ} tokens in {dt:.4f} s, "
+              f"{ARCTIC_SEQ / dt:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
+        if mode == "ref":
+            plain_logits = logits.float()
+        else:
+            kernel_logits = logits.float()
+        del caches
+    print(f"serve {acfg.name} prefill tokens/s: " + json.dumps(arates) + "; last-token "
+          f"logits kernel vs plain max abs diff "
+          f"{float((kernel_logits - plain_logits).abs().max()):.4g} of "
+          f"{float(plain_logits.abs().max()):.4g}")
+    del aparams, logits, kernel_logits, plain_logits
+    torch.cuda.empty_cache()
+    return runs
+
+
+def hybrid_serving_path(api) -> list:
+    """Phase 4c: Zamba2-7B serving at full width (27 x (mamba, mamba,
+    shared_attn); the shared block's attention at D=112 through the flash
+    kernel, zero-padded to 128).  Returns the launch counts of each run
+    through the kernels."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serving import scan_prefill
+    from repro_torch.tree import tree_map
+
+    print(f"device memory allocated as the phase starts: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    runs = []
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), attn_impl="pallas")
+    n_attn = cfg.block_unit.count("shared_attn") * cfg.repeats
+    job = serve.make_serve_job(cfg, device="cuda")
+    model = job.model
+    t0 = time.perf_counter()
+    params = job.init_params(0)
+    torch.cuda.synchronize()
+    print(f"serve {cfg.name}: {cfg.param_count(params):,} parameters in {job.param_dtype}, "
+          f"initialized in {time.perf_counter() - t0:.1f} s; {n_attn} applications of the "
+          f"shared attention block (head_dim {cfg.hd}), {cfg.n_layers - n_attn} Mamba-2 blocks")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    tokens = torch.randint(0, cfg.vocab_size, (HYBRID_BATCH, HYBRID_SEQ), generator=gen,
+                           device="cuda")
+    n_tok = HYBRID_BATCH * HYBRID_SEQ
+
+    def prefill(mode, p, batch, fn, launches=n_attn):
+        return run_prefill(api, runs, mode, p, batch, fn, {"flash_attention": launches})
+
+    # 1. bf16 prefill of 2 x 8192 tokens: kernel, kernel, plain, kernel; traced
+    batch = {"tokens": tokens}
+    rates = {}
+    for mode in ("kernel", "kernel", "ref", "kernel"):
+        logits, caches, dt, peak = prefill(mode, params, batch, job.prefill_fn)
+        rates.setdefault(mode, []).append(n_tok / dt)
+        print(f"serve {cfg.name} prefill bf16 {mode}: {HYBRID_BATCH}x{HYBRID_SEQ} tokens in "
+              f"{dt:.3f} s, {n_tok / dt:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB, "
+              f"launches {api.launch_counts()}")
+        if mode == "ref":
+            plain_logits = logits.float()
+        else:
+            kernel_logits = logits.float()
+        del caches
+    print(f"serve {cfg.name} prefill bf16 last-token logits, kernel vs plain: max abs diff "
+          f"{float((kernel_logits - plain_logits).abs().max()):.4g} of "
+          f"{float(plain_logits.abs().max()):.4g} ({cfg.n_layers} layers of bf16 rounding on "
+          "random weights; the kernel is held at the op level)")
+    print(f"serve {cfg.name} prefill tokens/s: " + json.dumps(rates))
+    del logits, kernel_logits, plain_logits
+    trace_prefill(api, job.prefill_fn, params, batch, {"flash_attention": n_attn},
+                  f"{cfg.name} prefill bf16 {HYBRID_BATCH}x{HYBRID_SEQ}",
+                  ("attention", ATTENTION_KERNEL), SSD_RANGES)
+    del params
+    torch.cuda.empty_cache()
+
+    # 2. fp32 prefill at B=1, S=8192: kernel vs plain, last-token logits
+    #    relative to their max abs, within LOGIT_TOL at HYBRID_CUT layers;
+    #    at all 81 within twice the gap of the plain blockwise twin
+    params32 = model.init(0, dtype=torch.float32, device="cuda")
+    batch1 = {"tokens": tokens[:1]}
+    cut = dataclasses.replace(cfg, n_layers=HYBRID_CUT)
+    n_cut = cut.block_unit.count("shared_attn") * cut.repeats
+
+    def first(p, layers):   # stacked blocks cut to the first repeats; shared kept
+        return {**p, "blocks": {k: v if kind == "shared_attn" else
+                                tree_map(lambda t: t[:layers // len(cfg.block_unit)], v)
+                                for (k, v), kind in zip(p["blocks"].items(), cfg.block_unit)}}
+
+    p_cut = first(params32, HYBRID_CUT)
+    got, _, _, _ = prefill("kernel", p_cut, batch1, prefill_in(Model(cut), torch.float32), n_cut)
+    want, _, _, _ = prefill("ref", p_cut, batch1, prefill_in(Model(cut), torch.float32))
+    gap_cut = float((got - want).abs().max() / want.abs().max())
+    assert gap_cut <= LOGIT_TOL, f"fp32 prefill at {HYBRID_CUT} layers: relative gap {gap_cut}"
+    got, _, dt_k, _ = prefill("kernel", params32, batch1, prefill_in(model, torch.float32))
+    want, _, dt_p, _ = prefill("ref", params32, batch1, prefill_in(model, torch.float32))
+    twin, _, dt_b, _ = prefill("ref", params32, batch1, prefill_in(
+        Model(dataclasses.replace(cfg, attn_impl="blockwise")), torch.float32))
+    err, err_twin = float((got - want).abs().max()), float((twin - want).abs().max())
+    print(f"serve {cfg.name} prefill fp32 1x{HYBRID_SEQ}: last-token logits, kernel vs plain "
+          f"relative to their max abs {gap_cut:.3g} at {HYBRID_CUT} layers (tolerance "
+          f"{LOGIT_TOL}); at {cfg.n_layers} layers max abs diff {err:.3g} of "
+          f"{float(want.abs().max()):.3g}, the plain blockwise twin {err_twin:.3g} (bound: "
+          f"twice the twin's); kernel {dt_k:.3f} s, plain {dt_p:.3f} s, blockwise {dt_b:.3f} s")
+    assert err <= 2 * err_twin, f"fp32 prefill: kernel {err} vs plain, blockwise twin {err_twin}"
+    del got, want, twin
+
+    # 3. the prefill_fn path against scan_prefill through decode steps
+    #    (fp32, 2 x 128, on the cut: 128 decode steps through 81 layers are
+    #    host-bound seconds, and the check is of each block's two paths)
+    short = tokens[:, :128]
+    got, got_caches, _, _ = prefill("kernel", p_cut, {"tokens": short},
+                                    prefill_in(Model(cut), torch.float32), n_cut)
+    caches = Model(cut).init_cache(HYBRID_BATCH, 128, dtype=torch.float32, device="cuda")
+    want, want_caches = scan_prefill(Model(cut), p_cut, caches, short, dtype=torch.float32)
+    torch.testing.assert_close(got, want, rtol=PREFILL_DECODE_TOL, atol=PREFILL_DECODE_TOL)
+    ssm_err = float((got_caches["b0"]["mamba"]["ssm"] - want_caches["b0"]["mamba"]["ssm"])
+                    .abs().max())
+    torch.testing.assert_close(got_caches["b0"]["mamba"]["ssm"],
+                               want_caches["b0"]["mamba"]["ssm"],
+                               rtol=PREFILL_DECODE_TOL, atol=PREFILL_DECODE_TOL)
+    print(f"serve {cfg.name} prefill_fn path vs scan_prefill (fp32, {HYBRID_BATCH}x128, "
+          f"{HYBRID_CUT} layers): last-token logits max abs diff "
+          f"{float((got - want).abs().max()):.3g}, first Mamba-2 element's SSM states "
+          f"{ssm_err:.3g} (tolerance {PREFILL_DECODE_TOL})")
+    del params32, p_cut, caches, got, want, got_caches, want_caches
+    torch.cuda.empty_cache()
+
+    # 4. the serving CLI (fp32) and a 4-slot bf16 RequestDriver at full width
+    serve_and_drive(cfg, job, HYBRID_ARCH, seed=14)
     return runs
 
 
@@ -1950,6 +2420,12 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 4
     kernel_runs += [{"launches": launches} for launches in serving_path(api)]
+
+    # --------------------------------------------------------------- 4b
+    kernel_runs += [{"launches": launches} for launches in moe_serving_path(api)]
+
+    # --------------------------------------------------------------- 4c
+    kernel_runs += [{"launches": launches} for launches in hybrid_serving_path(api)]
 
     # ---------------------------------------------------------------- 5
     kernel_runs += [{"launches": launches} for launches in rwkv_serving_path(api)]

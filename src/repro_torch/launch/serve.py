@@ -4,11 +4,12 @@ Counterpart of the serving part of ``repro.launch.distributed``
 (``ServeJob``, ``make_serve_job``) and of ``repro.launch.serve``, on one
 device with no mesh.  ``make_serve_job(cfg).prefill_fn`` runs
 ``Model.prefill`` in bf16 -- with ``attn_impl="pallas"`` every attention
-layer goes through the hand-written flash-attention kernel, and with
-``replace(cfg, rwkv_chunk=16, rwkv_pallas=True)`` every RWKV-6 layer's
-time-mix through the hand-written wkv_chunk kernel -- and ``decode_fn``
-runs ``Model.decode_step`` in bf16 against the decode caches (ring buffers
-for attention, the recurrent state and token shifts for RWKV-6).  Both run
+layer (a MoE block's and Zamba2's shared block's too) goes through the
+hand-written flash-attention kernel, and with ``replace(cfg, rwkv_chunk=16,
+rwkv_pallas=True)`` every RWKV-6 layer's time-mix through the hand-written
+wkv_chunk kernel -- and ``decode_fn`` runs ``Model.decode_step`` in bf16
+against the decode caches (ring buffers for attention, the recurrent
+states for RWKV-6 and Mamba-2).  Both run
 under ``torch.inference_mode()``.
 
 The CLI does what the reference's does: fp32 parameters from the seed and
@@ -17,6 +18,8 @@ then ``--new-tokens`` of greedy (or sampled) decode:
 
   python -m repro_torch.launch.serve --arch gemma2-2b --reduced --device cpu
   python -m repro_torch.launch.serve --arch rwkv6-3b --reduced --device cpu
+  python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --reduced --device cpu
+  python -m repro_torch.launch.serve --arch zamba2-7b --reduced --device cpu
   python -m repro_torch.launch.serve --arch gemma2-2b        # on the card
 
 Entry points run on CUDA unless ``device="cpu"`` / ``--device cpu`` is

@@ -5,9 +5,10 @@ Counterpart of ``repro.models.mamba``.  The sequence path is the chunked
 state-space-duality algorithm: within a chunk the output is a masked,
 decay-weighted contraction (an attention-like product), and across chunks
 a small recurrent state (B, H, P, N) is carried -- the reference's
-``lax.scan`` over chunks is a Python loop here, as RWKV-6's chunked form
-is.  Decode advances the same recurrence one token at a time with a rolling
-conv window.  The reference computes the scan in plain jnp, outside any
+``lax.scan`` over chunks is a Python loop here, over the state recurrence
+alone: the terms that do not need the carried state are computed for all
+chunks at once (one Python op a chunk, not twenty).  Decode advances the
+same recurrence one token at a time with a rolling conv window.  The reference computes the scan in plain jnp, outside any
 Pallas kernel; so does the port, in PyTorch (the chunk products are
 cuBLAS batched GEMMs on the card).  Each prefill's scan runs inside a
 ``repro/ssd_scan`` profiler range, so a trace can attribute its kernels.
@@ -91,35 +92,42 @@ def _ssd_chunked(cfg: MambaConfig, a, xh, b_in, c_in, dt, h0=None):
     a: (H,) negative per-head decay rate.
     xh: (B, S, H, P); b_in/c_in: (B, S, N); dt: (B, S, H) post-softplus.
     Returns y (B, S, H, P) in xh's dtype, final state (B, H, P, N) fp32.
+
+    Each chunk's terms are the reference's ``chunk_body``; those that do
+    not need the carried state (the intra-chunk output and each chunk's
+    state increment) are computed for every chunk at once, in a (B, C, H,
+    ...) layout, and only the state recurrence runs as a loop over chunks.
     """
     bsz, s, nh, p = xh.shape
     n = b_in.shape[-1]
     lc = min(cfg.chunk, s)
     if s % lc:
         raise ValueError(f"SSD scan: {s} tokens in chunks of {lc}")
-    mask = torch.tril(torch.ones((lc, lc), dtype=torch.bool, device=xh.device))
+    nc = s // lc
+    above = ~torch.tril(torch.ones((lc, lc), dtype=torch.bool, device=xh.device))
+    x = xh.reshape(bsz, nc, lc, nh, p).float().transpose(2, 3)      # (B, C, H, lc, P)
+    bk = b_in.reshape(bsz, nc, lc, n).float()                       # (B, C, lc, N)
+    ck = c_in.reshape(bsz, nc, lc, n).float()
+    dtk = dt.reshape(bsz, nc, lc, nh).float().transpose(2, 3)       # (B, C, H, lc)
+    cum = torch.cumsum(dtk * a[:, None], dim=-1)
+    total = cum[..., -1]                                            # (B, C, H)
+    # decay matrix L[t, j] = exp(cum_t - cum_j), j <= t; scores cb * L * dt_j
+    scores = torch.exp(cum[..., :, None] - cum[..., None, :]).masked_fill_(above, 0.0)
+    scores.mul_((ck @ bk.transpose(-1, -2))[:, :, None]).mul_(dtk[..., None, :])
+    y = scores @ x                                                  # intra-chunk
+    del scores
+    w_j = torch.exp(total[..., None] - cum) * dtk                   # (B, C, H, lc)
+    dh = (x * w_j[..., None]).transpose(-1, -2) @ bk[:, :, None]    # (B, C, H, P, N)
+    decay = torch.exp(total)[..., None, None]
     h = (torch.zeros((bsz, nh, p, n), dtype=torch.float32, device=xh.device)
          if h0 is None else h0)
-    ys = []
-    for start in range(0, s, lc):
-        sl = slice(start, start + lc)
-        xk = xh[:, sl].float()               # (B, lc, H, P)
-        bk, ck = b_in[:, sl].float(), c_in[:, sl].float()   # (B, lc, N)
-        dtk = dt[:, sl].float()              # (B, lc, H)
-        cum = torch.cumsum(dtk * a, dim=1)   # (B, lc, H)
-        total = cum[:, -1]                   # (B, H)
-        # decay matrix L[t, j] = exp(cum_t - cum_j), j <= t
-        diff = cum[:, :, None, :] - cum[:, None, :, :]   # (B, lc, lc, H)
-        l_mat = torch.where(mask[None, :, :, None], torch.exp(diff), 0.0)
-        cb = torch.einsum("btn,bjn->btj", ck, bk)
-        scores = cb[..., None] * l_mat * dtk[:, None, :, :]              # (B, t, j, H)
-        y_intra = torch.einsum("btjh,bjhp->bthp", scores, xk)
-        y_state = torch.einsum("btn,bhpn->bthp", ck, h) * torch.exp(cum)[..., None]
-        w_j = torch.exp(total[:, None, :] - cum) * dtk                  # (B, lc, H)
-        dh = torch.einsum("bjh,bjn,bjhp->bhpn", w_j, bk, xk)
-        h = torch.exp(total)[..., None, None] * h + dh
-        ys.append((y_intra + y_state).to(xh.dtype))
-    return torch.cat(ys, dim=1), h
+    h_in = []
+    for c in range(nc):    # the reference's lax.scan over chunks
+        h_in.append(h)
+        h = decay[:, c] * h + dh[:, c]
+    h_in = torch.stack(h_in, dim=1)                                 # (B, C, H, P, N)
+    y += (ck[:, :, None] @ h_in.transpose(-1, -2)) * torch.exp(cum)[..., None]
+    return y.transpose(2, 3).reshape(bsz, s, nh, p).to(xh.dtype), h
 
 
 def mamba_forward(cfg: MambaConfig, params, u: torch.Tensor, return_cache: bool = False):

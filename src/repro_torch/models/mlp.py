@@ -142,9 +142,12 @@ def _route(cfg: MoEConfig, router, tokens, capacity: int):
     gate_vals, expert_idx = gate_vals[..., :cfg.top_k], expert_idx[..., :cfg.top_k]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     g, t, k = expert_idx.shape
-    flat = F.one_hot(expert_idx.reshape(g, t * k), cfg.n_experts)       # token-major
-    before = torch.cumsum(flat, dim=1) - flat                          # exclusive count
-    pos = before.gather(-1, expert_idx.reshape(g, t * k, 1)).reshape(g, t, k)
+    # (G, E, T*k), entries in token-major order along the last dim: the
+    # exclusive prefix count is an innermost-dim scan (a scan over the
+    # outer dim of (G, T*k, E) takes tens of ms a layer on the card)
+    flat = F.one_hot(expert_idx.reshape(g, t * k), cfg.n_experts).transpose(1, 2).contiguous()
+    before = torch.cumsum(flat, dim=2) - flat
+    pos = before.gather(1, expert_idx.reshape(g, 1, t * k)).reshape(g, t, k)
     return logits, probs, gate_vals, expert_idx, pos, pos < capacity
 
 

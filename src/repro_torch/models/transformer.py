@@ -46,8 +46,7 @@ Tree = Any
 
 __all__ = ["ModelConfig", "Model"]
 
-ATTN_KINDS = ("attn", "local", "moe", "shared_attn")
-KINDS = ATTN_KINDS + ("mamba", "rwkv")
+KINDS = ("attn", "local", "moe", "shared_attn", "mamba", "rwkv")
 FRONTEND_TODO = "the audio and vision front ends wait for ROADMAP queue 1 item 7 (d)"
 
 
