@@ -32,8 +32,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (B=2, H=8, K=4, S=8192, D=256, softcap 50, window 4096), on the global
    shape without softcap, on Yi-9B's (H=32, K=4, D=128), Qwen1.5-MoE's
    (H=16, K=16, D=128), Arctic's (B=1, S=4096, H=56, K=8, D=128) and
-   Zamba2's (H=32, K=32, D=112, zero-padded to the D=128 instance), bf16,
-   SDPA timed beside the five cases it computes, and checked untimed in
+   Zamba2's (H=32, K=32, D=112, zero-padded to the D=128 instance) and
+   Qwen2-VL-2B's (H=12, K=2, D=128), bf16,
+   SDPA timed beside the six cases it computes, and checked untimed in
    fp32 at S=1024 and at a ragged S=1000 (D=112 too), the first call of
    each case under
    torch.profiler to print its launch's grid, block, registers and shared
@@ -120,6 +121,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    twin's gap at 81); ``prefill_fn`` against ``scan_prefill`` on the 6
    layers (fp32, 2 x 128, logits and SSM states); ``serve.main`` and a
    4-slot bf16 ``RequestDriver``;
+4d. Qwen2-VL-2B at full width (28 layers, d 1536, 12 heads on 2 KV heads
+   of 128, vocab 151,936, M-RoPE; random bf16 weights from a seed, about
+   1.5 B parameters): ``prefill_fn`` on 2 x (256 random vision embeddings
+   + 7,936 text tokens), kernel, kernel, plain, kernel (28 flash launches a
+   call), one more call traced; the fp32 prefill at B=1, kernel against
+   the flash op's plain version (never the xla / blockwise twin, which
+   masks the vision block by its temporal positions: another function),
+   within 1e-3 of the logits' max abs at 4 layers and 1e-2 at 28;
+   ``serve.main`` (fp32, text prompts) and a 4-slot bf16 ``RequestDriver``;
+   then HuBERT X-Large at full width (48 bidirectional layers, d 1280, 16
+   heads of 80; about 0.95 B parameters): ``Model.forward`` in bf16 under
+   ``torch.inference_mode()`` on 8 clips of 1,500 frames of 512-dim random
+   features, frames/s, peak memory and a trace (no kernel: its attention
+   is the plain ``_sdpa``), and fp32 on 2 full-width layers, the card
+   against the CPU within rtol 1e-4 and an atol of 1e-4 of the logits' max;
+4e. LM training on the card: Qwen2-VL-2B at full width, fp32 parameters,
+   bf16 activations, 1 x (256 + 1,792) tokens: ``Model.loss`` then
+   ``torch.autograd.grad`` (28 flash launches in the forward, none in the
+   backward, which differentiates the op's plain version), 3 plain SGD
+   steps of lr 0.03 on one batch, the loss falling at each, ms a step and
+   peak memory, one more step's loss and gradients traced; the gradients at 4 layers in fp32, the kernel's forward
+   against the plain one's, each leaf within 1e-4 of its max |gradient|;
 5. RWKV-6 3B at full width (32 layers, d 2560, 40 heads of 64, vocab
    65,536; random bf16 weights from a seed): ``prefill_fn`` with
    ``rwkv_chunk=16, rwkv_pallas=True`` on 2 prompts of 8192 tokens, three
@@ -212,6 +235,7 @@ FLASH_CASES = (
     ("qwen2_moe", 2, 16, 16, LM_SEQ, 128, None, None),
     ("arctic", 1, 56, 8, 4096, 128, None, None),
     ("zamba2", 2, 32, 32, LM_SEQ, 112, None, None),   # zero-padded to the 128 instance
+    ("qwen2_vl", 2, 12, 2, LM_SEQ, 128, None, None),
 )
 # the kernels of a traced prefill by name: the bf16 attention kernel, and
 # the GEMMs by the substrings of cuBLAS's and CUTLASS's kernel names
@@ -232,6 +256,29 @@ HYBRID_ARCH, HYBRID_BATCH, HYBRID_SEQ, HYBRID_CUT = "zamba2-7b", 2, 8192, 6
 # the profiler ranges the model code opens around the MoE dispatch scatter,
 # the combine gather and the SSD scan
 MOE_RANGES, SSD_RANGES = ("moe_dispatch", "moe_combine"), ("ssd_scan",)
+# Qwen2-VL-2B at full width: 2 x (256 vision embeddings + 7936 text tokens);
+# fp32 prefill at B=1, kernel against the flash op's plain version (never
+# the xla / blockwise twin: those mask the vision block by its temporal
+# positions, the kernel by index, so they compute another function), within
+# VLM_CUT_TOL of the logits' max abs at VLM_CUT layers and VLM_FULL_TOL at
+# all 28 (two fp32 summation orders drift apart with depth on random
+# weights, as Gemma-2's and RWKV-6's do)
+VLM_ARCH, VLM_BATCH, VLM_TEXT, VLM_CUT = "qwen2-vl-2b", 2, 7936, 4
+VLM_CUT_TOL, VLM_FULL_TOL = 1e-3, 1e-2
+# HuBERT X-Large at full width: 8 clips of 1500 frames (30 s at its 20 ms
+# stride) of 512-dim features in bf16; fp32 on AUDIO_CUT layers, the card
+# against the port's CPU path within rtol AUDIO_TOL and an atol of
+# AUDIO_TOL of the logits' max abs (no kernel on this path: its attention
+# is bidirectional, so the plain _sdpa runs, as in the reference)
+AUDIO_ARCH, AUDIO_CLIPS, AUDIO_FRAMES, AUDIO_CUT, AUDIO_TOL = "hubert-xlarge", 8, 1500, 2, 1e-4
+# LM training on the card: Qwen2-VL-2B at full width, fp32 parameters, bf16
+# activations, 1 x (256 + TRAIN_TEXT) tokens, TRAIN_STEPS plain SGD steps of
+# TRAIN_LR on one batch (the loss must fall at each); the gradients at
+# TRAIN_CUT layers in fp32, the kernel's forward against the plain one's,
+# each leaf within GRAD_BAND of its largest |gradient| (the same backward,
+# recomputed through the plain version, from inputs that differ by the
+# forward's rounding)
+TRAIN_TEXT, TRAIN_STEPS, TRAIN_LR, TRAIN_CUT, GRAD_BAND = 1792, 3, 0.03, 4, 1e-4
 # RWKV-6 3B at full width: 2 prompts of 8192 tokens, the wkv chunk of 16
 RWKV_ARCH, RWKV_BATCH, RWKV_SEQ, WKV_CHUNK = "rwkv6-3b", 2, 8192, 16
 # wkv_chunk vs the plain chunked form: the same fp32 arithmetic in other
@@ -1009,8 +1056,10 @@ def run_prefill(api, runs, mode, p, batch, fn, expect):
 
 
 def trace_prefill(api, fn, params, batch, expect, label, focus, ranges=()) -> None:
-    """One prefill call through the kernels under ``torch.profiler``, which
-    must launch exactly ``expect``: device time by kernel name (top 10), the
+    """One call of ``fn`` (a prefill, an encoder's forward or a training
+    step's loss and gradients) through the kernels under
+    ``torch.profiler``, which must launch exactly ``expect``: device time by
+    kernel name (top 10), the
     shares of the kernels launched inside each ``repro/<range>`` profiler
     range the model code opens (``ranges``), of the other kernels named
     ``focus`` (a label and a name substring), of the other GEMMs and of the
@@ -1101,7 +1150,6 @@ def serving_path(api) -> list:
     from repro_torch.models import Model
     from repro_torch.serving import RequestDriver, ServingMetrics, scan_prefill
     from repro_torch.telemetry import Telemetry
-    from repro_torch.tree import tree_map
 
     runs = []
     cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="pallas")
@@ -1159,7 +1207,7 @@ def serving_path(api) -> list:
 
     batch1 = {"tokens": tokens[:1]}
     cut = dataclasses.replace(cfg, n_layers=6)
-    params_cut = {**params32, "blocks": tree_map(lambda t: t[:cut.repeats], params32["blocks"])}
+    params_cut = first_repeats(params32, cut.repeats)
     got, _, _, _ = prefill("kernel", params_cut, batch1, prefill32(Model(cut)), cut.n_layers)
     want, _, _, _ = prefill("ref", params_cut, batch1, prefill32(Model(cut)))
     err_cut = float((got - want).abs().max())
@@ -1604,6 +1652,251 @@ def hybrid_serving_path(api) -> list:
 
     # 4. the serving CLI (fp32) and a 4-slot bf16 RequestDriver at full width
     serve_and_drive(cfg, job, HYBRID_ARCH, seed=14)
+    return runs
+
+
+def vision_batch(cfg, batch: int, text: int, dtype, gen) -> dict:
+    """Random text tokens and vision embeddings (a stand-in for the vision
+    encoder's output) for a Qwen2-VL model, on the card."""
+    return {"tokens": torch.randint(0, cfg.vocab_size, (batch, text), generator=gen,
+                                    device="cuda"),
+            "vision_embeds": torch.randn((batch, cfg.n_vision_tokens, cfg.d_model),
+                                         generator=gen, device="cuda").to(dtype)}
+
+
+def first_repeats(params, repeats: int) -> dict:
+    """Parameters with the stacked blocks cut to their first ``repeats``
+    (layers, for a block unit of one element)."""
+    from repro_torch.tree import tree_map
+
+    return {**params, "blocks": tree_map(lambda t: t[:repeats], params["blocks"])}
+
+
+def vlm_audio_path(api) -> list:
+    """Phase 4d: Qwen2-VL-2B serving at full width (M-RoPE, the vision front
+    end, 28 flash launches a prefill) and the HuBERT X-Large encoder at full
+    width.  Returns the launch counts of each run through the kernels."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_map
+
+    print(f"device memory allocated as the phase starts: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    runs = []
+    cfg = dataclasses.replace(get_config(VLM_ARCH), attn_impl="pallas")
+    job = serve.make_serve_job(cfg, device="cuda")
+    model = job.model
+    t0 = time.perf_counter()
+    params = job.init_params(0)
+    torch.cuda.synchronize()
+    print(f"serve {cfg.name}: {cfg.param_count(params):,} parameters in {job.param_dtype}, "
+          f"initialized in {time.perf_counter() - t0:.1f} s; M-RoPE sections "
+          f"{cfg.mrope_sections}, {cfg.n_vision_tokens} vision tokens on a {cfg.vision_grid} grid")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    batch = vision_batch(cfg, VLM_BATCH, VLM_TEXT, torch.bfloat16, gen)
+    seq = cfg.n_vision_tokens + VLM_TEXT
+    n_tok = VLM_BATCH * seq
+
+    def prefill(mode, p, b, fn, layers=cfg.n_layers):
+        return run_prefill(api, runs, mode, p, b, fn, {"flash_attention": layers})
+
+    # 1. bf16 prefill of 2 x 8192 tokens: kernel, kernel, plain, kernel; traced
+    rates = {}
+    for mode in ("kernel", "kernel", "ref", "kernel"):
+        logits, caches, dt, peak = prefill(mode, params, batch, job.prefill_fn)
+        rates.setdefault(mode, []).append(n_tok / dt)
+        print(f"serve {cfg.name} prefill bf16 {mode}: {VLM_BATCH}x({cfg.n_vision_tokens}+"
+              f"{VLM_TEXT}) tokens in {dt:.3f} s, {n_tok / dt:.0f} tokens/s, peak memory "
+              f"{peak / 2**30:.2f} GiB, launches {api.launch_counts()}")
+        assert caches["b0"]["attn"]["k"].shape == (cfg.repeats, VLM_BATCH, seq, cfg.n_kv_heads,
+                                                   cfg.hd)
+        # the cached positions are M-RoPE's temporal stream: 0 on the vision block
+        assert int(caches["b0"]["attn"]["pos"][0, :, :cfg.n_vision_tokens].abs().max()) == 0
+        if mode == "ref":
+            plain_logits = logits.float()
+        else:
+            kernel_logits = logits.float()
+        del caches
+    print(f"serve {cfg.name} prefill bf16 last-token logits, kernel vs plain: max abs diff "
+          f"{float((kernel_logits - plain_logits).abs().max()):.4g} of "
+          f"{float(plain_logits.abs().max()):.4g} ({cfg.n_layers} layers of bf16 rounding on "
+          "random weights; the kernel is held at the op level)")
+    print(f"serve {cfg.name} prefill tokens/s: " + json.dumps(rates))
+    del logits, kernel_logits, plain_logits
+    trace_prefill(api, job.prefill_fn, params, batch, {"flash_attention": cfg.n_layers},
+                  f"{cfg.name} prefill bf16 {VLM_BATCH}x{seq}", ("attention", ATTENTION_KERNEL))
+    del params
+    torch.cuda.empty_cache()
+
+    # 2. fp32 prefill at B=1: kernel against the flash op's plain version,
+    #    relative to the logits' max abs
+    params32 = model.init(0, dtype=torch.float32, device="cuda")
+    batch1 = {"tokens": batch["tokens"][:1], "vision_embeds": batch["vision_embeds"][:1].float()}
+    cut = dataclasses.replace(cfg, n_layers=VLM_CUT)
+    p_cut = first_repeats(params32, VLM_CUT)
+    got, _, _, _ = prefill("kernel", p_cut, batch1, prefill_in(Model(cut), torch.float32),
+                           VLM_CUT)
+    want, _, _, _ = prefill("ref", p_cut, batch1, prefill_in(Model(cut), torch.float32))
+    gap_cut = float((got - want).abs().max() / want.abs().max())
+    got, _, dt_k, _ = prefill("kernel", params32, batch1, prefill_in(model, torch.float32))
+    want, _, dt_p, _ = prefill("ref", params32, batch1, prefill_in(model, torch.float32))
+    gap = float((got - want).abs().max() / want.abs().max())
+    print(f"serve {cfg.name} prefill fp32 1x{seq}: last-token logits, kernel vs the flash op's "
+          f"plain version, relative to their max abs: {gap_cut:.3g} at {VLM_CUT} layers "
+          f"(tolerance {VLM_CUT_TOL}), {gap:.3g} at {cfg.n_layers} (band {VLM_FULL_TOL}); "
+          f"kernel {dt_k:.3f} s, plain {dt_p:.3f} s")
+    assert gap_cut <= VLM_CUT_TOL, f"fp32 prefill at {VLM_CUT} layers: relative gap {gap_cut}"
+    assert gap <= VLM_FULL_TOL, f"fp32 prefill at {cfg.n_layers} layers: relative gap {gap}"
+    del params32, p_cut, got, want
+    torch.cuda.empty_cache()
+
+    # 3. the serving CLI (fp32, text prompts) and a 4-slot bf16 RequestDriver
+    serve_and_drive(cfg, job, VLM_ARCH, seed=22)
+
+    # 4. HuBERT X-Large: Model.forward in bf16 on 8 clips of 1500 frames
+    acfg = get_config(AUDIO_ARCH)
+    amodel = Model(acfg)
+    t0 = time.perf_counter()
+    aparams = amodel.init(0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{acfg.name}: {acfg.param_count(aparams):,} parameters in bf16, initialized in "
+          f"{time.perf_counter() - t0:.1f} s; {acfg.n_layers} bidirectional layers, "
+          f"{acfg.n_heads} heads of {acfg.hd}, frame head over {acfg.vocab_size} units")
+    agen = torch.Generator(device="cuda").manual_seed(23)
+    frames = torch.randn((AUDIO_CLIPS, AUDIO_FRAMES, acfg.audio_frontend_dim), generator=agen,
+                         device="cuda").to(torch.bfloat16)
+
+    def encode(p, b):
+        with torch.inference_mode():
+            return amodel.forward(p, b, dtype=torch.bfloat16)
+
+    for _ in range(3):
+        api.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, _ = encode(aparams, {"frames": frames})
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        assert api.launch_counts() == {}, api.launch_counts()
+        assert logits.shape == (AUDIO_CLIPS, AUDIO_FRAMES, acfg.vocab_size)
+        assert bool(torch.isfinite(logits).all()), "HuBERT logits not finite"
+        print(f"{acfg.name} forward bf16: {AUDIO_CLIPS}x{AUDIO_FRAMES} frames in {dt:.3f} s, "
+              f"{AUDIO_CLIPS * AUDIO_FRAMES / dt:.0f} frames/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del logits
+    trace_prefill(api, encode, aparams, {"frames": frames}, {},
+                  f"{acfg.name} forward bf16 {AUDIO_CLIPS}x{AUDIO_FRAMES}", ("softmax", "softmax"))
+    del aparams
+    torch.cuda.empty_cache()
+
+    # 5. fp32 on AUDIO_CUT full-width layers: the card against the CPU
+    acut = dataclasses.replace(acfg, n_layers=AUDIO_CUT)
+    p32 = Model(acut).init(0, dtype=torch.float32, device="cuda")
+    clip = {"frames": frames[:1].float()}
+    p_cpu = tree_map(lambda t: t.cpu(), p32)
+    with torch.inference_mode():
+        got, _ = Model(acut).forward(p32, clip, dtype=torch.float32)
+        want, _ = Model(acut).forward(p_cpu, {"frames": clip["frames"].cpu()}, dtype=torch.float32)
+    got = got.cpu()
+    scale = float(want.abs().max())
+    print(f"{acfg.name} forward fp32 1x{AUDIO_FRAMES} on {AUDIO_CUT} layers, card vs CPU: max "
+          f"abs diff {float((got - want).abs().max()):.3g} of {scale:.3g} (rtol {AUDIO_TOL}, "
+          f"atol {AUDIO_TOL} of the max)")
+    torch.testing.assert_close(got, want, rtol=AUDIO_TOL, atol=AUDIO_TOL * scale)
+    del p32, p_cpu
+    torch.cuda.empty_cache()
+    return runs
+
+
+def training_path(api) -> list:
+    """Phase 4e: LM training on the card through ``Model.loss`` and
+    ``torch.autograd.grad``: Qwen2-VL-2B at full width, the flash kernel in
+    every layer's forward, the plain version's gradient in the backward.
+    Returns the launch counts of each training step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    print(f"device memory allocated as the phase starts: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    runs = []
+    cfg = dataclasses.replace(get_config(VLM_ARCH), attn_impl="pallas")
+    model = Model(cfg)
+    params = model.init(0, dtype=torch.float32, device="cuda")
+    leaves, _ = tree_flatten(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    batch = vision_batch(cfg, 1, TRAIN_TEXT, torch.bfloat16, gen)
+    batch["targets"] = torch.randint(0, cfg.vocab_size, (1, TRAIN_TEXT), generator=gen,
+                                     device="cuda")
+    n_tok = cfg.n_vision_tokens + TRAIN_TEXT
+    print(f"train {cfg.name}: {cfg.param_count(params):,} fp32 parameters, bf16 activations, "
+          f"1x({cfg.n_vision_tokens}+{TRAIN_TEXT}) tokens, plain SGD lr {TRAIN_LR}")
+
+    # 1. TRAIN_STEPS steps on one batch: loss, gradients, update; fenced
+    losses = []
+    for step in range(TRAIN_STEPS):
+        api.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = model.loss(params, batch, dtype=torch.bfloat16)
+        forward_launches = api.launch_counts()
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            for leaf, g in zip(leaves, grads):
+                leaf.add_(g, alpha=-TRAIN_LR)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        launches = api.launch_counts()
+        assert launches == forward_launches == {"flash_attention": cfg.n_layers}, launches
+        runs.append(launches)
+        losses.append(float(loss.detach()))
+        assert math.isfinite(losses[-1]), f"training step {step}: loss {losses[-1]}"
+        print(f"train {cfg.name} step {step}: loss {losses[-1]:.6f}, {dt * 1e3:.1f} ms "
+              f"({n_tok / dt:.0f} tokens/s), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches} "
+              "(the backward launches none)")
+        del loss, grads
+    assert all(b < a for a, b in zip(losses, losses[1:])), f"the loss did not fall: {losses}"
+    trace_prefill(api, lambda p, b: torch.autograd.grad(model.loss(p, b, dtype=torch.bfloat16),
+                                                        leaves),
+                  params, batch, {"flash_attention": cfg.n_layers},
+                  f"train {cfg.name} loss and gradients 1x{n_tok}", ("attention", ATTENTION_KERNEL))
+
+    # 2. gradients at TRAIN_CUT layers in fp32: the kernel's forward against
+    #    the plain version's, each leaf within GRAD_BAND of its max |gradient|
+    cut = Model(dataclasses.replace(cfg, n_layers=TRAIN_CUT))
+    cut_leaves, cut_def = tree_flatten(first_repeats(params, TRAIN_CUT))
+    cut_leaves = [t.detach().clone().requires_grad_(True) for t in cut_leaves]
+    del params, leaves
+    torch.cuda.empty_cache()
+    p_cut = tree_unflatten(cut_def, cut_leaves)
+    batch32 = dict(batch, vision_embeds=batch["vision_embeds"].float())
+    grads = {}
+    for mode in ("kernel", "ref"):
+        api.reset_counters()
+        with api.dispatch_mode(mode):
+            grads[mode] = torch.autograd.grad(cut.loss(p_cut, batch32, dtype=torch.float32),
+                                              cut_leaves)
+        torch.cuda.synchronize()
+        assert api.launch_counts() == ({"flash_attention": TRAIN_CUT} if mode == "kernel"
+                                       else {}), api.launch_counts()
+    worst = max(float((g - w).abs().max()) / float(w.abs().max())
+                for g, w in zip(grads["kernel"], grads["ref"]))
+    print(f"train {cfg.name} gradients fp32 at {TRAIN_CUT} layers, kernel forward vs plain: "
+          f"worst leaf's max abs diff {worst:.3g} of its max |gradient| (band {GRAD_BAND}) over "
+          f"{len(cut_leaves)} leaves")
+    assert worst <= GRAD_BAND, f"gradients at {TRAIN_CUT} layers: {worst}"
+    del grads, p_cut, cut_leaves
+    torch.cuda.empty_cache()
     return runs
 
 
@@ -2426,6 +2719,12 @@ def main() -> int:
 
     # --------------------------------------------------------------- 4c
     kernel_runs += [{"launches": launches} for launches in hybrid_serving_path(api)]
+
+    # --------------------------------------------------------------- 4d
+    kernel_runs += [{"launches": launches} for launches in vlm_audio_path(api)]
+
+    # --------------------------------------------------------------- 4e
+    kernel_runs += [{"launches": launches} for launches in training_path(api)]
 
     # ---------------------------------------------------------------- 5
     kernel_runs += [{"launches": launches} for launches in rwkv_serving_path(api)]

@@ -29,7 +29,10 @@ Ported so far:
     ``launch.serve``) for the dense and sliding-window attention archs
     (Gemma-2 2B, Yi-9B, Minitron-8B, Command R+), RWKV-6 3B (its time-mix
     through ``wkv_chunk``), the mixture-of-experts archs (Qwen1.5-MoE-A2.7B,
-    Arctic 480B) and the Mamba-2 hybrid Zamba2-7B: prefill through the
-    flash-attention kernel, decode against the caches, continuous
-    batching.
+    Arctic 480B), the Mamba-2 hybrid Zamba2-7B and Qwen2-VL-2B (M-RoPE,
+    the vision front end): prefill through the flash-attention kernel,
+    decode against the caches, continuous batching; and the HuBERT X-Large
+    audio encoder with its frame head;
+  * LM training through ``Model.loss``: every kernel op is differentiable,
+    its backward the plain version's gradient (``kernels/api.py``).
 """

@@ -2,12 +2,12 @@
 port's model stack runs, each with its full ``config()`` and its CPU-sized
 ``reduced()``.
 
-The port has the dense and sliding-window attention blocks, which is all
-Gemma-2 2B, Yi-9B, Minitron-8B and Command R+ use, the RWKV-6 block of
-RWKV-6 3B, the mixture-of-experts block of Qwen1.5-MoE-A2.7B and Arctic
-480B, and the Mamba-2 and shared attention blocks of Zamba2-7B.  The two
-other archs raise ``NotImplementedError`` naming the ROADMAP item they
-wait for.
+The port runs every arch of the reference: the dense and sliding-window
+attention blocks (Gemma-2 2B, Yi-9B, Minitron-8B, Command R+), the RWKV-6
+block (RWKV-6 3B), the mixture-of-experts block (Qwen1.5-MoE-A2.7B, Arctic
+480B), the Mamba-2 and shared attention blocks (Zamba2-7B), M-RoPE and the
+vision front end (Qwen2-VL-2B) and the bidirectional audio encoder with
+its frame head (HuBERT X-Large).
 """
 from importlib import import_module
 
@@ -24,11 +24,7 @@ ARCH_IDS = [
     "minitron_8b",
 ]
 PORTED = ("gemma2_2b", "yi_9b", "minitron_8b", "command_r_plus_104b", "rwkv6_3b",
-          "qwen2_moe_a2_7b", "arctic_480b", "zamba2_7b")
-WAITING = {
-    "qwen2_vl_2b": "M-RoPE and the vision front end (ROADMAP queue 1 item 7 (d))",
-    "hubert_xlarge": "the HuBERT audio encoder (ROADMAP queue 1 item 7 (d))",
-}
+          "qwen2_moe_a2_7b", "arctic_480b", "zamba2_7b", "qwen2_vl_2b", "hubert_xlarge")
 
 # canonical dashed ids used on the CLI
 CLI_IDS = {i.replace("_", "-"): i for i in ARCH_IDS}
@@ -37,8 +33,6 @@ CLI_IDS = {i.replace("_", "-"): i for i in ARCH_IDS}
 def _mod(arch: str):
     arch = CLI_IDS.get(arch, arch).replace("-", "_").replace(".", "_")
     arch = arch.replace("_reduced", "")
-    if arch in WAITING:
-        raise NotImplementedError(f"{arch} waits for {WAITING[arch]}")
     if arch not in PORTED:
         raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return import_module(f"repro_torch.configs.{arch}")

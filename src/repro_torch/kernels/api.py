@@ -18,9 +18,18 @@ Dispatch follows the tensors' device, never a silent fallback:
     tensors too -- the only way to get it there, used to hold each kernel
     against its plain version.
 
+Every op is differentiable, as the reference's ref-backed ``custom_vjp``s
+are: where grad mode is on and an input requires grad, the dispatch runs
+inside a ``torch.autograd.Function`` whose forward dispatches as above and
+whose backward recomputes the plain version (``ref_fn``, or the flat
+``_flat_ref``) on the saved inputs and differentiates it.  The backward
+launches no kernel and counts nothing.  Integer inputs get no gradient,
+and neither do the scalar operands, which are host numbers.  Without grad
+(the serving and training paths of the paper problem), the call is the
+plain dispatch.
+
 The TPU's lane padding (``TilePolicy``) has no counterpart: the kernels mask
-the ragged tail of a buffer.  Nothing on the port's path differentiates
-through these ops, so an input that requires grad is refused.
+the ragged tail of a buffer.
 """
 from __future__ import annotations
 
@@ -168,6 +177,58 @@ def _flat_launch(op: FusedOp, scalars, bufs, out_dtypes):
     return outs
 
 
+def _flat_dispatch(op: FusedOp, scalars, bufs, out_dtypes):
+    device = bufs[0].device
+    _calls[op.name] += 1
+    if device.type == "cpu" or _mode == "ref":
+        return _flat_ref(op, scalars, bufs, out_dtypes)
+    if device.type == "cuda":
+        return _flat_launch(op, scalars, bufs, out_dtypes)
+    raise ValueError(f"{op.name}: no kernel for device {device}")
+
+
+def _shaped_dispatch(op: FusedOp, tensors, kw):
+    device = tensors[0].device
+    _calls[op.name] += 1
+    if device.type == "cpu" or _mode == "ref":
+        return op.ref_fn(*tensors, **kw)
+    if device.type == "cuda":
+        _launches[op.name] += 1
+        return op.launch_shaped(*tensors, **kw)
+    raise ValueError(f"{op.name}: no kernel for device {device}")
+
+
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _RefGrad(torch.autograd.Function):
+    """A dispatch whose gradient is its plain version's: ``forward`` runs
+    ``dispatch`` (the kernel on the card), ``backward`` recomputes ``ref``
+    on the saved inputs and differentiates it (no launch, no count)."""
+
+    @staticmethod
+    def forward(ctx, dispatch, ref, *tensors):
+        ctx.ref = ref
+        ctx.save_for_backward(*tensors)
+        return dispatch(*tensors)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        inputs = ctx.saved_tensors
+        needs = [bool(n) and t.is_floating_point()
+                 for n, t in zip(ctx.needs_input_grad[2:], inputs)]
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+            outs = ctx.ref(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, c) for o, c in zip(outs, cts) if c is not None and o.requires_grad]
+        wrt = [x for x, n in zip(xs, needs) if n]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [c for _, c in pairs],
+                                         allow_unused=True) if pairs else [None] * len(wrt))
+        return (None, None, *(next(grads) if n else None for n in needs))
+
+
 # ---------------------------------------------------------------- tree_apply
 def tree_apply(name: str, *trees, scalars: Sequence = (), like=None):
     """Bucketed whole-tree executor for a fused op.
@@ -198,11 +259,6 @@ def tree_apply(name: str, *trees, scalars: Sequence = (), like=None):
         shapes = {tuple(leaves[t][i].shape) for t in range(op.n_inputs)}
         if len(shapes) > 1:
             raise ValueError(f"{name}: leaf {i} shapes differ: {sorted(shapes)}")
-        if any(leaves[t][i].requires_grad for t in range(op.n_inputs)):
-            raise ValueError(
-                f"{name}: inputs must not require grad (fused ops have no "
-                "backward in the port)"
-            )
     like_leaves = None
     if like is not None:
         if op.n_outputs != 1:
@@ -241,14 +297,11 @@ def tree_apply(name: str, *trees, scalars: Sequence = (), like=None):
             return parts[0] if len(parts) == 1 else torch.cat(parts)
 
         bufs = tuple(cat(t) for t in range(op.n_inputs))
-        device = bufs[0].device
-        _calls[name] += 1
-        if device.type == "cpu" or _mode == "ref":
-            outs = _flat_ref(op, scalars, bufs, out_dts)
-        elif device.type == "cuda":
-            outs = _flat_launch(op, scalars, bufs, out_dts)
+        if _needs_grad(bufs):   # the default binds this bucket's dtypes for the backward
+            outs = _RefGrad.apply(lambda *b, d=out_dts: _flat_dispatch(op, scalars, b, d),
+                                  lambda *b, d=out_dts: _flat_ref(op, scalars, b, d), *bufs)
         else:
-            raise ValueError(f"{name}: no kernel for device {device}")
+            outs = _flat_dispatch(op, scalars, bufs, out_dts)
         off = 0
         for i, sz in zip(idxs, sizes):
             for j in range(op.n_outputs):
@@ -266,6 +319,7 @@ def call(name: str, *tensors, scalars: Sequence = (), **kw):
     their scalar operands), so trees and single tensors both work.  Shaped
     ops, ``call("top_k_unpack", idx, vals, d=777)``, take tensors and their
     static keyword arguments: one dispatch, and on CUDA one launch, per call.
+    Differentiable: the backward is the plain version's gradient.
     """
     op = get(name)
     if op.elementwise:
@@ -274,19 +328,10 @@ def call(name: str, *tensors, scalars: Sequence = (), **kw):
         raise ValueError(f"{name}: shaped ops take static keywords, not scalars=")
     if len(tensors) != op.n_inputs:
         raise ValueError(f"{name}: expected {op.n_inputs} tensors, got {len(tensors)}")
-    if any(t.requires_grad for t in tensors):
-        raise ValueError(
-            f"{name}: inputs must not require grad (fused ops have no "
-            "backward in the port)"
-        )
-    device = tensors[0].device
-    _calls[name] += 1
-    if device.type == "cpu" or _mode == "ref":
-        return op.ref_fn(*tensors, **kw)
-    if device.type == "cuda":
-        _launches[name] += 1
-        return op.launch_shaped(*tensors, **kw)
-    raise ValueError(f"{name}: no kernel for device {device}")
+    if _needs_grad(tensors):
+        return _RefGrad.apply(lambda *t: _shaped_dispatch(op, t, kw),
+                              lambda *t: op.ref_fn(*t, **kw), *tensors)
+    return _shaped_dispatch(op, tensors, kw)
 
 
 # --------------------------------------------------- algorithm-layer helpers

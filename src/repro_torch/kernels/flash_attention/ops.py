@@ -5,9 +5,9 @@ softcap=...)`` in the model's (B, S, H, D) layout, as
 ``repro.kernels.flash_attention.ops`` registers it.  The reference's
 launcher transposes to the TPU kernel's (B, H, S, D); the port's kernel
 reads (B, S, H, D) in place, so the adapter here only makes the tensors
-contiguous (the projections' outputs already are).  The reference's
-ref-backed backward has no counterpart: the port runs this op in prefill,
-under ``torch.inference_mode()``.
+contiguous (the projections' outputs already are).  As in the reference,
+the op's backward is its plain version's gradient (``api.call``'s autograd
+Function): training runs the kernel forward and no backward kernel.
 """
 from __future__ import annotations
 

@@ -5,8 +5,9 @@
 plain version is the exact per-token recurrence ``wkv_ref`` (it ignores
 ``chunk``, as the reference's does); the kernel computes the clamped
 chunked form, so the two agree only where no chunk's log-decay sums past
--25 (``ref.py``).  The reference's ref-backed backward has no counterpart:
-the port runs this op in prefill, under ``torch.inference_mode()``.
+-25 (``ref.py``).  As in the reference, the op's backward is its plain
+version's gradient, that of the unclamped recurrence (``api.call``'s
+autograd Function).
 """
 from __future__ import annotations
 

@@ -20,7 +20,12 @@ then ``--new-tokens`` of greedy (or sampled) decode:
   python -m repro_torch.launch.serve --arch rwkv6-3b --reduced --device cpu
   python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --reduced --device cpu
   python -m repro_torch.launch.serve --arch zamba2-7b --reduced --device cpu
+  python -m repro_torch.launch.serve --arch qwen2-vl-2b --reduced --device cpu
   python -m repro_torch.launch.serve --arch gemma2-2b        # on the card
+
+Qwen2-VL decodes text-only prompts (its M-RoPE positions the same on all
+three streams); HuBERT X-Large (``--arch hubert-xlarge``) is an encoder and
+exits with "encoder-only: no decode path", as the reference's CLI does.
 
 Entry points run on CUDA unless ``device="cpu"`` / ``--device cpu`` is
 given, and raise without a card.

@@ -3,12 +3,18 @@ path against a ring-buffer KV cache.
 
 Counterpart of ``repro.models.attention``: grouped-query attention, causal
 or bidirectional masks, sliding windows (Gemma-2's local layers, with a
-window-long ring buffer at decode), score soft-capping and RoPE.
+window-long ring buffer at decode), score soft-capping, RoPE and Qwen2-VL's
+M-RoPE (positions (3, B, S); the masks read the temporal stream).
 ``attn_impl`` keeps the reference's three values: ``"xla"`` is the plain
 full-softmax ``_sdpa``, ``"blockwise"`` the plain online-softmax twin, and
 ``"pallas"`` the hand-written flash-attention kernel behind
 ``api.call("flash_attention", ...)`` (CUDA C++ on the card; on CPU tensors
-its plain version).  M-RoPE waits for the Qwen2-VL config.
+its plain version).  The kernel runs only where ``causal`` is set, as in
+the reference: a bidirectional encoder (HuBERT) runs ``_sdpa`` under every
+``attn_impl``.  The kernel is causal by index, while the plain paths mask
+by position: under M-RoPE every vision token has temporal position 0, so
+there the plain paths let the vision block see itself both ways and the
+kernel does not (the reference's paths differ in the same way).
 """
 from __future__ import annotations
 
@@ -17,13 +23,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from .common import Initializer, apply_rope, rms_norm
+from .common import Initializer, apply_mrope, apply_rope, rms_norm
 
 __all__ = ["AttentionConfig", "init_attention", "attention_forward", "init_kv_cache",
            "attention_decode"]
 
 NEG_INF = -2.0e38
-MROPE_TODO = "M-RoPE waits for the Qwen2-VL config (ROADMAP queue 1 item 7 (d))"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,10 +45,6 @@ class AttentionConfig:
     use_bias: bool = False
     qk_norm: bool = False
     attn_impl: str = "xla"                      # 'xla' | 'blockwise' | 'pallas'
-
-    def __post_init__(self):
-        if self.mrope_sections is not None:
-            raise NotImplementedError(MROPE_TODO)
 
     @property
     def q_per_kv(self) -> int:
@@ -79,8 +80,12 @@ def _project_qkv(cfg: AttentionConfig, params, x, positions):
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope_sections is not None:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -150,8 +155,10 @@ def _blockwise_sdpa(cfg: AttentionConfig, q, k, v, q_pos, kv_pos, block: int = 5
 
 def attention_forward(cfg: AttentionConfig, params, x: torch.Tensor,
                       positions: torch.Tensor, return_cache: bool = False):
-    """Full-sequence (training / prefill) attention.  x: (B, S, d)."""
+    """Full-sequence (training / prefill) attention.  x: (B, S, d);
+    positions (B, S), or (3, B, S) under M-RoPE."""
     q, k, v = _project_qkv(cfg, params, x, positions)
+    pos1 = positions[0] if cfg.mrope_sections is not None else positions
     if cfg.attn_impl == "pallas" and cfg.causal:
         from ..kernels import api as kernel_api
 
@@ -160,12 +167,12 @@ def attention_forward(cfg: AttentionConfig, params, x: torch.Tensor,
             causal=True, sliding_window=cfg.sliding_window, softcap=cfg.attn_softcap,
         )
     elif cfg.attn_impl == "blockwise":
-        out = _blockwise_sdpa(cfg, q, k, v, positions, positions)
+        out = _blockwise_sdpa(cfg, q, k, v, pos1, pos1)
     else:
-        out = _sdpa(cfg, q, k, v, positions, positions)
+        out = _sdpa(cfg, q, k, v, pos1, pos1)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(out.dtype))
     if return_cache:
-        return y, {"k": k, "v": v, "pos": positions}
+        return y, {"k": k, "v": v, "pos": pos1}
     return y
 
 
@@ -188,8 +195,12 @@ def attention_decode(cfg: AttentionConfig, params, x: torch.Tensor,
                      position: torch.Tensor, cache):
     """Single-token decode against the ring-buffer cache.  x (B, 1, d),
     position (B,) int32.  Returns ``(y, new_cache)``; the input cache is
-    not modified."""
-    q, k_new, v_new = _project_qkv(cfg, params, x, position[:, None])
+    not modified.  Under M-RoPE the position is the same on all three
+    streams (a text token)."""
+    rope_pos = position[:, None]
+    if cfg.mrope_sections is not None:
+        rope_pos = rope_pos[None].expand(3, x.shape[0], 1)
+    q, k_new, v_new = _project_qkv(cfg, params, x, rope_pos)
     size = cache["k"].shape[1]
     slot = (position % size).long()
     bidx = torch.arange(x.shape[0], device=x.device)

@@ -5,8 +5,7 @@ Counterpart of ``repro.models.common`` on one device.  The reference tags
 every parameter and activation with logical sharding axes
 (``logical_constraint``, ``axis_rules``, ``LogicalAxes`` and the
 initializer's specs and shapes modes); on one device they are the identity,
-so the port has none of them (sharding is ROADMAP queue 1 item 8).  M-RoPE
-waits for the Qwen2-VL config (queue 1 item 7 (d)).
+so the port has none of them (sharding is ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -18,8 +17,8 @@ import torch
 from ..kernels.rms_norm.ref import rms_norm_ref
 
 __all__ = [
-    "Initializer", "rms_norm", "softcap", "rope_frequencies", "apply_rope",
-    "cross_entropy_loss",
+    "Initializer", "rms_norm", "layer_norm", "softcap", "rope_frequencies", "apply_rope",
+    "make_mrope_positions", "apply_mrope", "cross_entropy_loss",
 ]
 
 
@@ -73,6 +72,17 @@ class Initializer:
 rms_norm = rms_norm_ref
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in fp32, cast back to x's dtype.  No model calls it, in
+    the port as in the reference: every block normalises with ``rms_norm``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     """Gemma-2 style logit soft-capping: cap * tanh(x / cap), in fp32."""
     if cap is None:
@@ -100,6 +110,45 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     """x: (..., S, n_heads, head_dim); positions: (..., S) int."""
     freqs = rope_frequencies(x.shape[-1], theta, device=x.device)   # (half,)
     ang = positions[..., None].float() * freqs                      # (..., S, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    return _rotate(x, cos, sin)
+
+
+def make_mrope_positions(batch: int, seq: int, n_vision: int, grid: Tuple[int, int],
+                         device=None) -> torch.Tensor:
+    """Qwen2-VL's M-RoPE positions (3, B, S) int32: (temporal, height, width).
+
+    The first ``n_vision`` tokens are the vision block: temporal position 0
+    and their (h, w) grid coordinates.  Text tokens get equal t, h and w
+    positions, counting from ``max(gh, gw)``.
+    """
+    gh, gw = grid
+    if gh * gw != n_vision:
+        raise ValueError(f"vision grid {grid} does not hold {n_vision} tokens")
+    ar = lambda n: torch.arange(n, dtype=torch.int32, device=device)  # noqa: E731
+    text = ar(seq - n_vision) + max(gh, gw)
+    pos = torch.stack([
+        torch.cat([torch.zeros(n_vision, dtype=torch.int32, device=device), text]),
+        torch.cat([ar(gh).repeat_interleave(gw), text]),
+        torch.cat([ar(gw).repeat(gh), text]),
+    ])                                                              # (3, S)
+    return pos[:, None, :].expand(3, batch, seq)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Multimodal RoPE: the rotary half-dim is split into (t, h, w)
+    sections, each rotated by its own position stream.  x: (B, S, H, hd);
+    positions3: (3, B, S)."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to half of {x.shape[-1]}")
+    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)  # (half,)
+    # each frequency's position stream, by section; built from views (an
+    # index tensor made per call would copy from the host and stall it)
+    pos = torch.cat([positions3[i, ..., None].expand(*positions3.shape[1:], n)
+                     for i, n in enumerate(sections)], dim=-1)      # (B, S, half)
+    ang = pos.float() * freqs
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     return _rotate(x, cos, sin)
 

@@ -112,8 +112,8 @@ def _ssd_chunked(cfg: MambaConfig, a, xh, b_in, c_in, dt, h0=None):
     cum = torch.cumsum(dtk * a[:, None], dim=-1)
     total = cum[..., -1]                                            # (B, C, H)
     # decay matrix L[t, j] = exp(cum_t - cum_j), j <= t; scores cb * L * dt_j
-    scores = torch.exp(cum[..., :, None] - cum[..., None, :]).masked_fill_(above, 0.0)
-    scores.mul_((ck @ bk.transpose(-1, -2))[:, :, None]).mul_(dtk[..., None, :])
+    scores = (torch.exp(cum[..., :, None] - cum[..., None, :]).masked_fill(above, 0.0)
+              * (ck @ bk.transpose(-1, -2))[:, :, None] * dtk[..., None, :])
     y = scores @ x                                                  # intra-chunk
     del scores
     w_j = torch.exp(total[..., None] - cum) * dtk                   # (B, C, H, lc)

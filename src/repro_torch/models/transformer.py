@@ -11,8 +11,13 @@ Counterpart of ``repro.models.transformer`` for the kinds the port has:
   'shared_attn'  attention + FFN whose weights are shared across repeats
                  (Zamba2's shared transformer block)
 
-The audio and vision front ends raise ``NotImplementedError`` naming their
-ROADMAP item (queue 1 item 7 (d)).
+Two front ends, as in the reference, each a projection standing in for
+the modality's encoder: audio frames (B, S, F) through ``audio_proj``
+(HuBERT; positions ``arange(S)``), and vision embeddings (B, n_vis, d)
+through ``vision_proj``, placed before the token embeddings, with
+Qwen2-VL's M-RoPE positions (3, B, S).  Heads: 'lm' (causal LM) and
+'frame' (HuBERT's per-frame classifier), which is the untied ``lm_head``
+over every frame, with no code path of its own.
 
 Parameters are a plain dict tree with the reference's names and its stacked
 layout -- every block element's leaves carry a leading ``(repeats,)`` axis,
@@ -23,7 +28,11 @@ indexes the stacked leaves.  Entry points: ``forward`` / ``loss`` (training
 and evaluation; a MoE block adds its router losses to the auxiliary loss
 there), ``prefill`` (build caches from a prompt) and ``decode_step`` (one
 token against the caches: ring buffers for attention, recurrent states for
-Mamba-2 and RWKV-6, every element's stacked over repeats).  ``init`` and
+Mamba-2 and RWKV-6, every element's stacked over repeats).  ``loss`` is
+differentiable with respect to the parameters: the kernels' ops backward
+through their plain versions (``kernels/api.py``).  The config's ``remat``
+field is not read: the port keeps every activation for the backward.
+``init`` and
 ``init_cache`` make tensors on CUDA unless the caller asks for the CPU;
 the rest follow their inputs' device.
 """
@@ -35,19 +44,19 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..device import resolve_device
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from . import attention as attn_lib
 from . import mamba as mamba_lib
 from . import mlp as mlp_lib
 from . import rwkv as rwkv_lib
-from .common import Initializer, cross_entropy_loss, rms_norm, softcap
+from .common import (Initializer, cross_entropy_loss, make_mrope_positions, rms_norm,
+                     softcap)
 
 Tree = Any
 
 __all__ = ["ModelConfig", "Model"]
 
 KINDS = ("attn", "local", "moe", "shared_attn", "mamba", "rwkv")
-FRONTEND_TODO = "the audio and vision front ends wait for ROADMAP queue 1 item 7 (d)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,6 +181,15 @@ class ModelConfig:
         return sum(int(p.numel()) for p in tree_leaves(params))
 
 
+def _unstack(tree: Tree, n: int) -> list:
+    """A tree of ``(n, ...)``-stacked leaves as ``n`` trees of views, one
+    ``unbind`` a leaf: its backward stacks the layers' gradients once,
+    where indexing each layer would add a full-size gradient per layer."""
+    leaves, treedef = tree_flatten(tree)
+    cols = [t.unbind(0) for t in leaves]
+    return [tree_unflatten(treedef, [c[r] for c in cols]) for r in range(n)]
+
+
 class Model:
     """Functional model bound to a ModelConfig."""
 
@@ -179,10 +197,6 @@ class Model:
         for kind in cfg.block_unit:
             if kind not in KINDS:
                 raise ValueError(kind)
-        if cfg.audio_frontend_dim or cfg.n_vision_tokens:
-            raise NotImplementedError(f"{cfg.name}: {FRONTEND_TODO}")
-        if cfg.mrope_sections is not None:
-            raise NotImplementedError(f"{cfg.name}: {attn_lib.MROPE_TODO}")
         self.cfg = cfg
 
     # ------------------------------------------------------------------
@@ -220,6 +234,10 @@ class Model:
         params: Dict[str, Any] = {
             "embed": ini.param((cfg.vocab_size, cfg.d_model), init="embed", scale=0.02),
         }
+        if cfg.audio_frontend_dim:
+            params["audio_proj"] = ini.param((cfg.audio_frontend_dim, cfg.d_model))
+        if cfg.n_vision_tokens:
+            params["vision_proj"] = ini.param((cfg.d_model, cfg.d_model))
         stacked = ini.stacked(cfg.repeats)
         # a shared_attn element is one copy, used at every repeat
         params["blocks"] = {
@@ -242,12 +260,29 @@ class Model:
         return x * root.to(device=x.device, dtype=x.dtype)
 
     def _embed_inputs(self, params, batch, dtype=torch.bfloat16):
-        """Returns (x, positions (B, S) int32)."""
-        tokens = batch["tokens"]
-        x = params["embed"][tokens].to(dtype)
-        b, s = tokens.shape
-        positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
-        if self.cfg.scale_embeddings:
+        """Returns (x, positions): (B, S) int32, or (3, B, S) under M-RoPE.
+
+        An audio model takes ``batch["frames"]`` (B, S, F) and returns
+        before the embedding scale, as the reference does; a vision model
+        takes ``batch["vision_embeds"]`` (B, n_vis, d) beside the tokens."""
+        cfg = self.cfg
+        if cfg.audio_frontend_dim:
+            x = torch.einsum("bsf,fd->bsd", batch["frames"].to(dtype),
+                             params["audio_proj"].to(dtype))
+            b, s = x.shape[:2]
+            return x, torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+        x = params["embed"][batch["tokens"]].to(dtype)
+        if cfg.n_vision_tokens:
+            ve = torch.einsum("bvd,de->bve", batch["vision_embeds"].to(dtype),
+                              params["vision_proj"].to(dtype))
+            x = torch.cat([ve, x], dim=1)
+            b, s = x.shape[:2]
+            positions = make_mrope_positions(b, s, cfg.n_vision_tokens, cfg.vision_grid,
+                                             device=x.device)
+        else:
+            b, s = x.shape[:2]
+            positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+        if cfg.scale_embeddings:
             x = self._scale_embeddings(x)
         return x, positions
 
@@ -333,12 +368,12 @@ class Model:
         cfg = self.cfg
         out: Dict[str, list] = {f"b{i}": [] for i in range(len(cfg.block_unit))}
         aux = torch.zeros((), dtype=torch.float32, device=x.device) if mode == "fwd" else None
+        layers = {f"b{i}": _unstack(params["blocks"][f"b{i}"], cfg.repeats)
+                  for i, kind in enumerate(cfg.block_unit) if kind != "shared_attn"}
         for r in range(cfg.repeats):
             for i, kind in enumerate(cfg.block_unit):
                 key = f"b{i}"
-                bp = params["blocks"][key]
-                if kind != "shared_attn":
-                    bp = tree_map(lambda t: t[r], bp)
+                bp = params["blocks"][key] if kind == "shared_attn" else layers[key][r]
                 c = None if caches is None else tree_map(lambda t: t[r], caches[key])
                 x, nc, block_aux = self._apply_block(kind, bp, x, positions, mode, cache=c,
                                                      position=position)
@@ -362,7 +397,12 @@ class Model:
         return self._head(params, x), aux
 
     def loss(self, params, batch, dtype=torch.bfloat16):
+        """Mean token cross entropy plus the auxiliary loss, fp32.  A vision
+        model's loss reads the text positions only (after the vision
+        block).  Differentiable with respect to ``params``."""
         logits, aux = self.forward(params, batch, dtype)
+        if self.cfg.n_vision_tokens:
+            logits = logits[:, self.cfg.n_vision_tokens:]
         return cross_entropy_loss(logits, batch["targets"], batch.get("mask")) + aux
 
     def prefill(self, params, batch, dtype=torch.bfloat16):

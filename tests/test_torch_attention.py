@@ -180,8 +180,15 @@ def test_shaped_ops_on_cpu_count_calls_and_no_launches():
     tapi.call("rms_norm", tq, torch.ones(32), eps=1e-6, plus_one=True)
     assert tapi.call_counts() == {"flash_attention": 1, "rms_norm": 1}
     assert tapi.launch_counts() == {}
-    with pytest.raises(ValueError, match="require grad"):
-        tapi.call("rms_norm", tq.requires_grad_(), torch.ones(32))
+    # an input that requires grad: the same one call and no launch, and the
+    # plain version's gradient
+    tw = torch.ones(32, requires_grad=True)
+    y = tapi.call("rms_norm", tq.requires_grad_(), tw, eps=1e-6, plus_one=True)
+    gx, gw = torch.autograd.grad(y.square().sum(), (tq, tw))
+    want = torch.autograd.grad(rms_norm_ref(tq, tw, 1e-6, plus_one=True).square().sum(), (tq, tw))
+    torch.testing.assert_close((gx, gw), want, rtol=1e-6, atol=1e-6)
+    assert tapi.call_counts() == {"flash_attention": 1, "rms_norm": 2}
+    assert tapi.launch_counts() == {}
     for name in ("flash_attention", "rms_norm"):
         assert not tapi.get(name).elementwise and japi.get(name).kernel_fn is not None
 

@@ -17,6 +17,7 @@ import functools
 import jax
 import numpy as np
 import pytest
+import torch
 
 from benchmarks import common as jcommon
 from repro.core import ALGORITHMS as J_ALGORITHMS
@@ -38,6 +39,17 @@ STATE_TOL = dict(rtol=1e-5, atol=1e-6)
 RUN_RTOL, RUN_ATOL, ACC_TOL = 5e-4, 1e-5, 2e-3
 N, B, TAU, OMEGA, SEED = 8, 16, 4, 0.5, 0
 BASELINES = ["dlsgd", "dsgd", "gt_dsgd", "gt_hsgd", "pd_sgdm", "slowmo_d"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's many small ops: beside other
+    test workers, a pool of one OpenMP thread per core oversubscribes the
+    CPU and spins, which slows these runs by an order of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -19,7 +19,12 @@ fp32 and round once); wkv_chunk
 within rtol / atol 1e-5 of the plain chunked form under any decay (the same
 fp32 arithmetic in other orders) and within rtol 2e-4 / atol 2e-5 of the
 per-token recurrence inside the clamp envelope (the reference's own
-kernel-test tolerance).
+kernel-test tolerance).  Gradients through the kernels (the backward is
+the plain version's gradient, recomputed): the flash op's bit for bit those
+of the plain forward's graph on the same inputs, the elementwise ops'
+within rtol / atol 1e-6 of the CPU's (bf16 one ulp beyond), and the reduced
+Qwen2-VL loss's within 1e-4 of each parameter's largest |gradient| of the
+plain forward's (the kernel's forward rounds in another order).
 """
 import re
 
@@ -784,3 +789,82 @@ def test_checkpoint_round_trip_on_the_card(dtype, tmp_path, cuda_device):
         for a, b in ((got["w"], tree["w"]), (got["b"]["x"], tree["b"]["x"])):
             assert a.is_cuda and a.dtype == dtype and torch.equal(a, b)
     assert got["n"].item() == 7 and load_checkpoint(str(tmp_path), like=tree)[0]["n"] == 7
+
+
+# ------------------------------------------------- gradients through the kernels
+def test_flash_attention_gradient_through_the_kernel(cuda_device):
+    """With inputs that require grad, the forward is the kernel's launch,
+    bit for bit its no-grad output, and the backward (the plain version's
+    gradient, recomputed) launches nothing: the gradients equal those of
+    the plain forward's graph bit for bit."""
+    q, k, v, kw = _flash_case((2, 300, 8, 4, 128, None, None, True), torch.float32, cuda_device)
+    with torch.no_grad():
+        plain_out = api.call("flash_attention", q, k, v, **kw)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    api.reset_counters()
+    out = api.call("flash_attention", *qkv, **kw)
+    ct = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(3),
+                     device="cuda")
+    grads = torch.autograd.grad(out, qkv, ct)
+    torch.cuda.synchronize()
+    assert api.launch_counts() == {"flash_attention": 1}
+    assert torch.equal(out.detach(), plain_out)
+    with api.dispatch_mode("ref"):
+        want = torch.autograd.grad(api.call("flash_attention", *qkv, **kw), qkv, ct)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", ["axpby", "mvr_update"])
+def test_elementwise_gradient_through_the_kernels(name, cuda_device):
+    """One launch a dtype bucket in the forward, none in the backward, and
+    the gradients of the plain version on the CPU."""
+    scalars, makers = OPS[name]
+    gen = torch.Generator().manual_seed(4)
+    trees = [{k: make(gen, shape, dt) for k, (shape, dt) in LEAVES.items()} for make in makers]
+    cuda = [{k: v.to(cuda_device).requires_grad_() for k, v in t.items()} for t in trees]
+    cpu = [{k: v.clone().requires_grad_() for k, v in t.items()} for t in trees]
+    api.reset_counters()
+    out = api.call(name, *cuda, scalars=scalars)
+    grads = torch.autograd.grad([out[k].float().sum() for k in LEAVES],
+                                [t[k] for t in cuda for k in LEAVES])
+    torch.cuda.synchronize()
+    assert api.launch_counts() == {name: 2}   # the fp32 and the bf16 bucket
+    want_out = api.call(name, *cpu, scalars=scalars)
+    want = torch.autograd.grad([want_out[k].float().sum() for k in LEAVES],
+                               [t[k] for t in cpu for k in LEAVES])
+    for g, w in zip(grads, want):
+        _assert_kernel_close(g.cpu(), w, rtol=1e-6, atol=1e-6)
+
+
+def test_reduced_vision_loss_gradient_through_the_kernel(cuda_device):
+    """The reduced Qwen2-VL's loss (fp32) differentiated on the card: one
+    flash launch a layer in the forward, none in the backward, and each
+    parameter's gradient within 1e-4 of its largest |gradient| of the
+    plain forward's."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_flatten
+
+    cfg = dataclasses.replace(get_reduced("qwen2-vl-2b"), attn_impl="pallas")
+    model = Model(cfg)
+    params = model.init(0, device=cuda_device)
+    leaves, _ = tree_flatten(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    text = 112
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, text), generator=gen, device="cuda"),
+             "vision_embeds": torch.randn((2, cfg.n_vision_tokens, cfg.d_model), generator=gen,
+                                          device="cuda"),
+             "targets": torch.randint(0, cfg.vocab_size, (2, text), generator=gen, device="cuda")}
+    api.reset_counters()
+    grads = torch.autograd.grad(model.loss(params, batch, dtype=torch.float32), leaves)
+    torch.cuda.synchronize()
+    assert api.launch_counts() == {"flash_attention": cfg.n_layers}
+    with api.dispatch_mode("ref"):
+        want = torch.autograd.grad(model.loss(params, batch, dtype=torch.float32), leaves)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(w.abs().max()))

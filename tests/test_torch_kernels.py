@@ -248,9 +248,18 @@ def test_no_fallback_off_cpu_and_cuda():
 
 
 def test_refuses_inputs_that_require_grad():
+    """Inputs that require grad are taken now: the op's gradient is its
+    plain version's (a for x, b for y), and the backward dispatches
+    nothing."""
     x = {"x": torch.ones(4, requires_grad=True)}
-    with pytest.raises(ValueError, match="grad"):
-        tapi.tree_axpby(1.0, x, 1.0, {"x": torch.ones(4)})
+    y = {"x": torch.full((4,), 2.0, requires_grad=True)}
+    tapi.reset_counters()
+    out = tapi.tree_axpby(0.5, x, -3.0, y)
+    torch.testing.assert_close(out["x"], torch.full((4,), -5.5))
+    gx, gy = torch.autograd.grad(out["x"].sum(), (x["x"], y["x"]))
+    torch.testing.assert_close(gx, torch.full((4,), 0.5))
+    torch.testing.assert_close(gy, torch.full((4,), -3.0))
+    assert tapi.call_counts() == {"axpby": 1} and tapi.launch_counts() == {}
 
 
 def test_dispatch_mode_validates_and_restores():
@@ -359,8 +368,10 @@ def test_shaped_ops_follow_the_dispatch_rules():
         tapi.call("top_k_pack", x, idx, scalars=(1.0,))
     with pytest.raises(ValueError, match="expected 2"):
         tapi.call("top_k_pack", x)
-    with pytest.raises(ValueError, match="grad"):
-        tapi.call("top_k_pack", x.requires_grad_(True), idx)
+    # differentiable in x (a scatter of the cotangent), not in the indices
+    xg = x.clone().requires_grad_(True)
+    (gx,) = torch.autograd.grad(tapi.call("top_k_pack", xg, idx).sum(), (xg,))
+    torch.testing.assert_close(gx, torch.zeros_like(x).index_fill_(1, torch.tensor([0]), 3.0))
     with pytest.raises(ValueError, match="no kernel"):
         tapi.call("top_k_pack", torch.ones((2, 9), device="meta"),
                   torch.zeros((2, 3), dtype=torch.int32, device="meta"))

@@ -1,10 +1,13 @@
 """The port's LM model stack against the reference's, on the CPU.
 
-For the archs the port runs (reduced Gemma-2 2B, Yi-9B, Minitron-8B,
-Command R+, RWKV-6 3B, Qwen1.5-MoE-A2.7B, Arctic 480B and Zamba2-7B), the
-reference's parameters (``model.init(jax.random.key(0))``) go through
-numpy to the port, and the same tokens go to both models (the reduced MoE
-configs' capacity factor of 8 drops no token):
+For every arch (reduced Gemma-2 2B, Yi-9B, Minitron-8B, Command R+,
+RWKV-6 3B, Qwen1.5-MoE-A2.7B, Arctic 480B, Zamba2-7B, Qwen2-VL-2B and
+HuBERT X-Large), the reference's parameters (``model.init(
+jax.random.key(0))``) go through numpy to the port, and the same inputs go
+to both models (the reduced MoE configs' capacity factor of 8 drops no
+token): S = 128 tokens, for Qwen2-VL 16 vision embeddings and 112 text
+tokens (its loss reads the text positions), for HuBERT 128 frames of
+random features with random frame targets:
 
   * ``forward`` logits, fp32, the auxiliary loss (the MoE router losses;
     0 elsewhere) and ``loss``, which adds it, within rtol 1e-5;
@@ -23,7 +26,8 @@ configs' capacity factor of 8 drops no token):
   * 12 ``decode_step``s from ``init_cache`` with an 8-slot ring buffer, so
     both the local and the global caches wrap (Zamba2's shared attention
     block's cache, one per repeat, too): logits at every step and the
-    final caches, ``pos`` exactly;
+    final caches, ``pos`` exactly.  HuBERT is an encoder with no decode
+    path, so it is not among these cases; Qwen2-VL decodes text tokens;
   * the port's own ``init`` makes the reference's tree of shapes.
 
 Tolerances: logits rtol 1e-4 / atol 1e-5 (fp32 through a few layers, each
@@ -49,11 +53,46 @@ from repro_torch.tree import tree_flatten, tree_map
 B, S, DECODE_STEPS, RING = 2, 128, 12, 8
 LOGITS = dict(rtol=1e-4, atol=1e-5)
 CACHE = dict(rtol=1e-5, atol=1e-5)
+DECODERS = tuple(a for a in PORTED if get_reduced(a).head == "lm")
+
+
+def make_batch(cfg, seed: int = 1):
+    """The model's inputs at B x S (numpy) and its loss targets: tokens, or
+    a vision model's embeddings and text tokens, or an audio model's
+    frames."""
+    rng = np.random.default_rng(seed)
+    if cfg.audio_frontend_dim:
+        frames = rng.standard_normal((B, S, cfg.audio_frontend_dim)).astype(np.float32)
+        return {"frames": frames}, rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S - cfg.n_vision_tokens)).astype(np.int32)
+    batch = {"tokens": tokens}
+    if cfg.n_vision_tokens:
+        batch["vision_embeds"] = rng.standard_normal(
+            (B, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+    return batch, np.roll(tokens, -1, axis=1)
+
+
+def j_batch(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def t_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's small ops: beside other test
+    workers, a pool of one OpenMP thread per core oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
 def built():
-    """(reference model, its params, port model, port params, tokens) per
+    """(reference model, its params, port model, port params, inputs) per
     arch, cached across the module."""
     cache = {}
 
@@ -63,8 +102,7 @@ def built():
             jm = JModel(jcfg)
             jp = jm.init(jax.random.key(0))
             tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
-            tokens = np.random.default_rng(1).integers(0, jcfg.vocab_size, (B, S))
-            cache[arch] = (jm, jp, Model(get_reduced(arch)), tp, tokens.astype(np.int32))
+            cache[arch] = (jm, jp, Model(get_reduced(arch)), tp, make_batch(jcfg)[0])
         return cache[arch]
 
     return get
@@ -86,9 +124,9 @@ def _close_tree(got, want, tol):
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_forward_matches_reference(arch, built):
-    jm, jp, tm, tp, tokens = built(arch)
-    jl, jaux = jm.forward(jp, {"tokens": jnp.asarray(tokens)}, dtype=jnp.float32)
-    tl, aux = tm.forward(tp, {"tokens": torch.from_numpy(tokens)}, dtype=torch.float32)
+    jm, jp, tm, tp, batch = built(arch)
+    jl, jaux = jm.forward(jp, j_batch(batch), dtype=jnp.float32)
+    tl, aux = tm.forward(tp, t_batch(batch), dtype=torch.float32)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
     assert aux.dtype == torch.float32
     if "moe" in tm.cfg.block_unit:
@@ -96,18 +134,16 @@ def test_forward_matches_reference(arch, built):
         np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
     else:
         assert float(aux) == float(jaux) == 0.0
-    targets = np.roll(tokens, -1, axis=1)
-    jloss = jm.loss(jp, {"tokens": jnp.asarray(tokens), "targets": jnp.asarray(targets)},
-                    dtype=jnp.float32)
-    tloss = tm.loss(tp, {"tokens": torch.from_numpy(tokens),
-                         "targets": torch.from_numpy(targets)}, dtype=torch.float32)
+    targets = make_batch(jm.cfg)[1]
+    jloss = jm.loss(jp, j_batch({**batch, "targets": targets}), dtype=jnp.float32)
+    tloss = tm.loss(tp, t_batch({**batch, "targets": targets}), dtype=torch.float32)
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
 
 
-def _prefill_pair(jm, jp, tm, tp, tokens, j_mode):
+def _prefill_pair(jm, jp, tm, tp, batch, j_mode):
     with japi.dispatch_mode(j_mode):
-        jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(tokens)}, dtype=jnp.float32)
-    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(tokens)}, dtype=torch.float32)
+        jl, jc = jm.prefill(jp, j_batch(batch), dtype=jnp.float32)
+    tl, tc = tm.prefill(tp, t_batch(batch), dtype=torch.float32)
     assert tl.shape == (B, 1, tm.cfg.vocab_size)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
     _close_tree(tc, jc, CACHE)
@@ -115,24 +151,27 @@ def _prefill_pair(jm, jp, tm, tp, tokens, j_mode):
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_prefill_through_flash_attention_matches_reference(arch, built):
-    jm, jp, tm, tp, tokens = built(arch)
+    """HuBERT's bidirectional attention runs the plain ``_sdpa`` under
+    ``attn_impl="pallas"`` too, in both packages (the kernel is causal)."""
+    jm, jp, tm, tp, batch = built(arch)
     if "rwkv" not in tm.cfg.block_unit:
         _prefill_pair(JModel(dataclasses.replace(jm.cfg, attn_impl="pallas")), jp,
-                      Model(dataclasses.replace(tm.cfg, attn_impl="pallas")), tp, tokens,
+                      Model(dataclasses.replace(tm.cfg, attn_impl="pallas")), tp, batch,
                       "interpret")
         return
     kernel = dict(rwkv_chunk=16, rwkv_pallas=True)
     jm = JModel(dataclasses.replace(jm.cfg, **kernel))
     # the reference's Pallas kernel against the port's plain chunked path
-    _prefill_pair(jm, jp, Model(dataclasses.replace(tm.cfg, rwkv_chunk=16)), tp, tokens,
+    _prefill_pair(jm, jp, Model(dataclasses.replace(tm.cfg, rwkv_chunk=16)), tp, batch,
                   "interpret")
     # the kernel branch with each side's plain version of the op
-    _prefill_pair(jm, jp, Model(dataclasses.replace(tm.cfg, **kernel)), tp, tokens, "ref")
+    _prefill_pair(jm, jp, Model(dataclasses.replace(tm.cfg, **kernel)), tp, batch, "ref")
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", DECODERS)
 def test_decode_steps_match_reference(arch, built):
-    jm, jp, tm, tp, tokens = built(arch)
+    jm, jp, tm, tp, batch = built(arch)
+    tokens = batch["tokens"]
     jc = jm.init_cache(B, RING, dtype=jnp.float32)
     tc = tm.init_cache(B, RING, dtype=torch.float32, device="cpu")
     _close_tree(tc, jc, CACHE)
@@ -162,27 +201,22 @@ def test_init_makes_the_reference_tree(arch, built):
 
 
 def test_unported_kinds_raise():
+    """An unknown arch or block kind raises; every arch builds, at full
+    width too (no parameters drawn), M-RoPE and the front ends included."""
     base = dict(name="t", arch_type="dense", n_layers=2, d_model=16, n_heads=2,
                 n_kv_heads=1, d_ff=32, vocab_size=64)
-    for extra in (dict(audio_frontend_dim=8), dict(n_vision_tokens=4)):
-        with pytest.raises(NotImplementedError, match=r"7 \(d\)"):
-            Model(ModelConfig(**base, **extra))
-    with pytest.raises(NotImplementedError, match=r"7 \(d\)"):
-        AttentionConfig(16, 2, 1, 8, mrope_sections=(2, 1, 1))
-    with pytest.raises(NotImplementedError, match=r"7 \(d\)"):
-        Model(ModelConfig(**base, mrope_sections=(2, 1, 1)))
-    for arch in ("qwen2-vl-2b", "hubert-xlarge"):
-        with pytest.raises(NotImplementedError, match=r"7 \(d\)"):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match=r"7 \(d\)"):
-            get_reduced(arch)
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-2")
     with pytest.raises(ValueError, match="nope"):
         Model(ModelConfig(**base, block_unit=("nope",)))
-    # the kinds of 7 (b) and 7 (c) build, at full width too (no parameters drawn)
-    for arch in ("qwen2-moe-a2.7b", "arctic-480b", "zamba2-7b"):
+    for extra in (dict(audio_frontend_dim=8), dict(n_vision_tokens=4, vision_grid=(2, 2)),
+                  dict(mrope_sections=(2, 1, 1))):
+        assert Model(ModelConfig(**base, **extra)).cfg.name == "t"
+    assert AttentionConfig(16, 2, 1, 8, mrope_sections=(2, 1, 1)).mrope_sections == (2, 1, 1)
+    for arch in ("qwen2-moe-a2.7b", "arctic-480b", "zamba2-7b", "qwen2-vl-2b",
+                 "hubert-xlarge"):
         assert Model(get_config(arch)).cfg.name == arch
+        assert get_reduced(arch).name == f"{arch}-reduced"
 
 
 @pytest.mark.parametrize("arch", ["gemma2_2b", "rwkv6_3b"])
@@ -192,11 +226,11 @@ def test_dropped_outputs_are_freed_without_the_garbage_collector(arch, built):
     import gc
     import weakref
 
-    _, _, tm, tp, tokens = built(arch)
+    _, _, tm, tp, batch = built(arch)
     gc.collect()
     gc.disable()
     try:
-        logits, caches = tm.prefill(tp, {"tokens": torch.from_numpy(tokens[:, :32])},
+        logits, caches = tm.prefill(tp, {"tokens": torch.from_numpy(batch["tokens"][:, :32])},
                                     dtype=torch.float32)
         mapped = tree_map(lambda t: t + 1, caches)
         refs = [weakref.ref(t) for t in [logits] + tree_flatten(caches)[0]

@@ -1,8 +1,9 @@
 """The port's serving path against the reference's, on the CPU.
 
 On the reduced Gemma-2 2B, Yi-9B, RWKV-6 3B, Qwen1.5-MoE-A2.7B, Arctic
-480B and Zamba2-7B, with the reference's parameters carried over through
-numpy:
+480B, Zamba2-7B and Qwen2-VL-2B (text prompts, M-RoPE positions broadcast
+over its three streams), with the reference's parameters carried over
+through numpy:
 
   * ``scan_prefill`` (decode steps into ring-buffer caches) against the
     reference's ``scan_prefill``: last logits rtol 1e-4 / atol 1e-5 and
@@ -37,7 +38,8 @@ from repro_torch.models import Model, ModelConfig
 from repro_torch.serving import RequestDriver, ServingMetrics, scan_prefill
 from repro_torch.tree import tree_flatten
 
-ARCHS = ("gemma2_2b", "yi_9b", "rwkv6_3b", "qwen2_moe_a2_7b", "arctic_480b", "zamba2_7b")
+ARCHS = ("gemma2_2b", "yi_9b", "rwkv6_3b", "qwen2_moe_a2_7b", "arctic_480b", "zamba2_7b",
+         "qwen2_vl_2b")
 
 
 @pytest.fixture(autouse=True, scope="module")
