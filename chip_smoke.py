@@ -33,8 +33,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    shape without softcap, on Yi-9B's (H=32, K=4, D=128), Qwen1.5-MoE's
    (H=16, K=16, D=128), Arctic's (B=1, S=4096, H=56, K=8, D=128) and
    Zamba2's (H=32, K=32, D=112, zero-padded to the D=128 instance) and
-   Qwen2-VL-2B's (H=12, K=2, D=128), bf16,
-   SDPA timed beside the six cases it computes, and checked untimed in
+   Qwen2-VL-2B's (H=12, K=2, D=128) at the prefill's B=2, S=8192 and at
+   the training step's B=1, S=2048, bf16, SDPA timed beside the seven
+   cases it computes, and checked untimed in
    fp32 at S=1024 and at a ragged S=1000 (D=112 too), the first call of
    each case under
    torch.profiler to print its launch's grid, block, registers and shared
@@ -236,6 +237,7 @@ FLASH_CASES = (
     ("arctic", 1, 56, 8, 4096, 128, None, None),
     ("zamba2", 2, 32, 32, LM_SEQ, 112, None, None),   # zero-padded to the 128 instance
     ("qwen2_vl", 2, 12, 2, LM_SEQ, 128, None, None),
+    ("qwen2_vl_train", 1, 12, 2, 256 + 1792, 128, None, None),   # phase 4e's forward
 )
 # the kernels of a traced prefill by name: the bf16 attention kernel, and
 # the GEMMs by the substrings of cuBLAS's and CUTLASS's kernel names
@@ -1837,6 +1839,9 @@ def training_path(api) -> list:
     batch["targets"] = torch.randint(0, cfg.vocab_size, (1, TRAIN_TEXT), generator=gen,
                                      device="cuda")
     n_tok = cfg.n_vision_tokens + TRAIN_TEXT
+    # phase 2 held the kernel to its plain version at this step's shape
+    assert ("qwen2_vl_train", 1, cfg.n_heads, cfg.n_kv_heads, n_tok) in \
+        [c[:5] for c in FLASH_CASES], "no phase-2 flash case at the training shape"
     print(f"train {cfg.name}: {cfg.param_count(params):,} fp32 parameters, bf16 activations, "
           f"1x({cfg.n_vision_tokens}+{TRAIN_TEXT}) tokens, plain SGD lr {TRAIN_LR}")
 

@@ -6,8 +6,8 @@ the whole (Sq, Skv) score matrix in fp32, masked with -2e38 and put through
 one softmax.  It is the CPU path, the yardstick the kernel is held to and
 the function the op's backward differentiates.  Without grad the
 elementwise steps run in place on the fresh score tensor, so a full
-8192-token sequence fits the card twice over; under grad they run out of
-place (the same arithmetic), because autograd keeps their inputs.
+8192-token sequence fits the card twice over; when the scores require
+grad the same steps run out of place, because autograd keeps their inputs.
 """
 from __future__ import annotations
 
@@ -18,11 +18,6 @@ import torch
 __all__ = ["flash_attention_ref", "NEG_INF"]
 
 NEG_INF = -2.0e38
-
-
-class _OutOfPlace:
-    """The in-place steps' out-of-place twins, for a score tensor under grad."""
-    div_, mul_, tanh_, masked_fill_ = torch.div, torch.mul, torch.tanh, torch.masked_fill
 
 
 def flash_attention_ref(
@@ -39,10 +34,7 @@ def flash_attention_ref(
         raise ValueError(f"flash_attention: {h} query heads on {kh} kv heads")
     qg = q.reshape(b, sq, kh, h // kh, d)
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
-    t = torch.Tensor if not scores.requires_grad else _OutOfPlace
-    scores = t.div_(scores, float(torch.tensor(float(d)).sqrt()))
-    if softcap is not None:
-        scores = t.mul_(t.tanh_(t.div_(scores, softcap)), softcap)
+    scale = float(torch.tensor(float(d)).sqrt())
     qpos = torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -50,7 +42,16 @@ def flash_attention_ref(
         mask &= qpos >= kpos
     if sliding_window is not None:
         mask &= (qpos - kpos) < sliding_window
-    scores = t.masked_fill_(scores, ~mask, NEG_INF)
+    if scores.requires_grad:   # autograd keeps each step's input
+        scores = scores / scale
+        if softcap is not None:
+            scores = torch.tanh(scores / softcap) * softcap
+        scores = scores.masked_fill(~mask, NEG_INF)
+    else:
+        scores.div_(scale)
+        if softcap is not None:
+            scores.div_(softcap).tanh_().mul_(softcap)
+        scores.masked_fill_(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     del scores
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())

@@ -112,10 +112,14 @@ def _ssd_chunked(cfg: MambaConfig, a, xh, b_in, c_in, dt, h0=None):
     cum = torch.cumsum(dtk * a[:, None], dim=-1)
     total = cum[..., -1]                                            # (B, C, H)
     # decay matrix L[t, j] = exp(cum_t - cum_j), j <= t; scores cb * L * dt_j
-    scores = (torch.exp(cum[..., :, None] - cum[..., None, :]).masked_fill(above, 0.0)
-              * (ck @ bk.transpose(-1, -2))[:, :, None] * dtk[..., None, :])
+    scores = torch.exp(cum[..., :, None] - cum[..., None, :])
+    cb = (ck @ bk.transpose(-1, -2))[:, :, None]
+    if scores.requires_grad:   # autograd keeps each step's input
+        scores = scores.masked_fill(above, 0.0) * cb * dtk[..., None, :]
+    else:
+        scores.masked_fill_(above, 0.0).mul_(cb).mul_(dtk[..., None, :])
     y = scores @ x                                                  # intra-chunk
-    del scores
+    del scores, cb
     w_j = torch.exp(total[..., None] - cum) * dtk                   # (B, C, H, lc)
     dh = (x * w_j[..., None]).transpose(-1, -2) @ bk[:, :, None]    # (B, C, H, P, N)
     decay = torch.exp(total)[..., None, None]
