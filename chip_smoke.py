@@ -872,23 +872,36 @@ def launch_records(fn, kernel: str, calls: int = 2):
         for e in launches]
 
 
+PROFILE_TRIES = 4
+
+
 def stage_ms(fn, stages, calls: int = 10) -> dict:
     """Median device ms of each stage (the kernels whose names hold the
-    stage's name) over ``calls`` profiled calls of ``fn``.  CUPTI can miss
-    the first launches it traces, so two calls may go unrecorded."""
-    _, launches = launch_records(fn, "", calls=calls)
-    out = {}
-    for stage in stages:
-        ms = [e["ms"] for e in launches if stage in e["kernel"]]
-        assert len(ms) >= calls - 2, (stage, [e["kernel"] for e in launches])
-        out[stage] = statistics.median(ms)
-    return out
+    stage's name) over at least ``calls - 2`` recorded launches of each.
+    CUPTI can miss launches it traces (three of ten in one session on an
+    H100), so sessions of ``calls`` profiled calls of ``fn`` repeat, up to
+    ``PROFILE_TRIES``, and their records are pooled."""
+    ms = {stage: [] for stage in stages}
+    for _ in range(PROFILE_TRIES):
+        _, launches = launch_records(fn, "", calls=calls)
+        for stage in stages:
+            ms[stage] += [e["ms"] for e in launches if stage in e["kernel"]]
+        if all(len(v) >= calls - 2 for v in ms.values()):
+            break
+    for stage, v in ms.items():
+        assert len(v) >= calls - 2, (stage, len(v), [e["kernel"] for e in launches])
+    return {stage: statistics.median(v) for stage, v in ms.items()}
 
 
 def launch_record(fn, kernel: str):
     """The launch of a kernel whose name holds ``kernel`` in the last of
-    two profiled calls of ``fn`` (``launch_records``); each call makes one."""
-    out, launches = launch_records(fn, kernel)
+    two profiled calls of ``fn`` (``launch_records``); each call makes one.
+    A session in which CUPTI recorded none is repeated, up to
+    ``PROFILE_TRIES`` sessions."""
+    for _ in range(PROFILE_TRIES):
+        out, launches = launch_records(fn, kernel)
+        if launches:
+            break
     assert 1 <= len(launches) <= 2, (kernel, [e["kernel"] for e in launches])
     launches[-1].pop("ms")
     return out, launches[-1]
@@ -2014,8 +2027,12 @@ def check_wkv_kernel(api, bw) -> dict:
     torch.cuda.empty_cache()
 
     # the three passes of a call, then each one's median device time
-    _, launches = launch_records(kernel, "wkv_pass")
-    order = [next((n for n in WKV_PASSES if n in e["kernel"]), None) for e in launches[-3:]]
+    for _ in range(PROFILE_TRIES):   # a session in which CUPTI missed one is repeated
+        _, launches = launch_records(kernel, "wkv_pass")
+        order = [next((n for n in WKV_PASSES if n in e["kernel"]), None)
+                 for e in launches[-3:]]
+        if order == list(WKV_PASSES):
+            break
     assert order == list(WKV_PASSES), [e["kernel"] for e in launches]
     for e in launches[-3:]:
         e.pop("ms")
