@@ -144,6 +144,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    steps of lr 0.03 on one batch, the loss falling at each, ms a step and
    peak memory, one more step's loss and gradients traced; the gradients at 4 layers in fp32, the kernel's forward
    against the plain one's, each leaf within 1e-4 of its max |gradient|;
+4f. serving while training, on phase 4e's model, batch and lr: after each
+   of 4 SGD steps (gradients freed first) the live fp32 parameters are
+   published to three ``ReplicaSet``s -- ``qsgd`` with bounds (1, 2) (one
+   ``qsgd_quantize`` and ``qsgd_dequantize`` launch a leaf), ``top_k:0.01``
+   with bound 1 (one ``top_k_pack`` and ``top_k_unpack`` a leaf; the
+   largest leaf's row is 23,520 tiles, the unpack's global-atomic path)
+   and an ``identity`` mirror, which must equal the live parameters bit for
+   bit after every step, in storage of its own, and keep its bits after the
+   next in-place update; publish ms (the first apart), launches, the SLO,
+   link bytes against ``message_bytes``, the served error against live and
+   the peak memory; replica 0 of the QSGD set and the live parameters each
+   serve a bf16 prefill of 2 x (256 + 1,792) through ``prefill_fn`` (28
+   flash launches), tokens/s and greedy tokens side by side; one publish of
+   each lossy set through the kernels against ``dispatch_mode("ref")`` from
+   the same state and seeds (top-k bit for bit, QSGD within the codec's
+   band), and the top-k pair at the largest leaf timed, the unpack by
+   stage; 4 more steps publishing ``top_k:0.01`` through a ``SnapshotFeed``
+   to a ``RemoteReplica`` over localhost (4 messages pulled, then 0; its
+   state equal to the feed's; tx bytes against 4 x ``message_bytes``);
+   then ``examples/serve_while_training_torch.py`` (its default size) and
+   ``examples/quickstart_torch.py --smoke`` in process, their asserts live;
 5. RWKV-6 3B at full width (32 layers, d 2560, 40 heads of 64, vocab
    65,536; random bf16 weights from a seed): ``prefill_fn`` with
    ``rwkv_chunk=16, rwkv_pallas=True`` on 2 prompts of 8192 tokens, three
@@ -281,6 +302,18 @@ AUDIO_ARCH, AUDIO_CLIPS, AUDIO_FRAMES, AUDIO_CUT, AUDIO_TOL = "hubert-xlarge", 8
 # recomputed through the plain version, from inputs that differ by the
 # forward's rounding)
 TRAIN_TEXT, TRAIN_STEPS, TRAIN_LR, TRAIN_CUT, GRAD_BAND = 1792, 3, 0.03, 4, 1e-4
+# Serving while training (phase 4f): phase 4e's model, batch and lr; after
+# each of SNAP_STEPS SGD steps the live fp32 parameters are published to
+# every set of SNAP_SETS (codec, staleness bounds); then SNAP_REMOTE_STEPS
+# more steps publish through a SnapshotFeed to a RemoteReplica over
+# localhost; replica 0 of the QSGD set serves a bf16 prefill of
+# SNAP_SERVE_BATCH x (256 + TRAIN_TEXT) tokens.  One publish of each lossy
+# set, kernel against plain from the same state and seeds: top-k bit for
+# bit, QSGD within the codec's band (at most FLIP_BUDGET of a leaf's
+# snapshot elements off, each by one level)
+SNAP_STEPS, SNAP_REMOTE_STEPS, SNAP_SERVE_BATCH = 4, 4, 2
+SNAP_SETS = (("qsgd", (1, 2)), ("top_k:0.01", (1,)), ("identity", (1,)))
+SNAP_REMOTE_CODEC = "top_k:0.01"
 # RWKV-6 3B at full width: 2 prompts of 8192 tokens, the wkv chunk of 16
 RWKV_ARCH, RWKV_BATCH, RWKV_SEQ, WKV_CHUNK = "rwkv6-3b", 2, 8192, 16
 # wkv_chunk vs the plain chunked form: the same fp32 arithmetic in other
@@ -1077,7 +1110,7 @@ def trace_prefill(api, fn, params, batch, expect, label, focus, ranges=()) -> No
     kernel name (top 10), the
     shares of the kernels launched inside each ``repro/<range>`` profiler
     range the model code opens (``ranges``), of the other kernels named
-    ``focus`` (a label and a name substring), of the other GEMMs and of the
+    ``focus`` (a label and name substrings), of the other GEMMs and of the
     rest, and the device's idle share of the call's span (CUDA events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1108,7 +1141,7 @@ def trace_prefill(api, fn, params, batch, expect, label, focus, ranges=()) -> No
             for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     inside = range_launches(events, ranges)
     del events
-    name, pattern = focus
+    name, patterns = focus[0], focus[1:]
     split = dict.fromkeys(ranges, 0.0)
     busy = hot = gemm = 0.0
     for kernel, ms, corr in work:
@@ -1116,7 +1149,7 @@ def trace_prefill(api, fn, params, batch, expect, label, focus, ranges=()) -> No
         where = next((r for r in ranges if corr in inside[r]), None)
         if where is not None:
             split[where] += ms
-        elif pattern in kernel:
+        elif any(p in kernel for p in patterns):
             hot += ms
         elif any(g in kernel.lower() for g in GEMM_KERNELS):
             gemm += ms
@@ -1916,6 +1949,352 @@ def training_path(api) -> list:
     del grads, p_cut, cut_leaves
     torch.cuda.empty_cache()
     return runs
+
+
+def fingerprint(tree) -> list:
+    """Exact int64 sums of each leaf's 32-bit words: any change of a leaf
+    moves its sum with near certainty (it shows that a snapshot did not
+    move when the live parameters did)."""
+    from repro_torch.tree import tree_leaves
+
+    return [int(t.detach().view(torch.int32).sum(dtype=torch.int64)) for t in tree_leaves(tree)]
+
+
+def relative_error(got, want) -> float:
+    """||got - want|| / ||want|| over whole trees, in fp64 on the host."""
+    from repro_torch.tree import tree_leaves
+
+    num = den = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        w = w.detach().float()
+        num += float(torch.linalg.vector_norm(g.float() - w)) ** 2
+        den += float(torch.linalg.vector_norm(w)) ** 2
+    return math.sqrt(num / den)
+
+
+def load_example(name: str):
+    """An example script of ``examples/`` as a module (its ``main`` uncalled)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def snapshot_top_k_timing(api, bw, codec, leaf) -> dict:
+    """The top-k pair at the snapshot's largest leaf, one replica: bit-equal
+    to plain, timed beside its bound, the plain version and the library
+    call, and the unpack by stage (rows of more than 4,096 tiles count and
+    place with one global atomic an entry)."""
+    from repro_torch.kernels.comm_compress.kernel import UNPACK_TILE
+
+    x = leaf.detach().reshape(1, -1)
+    packed = codec.encode(x, 0)
+    idx, vals = packed.data["idx"], packed.data["vals"]
+    n, d = x.shape
+    k = idx.shape[1]
+    tiles = -(-d // UNPACK_TILE)
+    assert tiles > 4096, f"the snapshot's largest leaf has {tiles} tiles"
+    i64 = idx.long()
+    out = torch.empty_like(x)
+    got = api.call("top_k_pack", x, idx)
+    with api.dispatch_mode("ref"):
+        want = api.call("top_k_pack", x, idx)
+        dense_want = api.call("top_k_unpack", idx, vals, d=d)
+    dense = api.call("top_k_unpack", idx, vals, d=d)
+    assert same_bits(got, want) and same_bits(dense, dense_want), "top-k at the snapshot shape"
+    del got, want, dense, dense_want
+
+    def plain(op, *args, **kw):
+        with api.dispatch_mode("ref"):
+            return api.call(op, *args, **kw)
+
+    eb = x.element_size()
+    pack_ms = abba_ms(lambda: api.call("top_k_pack", x, idx), lambda: plain("top_k_pack", x, idx),
+                      lambda: torch.gather(x, 1, i64, out=vals))
+    unpack_ms = abba_ms(lambda: api.call("top_k_unpack", idx, vals, d=d),
+                        lambda: plain("top_k_unpack", idx, vals, d=d),
+                        lambda: out.zero_().scatter_add_(1, i64, vals))
+    stages = stage_ms(lambda: api.call("top_k_unpack", idx, vals, d=d),
+                      ("count_kernel", "scan_kernel", "place_kernel", "tile_kernel"))
+    shape = {"n": n, "d": d, "k": k, "tiles": tiles}
+    rows = {
+        "top_k_pack": dict(shape, ms=pack_ms[0], plain_ms=pack_ms[1], library_ms=pack_ms[2],
+                           bound_ms=n * k * (4 + 2 * eb) / bw * 1e3),
+        "top_k_unpack": dict(shape, ms=unpack_ms[0], plain_ms=unpack_ms[1],
+                             library_ms=unpack_ms[2], pass_ms=stages,
+                             bound_ms=(n * d * eb + n * k * (4 + eb)) / bw * 1e3),
+    }
+    for name, row in rows.items():
+        print(f"kernel {name} at the snapshot's largest leaf (1 x {d:,}, k {k:,}, {tiles:,} "
+              f"tiles), bit-equal to plain: ms={row['ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f}"
+              + (f"; by stage (CUPTI, median of 10 calls) "
+                 + json.dumps({s: round(v, 4) for s, v in stages.items()})
+                 if name == "top_k_unpack" else ""))
+    del x, packed, idx, vals, i64, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_while_training_path(api, bw) -> tuple:
+    """Phase 4f: the serving plane on the card while Qwen2-VL-2B trains at
+    full width.  Returns the launch counts of each run through the kernels
+    and the top-k rows at the snapshot shape."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serving import RemoteReplica, ReplicaSet, SnapshotFeed, SnapshotPublisher
+    from repro_torch.tree import tree_flatten, tree_leaves
+
+    torch.cuda.empty_cache()
+    print(f"device memory allocated as the phase starts: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    cfg = dataclasses.replace(get_config(VLM_ARCH), attn_impl="pallas")
+    model = Model(cfg)
+    params = model.init(0, dtype=torch.float32, device="cuda")
+    leaves, _ = tree_flatten(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    n_leaves = len(leaves)
+    big = max(range(n_leaves), key=lambda i: leaves[i].numel())
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    batch = vision_batch(cfg, 1, TRAIN_TEXT, torch.bfloat16, gen)
+    batch["targets"] = torch.randint(0, cfg.vocab_size, (1, TRAIN_TEXT), generator=gen,
+                                     device="cuda")
+    raw_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"serve while training {cfg.name}: {cfg.param_count(params):,} fp32 parameters "
+          f"({raw_bytes / 1e9:.3f} GB) in {n_leaves} leaves, the largest "
+          f"{tuple(leaves[big].shape)}; plain SGD lr {TRAIN_LR} on 1x({cfg.n_vision_tokens}+"
+          f"{TRAIN_TEXT}) tokens, bf16 activations; snapshot sets "
+          + ", ".join(f"{c} bounds {b}" for c, b in SNAP_SETS))
+    losses = []
+
+    def sgd_step() -> float:
+        api.reset_counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = model.loss(params, batch, dtype=torch.bfloat16)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            for leaf, g in zip(leaves, grads):
+                leaf.add_(g, alpha=-TRAIN_LR)
+        del grads   # freed before any publish
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        launches = api.launch_counts()
+        assert launches == {"flash_attention": cfg.n_layers}, launches
+        runs.append(launches)
+        losses.append(float(loss.detach()))
+        assert math.isfinite(losses[-1]), f"training step {len(losses)}: loss {losses[-1]}"
+        return dt
+
+    each_leaf = {"qsgd": ("qsgd_quantize", "qsgd_dequantize"),
+                 "top_k": ("top_k_pack", "top_k_unpack"), "identity": ()}
+
+    def expected(codec, times=1):
+        return {op: n_leaves * times for op in each_leaf[codec.split(":")[0]]}
+
+    def publish(target, codec):
+        api.reset_counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        info = target.publish(params)   # host numpy: fenced by its copy
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = api.launch_counts()
+        assert launches == expected(codec), (codec, launches)
+        runs.append(launches)
+        return info, ms, launches
+
+    # 1. SNAP_STEPS SGD steps, each followed by a publish to every set
+    sets = {codec: ReplicaSet(params, codec=codec, bounds=bounds) for codec, bounds in SNAP_SETS}
+    print(f"snapshot sets allocated: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    mirror = sets["identity"]
+    publish_ms = {codec: [] for codec in sets}
+    last_fp = None
+    for step in range(SNAP_STEPS):
+        dt = sgd_step()
+        if last_fp is not None:
+            # the step updated the parameters in place; the identity
+            # snapshot of the step before must not have moved with them
+            assert fingerprint(mirror.params_for(0)) == last_fp, "the identity snapshot moved"
+            assert not all(torch.equal(h, p.detach()) for h, p in
+                           zip(tree_leaves(mirror.params_for(0)), leaves)), "aliased snapshot"
+        line = []
+        for codec, rs in sets.items():
+            info, ms, launches = publish(rs, codec)
+            publish_ms[codec].append(ms)
+            line.append(f"{codec} {ms:.1f} ms sent {info['sent'].astype(int).tolist()} age "
+                        f"{info['age'].tolist()} drift {[round(float(x), 6) for x in info['drift']]} "
+                        f"launches {json.dumps(launches)}")
+        for h, p in zip(tree_leaves(mirror.params_for(0)), leaves):
+            assert torch.equal(h, p.detach()), "the identity mirror is not the live parameters"
+            assert h.untyped_storage().data_ptr() != p.untyped_storage().data_ptr()
+        last_fp = fingerprint(mirror.params_for(0))
+        print(f"serve while training step {step}: loss {losses[-1]:.6f}, step {dt * 1e3:.1f} ms; "
+              f"publish " + "; ".join(line) + "; the identity mirror equals the live parameters "
+              f"bit for bit, in storage of its own; memory allocated "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    print(f"serve while training, peak memory through {SNAP_STEPS} steps and "
+          f"{SNAP_STEPS * len(sets)} publishes: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for codec, rs in sets.items():
+        rs.assert_slo()
+        msg = rs.publisher.message_bytes(params)
+        refreshes = [-(-SNAP_STEPS // b) for b in rs.bounds]
+        link = rs.link_bytes()
+        errs = [relative_error(rs.params_for(r), params) for r in range(rs.n_replicas)]
+        ms = publish_ms[codec]
+        print(f"snapshot set {codec} bounds {rs.bounds}: publish first {ms[0]:.1f} ms, then "
+              f"{statistics.median(ms[1:]):.1f} ms (median of {len(ms) - 1}: "
+              f"{[round(m, 1) for m in ms[1:]]}); SLO {rs.slo_report()}; link bytes per replica "
+              f"{link.tolist()} against message_bytes {msg:,} x refreshes {refreshes} (raw "
+              f"fp32 {raw_bytes:,}, {raw_bytes / msg:.3f}x a message); served relative error "
+              f"against live {[f'{e:.4g}' for e in errs]}")
+        # the info's bytes are fp32, as the reference's
+        assert link.tolist() == [float(torch.tensor(float(msg)).item()) * n for n in refreshes]
+        if codec == "identity":
+            assert errs == [0.0], errs
+
+    # 2. replica 0 of the QSGD set serves a bf16 prefill beside the live params
+    job = serve.make_serve_job(cfg, device="cuda")
+    sbatch = vision_batch(cfg, SNAP_SERVE_BATCH, TRAIN_TEXT, torch.bfloat16, gen)
+    n_tok = SNAP_SERVE_BATCH * (cfg.n_vision_tokens + TRAIN_TEXT)
+    served = {}
+    for label, p in (("qsgd replica 0", sets["qsgd"].params_for(0)), ("live", params)):
+        logits, caches, dt, peak = run_prefill(api, runs, "kernel", p, sbatch, job.prefill_fn,
+                                               {"flash_attention": cfg.n_layers})
+        del caches
+        served[label] = logits[:, -1].float()
+        print(f"serve {cfg.name} from {label}: bf16 prefill {SNAP_SERVE_BATCH}x"
+              f"({cfg.n_vision_tokens}+{TRAIN_TEXT}) in {dt:.3f} s, {n_tok / dt:.0f} tokens/s, "
+              f"{cfg.n_layers} flash launches, greedy tokens "
+              f"{served[label].argmax(-1).tolist()}")
+    gap = float((served["qsgd replica 0"] - served["live"]).abs().max()
+                / served["live"].abs().max())
+    print(f"serve {cfg.name}: last-token logits of the QSGD replica against the live params, "
+          f"max abs diff {gap:.4g} of their max abs; greedy tokens agree on "
+          f"{int((served['qsgd replica 0'].argmax(-1) == served['live'].argmax(-1)).sum())} of "
+          f"{SNAP_SERVE_BATCH} prompts")
+    del served, logits
+    del mirror, sets["identity"]
+    torch.cuda.empty_cache()
+
+    # 3. kernel against plain on one publish of each lossy set, from the same
+    #    state and seeds: top-k bit for bit; QSGD within the codec's band
+    #    (each after one more publish of its set traced: device time by kernel)
+    for codec, focus in (("top_k:0.01", ("top-k kernels", "pack_kernel<", "count_kernel",
+                                         "scan_kernel", "place_kernel<", "tile_kernel<")),
+                         ("qsgd", ("QSGD kernels", "_qsgd_"))):
+        rs = sets[codec]
+        trace_prefill(api, lambda state, p, pub=rs.publisher: pub.publish(state, p), rs.state,
+                      params, expected(codec), f"{codec} publish of {cfg.name}", focus)
+    rs = sets["top_k:0.01"]
+    pub, before = rs.publisher, rs.state
+    got, _ = pub.publish(before, params)
+    with api.dispatch_mode("ref"):
+        want, _ = pub.publish(before, params)
+    for a, b in zip(tree_leaves(got.hat), tree_leaves(want.hat)):
+        assert same_bits(a, b), "top-k snapshot: kernel against plain"
+    assert torch.equal(got.age, want.age) and torch.equal(got.sent, want.sent)
+    print(f"snapshot top_k:0.01 publish, kernel against plain from the same state and seeds: "
+          f"hat ({n_leaves} leaves), age and sent bit for bit")
+    del got, want, before
+    rows = snapshot_top_k_timing(api, bw, pub.codec, leaves[big])
+    del rs, sets["top_k:0.01"]
+    torch.cuda.empty_cache()
+
+    rs = sets["qsgd"]
+    pub, before = rs.publisher, rs.state
+    got, _, packed = pub.publish_packed(before, params)
+    scales = [float(l.data["scale"].max()) for l in tree_leaves(packed["payload"])]
+    del packed
+    with api.dispatch_mode("ref"):
+        want, _ = pub.publish(before, params)
+    assert torch.equal(got.age, want.age) and torch.equal(got.sent, want.sent)
+    n_off = worst = 0
+    for a, b, scale in zip(tree_leaves(got.hat), tree_leaves(want.hat), scales):
+        off = a != b
+        count = int(off.sum())
+        assert count <= FLIP_BUDGET * a.numel(), f"QSGD snapshot: {count} of {a.numel()} off"
+        if count:
+            step = float((a - b).abs().max()) / (scale / 127)
+            assert step <= 1.0 + 1e-5, f"QSGD snapshot: off by {step} levels"
+            worst = max(worst, step)
+        n_off += count
+    print(f"snapshot qsgd publish, kernel against plain from the same state and seeds: age and "
+          f"sent equal; {n_off} of {sum(t.numel() for t in tree_leaves(got.hat)):,} snapshot "
+          f"elements differ (band {FLIP_BUDGET} of each leaf, one level each), the largest by "
+          f"{worst:.4f} levels")
+    del got, want, before, rs, sets
+    torch.cuda.empty_cache()
+
+    # 4. a SnapshotFeed and a RemoteReplica over localhost, SNAP_REMOTE_STEPS
+    #    more SGD steps, one publish after each
+    pub = SnapshotPublisher(codec=SNAP_REMOTE_CODEC, bounds=(1,))
+    feed = SnapshotFeed(pub, params)
+    replica = RemoteReplica(feed.address, pub, params)
+    try:
+        packed_ms = []
+        for _ in range(SNAP_REMOTE_STEPS):
+            sgd_step()
+            _, ms, _ = publish(feed, SNAP_REMOTE_CODEC)
+            packed_ms.append(ms)
+        api.reset_counters()
+        t = time.perf_counter()
+        pulled = replica.pull()
+        torch.cuda.synchronize()
+        pull_s = time.perf_counter() - t
+        launches = api.launch_counts()
+        assert pulled == SNAP_REMOTE_STEPS and launches == {
+            "top_k_unpack": n_leaves * SNAP_REMOTE_STEPS}, (pulled, launches)
+        runs.append(launches)
+        assert replica.pull() == 0, "a drained pull applied a message"
+        for a, b in zip(tree_leaves(replica.state.hat), tree_leaves(feed.state.hat)):
+            assert torch.equal(a, b), "the remote replica differs from its feed"
+        assert torch.equal(replica.state.age, feed.state.age)
+        assert torch.equal(replica.state.sent, feed.state.sent)
+        assert (replica.state.seq, replica.state.key) == (feed.state.seq, feed.state.key)
+        msg = pub.message_bytes(params)
+        tx = feed.link_bytes()["tx"]
+        print(f"remote replica ({SNAP_REMOTE_CODEC}, localhost, one process): publishes "
+              f"{[round(m, 1) for m in packed_ms]} ms with the host copy, pull of "
+              f"{pulled} messages in {pull_s:.3f} s ({launches['top_k_unpack']} unpack "
+              f"launches), then 0; hat, age, sent, seq and key equal to the feed's; feed tx "
+              f"{tx:,} bytes against {SNAP_REMOTE_STEPS} x message_bytes "
+              f"{SNAP_REMOTE_STEPS * msg:,} (send masks {SNAP_REMOTE_STEPS} bytes; framing and "
+              f"pickle {tx - SNAP_REMOTE_STEPS * (msg + 1):,} bytes, two replies); raw fp32 "
+              f"would be {SNAP_REMOTE_STEPS * raw_bytes:,}")
+        # the payloads themselves, plus pickle's and the frames' headers
+        assert 0 < tx - SNAP_REMOTE_STEPS * (msg + 1) < 65536, tx
+    finally:
+        replica.close()
+        feed.close()
+    assert losses[SNAP_STEPS - 1] < losses[0], f"the loss did not fall: {losses}"
+    print(f"serve while training losses over {len(losses)} steps: "
+          f"{[round(x, 6) for x in losses]}; peak memory of the phase "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params, leaves, replica, feed
+    torch.cuda.empty_cache()
+
+    # 5. the examples, in process, their asserts live
+    for name, argv in (("serve_while_training_torch", []), ("quickstart_torch", ["--smoke"])):
+        module = load_example(name)
+        api.reset_counters()
+        t = time.perf_counter()
+        module.main(argv)
+        torch.cuda.synchronize()
+        launches = api.launch_counts()
+        assert launches.get("axpby", 0) > 0, (name, launches)
+        runs.append(launches)
+        print(f"example {name} {' '.join(argv)} on the card: {time.perf_counter() - t:.1f} s, "
+              f"launches {json.dumps(launches)}")
+    return runs, rows
 
 
 def clamped_share(logw: torch.Tensor, chunk: int = WKV_CHUNK) -> float:
@@ -2748,6 +3127,12 @@ def main() -> int:
     # --------------------------------------------------------------- 4e
     kernel_runs += [{"launches": launches} for launches in training_path(api)]
 
+    # --------------------------------------------------------------- 4f
+    runs, snapshot_rows = serve_while_training_path(api, bw)
+    kernel_runs += [{"launches": launches} for launches in runs]
+    for name, row in snapshot_rows.items():
+        results[name]["snapshot"] = row
+
     # ---------------------------------------------------------------- 5
     kernel_runs += [{"launches": launches} for launches in rwkv_serving_path(api)]
 
@@ -2757,7 +3142,7 @@ def main() -> int:
             "flips", "mlp_ms", "mlp_plain_ms", "plain_chunked_ms", "group", "pass_ms",
             "bf16", "skew_ms", "windows", "windowed_ms", "one_pass_ms", "mlp_ms_p10_p90",
             "mlp_plain_ms_p10_p90",
-            "ms_p10_p90", "library_ms_p10_p90", "on_path", "cases")
+            "ms_p10_p90", "library_ms_p10_p90", "on_path", "cases", "snapshot")
     kernels = []
     for name, row in results.items():
         row["launches"] = sum(r["launches"].get(name, 0) for r in kernel_runs)

@@ -40,19 +40,22 @@ def _hash_uniform(seed: int, shape: Tuple[int, int], device=None) -> torch.Tenso
 
     ``seed`` is the reference's ``key_data[0] ^ key_data[-1]``.  torch has no
     usable uint32, so the hash runs in int64 and keeps the low 32 bits after
-    every multiply, add and xor; they survive int64 wraparound."""
+    every multiply, add and xor; they survive int64 wraparound.  The steps
+    run in place, so that at most two (n, d) int64 buffers are alive (a
+    whole-model snapshot hashes leaves of hundreds of millions of
+    elements)."""
     n, d = shape
     rows = torch.arange(n, dtype=torch.int64, device=device)[:, None]
     cols = torch.arange(d, dtype=torch.int64, device=device)[None, :]
     z = ((rows * d) & _M32) + cols
-    z = (z + (int(seed) & _M32)) & _M32
-    z = (z * 0x9E3779B9) & _M32
-    z = z ^ (z >> 16)
-    z = (z * 0x85EBCA6B) & _M32
-    z = z ^ (z >> 13)
-    z = (z * 0xC2B2AE35) & _M32
-    z = z ^ (z >> 16)
-    return (z >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    z.add_(int(seed) & _M32).bitwise_and_(_M32)
+    z.mul_(0x9E3779B9).bitwise_and_(_M32)
+    z.bitwise_xor_(z >> 16)
+    z.mul_(0x85EBCA6B).bitwise_and_(_M32)
+    z.bitwise_xor_(z >> 13)
+    z.mul_(0xC2B2AE35).bitwise_and_(_M32)
+    z.bitwise_xor_(z >> 16)
+    return z.bitwise_right_shift_(8).to(torch.float32).mul_(1.0 / (1 << 24))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -25,7 +25,10 @@ for want in ("repro_torch.kernels.mvr_update.kernel", "repro_torch.kernels.comm_
              "repro_torch.models.transformer", "repro_torch.launch.serve",
              "repro_torch.scenarios", "repro_torch.scenarios.faults",
              "repro_torch.scenarios.heterogeneity", "repro_torch.scenarios.schedules",
-             "repro_torch.scenarios.scenario", "repro_torch.scenarios.metrics"):
+             "repro_torch.scenarios.scenario", "repro_torch.scenarios.metrics",
+             "repro_torch.runtime", "repro_torch.runtime.protocol",
+             "repro_torch.serving.snapshot", "repro_torch.serving.replicas",
+             "repro_torch.serving.remote"):
     assert want in names, (want, names)
 assert "jax" not in sys.modules, "jax was imported"
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
@@ -37,12 +40,38 @@ print(len(names))
 """
 
 
+_EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+
+_IMPORT_EXAMPLES = """
+import importlib.util, sys
+from pathlib import Path
+names = sorted(Path(sys.argv[1]).glob("*_torch.py"))
+for path in names:
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+assert "jax" not in sys.modules, "jax was imported"
+leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+assert not leaked, leaked
+assert "benchmarks" not in sys.modules and "triton" not in sys.modules
+print(" ".join(p.stem for p in names))
+"""
+
+
 def test_imports_neither_jax_nor_reference():
     env = dict(os.environ, PYTHONPATH=_SRC)
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 35
+    assert int(out.stdout.strip()) >= 40
+
+
+def test_examples_import_neither_jax_nor_reference():
+    env = dict(os.environ, PYTHONPATH=_SRC)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_EXAMPLES, str(_EXAMPLES)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["quickstart_torch", "scenario_robustness_torch",
+                                  "serve_torch", "serve_while_training_torch"]
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():
