@@ -23,6 +23,7 @@ Socket tests dial with ``connect_with_retry`` (a 10 s timeout on every
 receive) and close both ends in ``finally``.
 """
 import socket
+import time
 
 import jax
 import jax.numpy as jnp
@@ -339,7 +340,12 @@ def test_remote_replica_byte_equal_with_feed(codec, dtype):
                 assert torch.equal(v, want[k])
         replica.conn.send({"type": "stat"})
         assert replica.conn.recv() == {"type": "stat", "seq": 4, "tag": pub.tag, "bounds": (1, 3)}
-        assert feed.link_bytes()["tx"] == replica.link_bytes()["rx"]
+        # the feed's server thread counts a reply once ``sendall`` returns,
+        # which may be after the replica has read it: wait for the count
+        rx, deadline = replica.link_bytes()["rx"], time.monotonic() + 5.0
+        while feed.link_bytes()["tx"] != rx and time.monotonic() < deadline:
+            time.sleep(0.001)
+        assert feed.link_bytes()["tx"] == rx
     finally:
         replica.close()
         feed.close()
