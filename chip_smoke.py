@@ -84,6 +84,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    then the six uncompressed ones over 200 steps through the kernels and on
    the CPU, the spectral-gap and active-node streams held, the rest printed
    beside the gap a one-ulp change of the initial weights makes on the CPU;
+3d. the elastic runtime (``repro_torch.runtime``): the paper MLP at full
+   width (the runtime's ``pseudo_mnist``: 196 -> 64 -> 10, 128 samples a
+   node, 8 nodes, b=16) trained by DSE-MVR through the kernels for 12
+   rounds over 4 worker processes, each with its own CUDA context on the
+   card; worker 2 (nodes 4-5) SIGKILLed before round 3, a real 0.4 s
+   straggler sleep on worker 0 at round 4, worker 2 respawned before round
+   6 and resynced through the on-disk bundle.  Three launches: the dense
+   protocol; CHOCO top-k 0.1 with overlap on the packed protocol; the same
+   config on the dense protocol, for bytes.  Each: ``active_log`` and the
+   epochs exactly as planned (a round abandoned would bump an epoch), one
+   resync, the final leaves bit for bit ``simulate_reference`` run in this
+   process on the card through the kernels; that replay's final loss and
+   consensus against the replay under ``dispatch_mode("ref")`` and on the
+   CPU (from the card's index stream) within rtol 5e-4 (the top-k run 2e-2,
+   as phase 3 holds its config); every worker's records show launches of
+   every op the replay launched; the packed protocol's framed socket bytes
+   below the dense one's.  Prints rounds/s, round, start-up, rejoin and
+   resync seconds, socket bytes and each launch's wall time;
 4. the LM serving path at Gemma-2 2B's full width (26 layers, d 2304,
    vocab 256,000; random bf16 weights from a seed): ``make_serve_job(...).
    prefill_fn`` with ``attn_impl="pallas"`` on 2 prompts of 8192 tokens,
@@ -177,7 +195,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    prefill's caches against ``scan_prefill`` and 4 decode steps on (fp32,
    B=2, S=128, decays inside the clamp envelope); ``serve.main`` and a
    4-slot ``RequestDriver`` through the bf16 ``decode_fn``;
-6. a ``{"kernels": [...]}`` line, then the last line
+6. a ``{"kernels": [...]}`` line (with each op's phase 3d launches by
+   worker, ``elastic_launches``), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -237,6 +256,16 @@ CHOCO_BAND = ("choco_top_k0.1", "choco0.8_top_k0.1", "async4_thr0.5_top_k0.1",
               "choco_overlap_top_k0.1")
 CHOCO_RTOL = 2e-2
 MLP_SHAPES = {"w1": (8, 196, 64), "b1": (8, 64), "w2": (8, 64, 10), "b2": (8, 10)}
+# the elastic runtime (phase 3d): the paper MLP at full width (the runtime's
+# pseudo_mnist problem: 196 -> 64 -> 10, 128 samples a node, 8 nodes) over
+# ELASTIC_WORKERS worker processes, each with its own CUDA context on the
+# one card; worker 2 (nodes 4-5) killed before round ELASTIC_KILL, a real
+# ELASTIC_SLEEP s straggler sleep on worker 0 at round ELASTIC_SLEEP_AT,
+# worker 2 respawned before round ELASTIC_REJOIN; the runtime's default lr,
+# tau and alpha, every update through the kernels (use_fused)
+ELASTIC_WORKERS, ELASTIC_ROUNDS, ELASTIC_BATCH = 4, 12, 16
+ELASTIC_KILL, ELASTIC_SLEEP_AT, ELASTIC_REJOIN, ELASTIC_SLEEP = 3, 4, 6, 0.4
+ELASTIC_CHOCO = (("channel", "choco"), ("compression", "top_k:0.1"), ("overlap", True))
 # the LM serving path: Gemma-2 2B at full width, prompts of its 8192 context
 LM_ARCH, LM_BATCH, LM_SEQ = "gemma2-2b", 2, 8192
 # fp32 flash_attention and rms_norm vs plain: other summation orders, the
@@ -2910,6 +2939,144 @@ def telemetry_path(run, idx_cuda, seed_fn, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+def elastic_metrics(cfg, state) -> dict:
+    """``train_loss`` (the full-data loss at the node mean) and ``consensus``
+    of a runtime state: the quantities phase 3's ``agree`` holds."""
+    from repro_torch.core.simulate import consensus_distance, node_mean
+    from repro_torch.runtime.problems import make_problem
+
+    prob = make_problem(cfg.problem, cfg.n_nodes, cfg.seed)
+    xbar = {k: v[None] for k, v in node_mean(state.params).items()}
+    dev = xbar["w1"].device
+    x = torch.as_tensor(prob.data.x.reshape((1, -1) + prob.data.x.shape[2:]), device=dev)
+    y = torch.as_tensor(prob.data.y.reshape(1, -1), device=dev).long()
+    return {"train_loss": float(prob.loss_fn(xbar, (x, y))[0]),
+            "consensus": float(consensus_distance(state.params))}
+
+
+def elastic_path(api, smi: str) -> tuple:
+    """Phase 3d: the elastic runtime on the card.  Each launch spawns
+    ELASTIC_WORKERS worker processes (``python -m repro_torch.runtime.
+    worker``), each of which loads the kernels phase 2 built, warms up and
+    resets its launch counts before READY, and reports its launches with
+    every DONE.  Returns the workers' launches, one dict a launch, and each
+    op's launches by worker over the phase."""
+    from collections import Counter
+
+    import numpy as np
+    from repro_torch.runtime import RuntimeConfig, launch, simulate_reference
+    from repro_torch.runtime.chaos import ChaosEvent
+    from repro_torch.runtime.engine import index_stream
+    from repro_torch.runtime.replay import leaves_equal
+
+    t_phase = time.perf_counter()
+    dense = RuntimeConfig(problem="pseudo_mnist", algorithm="dse_mvr", n_nodes=8,
+                          n_rounds=ELASTIC_ROUNDS, batch_size=ELASTIC_BATCH, device="cuda")
+    dense = dense.with_(hyper=dense.hyper + (("use_fused", True),))
+    packed = dense.with_(hyper=dense.hyper + ELASTIC_CHOCO)
+    runs = (("dense", dense), ("packed", packed),
+            ("packed_off", packed.with_(packed_transport="off")))
+    plan = (ChaosEvent(round=ELASTIC_KILL, action="kill", worker=2),
+            ChaosEvent(round=ELASTIC_SLEEP_AT, action="sleep", worker=0, seconds=ELASTIC_SLEEP),
+            ChaosEvent(round=ELASTIC_REJOIN, action="rejoin", worker=2))
+    want_log = np.ones((ELASTIC_ROUNDS, 8), dtype=bool)
+    want_log[ELASTIC_KILL:ELASTIC_REJOIN, 4:6] = False      # worker 2 owns nodes 4-5
+    # a kill and a rejoin bump the epoch once each; an abandoned round
+    # (a worker dropped as stale, or dead mid-round) would bump it again
+    want_epochs = ([0] * ELASTIC_KILL + [1] * (ELASTIC_REJOIN - ELASTIC_KILL)
+                   + [2] * (ELASTIC_ROUNDS - ELASTIC_REJOIN))
+    cuda_idx = index_stream(dense.seed, 8, 128, ELASTIC_BATCH, "cuda")
+
+    launches, by_worker, replays, results = [], {}, {}, {}
+    outside = []   # replay metrics outside their band, asserted at the end
+    for tag, cfg in runs:
+        t0 = time.perf_counter()
+        res = launch(cfg, ELASTIC_WORKERS, plan=plan)
+        wall = time.perf_counter() - t0
+        assert np.array_equal(res.active_log, want_log), (tag, res.active_log.astype(int))
+        assert res.epochs == want_epochs, (tag, res.epochs)
+        assert len(res.resync_seconds) == 1, (tag, res.resync_seconds)
+
+        # the replay in this process, through the kernels, plain on the card
+        # and plain on the CPU (the card's index stream carried across)
+        key = tuple(cfg.hyper)
+        if key not in replays:
+            api.reset_counters()
+            t1 = time.perf_counter()
+            ref = simulate_reference(cfg, res.active_log)
+            torch.cuda.synchronize()
+            replay_s = time.perf_counter() - t1
+            ref_launches = api.launch_counts()
+            api.reset_counters()
+            with api.dispatch_mode("ref"):
+                plain = simulate_reference(cfg, res.active_log)
+            assert not api.launch_counts(), api.launch_counts()
+            cpu = simulate_reference(cfg, res.active_log, device="cpu",
+                                     index_fn=lambda s: cuda_idx(s).cpu())
+            got = elastic_metrics(cfg, ref["state"])
+            # the top-k run is held as phase 3 holds its config (CHOCO_BAND):
+            # the Triton kernels' FMAs move the top-k input by ulps, which
+            # swap near-ties at the k-th magnitude (consensus 6.6e-4 apart
+            # from plain on the card and on the CPU, which agree to 1e-7)
+            band = RUN_RTOL if tag == "dense" else CHOCO_RTOL
+            bands = {"plain_cuda": band, "cpu": band}
+            for other, run_ in (("plain_cuda", plain), ("cpu", cpu)):
+                want = elastic_metrics(cfg, run_["state"])
+                for k, v in want.items():
+                    gap = abs(got[k] - v)
+                    print(f"elastic {tag} replay, kernels vs {other}: {k} {got[k]!r} vs {v!r}, "
+                          f"relative gap {gap / abs(v):.3g} (rtol {bands[other]})")
+                    if gap > RUN_ATOL + bands[other] * abs(v):
+                        outside.append((tag, other, k, got[k], v))
+            print(f"elastic {tag} replay: {ELASTIC_ROUNDS * 4} steps in {replay_s:.3f} s "
+                  f"({ELASTIC_ROUNDS * 4 / replay_s:.1f} steps/s) through the kernels, "
+                  f"launches {json.dumps(ref_launches)}")
+            replays[key] = (ref, ref_launches)
+        ref, ref_launches = replays[key]
+        ok, bad = leaves_equal(res.final_leaves, ref["wire_leaves"])
+        assert ok, f"elastic {tag}: leaf {bad} differs from the on-card replay"
+        assert int(res.final_key) == int(ref["key"]) == ELASTIC_ROUNDS * 4
+
+        # every worker launched every op the replay launched
+        per = {}
+        for rec in res.worker_records:
+            if rec.get("event") == "sample" and rec.get("stream") == "kernel_launches":
+                per.setdefault(rec["run"]["process"], Counter())[rec["label"]] += int(rec["value"])
+        assert sorted(per) == [f"worker:{w}" for w in range(ELASTIC_WORKERS)], sorted(per)
+        for w, counts in per.items():
+            missing = [op for op in ref_launches if not counts.get(op)]
+            assert not missing, f"elastic {tag}: {w} launched no {missing}"
+            for op, n in counts.items():
+                by_worker.setdefault(op, Counter())[w] += n
+        total = Counter()
+        for counts in per.values():
+            total.update(counts)
+        launches.append(dict(total))
+        sleeps = {rec["run"]["process"]: rec["value"] for rec in res.worker_records
+                  if rec.get("stream") == "contrib_seconds" and rec.get("step") == ELASTIC_SLEEP_AT}
+        assert sleeps["worker:0"] >= ELASTIC_SLEEP, sleeps
+        results[tag] = res
+        print(f"elastic {tag} ({smi}): {ELASTIC_ROUNDS} rounds over {ELASTIC_WORKERS} worker "
+              f"processes, launch() {wall:.2f} s (spawn, rounds, kill, rejoin, shutdown); "
+              f"start-up to every READY {res.startup_seconds:.2f} s, rejoin from spawn to "
+              f"resync_ok {json.dumps(res.join_seconds)} s; "
+              f"{res.rounds_per_sec:.2f} rounds/s; round seconds "
+              f"{json.dumps([round(t, 4) for t in res.round_seconds])}; resync seconds "
+              f"{json.dumps(res.resync_seconds)}; socket bytes {json.dumps(res.socket_bytes)}; "
+              f"epochs {res.epochs}; active_log as planned; final leaves bit for bit the "
+              f"on-card replay ({len(res.final_leaves)} leaves); round {ELASTIC_SLEEP_AT} "
+              f"contrib seconds {json.dumps(sleeps)}")
+        print(f"elastic {tag} launches by worker: "
+              + json.dumps({w: dict(c) for w, c in sorted(per.items())}))
+    on, off = results["packed"].socket_bytes, results["packed_off"].socket_bytes
+    assert on["total"] < off["total"], (on, off)
+    assert not outside, outside
+    print(f"elastic packed protocol vs dense, one config ({smi}): framed socket bytes "
+          f"{on['total']} vs {off['total']} ({on['total'] / off['total']:.4f}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, {op: dict(c) for op, c in by_worker.items()}
+
+
 def main() -> int:
     # ---------------------------------------------------------------- 1
     if not torch.cuda.is_available():
@@ -3112,6 +3279,12 @@ def main() -> int:
     # --------------------------------------------------------------- 3c
     telemetry_path(run, idx_cuda, seed_fn, smi)
 
+    # --------------------------------------------------------------- 3d
+    runs, elastic_launches = elastic_path(api, smi)
+    kernel_runs += [{"launches": launches} for launches in runs]
+    for name, by_worker in elastic_launches.items():
+        results[name]["elastic_launches"] = by_worker
+
     # ---------------------------------------------------------------- 4
     kernel_runs += [{"launches": launches} for launches in serving_path(api)]
 
@@ -3142,7 +3315,8 @@ def main() -> int:
             "flips", "mlp_ms", "mlp_plain_ms", "plain_chunked_ms", "group", "pass_ms",
             "bf16", "skew_ms", "windows", "windowed_ms", "one_pass_ms", "mlp_ms_p10_p90",
             "mlp_plain_ms_p10_p90",
-            "ms_p10_p90", "library_ms_p10_p90", "on_path", "cases", "snapshot")
+            "ms_p10_p90", "library_ms_p10_p90", "on_path", "cases", "snapshot",
+            "elastic_launches")
     kernels = []
     for name, row in results.items():
         row["launches"] = sum(r["launches"].get(name, 0) for r in kernel_runs)

@@ -15,8 +15,7 @@ coordinator restart can resume the group from the newest bundle.
 Leaves are stored positionally (``leaf_0`` ... under a ``leaves`` node):
 the coordinator operates on wire arrays and has no treedef; the worker
 rebuilds its pytree from its own engine's template
-(the reference's ``repro.runtime.engine.restore_wire_leaves``; ROADMAP
-queue 1 item 9 ports the runtime).
+(``repro_torch.runtime.engine.restore_wire_leaves``).
 """
 from __future__ import annotations
 

@@ -9,9 +9,9 @@ carry numpy leaf lists (state rows, batches, packed snapshot payloads) --
 this is a *trusted* control plane between processes an operator launched,
 not an internet-facing protocol.
 
-The serving plane's snapshot feed (``repro_torch.serving.remote``) speaks
-it today; the elastic runtime (ROADMAP queue 1 item 9) will reuse it for
-liveness, round dispatch and state resync.
+The elastic runtime's liveness, round dispatch and state resync ride it,
+and so does the serving plane's snapshot feed
+(``repro_torch.serving.remote``).
 """
 from __future__ import annotations
 

@@ -155,7 +155,7 @@ class RecordedFaults(FaultModel):
     """Replay a RECORDED per-round liveness log — the live-membership
     backend's bridge back into the scheduled engines.
 
-    The reference's elastic runtime (``repro.runtime``) observes actual membership (a
+    The elastic runtime (``repro_torch.runtime``) observes actual membership (a
     worker that died, stalled or rejoined) and logs the per-round active
     mask it trained under; replaying that log through this model drives the
     simulator through bit-identical schedules: the renormalization sequence

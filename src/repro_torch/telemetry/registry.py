@@ -62,8 +62,8 @@ SERVING_STREAM_FIELDS = (
     "requests_per_sec",
 )
 
-#: the elastic runtime's membership / liveness / resync streams (the
-#: reference's ``repro.runtime``; ROADMAP queue 1 item 9 ports it):
+#: the elastic runtime's membership / liveness / resync streams
+#: (``repro_torch.runtime``):
 #: coordinator-side membership and round timing, plus the per-worker
 #: contribution times streamed over the control channel.
 RUNTIME_STREAM_FIELDS = (

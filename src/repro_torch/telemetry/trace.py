@@ -7,7 +7,7 @@ interleaves them without any causal glue.  This module adds the glue:
 
   * the coordinator mints a **per-round trace id** (``round_trace_id``) and
     carries it on every round-scoped control-channel message (see
-    the reference's ``repro.runtime.protocol.attach_trace``);
+    ``repro_torch.runtime.protocol.attach_trace``);
   * every process records its spans through a :class:`TraceRecorder`, which
     stamps each span event with a **wall-clock anchor** (``t0``), duration
     and the trace id it was working under — these events ride the existing

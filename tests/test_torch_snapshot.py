@@ -440,5 +440,6 @@ def test_message_protocol_roundtrip_and_framing():
         b.close()
     assert truntime.MAX_MESSAGE_BYTES == jprotocol.MAX_MESSAGE_BYTES
     assert truntime.attach_trace({}, "t")[truntime.TRACE_FIELD] == "t"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        truntime.launch
+    from repro_torch.runtime.launch import launch
+
+    assert truntime.launch is launch      # the elastic runtime is ported

@@ -27,6 +27,11 @@ for want in ("repro_torch.kernels.mvr_update.kernel", "repro_torch.kernels.comm_
              "repro_torch.scenarios.heterogeneity", "repro_torch.scenarios.schedules",
              "repro_torch.scenarios.scenario", "repro_torch.scenarios.metrics",
              "repro_torch.runtime", "repro_torch.runtime.protocol",
+             "repro_torch.runtime.config", "repro_torch.runtime.problems",
+             "repro_torch.runtime.engine", "repro_torch.runtime.replay",
+             "repro_torch.runtime.group", "repro_torch.runtime.chaos",
+             "repro_torch.runtime.worker", "repro_torch.runtime.coordinator",
+             "repro_torch.runtime.launch",
              "repro_torch.serving.snapshot", "repro_torch.serving.replicas",
              "repro_torch.serving.remote"):
     assert want in names, (want, names)
@@ -88,6 +93,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     data, _ = make_paper_problem(0.5)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Simulator(make_algorithm("dse_mvr", 0.3, 4, 4), ring(8), mlp_loss, data, 16)
+    from repro_torch.runtime import RuntimeConfig, simulate_reference
+    from repro_torch.runtime.engine import WorkerEngine
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        WorkerEngine(RuntimeConfig(), 0, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate_reference(RuntimeConfig(n_rounds=1), [[True] * 8])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
