@@ -2939,21 +2939,6 @@ def telemetry_path(run, idx_cuda, seed_fn, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
-def elastic_metrics(cfg, state) -> dict:
-    """``train_loss`` (the full-data loss at the node mean) and ``consensus``
-    of a runtime state: the quantities phase 3's ``agree`` holds."""
-    from repro_torch.core.simulate import consensus_distance, node_mean
-    from repro_torch.runtime.problems import make_problem
-
-    prob = make_problem(cfg.problem, cfg.n_nodes, cfg.seed)
-    xbar = {k: v[None] for k, v in node_mean(state.params).items()}
-    dev = xbar["w1"].device
-    x = torch.as_tensor(prob.data.x.reshape((1, -1) + prob.data.x.shape[2:]), device=dev)
-    y = torch.as_tensor(prob.data.y.reshape(1, -1), device=dev).long()
-    return {"train_loss": float(prob.loss_fn(xbar, (x, y))[0]),
-            "consensus": float(consensus_distance(state.params))}
-
-
 def elastic_path(api, smi: str) -> tuple:
     """Phase 3d: the elastic runtime on the card.  Each launch spawns
     ELASTIC_WORKERS worker processes (``python -m repro_torch.runtime.
@@ -3013,7 +2998,7 @@ def elastic_path(api, smi: str) -> tuple:
             assert not api.launch_counts(), api.launch_counts()
             cpu = simulate_reference(cfg, res.active_log, device="cpu",
                                      index_fn=lambda s: cuda_idx(s).cpu())
-            got = elastic_metrics(cfg, ref["state"])
+            got = ref["metrics"]
             # the top-k run is held as phase 3 holds its config (CHOCO_BAND):
             # the Triton kernels' FMAs move the top-k input by ulps, which
             # swap near-ties at the k-th magnitude (consensus 6.6e-4 apart
@@ -3021,8 +3006,8 @@ def elastic_path(api, smi: str) -> tuple:
             band = RUN_RTOL if tag == "dense" else CHOCO_RTOL
             bands = {"plain_cuda": band, "cpu": band}
             for other, run_ in (("plain_cuda", plain), ("cpu", cpu)):
-                want = elastic_metrics(cfg, run_["state"])
-                for k, v in want.items():
+                for k in ("train_loss", "consensus"):
+                    v = run_["metrics"][k]
                     gap = abs(got[k] - v)
                     print(f"elastic {tag} replay, kernels vs {other}: {k} {got[k]!r} vs {v!r}, "
                           f"relative gap {gap / abs(v):.3g} (rtol {bands[other]})")

@@ -32,6 +32,7 @@ import torch
 
 from ..core.simulate import NodeData
 from ..data import iid_partition, make_classification, make_pseudo_mnist, partition_to_node_data
+from ..paper_problem import mlp_loss
 
 __all__ = ["Problem", "PROBLEMS", "register_problem", "make_problem", "localize"]
 
@@ -44,6 +45,7 @@ class Problem:
 
 
 def _mlp(d: int, hidden: int, classes: int):
+    """(init, loss) of a 2-layer tanh MLP; the loss is the paper problem's."""
     def init(seed: int):
         gen = torch.Generator().manual_seed(int(seed))
         return {
@@ -53,14 +55,7 @@ def _mlp(d: int, hidden: int, classes: int):
             "b2": torch.zeros(classes),
         }
 
-    def loss(params, batch):
-        x, y = batch
-        h = torch.tanh(torch.bmm(x, params["w1"]) + params["b1"][:, None, :])
-        logits = torch.bmm(h, params["w2"]) + params["b2"][:, None, :]
-        logp = torch.log_softmax(logits, dim=-1)
-        return -logp.gather(-1, y.long()[..., None]).squeeze(-1).mean(dim=-1)
-
-    return init, loss
+    return init, mlp_loss
 
 
 def _partitioned(x: np.ndarray, y: np.ndarray, n_nodes: int, seed: int) -> NodeData:

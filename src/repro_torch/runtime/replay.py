@@ -60,8 +60,10 @@ def simulate_reference(
 
     Returns the Simulator's result dict with ``"wire_leaves"`` (host numpy
     wire encoding of the final state, comparable leaf by leaf against
-    :class:`~repro_torch.runtime.launch.ElasticResult.final_leaves`) and
-    ``"key"`` (the final step, an int64, as the runtime's key) added."""
+    :class:`~repro_torch.runtime.launch.ElasticResult.final_leaves`),
+    ``"key"`` (the final step, an int64, as the runtime's key) and
+    ``"metrics"`` (``Simulator.evaluate`` of the final state: full-data
+    loss and gradient norm at the node mean, consensus) added."""
     from ..core import Simulator, make_algorithm
     from ..device import resolve_device
     from .engine import index_stream, wire_leaves
@@ -83,6 +85,7 @@ def simulate_reference(
     out = sim.run(params, num_steps=config.n_rounds * sim.round_len, eval_every=0)
     out["wire_leaves"] = wire_leaves(out["state"])
     out["key"] = np.array(out["state"].step, np.int64)
+    out["metrics"] = sim.evaluate(out["state"])
     return out
 
 

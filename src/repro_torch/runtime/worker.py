@@ -96,63 +96,63 @@ def run_worker(coordinator: str, worker_id: int, rejoin: bool = False) -> int:
     from .engine import WorkerEngine, packed_transport, restore_wire_leaves, wire_leaves
 
     conn = connect_with_retry(coordinator)
-    # the dial's 10 s must not become a timeout on every receive: a worker
-    # idles in recv() for as long as the coordinator admits a rejoin
-    conn.sock.settimeout(None)
-    conn.send({"type": "hello", "worker": int(worker_id), "rejoin": bool(rejoin)})
-    welcome = conn.recv()
-    if not welcome or welcome.get("type") != "welcome":
-        raise RuntimeError(f"expected welcome, got {welcome and welcome.get('type')}")
-    cfg: RuntimeConfig = welcome["config"]
-    n_workers = int(welcome["n_workers"])
-
-    if torch.device(cfg.device).type == "cpu":
-        torch.set_num_threads(1)
-    engine = WorkerEngine(cfg, worker_id, n_workers)
-    dev = engine.device
-    hub = Telemetry(
-        config=cfg.to_config(), spans=False,
-        meta=run_metadata(cfg.to_config(), process=f"worker:{worker_id}"),
-    )
-    register_runtime_streams(hub)
-    cursor = RecordCursor(hub)
-    # span events (with their wall-clock anchors + the coordinator-minted
-    # trace id off each round/resync message) ride the same cursor drain
-    # in DONE messages -- the coordinator stitches them into one timeline
-    tracer = TraceRecorder(hub)
-
     stop = threading.Event()
-    threading.Thread(
-        target=_heartbeat_loop, args=(conn, worker_id, cfg.heartbeat_interval_s, stop),
-        daemon=True, name="worker-heartbeat",
-    ).start()
-
-    state, key = engine.init_state()
-    warm_up(engine, state, key)
-    api.reset_counters()
-    committed = (state, key)
-    committed_round = int(welcome["round"])
-    epoch = int(welcome["epoch"])
-    packed = (cfg.packed_transport != "off") and packed_transport(engine.alg)
-
-    ready = {
-        "type": "ready", "worker": worker_id,
-        "stacked_mask": engine.stacked_mask(state),
-        "fly_mask": engine.fly_mask(state),
-    }
-    if welcome.get("need_init"):
-        ready["leaves"] = wire_leaves(state)
-        ready["key"] = np.array(key, np.int64)
-    conn.send(ready)
-
-    def drained(step: int) -> list:
-        hub.record_kernel_launches(step=step)
-        return cursor.drain()
-
-    pending = None          # (state, key) awaiting commit
-    pending_round = -1      # the round whose arrival commits it
-    pushed: Optional[dict] = None
     try:
+        # the dial's 10 s must not become a timeout on every receive: a worker
+        # idles in recv() for as long as the coordinator admits a rejoin
+        conn.sock.settimeout(None)
+        conn.send({"type": "hello", "worker": int(worker_id), "rejoin": bool(rejoin)})
+        welcome = conn.recv()
+        if not welcome or welcome.get("type") != "welcome":
+            raise RuntimeError(f"expected welcome, got {welcome and welcome.get('type')}")
+        cfg: RuntimeConfig = welcome["config"]
+        n_workers = int(welcome["n_workers"])
+
+        if torch.device(cfg.device).type == "cpu":
+            torch.set_num_threads(1)
+        engine = WorkerEngine(cfg, worker_id, n_workers)
+        dev = engine.device
+        hub = Telemetry(
+            config=cfg.to_config(), spans=False,
+            meta=run_metadata(cfg.to_config(), process=f"worker:{worker_id}"),
+        )
+        register_runtime_streams(hub)
+        cursor = RecordCursor(hub)
+        # span events (with their wall-clock anchors + the coordinator-minted
+        # trace id off each round/resync message) ride the same cursor drain
+        # in DONE messages -- the coordinator stitches them into one timeline
+        tracer = TraceRecorder(hub)
+
+        threading.Thread(
+            target=_heartbeat_loop, args=(conn, worker_id, cfg.heartbeat_interval_s, stop),
+            daemon=True, name="worker-heartbeat",
+        ).start()
+
+        state, key = engine.init_state()
+        warm_up(engine, state, key)
+        api.reset_counters()
+        committed = (state, key)
+        committed_round = int(welcome["round"])
+        epoch = int(welcome["epoch"])
+        packed = (cfg.packed_transport != "off") and packed_transport(engine.alg)
+
+        ready = {
+            "type": "ready", "worker": worker_id,
+            "stacked_mask": engine.stacked_mask(state),
+            "fly_mask": engine.fly_mask(state),
+        }
+        if welcome.get("need_init"):
+            ready["leaves"] = wire_leaves(state)
+            ready["key"] = np.array(key, np.int64)
+        conn.send(ready)
+
+        def drained(step: int) -> list:
+            hub.record_kernel_launches(step=step)
+            return cursor.drain()
+
+        pending = None          # (state, key) awaiting commit
+        pending_round = -1      # the round whose arrival commits it
+        pushed: Optional[dict] = None
         while True:
             msg = pushed if pushed is not None else conn.recv()
             pushed = None

@@ -233,8 +233,9 @@ def test_worker_control_socket_has_no_read_timeout(monkeypatch):
     def coordinator():
         raw, _ = server.accept()
         with raw:
+            raw.recv(1 << 16)         # the hello, sent once the dial is done
             seen["timeout"] = dialed[0].sock.gettimeout()
-            raw.recv(1 << 16)         # the hello; then hang up: no welcome
+        # hang up: no welcome
 
     t = threading.Thread(target=coordinator)
     t.start()
