@@ -54,8 +54,7 @@ class ElasticResult:
     diagnostics: Optional[dict] = None  # DiagnosticsMonitor.diagnose() report
     socket_bytes: Optional[dict] = None  # measured {tx, rx, total} framed bytes
     startup_seconds: float = 0.0        # coordinator start to every worker READY
-    join_seconds: List[float] = dataclasses.field(default_factory=list)
-    # ^ each rejoin: respawn to the resynced worker's ack
+    join_seconds: List[float] = dataclasses.field(default_factory=list)  # respawn to resync ack
 
     @property
     def rounds_per_sec(self) -> float:

@@ -210,7 +210,8 @@ def test_chaos_controller_kill_and_respawn():
         ctl.spawn(0)              # respawn after death is fine
         assert ctl.is_running(0)
     finally:
-        ctl.shutdown()
+        ctl.shutdown(timeout_s=0.5)   # the sleeper never exits by itself
+    assert not ctl.procs
 
 
 def test_worker_control_socket_has_no_read_timeout(monkeypatch):
