@@ -102,6 +102,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    every op the replay launched; the packed protocol's framed socket bytes
    below the dense one's.  Prints rounds/s, round, start-up, rejoin and
    resync seconds, socket bytes and each launch's wall time;
+3e. the sharded engine (``repro_torch.launch.distributed.make_train_job``
+   over a ``NodeMesh``): DSE-MVR through the kernels (tau 3, lr 0.01,
+   alpha 0.1, 3 rounds) training Qwen2-VL-2B at full width (d 1536, 12
+   heads on 2 KV heads of 128, d_ff 8960, vocab 151,936, tied;
+   ``attn_impl="pallas"``, fp32 state, bf16 activations) cut to 1 of 28
+   layers, each node a batch of 1 x (256 vision + 1,792 text) tokens.  On
+   one process: roll gossip on 4 nodes (ring(4)) through the kernels,
+   against dense gossip and against roll under ``dispatch_mode("ref")``,
+   within rtol 5e-3 / atol 1e-4 after round 1 (the gap after round 3
+   printed); sync QSGD through ``rotation_combine`` on 3 nodes (ring(3):
+   two shifts, so the payload rolls, decodes and sums per shift) and
+   CHOCO top-k 0.01 on the neighbour wire and on ``wire_mode="dense"`` on
+   2 nodes (ring(2)), the two CHOCO wires held to the same band; launches
+   by op checked exactly (flash in every layer of every node's 5 forwards
+   a round; axpby 4, mvr_update 2, dse_combine 1 a round; the codecs' per
+   leaf and shift), QSGD's node-link bytes equal to its payload's, the
+   neighbour wire at least 4x below the dense wire's.  Cuts from 4 layers
+   x 4 nodes: at 4 and 3 layers the roll run passes the card, at 2 its
+   plain twin; QSGD on 4 nodes and CHOCO's neighbour wire on 3 or 4 pass
+   it (the comm step's whole-tree temporaries next to the wire's
+   replicas; PERF.md, ROADMAP queue 3).  Then 2 gloo ranks on the card, each
+   its own process, against a world-1 process, both deterministic
+   (``torch.use_deterministic_algorithms``, cuBLAS workspace config): roll
+   and CHOCO for 2 rounds, final params bit for bit by per-node
+   fingerprints, process bytes, ms a round and each rank's launches.
+   Every run prints ms a round, node-steps/s, peak memory, launches by op
+   and the mesh's bytes a round beside the card's name and power limit;
 4. the LM serving path at Gemma-2 2B's full width (26 layers, d 2304,
    vocab 256,000; random bf16 weights from a seed): ``make_serve_job(...).
    prefill_fn`` with ``attn_impl="pallas"`` on 2 prompts of 8192 tokens,
@@ -196,7 +223,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    B=2, S=128, decays inside the clamp envelope); ``serve.main`` and a
    4-slot ``RequestDriver`` through the bf16 ``decode_fn``;
 6. a ``{"kernels": [...]}`` line (with each op's phase 3d launches by
-   worker, ``elastic_launches``), then the last line
+   worker, ``elastic_launches``, and phase 3e's by process,
+   ``sharded_launches``), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -266,6 +294,24 @@ MLP_SHAPES = {"w1": (8, 196, 64), "b1": (8, 64), "w2": (8, 64, 10), "b2": (8, 10
 ELASTIC_WORKERS, ELASTIC_ROUNDS, ELASTIC_BATCH = 4, 12, 16
 ELASTIC_KILL, ELASTIC_SLEEP_AT, ELASTIC_REJOIN, ELASTIC_SLEEP = 3, 4, 6, 0.4
 ELASTIC_CHOCO = (("channel", "choco"), ("compression", "top_k:0.1"), ("overlap", True))
+# the sharded engine (phase 3e): Qwen2-VL-2B at full width (d 1536, 12 heads
+# on 2 KV heads of 128, d_ff 8960, vocab 151,936, tied), attn_impl "pallas",
+# fp32 state, bf16 activations, depth cut to SHARD_LAYERS of 28 layers (at
+# 2 layers the roll run peaks at 66.3 GiB and the plain versions' run runs
+# out of the card; the 233 M-parameter tied embedding is most of a node);
+# DSE-MVR through the kernels (use_fused), tau SHARD_TAU, each node a batch
+# of 1 x (256 vision + TRAIN_TEXT) tokens, the same batches for every run;
+# runs held to the reference's band between its sharded job and its
+# single-device path.  The roll runs take SHARD_NODES nodes on ring(4); the
+# QSGD run SHARD_QSGD_NODES on ring(3) (two shifts); the CHOCO runs
+# SHARD_CHOCO_NODES on ring(2): on an H100 80GB, QSGD on 4 nodes and CHOCO's
+# neighbour wire on 3 run out of the card (scripts/sharded_memory_probe.py)
+SHARD_NODES, SHARD_QSGD_NODES, SHARD_CHOCO_NODES = 4, 3, 2
+SHARD_TAU, SHARD_ROUNDS, SHARD_GROUP_ROUNDS = 3, 3, 2
+SHARD_LAYERS = 1
+SHARD_LR, SHARD_ALPHA, SHARD_TOP_K = 1e-2, 0.1, "top_k:0.01"
+SHARD_RTOL, SHARD_ATOL = 5e-3, 1e-4
+SHARD_DEADLINE = 900   # s, a spawned world of phase 3e
 # the LM serving path: Gemma-2 2B at full width, prompts of its 8192 context
 LM_ARCH, LM_BATCH, LM_SEQ = "gemma2-2b", 2, 8192
 # fp32 flash_attention and rms_norm vs plain: other summation orders, the
@@ -3062,6 +3108,330 @@ def elastic_path(api, smi: str) -> tuple:
     return launches, {op: dict(c) for op, c in by_worker.items()}
 
 
+def shard_config(layers: int):
+    """Phase 3e's model: Qwen2-VL-2B at full width, ``layers`` deep."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(VLM_ARCH), n_layers=layers, attn_impl="pallas")
+
+
+def shard_batches(cfg, nodes: int) -> dict:
+    """One round's batches for ``nodes`` nodes, ``(tau, N, 1, ...)``, drawn
+    on the card from a fixed seed: the same for every run."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    shape = (SHARD_TAU, nodes, 1)
+    return {
+        "tokens": torch.randint(0, cfg.vocab_size, shape + (TRAIN_TEXT,), generator=gen,
+                                device="cuda"),
+        "vision_embeds": torch.randn(shape + (cfg.n_vision_tokens, cfg.d_model), generator=gen,
+                                     device="cuda").to(torch.bfloat16),
+        "targets": torch.randint(0, cfg.vocab_size, shape + (TRAIN_TEXT,), generator=gen,
+                                 device="cuda"),
+    }
+
+
+# phase 3e's runs: tag -> (nodes, make_train_job keywords, dispatch mode)
+SHARD_RUNS = {
+    "roll": (SHARD_NODES, {}, "kernel"),
+    "dense": (SHARD_NODES, dict(gossip="dense"), "kernel"),
+    "roll_plain": (SHARD_NODES, {}, "ref"),
+    "qsgd": (SHARD_QSGD_NODES, dict(compression="qsgd"), "kernel"),
+    "choco": (SHARD_CHOCO_NODES, dict(channel="choco", compression=SHARD_TOP_K), "kernel"),
+    "choco_dense": (SHARD_CHOCO_NODES, dict(channel="choco", compression=SHARD_TOP_K,
+                                            wire_mode="dense"), "kernel"),
+}
+
+
+def node_fingerprint(tree) -> list:
+    """:func:`fingerprint` per node: each leaf's exact int64 sums of its
+    32-bit words, one a node row."""
+    from repro_torch.tree import tree_leaves
+
+    return [t.detach().view(torch.int32).reshape(t.shape[0], -1).sum(1, dtype=torch.int64)
+            .tolist() for t in tree_leaves(tree)]
+
+
+def sharded_run(api, mesh_of, tag: str, rounds: int, on_round=None) -> dict:
+    """``rounds`` rounds of phase 3e's run ``tag`` through ``make_train_job``
+    on ``mesh_of(nodes)``: per-round wall ms (fenced), loss, launches by op,
+    the mesh's bytes, peak memory; ``on_round(r, params)`` sees the params
+    after round r (1-based)."""
+    from repro_torch.launch.distributed import make_train_job, state_bytes
+
+    nodes, kw, mode = SHARD_RUNS[tag]
+    cfg = shard_config(SHARD_LAYERS)
+    mesh = mesh_of(nodes)
+    job = make_train_job(cfg, mesh, tau=SHARD_TAU, lr=SHARD_LR, alpha=SHARD_ALPHA,
+                         use_fused=True, **kw)
+    abstract = state_bytes(job.abstract_state)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = job.init_state(0)
+    batches = job.local_batch(shard_batches(cfg, nodes))
+    api.reset_counters()
+    mesh.reset_bytes()
+    ms, losses = [], []
+    for r in range(rounds):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with api.dispatch_mode(mode):
+            state, metrics = job.step_fn(state, batches)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["loss"]))
+        assert math.isfinite(losses[-1]), (tag, r, losses)
+        if on_round is not None:
+            on_round(r + 1, state.params)
+    chan = job.algorithm.comm.resolved_channel()
+    out = {"tag": tag, "nodes": nodes, "wire": repr(chan),
+           "shifts": len(getattr(chan, "neighbor_shifts", ()) or ()),
+           "abstract_state_bytes": abstract, "ms": ms, "loss": losses,
+           "launches": api.launch_counts(), "bytes": mesh.byte_counts(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "node_steps_per_s": mesh.n_local * SHARD_TAU * rounds / (sum(ms) / 1e3),
+           "fingerprint": node_fingerprint(state.params)}
+    out["n_leaves"] = len(out["fingerprint"])
+    del state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_gap(params, held: list) -> float:
+    """The largest ``|got - want| / (atol + rtol |want|)`` over every leaf,
+    the held leaves (host copies) taken to the card one at a time: at most
+    1 is within the band."""
+    from repro_torch.tree import tree_leaves
+
+    worst = 0.0
+    for got, want in zip(tree_leaves(params), held):
+        want = want.to(got.device)
+        worst = max(worst, float(((got - want).abs() / (SHARD_ATOL + SHARD_RTOL * want.abs()))
+                                 .max()))
+        del want
+    return worst
+
+
+def shard_report(run: dict, smi: str) -> None:
+    rounds = len(run["ms"])
+    per_round = {op: {k: v // rounds for k, v in c.items()} for op, c in run["bytes"].items()
+                 if any(c.values())}
+    print(f"sharded {run['tag']} ({smi}): {SHARD_LAYERS} layers x {run['nodes']} nodes, "
+          f"wire {run['wire']}; abstract state {run['abstract_state_bytes'] / 2**30:.2f} GiB, "
+          f"peak memory {run['peak_gib']:.2f} GiB; ms a round "
+          f"{json.dumps([round(t, 1) for t in run['ms']])}, node-steps/s "
+          f"{run['node_steps_per_s']:.2f}; loss {run['loss']}; launches "
+          f"{json.dumps(run['launches'])}; bytes a round {json.dumps(per_round)}")
+
+
+def sharded_worker(world: int, rank: int, store: str, out: str) -> None:
+    """One process of phase 3e's gloo group on the card (``world`` 1: the
+    deterministic world-1 twin): the roll and CHOCO runs for
+    SHARD_GROUP_ROUNDS rounds, results to ``out`` as JSON."""
+    import datetime
+    import warnings
+
+    import torch.distributed as dist
+    from repro_torch.kernels import api
+    from repro_torch.launch.mesh import make_group_mesh, make_test_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    if world > 1:
+        dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=SHARD_DEADLINE))
+        def mesh_of(nodes):
+            return make_group_mesh(nodes, device="cuda")
+    else:
+        def mesh_of(nodes):
+            return make_test_mesh(nodes, device="cuda")
+    res = {"world": world, "rank": rank, "runs": {}}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for tag in ("roll", "choco"):
+            res["runs"][tag] = sharded_run(api, mesh_of, tag, SHARD_GROUP_ROUNDS)
+    res["nondeterministic"] = sorted({str(w.message)[:200] for w in caught})
+    if world > 1:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(res))
+
+
+def spawn_world(world: int, tag: str) -> list:
+    """Phase 3e's ``world``-process run: one ``chip_smoke.py
+    --sharded-worker`` process a rank, each its own CUDA context on the one
+    card, deterministic cuBLAS, expandable allocator segments (two ranks
+    share the card); their results by rank."""
+    import gc
+    import os
+
+    tmp = ROOT / "build" / "sharded"
+    tmp.mkdir(parents=True, exist_ok=True)
+    store = tmp / f"store_{tag}"
+    store.unlink(missing_ok=True)
+    # this process's freed blocks go back to the card before the ranks start
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"sharded {tag}: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved as it spawns")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+               PYTHONPATH=str(ROOT / "src") + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs, outs = [], []
+    for rank in range(world):
+        out = tmp / f"{tag}_rank{rank}.json"
+        out.unlink(missing_ok=True)
+        outs.append(out)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-worker", str(world),
+             str(rank), str(store), str(out)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + SHARD_DEADLINE
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"sharded {tag} rank {rank} exited {p.returncode}:\n{log[-4000:]}"
+    return [json.loads(o.read_text()) for o in outs]
+
+
+def sharded_path(api, smi: str) -> tuple:
+    """Phase 3e: the sharded engine (``make_train_job`` over a ``NodeMesh``)
+    training Qwen2-VL-2B at full width on the card.  Returns every run's
+    launches (this process's and the spawned ranks') and each op's phase
+    3e launches by process."""
+    from repro_torch.compression import make_compressor
+    from repro_torch.core import ring
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    print(f"device memory allocated as the phase starts: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    def mesh_of(nodes):
+        return make_test_mesh(nodes, device="cuda")
+
+    n_tok = 256 + TRAIN_TEXT
+    flash_case = ("qwen2_vl_train", 1, 12, 2, n_tok)
+    assert flash_case in [c[:5] for c in FLASH_CASES], "no phase-2 flash case at this shape"
+    runs, gaps, held = {}, {}, {}
+
+    def hold(r, params):
+        if r in (1, SHARD_ROUNDS):
+            held[r] = [t.detach().cpu() for t in tree_leaves(params)]
+
+    def held_to(tag):
+        def at(r, params):
+            if r in (1, SHARD_ROUNDS):
+                gaps.setdefault(tag, {})[r] = shard_gap(params, held[r])
+        return at
+
+    # 1. roll through the kernels; dense and roll under the plain versions
+    #    held to it; sync QSGD; CHOCO top-k on the neighbour wire, and on
+    #    the dense wire held to it
+    held_against = {"dense": "roll", "roll_plain": "roll", "choco_dense": "choco"}
+    for tag in SHARD_RUNS:
+        if tag in held_against.values():
+            held.clear()
+            on_round = hold
+        else:
+            on_round = held_to(tag) if tag in held_against else None
+        runs[tag] = sharded_run(api, mesh_of, tag, SHARD_ROUNDS, on_round)
+        shard_report(runs[tag], smi)
+    held.clear()
+    for tag, against in held_against.items():
+        gap = gaps[tag]
+        print(f"sharded {tag} vs {against} through the kernels ({smi}): {gap[1]:.4g} of the "
+              f"band (rtol {SHARD_RTOL}, atol {SHARD_ATOL}) after round 1, "
+              f"{gap[SHARD_ROUNDS]:.4g} after round {SHARD_ROUNDS}")
+        assert gap[1] <= 1.0, (tag, gap)
+
+    # launches: flash in every layer of every node's 5 forwards a round (2
+    # gradients a local step, 1 at the comm step); the update ops as the
+    # Simulator's DSE-MVR (fused z) issues them: a local step one axpby and
+    # one mvr_update, a comm step one dse_combine and two axpby
+    qsgd_shifts = len(ring(SHARD_QSGD_NODES).shifts)
+    assert qsgd_shifts == 2, qsgd_shifts
+    for tag, run in runs.items():
+        fwd = SHARD_ROUNDS * run["nodes"] * (2 * (SHARD_TAU - 1) + 1)
+        want = {} if tag == "roll_plain" else {
+            "flash_attention": SHARD_LAYERS * fwd, "axpby": SHARD_ROUNDS * (SHARD_TAU - 1 + 2),
+            "mvr_update": SHARD_ROUNDS * (SHARD_TAU - 1), "dse_combine": SHARD_ROUNDS}
+        n = run["n_leaves"]
+        if tag == "qsgd":
+            # per leaf of both buffers an event: a quantize, and a dequantize
+            # for the node's own message and for each shift's (ring(3): two)
+            want.update(qsgd_quantize=SHARD_ROUNDS * 2 * n,
+                        qsgd_dequantize=SHARD_ROUNDS * 2 * n * (1 + qsgd_shifts))
+        if tag in ("choco", "choco_dense"):
+            # a pack per leaf of both buffers an event; an unpack for the
+            # node's own replica and, on the neighbour wire, each shift's
+            want.update(top_k_pack=SHARD_ROUNDS * 2 * n,
+                        top_k_unpack=SHARD_ROUNDS * 2 * n * (1 + run["shifts"]))
+        assert run["launches"] == want, (tag, run["launches"], want)
+    assert runs["choco"]["shifts"] == len(ring(SHARD_CHOCO_NODES).shifts)
+    assert runs["choco_dense"]["shifts"] == 0
+
+    # bytes: the QSGD payload rolls whole, once a buffer and shift; the
+    # neighbour wire moves at least 4x fewer node-link bytes than the dense
+    msg = make_compressor("qsgd").tree_bytes(Model(shard_config(SHARD_LAYERS)).param_shapes())
+    want_q = SHARD_ROUNDS * 2 * qsgd_shifts * SHARD_QSGD_NODES * msg
+    got_q = runs["qsgd"]["bytes"]["roll"]["node_link"]
+    print(f"sharded qsgd node-link bytes {got_q} over {SHARD_ROUNDS} rounds = 2 buffers x "
+          f"{qsgd_shifts} shifts x {SHARD_QSGD_NODES} nodes x message_bytes {msg} a round: "
+          f"{got_q == want_q}")
+    assert got_q == want_q, (got_q, want_q)
+    nb, db = runs["choco"]["bytes"]["roll"]["node_link"], \
+        runs["choco_dense"]["bytes"]["roll"]["node_link"]
+    print(f"sharded choco {SHARD_TOP_K} node-link bytes: neighbour wire {nb}, dense wire {db} "
+          f"({db / nb:.2f}x)")
+    assert db >= 4 * nb > 0, (db, nb)
+
+    # 2. two ranks on the one card against world 1, both deterministic
+    t0 = time.perf_counter()
+    one = spawn_world(1, "world1")[0]
+    two = spawn_world(2, "world2")
+    group_s = time.perf_counter() - t0
+    for tag in ("roll", "choco"):
+        want = one["runs"][tag]["fingerprint"]
+        got = [sum((r["runs"][tag]["fingerprint"][i] for r in two), []) for i in range(len(want))]
+        same = got == want
+        ms1 = one["runs"][tag]["ms"]
+        ms2 = [max(r["runs"][tag]["ms"][k] for r in two) for k in range(SHARD_GROUP_ROUNDS)]
+        proc = [r["runs"][tag]["bytes"] for r in two]
+        print(f"sharded {tag} on 2 gloo ranks vs world 1 ({smi}), {SHARD_GROUP_ROUNDS} rounds: "
+              f"final params bit for bit {same}; ms a round world 1 "
+              f"{json.dumps([round(t, 1) for t in ms1])}, 2 ranks "
+              f"{json.dumps([round(t, 1) for t in ms2])}; rank bytes {json.dumps(proc)}; "
+              f"launches by rank {json.dumps([r['runs'][tag]['launches'] for r in two])}; "
+              f"peak GiB by rank {[round(r['runs'][tag]['peak_gib'], 2) for r in two]}")
+        assert same, f"sharded {tag}: 2 ranks differ from world 1"
+        for r in two:
+            assert r["runs"][tag]["bytes"]["roll"]["process"] > 0, tag
+    warned = sorted(set(one["nondeterministic"]) | {w for r in two for w in r["nondeterministic"]})
+    print(f"sharded group: nondeterministic-op warnings {json.dumps(warned)}; worlds spawned "
+          f"and run in {group_s:.1f} s; phase {time.perf_counter() - t_phase:.1f} s")
+
+    launches = [runs[t]["launches"] for t in SHARD_RUNS] + [
+        res["runs"][t]["launches"] for res in [one, *two] for t in res["runs"]]
+    by_process = {}
+    for op in {op for c in launches for op in c}:
+        by_process[op] = {"in_process": sum(runs[t]["launches"].get(op, 0) for t in SHARD_RUNS)}
+        for name, res in [("world1", one)] + [(f"rank{r['rank']}", r) for r in two]:
+            by_process[op][name] = sum(res["runs"][t]["launches"].get(op, 0)
+                                       for t in res["runs"])
+    return launches, by_process
+
+
 def main() -> int:
     # ---------------------------------------------------------------- 1
     if not torch.cuda.is_available():
@@ -3270,6 +3640,12 @@ def main() -> int:
     for name, by_worker in elastic_launches.items():
         results[name]["elastic_launches"] = by_worker
 
+    # --------------------------------------------------------------- 3e
+    runs, sharded_launches = sharded_path(api, smi)
+    kernel_runs += [{"launches": launches} for launches in runs]
+    for name, by_process in sharded_launches.items():
+        results[name]["sharded_launches"] = by_process
+
     # ---------------------------------------------------------------- 4
     kernel_runs += [{"launches": launches} for launches in serving_path(api)]
 
@@ -3301,7 +3677,7 @@ def main() -> int:
             "bf16", "skew_ms", "windows", "windowed_ms", "one_pass_ms", "mlp_ms_p10_p90",
             "mlp_plain_ms_p10_p90",
             "ms_p10_p90", "library_ms_p10_p90", "on_path", "cases", "snapshot",
-            "elastic_launches")
+            "elastic_launches", "sharded_launches")
     kernels = []
     for name, row in results.items():
         row["launches"] = sum(r["launches"].get(name, 0) for r in kernel_runs)
@@ -3318,4 +3694,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        world, rank, store, out = sys.argv[2:6]
+        sharded_worker(int(world), int(rank), store, out)
+        sys.exit(0)
     sys.exit(main())

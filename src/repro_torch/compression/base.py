@@ -35,14 +35,8 @@ SeedOfLeaf = Callable[[int], int]
 __all__ = [
     "Packed", "Compressor", "ErrorFeedback", "ChannelState", "COMPRESSORS",
     "register_compressor", "make_compressor", "attach_channel_state",
-    "compression_error", "NOT_PORTED",
+    "abstract_channel_state", "compression_error",
 ]
-
-#: what the sharded engine's gossip options say when asked for on the port
-NOT_PORTED = (
-    "belongs to the sharded engine, which is not ported to repro_torch yet "
-    "(ROADMAP queue 1 item 8)"
-)
 
 
 @dataclasses.dataclass
@@ -76,6 +70,13 @@ class Compressor:
 
     def decode(self, packed: Packed) -> torch.Tensor:
         raise NotImplementedError
+
+    def at_rows(self, row0: int) -> "Compressor":
+        """This codec for leaves whose row 0 is global node ``row0`` (a rank
+        of the sharded engine); codecs whose draws do not depend on the node
+        are returned as they are."""
+        del row0
+        return self
 
     def payload_bytes(self, shape: Tuple[int, ...], dtype, scale=None) -> int:
         """Analytic bytes ONE node puts on the wire for a leaf of per-node
@@ -132,6 +133,10 @@ class ErrorFeedback(Compressor):
 
     def decode(self, packed):
         return self.inner.decode(packed)
+
+    def at_rows(self, row0):
+        inner = self.inner.at_rows(row0)
+        return self if inner is self.inner else dataclasses.replace(self, inner=inner)
 
     def payload_bytes(self, shape, dtype, scale=None):
         return self.inner.payload_bytes(shape, dtype, scale=scale)
@@ -207,17 +212,47 @@ class ChannelState:
     event: int = 0
 
 
-def attach_channel_state(algorithm, state):
+def _wire_params(chan, params, n_nodes: Optional[int], like):
+    """The params-shaped tree a buffer's wire is laid out over: ``params``
+    (node rows), or all ``n_nodes`` rows for a wire held replicated on every
+    rank of the sharded engine (``replicated_wire``), built by ``like``."""
+    if n_nodes is None or not getattr(chan, "replicated_wire", False):
+        return params
+    return tree_map(lambda p: like((n_nodes,) + tuple(p.shape[1:]), p), params)
+
+
+def attach_channel_state(algorithm, state, n_nodes: Optional[int] = None):
     """Attach the :class:`ChannelState` the algorithm's spec calls for.
 
     With no active channel (no codec, or identity) the state is returned
     untouched (``comp=None``), which keeps the plain path structurally the
-    uncompressed one."""
+    uncompressed one.  ``n_nodes`` is the global node count when the state
+    holds one rank's rows of the sharded engine: a replicated wire holds all
+    of them."""
+    channel = algorithm.comm.resolved_channel()
+    if channel is None:
+        return state
+    wire = []
+    for i in range(len(algorithm.comm.buffers)):
+        chan = channel.for_buffer(i)
+        # a zero-stride view: the wire's zeros_like allocates the rows once
+        params = _wire_params(chan, state.params, n_nodes,
+                              lambda shape, p: p.new_zeros(()).expand(shape))
+        wire.append(chan.init_wire(params))
+    return dataclasses.replace(state, comp=ChannelState(wire=tuple(wire)))
+
+
+def abstract_channel_state(algorithm, state, n_nodes: Optional[int] = None):
+    """:func:`attach_channel_state` on the meta device: the same layout with
+    meta tensors, allocating nothing (the sharded engine's abstract state).
+    ``state`` may hold real or meta tensors."""
     channel = algorithm.comm.resolved_channel()
     if channel is None:
         return state
     wire = tuple(
-        channel.for_buffer(i).init_wire(state.params)
+        channel.for_buffer(i).abstract_wire(_wire_params(
+            channel.for_buffer(i), state.params, n_nodes,
+            lambda shape, p: torch.empty(shape, dtype=p.dtype, device="meta")))
         for i in range(len(algorithm.comm.buffers))
     )
     return dataclasses.replace(state, comp=ChannelState(wire=wire))

@@ -1,12 +1,13 @@
 """Gossip channels: HOW a communication event moves on the wire.
 
-Counterpart of ``repro.compression.channels`` for the dense engine.  A
-communication event composes three declarative axes:
+Counterpart of ``repro.compression.channels``.  A communication event
+composes three declarative axes:
 
   * the codec (``Compressor``, ``base.py``): the message representation;
   * the channel (here): the gossip protocol and its per-buffer wire state;
-  * the transport (:class:`Transport`): the engine's delivery, here the
-    Simulator's dense W contraction of the locally decoded message.
+  * the transport (:class:`Transport`): the engine's delivery -- the
+    Simulator's dense W contraction of the locally decoded message, or the
+    sharded engine's packed transports (``gossip.py``).
 
 Channels:
 
@@ -23,9 +24,12 @@ Channels:
 
 ``overlap=True`` on choco and async double-buffers the send: each round
 applies the message encoded in the previous one.  The sharded engine's wire
-modes (``neighbor_shifts``, ``replicated_wire``, ``defer_roll``) and
-transport hooks raise ``NotImplementedError`` (ROADMAP queue 1 item 8);
-nothing else here does.
+modes: ``neighbor_shifts`` keeps one replica tree per incoming shift and
+rolls only the packed payload; ``replicated_wire`` holds the wire on every
+rank with all N rows (the payload is all-gathered when it is stored, and
+the replica update and the W contraction run on every rank); ``defer_roll``
+rolls an overlapped payload when it is consumed instead of when it is
+stored, which gives the same bits.
 
 Under the scenario engine every gossip gets the round's context ``ctx``
 (:class:`~repro_torch.core.algorithm.RoundCtx`): the transport mixes with
@@ -47,8 +51,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..tree import tree_leaves, tree_map
-from .base import NOT_PORTED, ChannelState, Compressor, ErrorFeedback, Packed
+from ..kernels import api as fused
+from ..tree import map_tensors, tree_leaves, tree_map
+from .base import ChannelState, Compressor, ErrorFeedback
 
 Tree = Any
 SeedFn = Callable[[int, int, int], int]   # (event, buffer, leaf) -> uint32 seed
@@ -80,21 +85,60 @@ def _tree_add_f32(a: Tree, b: Tree) -> Tree:
 class Transport:
     """Engine adapter a channel delivers through.
 
-    ``mix`` is the engine's linear gossip on a raw tree; ``mix_payload``
-    delivers an encoded message, which on the dense engine means mixing the
-    locally decoded message.  With ``scheduled=True`` the engine's mix takes
-    ``(tree, ctx)``, the round context.  The sharded engine's hooks
-    (``neighbor``, ``gather_payload``, ``run_local``) raise
-    ``NotImplementedError`` when given."""
+    ``mix``            -- the engine's linear gossip on a raw tree (the
+                          Simulator's dense W contraction, the sharded
+                          engine's rotations or gathered contraction); with
+                          ``scheduled=True`` it takes ``(tree, ctx)``.
+    ``mix_payload``    -- payload-level delivery when the engine provides a
+                          ``payload_combine`` (``gossip.rotation_combine``,
+                          ``allgather_combine``: the packed arrays move);
+                          else the locally decoded message goes through
+                          ``mix``.
+    ``neighbor``       -- packed neighbour exchange for shift-structured
+                          gossip (``gossip.neighbor_exchange``).
+    ``gather_payload`` -- compressed allgather (``mixing.replicate_gather``):
+                          a payload tree to all N rows.
+    ``pin_replicated`` -- hands a tree derived from gathered payloads to
+                          ``mix`` as all N rows (``mixing.replicate_pin``:
+                          ``mixing.Gathered``).
+    ``run_local``      -- runs a replicated-tree function on every rank
+                          (``mixing.replicated_local``).
+    ``pin_node``       -- this rank's rows of a replicated tree
+                          (``mixing.node_pin``).
+
+    At most one of ``neighbor`` / ``gather_payload`` is set; without hooks
+    every helper is the identity, as on the Simulator."""
 
     def __init__(self, mix_fn: Callable[..., Tree], scheduled: bool = False, *,
-                 neighbor=None, gather_payload=None, run_local=None):
-        hooks = dict(neighbor=neighbor, gather_payload=gather_payload, run_local=run_local)
-        given = sorted(k for k, v in hooks.items() if v is not None)
-        if given:
-            raise NotImplementedError(f"the transport hooks {given} {NOT_PORTED}")
+                 payload_combine: Optional[Callable] = None, neighbor=None,
+                 gather_payload: Optional[Callable] = None,
+                 pin_replicated: Optional[Callable] = None,
+                 run_local: Optional[Callable] = None,
+                 pin_node: Optional[Callable] = None):
         self._mix_fn = mix_fn
         self._scheduled = scheduled
+        self._payload_combine = payload_combine
+        self.neighbor = neighbor
+        self.gather_payload = gather_payload
+        self.pin_replicated = pin_replicated
+        self.run_local = run_local
+        self.pin_node = pin_node
+
+    def pin(self, tree: Tree) -> Tree:
+        return tree if self.pin_replicated is None else self.pin_replicated(tree)
+
+    def node(self, tree: Tree) -> Tree:
+        return tree if self.pin_node is None else self.pin_node(tree)
+
+    def local(self, fn: Callable) -> Callable:
+        return fn if self.run_local is None else self.run_local(fn)
+
+    def gather(self, tree: Tree) -> Tree:
+        """``tree`` as the wire stores it: all N rows under the compressed
+        allgather, else as it is (None stays None)."""
+        if tree is None or self.gather_payload is None:
+            return tree
+        return self.gather_payload(tree)
 
     def mix(self, tree: Tree, ctx=None) -> Tree:
         if self._scheduled:
@@ -102,7 +146,8 @@ class Transport:
         return self._mix_fn(tree)
 
     def mix_payload(self, payload: Tree, dec: Tree, ctx=None) -> Tree:
-        del payload
+        if self._payload_combine is not None:
+            return self._payload_combine(payload, dec, ctx)
         return self.mix(dec, ctx)
 
 
@@ -136,6 +181,14 @@ class GossipChannel:
         uniform channels; :class:`PerBufferChannel` dispatches."""
         return self
 
+    def at_rows(self, row0: int) -> "GossipChannel":
+        """This channel with its codec bound to leaves whose row 0 is global
+        node ``row0`` (:meth:`Compressor.at_rows`); itself when nothing
+        changes."""
+        comp = self.compression
+        bound = None if comp is None else comp.at_rows(row0)
+        return self if bound is comp else dataclasses.replace(self, compression=bound)
+
     def message_bytes(self, tree: Tree) -> int:
         """Analytic wire bytes of ONE node's send of this buffer (``tree``
         without the node axis): raw bytes with no active codec, else the
@@ -147,6 +200,20 @@ class GossipChannel:
 
     def init_wire(self, params: Tree) -> Optional[Tree]:
         return None
+
+    def abstract_wire(self, params: Tree) -> Optional[Tree]:
+        """:meth:`init_wire`'s layout as meta tensors (``params`` on any
+        device): allocates nothing."""
+        meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params)
+        return self.init_wire(meta)
+
+    def wire_spec(self, params: Tree) -> Optional[Tree]:
+        """Each wire leaf's layout on the sharded engine: ``"node"`` (this
+        rank's rows) or ``"replicated"`` (all N rows on every rank), in the
+        structure of :meth:`abstract_wire`."""
+        wire = self.abstract_wire(params)
+        layout = "replicated" if getattr(self, "replicated_wire", False) else "node"
+        return None if wire is None else map_tensors(lambda _: layout, wire)
 
     def gossip(self, tree: Tree, wire, seed_of_leaf, transport: Transport, ctx=None):
         """One buffer's communication: ``(mixed_tree, new_wire)``; ``ctx`` is
@@ -193,13 +260,24 @@ class ChocoChannel(GossipChannel):
     moves by ``x ← x + γ (W x̂⁺ − x̂⁺)``.  With no codec this still runs the
     replica algebra (it is not a pass-through).
 
+    The sharded engine's wire modes:
+
+      * ``neighbor_shifts`` -- the engine's shift set: the wire grows one
+        replica tree per shift (row i of ``nbr[k]`` is node i's replica of
+        ``x̂`` at node i + shifts[k]), advanced from the same rolled packed
+        payload, so only the encoded difference moves;
+      * ``replicated_wire`` -- the whole wire holds all N rows on every
+        rank: the payload is all-gathered when it is stored, the replica
+        update and the W contraction run on every rank, and the consensus
+        step takes this rank's rows of their results;
+      * ``defer_roll`` (with ``overlap``) -- the in-flight payload is stored
+        unrolled and rolled when consumed, where by default it is stored
+        pre-rolled per shift (``fly["rolled"]``): the same bits.
+
     ``overlap=True`` double-buffers the send: the wire grows ``fly`` with
     the in-flight payload; a round first applies the previous round's
     message, then encodes the next one from the new iterate.  Round 0
-    consumes a zero payload, so its consensus step is the identity.
-
-    ``neighbor_shifts``, ``replicated_wire`` and ``defer_roll`` are the
-    sharded engine's wire modes and raise ``NotImplementedError``."""
+    consumes a zero payload, so its consensus step is the identity."""
 
     gamma: float = 1.0
     neighbor_shifts: Tuple[int, ...] = ()
@@ -216,9 +294,6 @@ class ChocoChannel(GossipChannel):
                              "wire modes")
         if self.defer_roll and not self.overlap:
             raise ValueError("defer_roll only applies with overlap=True")
-        for field in ("neighbor_shifts", "replicated_wire", "defer_roll"):
-            if getattr(self, field):
-                raise NotImplementedError(f"the {self.name} channel's {field} {NOT_PORTED}")
 
     def bind(self, compression):
         if self.compression is not None or compression is None:
@@ -233,34 +308,41 @@ class ChocoChannel(GossipChannel):
         return self.compression is None or self.compression.is_identity
 
     # -- wire layout --------------------------------------------------------
-    def _zero_payload(self, params):
-        """The codec's packed structure over a params-shaped difference, all
-        zeros: a zero tree is encoded once on the CPU (no kernel launch) and
-        every tensor of the result zeroed on the params' device."""
+    def _payload_struct(self, params):
+        """The codec's packed structure over a params-shaped difference, as
+        meta tensors: a meta tree encoded through the plain versions, which
+        allocates and launches nothing."""
+        meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params)
         if self._raw:
-            return tree_map(torch.zeros_like, params)
-        cpu = tree_map(lambda p: torch.zeros(p.shape, dtype=p.dtype), params)
-        packed = self.compression.encode_tree(cpu, lambda leaf: 0)
-        dev = tree_leaves(params)[0].device
-        return tree_map(
-            lambda pk: Packed(
-                {k: torch.zeros(t.shape, dtype=t.dtype, device=dev) for k, t in pk.data.items()},
-                meta=pk.meta,
-            ),
-            packed,
-        )
+            return meta
+        with fused.dispatch_mode("ref"):
+            return self.compression.encode_tree(meta, lambda leaf: 0)
 
     def _sends_mask(self) -> bool:
         """Whether the in-flight message carries a per-node send mask."""
         return False
 
     def init_wire(self, params):
+        dev = tree_leaves(params)[0].device
+
+        def payload():
+            return map_tensors(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=dev),
+                               self._payload_struct(params))
+
+        def vec():
+            return torch.zeros(_n_nodes(params), dtype=torch.bool, device=dev)
+
         wire = {"hat": tree_map(torch.zeros_like, params)}
+        if self.neighbor_shifts:
+            wire["nbr"] = tuple(tree_map(torch.zeros_like, params) for _ in self.neighbor_shifts)
         if self.overlap:
-            fly = {"payload": self._zero_payload(params)}
+            fly = {"payload": payload()}
             if self._sends_mask():
-                fly["sent"] = torch.zeros(_n_nodes(params), dtype=torch.bool,
-                                          device=tree_leaves(params)[0].device)
+                fly["sent"] = vec()
+            if self.neighbor_shifts and not self.defer_roll:
+                fly["rolled"] = tuple(payload() for _ in self.neighbor_shifts)
+                if self._sends_mask():
+                    fly["rolled_sent"] = tuple(vec() for _ in self.neighbor_shifts)
             wire["fly"] = fly
         return wire
 
@@ -287,13 +369,42 @@ class ChocoChannel(GossipChannel):
 
         return tree_map(one, hat, dec)
 
-    def _consensus_from(self, tree, mixed_hat, hat_new):
-        """x + γ (W x̂⁺ − x̂⁺) in fp32, in x's dtype."""
+    def _consensus_from(self, tree, mixed_hat, hat_new, transport):
+        """x + γ (W x̂⁺ − x̂⁺) in fp32, in x's dtype; the replicated wire's
+        terms are taken at this rank's rows first."""
         g = float(self.gamma)
         return tree_map(
             lambda x, m, h: (x.float() + g * (m.float() - h.float())).to(x.dtype),
-            tree, mixed_hat, hat_new,
+            tree, transport.node(mixed_hat), transport.node(hat_new),
         )
+
+    def _apply(self, hat, nbr, payload, sent, ctx, transport, rolled=None):
+        """Apply one wire message (``payload``/``sent`` as the wire stores
+        them): replica update(s) and the W contraction.  ``rolled`` holds
+        the pre-rolled ``(payloads, sents)`` per shift, else the payload
+        rolls here.  Returns ``(mixed, hat_new, nbr_new)``."""
+        if transport.gather_payload is not None:
+            # the gathered message set updates the replicated replicas on
+            # every rank
+            hat_new = transport.local(
+                lambda h, p, s: self._gated_add(h, self._decode(p), s))(hat, payload, sent)
+            return transport.mix(transport.pin(hat_new), ctx), hat_new, None
+        hat_new = self._gated_add(hat, self._decode(payload), sent)
+        if nbr is None:
+            return transport.mix(hat_new, ctx), hat_new, None
+        ex = transport.neighbor
+        if ex is None:
+            raise ValueError("channel has neighbor-replica wire state but the transport "
+                             "provides no neighbor exchange")
+        nbr_new = []
+        for k, s in enumerate(self.neighbor_shifts):
+            if rolled is not None:
+                p_s, s_s = rolled[0][k], None if sent is None else rolled[1][k]
+            else:
+                p_s, s_s = ex.roll(payload, s), None if sent is None else ex.roll(sent, s)
+            nbr_new.append(self._gated_add(nbr[k], self._decode(p_s), s_s))
+        nbr_new = tuple(nbr_new)
+        return ex.contract(hat_new, nbr_new, ctx), hat_new, nbr_new
 
     # -- overlap bookkeeping hooks (async overrides) -------------------------
     def _overlap_pre(self, wire):
@@ -301,33 +412,53 @@ class ChocoChannel(GossipChannel):
         applied this round."""
         return None, {}
 
-    def _overlap_send(self, tree, diff, extra, ctx):
+    def _overlap_send(self, tree, diff, extra, ctx, transport):
         """The send decision for the next in-flight message (None: always)."""
         return None
 
     def _gossip_overlap(self, tree, wire, seed_of_leaf, transport, ctx):
-        hat, fly = wire["hat"], wire["fly"]
+        hat, nbr, fly = wire["hat"], wire.get("nbr"), wire["fly"]
         sent_in, extra = self._overlap_pre(wire)
         # 1. apply the message encoded last round (zeros on round 0)
-        hat_new = self._gated_add(hat, self._decode(fly["payload"]), sent_in)
-        out = self._consensus_from(tree, transport.mix(hat_new, ctx), hat_new)
-        # 2. encode the next in-flight message from the new iterate; it is
-        #    decoded when the next round applies it
-        diff = _tree_sub_f32(out, hat_new)
-        send = self._overlap_send(out, diff, extra, ctx)
-        fly_new = {"payload": self._encode(diff, seed_of_leaf, ctx)}
+        rolled = None
+        if nbr is not None and not self.defer_roll:
+            rolled = (fly["rolled"], fly.get("rolled_sent"))
+        mixed, hat_new, nbr_new = self._apply(hat, nbr, fly["payload"], sent_in, ctx,
+                                              transport, rolled)
+        out = self._consensus_from(tree, mixed, hat_new, transport)
+        # 2. encode the next in-flight message from the new iterate against
+        #    the advanced replica; stored gathered (replicated wire) or rolled
+        #    per shift now (neighbour wire without defer_roll)
+        diff = _tree_sub_f32(out, transport.node(hat_new))
+        send = self._overlap_send(out, diff, extra, ctx, transport)
+        payload = transport.gather(self._encode(diff, seed_of_leaf, ctx))
+        send = transport.gather(send)
+        fly_new = {"payload": payload}
         if send is not None:
             fly_new["sent"] = send
-        return out, {"hat": hat_new, "fly": fly_new, **extra}
+        if nbr is not None and not self.defer_roll:
+            ex = transport.neighbor
+            fly_new["rolled"] = tuple(ex.roll(payload, s) for s in self.neighbor_shifts)
+            if send is not None:
+                fly_new["rolled_sent"] = tuple(ex.roll(send, s) for s in self.neighbor_shifts)
+        new_wire = {"hat": hat_new, "fly": fly_new}
+        if nbr_new is not None:
+            new_wire["nbr"] = nbr_new
+        new_wire.update(extra)
+        return out, new_wire
 
     def gossip(self, tree, wire, seed_of_leaf, transport, ctx=None):
         if self.overlap:
             return self._gossip_overlap(tree, wire, seed_of_leaf, transport, ctx)
-        hat = wire["hat"]
-        payload = self._encode(_tree_sub_f32(tree, hat), seed_of_leaf, ctx)
-        hat_new = self._gated_add(hat, self._decode(payload), None)
-        out = self._consensus_from(tree, transport.mix(hat_new, ctx), hat_new)
-        return out, {"hat": hat_new}
+        hat, nbr = wire["hat"], wire.get("nbr")
+        payload = self._encode(_tree_sub_f32(tree, transport.node(hat)), seed_of_leaf, ctx)
+        mixed, hat_new, nbr_new = self._apply(hat, nbr, transport.gather(payload), None,
+                                              ctx, transport)
+        out = self._consensus_from(tree, mixed, hat_new, transport)
+        new_wire = {"hat": hat_new}
+        if nbr_new is not None:
+            new_wire["nbr"] = nbr_new
+        return out, new_wire
 
 
 @dataclasses.dataclass(frozen=True)
@@ -396,8 +527,8 @@ class AsyncChannel(ChocoChannel):
         # ``sent`` reports the mask applied this round: the in-flight one
         return sent_in, {"age": age_new, "sent": sent_in}
 
-    def _overlap_send(self, tree, diff, extra, ctx):
-        return self._trigger_send(tree, diff, extra["age"], ctx)
+    def _overlap_send(self, tree, diff, extra, ctx, transport):
+        return self._trigger_send(tree, diff, transport.node(extra["age"]), ctx)
 
     def gossip(self, tree, wire, seed_of_leaf, transport, ctx=None):
         if int(self.max_staleness) == 1 and self._raw:
@@ -411,14 +542,19 @@ class AsyncChannel(ChocoChannel):
             }
         if self.overlap:
             return self._gossip_overlap(tree, wire, seed_of_leaf, transport, ctx)
-        hat, age = wire["hat"], wire["age"]
-        diff = _tree_sub_f32(tree, hat)
-        send = self._trigger_send(tree, diff, age, ctx)
+        hat, age, nbr = wire["hat"], wire["age"], wire.get("nbr")
+        diff = _tree_sub_f32(tree, transport.node(hat))
+        send = self._trigger_send(tree, diff, transport.node(age), ctx)
         payload = self._encode(diff, seed_of_leaf, ctx)
-        hat_new = self._gated_add(hat, self._decode(payload), send)
-        out = self._consensus_from(tree, transport.mix(hat_new, ctx), hat_new)
+        # the replicated wire stores the gathered message and send mask
+        payload, send = transport.gather(payload), transport.gather(send)
+        mixed, hat_new, nbr_new = self._apply(hat, nbr, payload, send, ctx, transport)
+        out = self._consensus_from(tree, mixed, hat_new, transport)
         age_new = torch.where(send, 0, age + 1).to(torch.int32)
-        return out, {"hat": hat_new, "age": age_new, "sent": send}
+        wire_new = {"hat": hat_new, "age": age_new, "sent": send}
+        if nbr_new is not None:
+            wire_new["nbr"] = nbr_new
+        return out, wire_new
 
 
 @dataclasses.dataclass(frozen=True)
@@ -451,6 +587,11 @@ class PerBufferChannel(GossipChannel):
             self, channels=tuple(c.bind(compression) for c in self.channels)
         )
 
+    def at_rows(self, row0):
+        bound = tuple(c.at_rows(row0) for c in self.channels)
+        same = all(b is c for b, c in zip(bound, self.channels))
+        return self if same else dataclasses.replace(self, channels=bound)
+
     def for_buffer(self, i: int) -> GossipChannel:
         if not 0 <= i < len(self.channels):
             raise ValueError(
@@ -466,6 +607,12 @@ class PerBufferChannel(GossipChannel):
         )
 
     def init_wire(self, params):
+        self._no_aggregate()
+
+    def abstract_wire(self, params):
+        self._no_aggregate()
+
+    def wire_spec(self, params):
         self._no_aggregate()
 
     def gossip(self, tree, wire, seed_of_leaf, transport, ctx=None):

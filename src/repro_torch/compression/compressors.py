@@ -11,6 +11,19 @@ Where the reference draws from a PRNG key (rand-k's index set, low-rank's
 sketch), the port draws from a ``torch.Generator`` on the CPU seeded with
 the leaf's seed, so every device gets the same draw; the draw is a field of
 the codec, so parity tests inject the reference's.
+
+QSGD's noise is a hash of the element's global position, row by node.  A
+rank of the sharded engine encodes only its own nodes, so its codec numbers
+their rows from its first global node (``QSGD.row0``, bound by
+:meth:`~.base.Compressor.at_rows`), which gives every node the noise it
+draws on one rank and in the reference, whose hash runs over the global
+iota.  Rand-k's and low-rank's draws are one per leaf, shared by all nodes,
+and need no offset.
+
+The int64 work of the noise hash and of top-k's stable sort runs a slice
+at a time (a chunk of elements, a node row), so that its temporaries stay
+O(d) next to a node-stacked leaf: a full-width tied embedding is 233 M
+elements a node.
 """
 from __future__ import annotations
 
@@ -27,6 +40,7 @@ from .base import Compressor, Packed, register_compressor
 __all__ = ["Identity", "QSGD", "TopK", "RandK", "LowRank"]
 
 _M32 = 0xFFFFFFFF
+_HASH_CHUNK = 1 << 25   # elements hashed at a time
 
 
 def _flat(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...]]:
@@ -34,28 +48,34 @@ def _flat(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...]]:
     return x.reshape(x.shape[0], -1), tuple(x.shape[1:])
 
 
-def _hash_uniform(seed: int, shape: Tuple[int, int], device=None) -> torch.Tensor:
+def _hash_uniform(seed: int, shape: Tuple[int, int], row0: int = 0,
+                  device=None) -> torch.Tensor:
     """Counter-based Uniform[0, 1) noise, bit for bit the reference's: a
-    murmur3 finalizer of ``row * d + col + seed`` in uint32 arithmetic.
+    murmur3 finalizer of ``row * d + col + seed`` in uint32 arithmetic,
+    ``row`` counted from global node ``row0``.
 
     ``seed`` is the reference's ``key_data[0] ^ key_data[-1]``.  torch has no
     usable uint32, so the hash runs in int64 and keeps the low 32 bits after
-    every multiply, add and xor; they survive int64 wraparound.  The steps
-    run in place, so that at most two (n, d) int64 buffers are alive (a
-    whole-model snapshot hashes leaves of hundreds of millions of
-    elements)."""
+    every multiply, add and xor; they survive int64 wraparound.  It runs
+    :data:`_HASH_CHUNK` elements at a time, in place, into the fp32 result,
+    so that its two int64 buffers stay that size whatever the leaf's."""
     n, d = shape
-    rows = torch.arange(n, dtype=torch.int64, device=device)[:, None]
-    cols = torch.arange(d, dtype=torch.int64, device=device)[None, :]
-    z = ((rows * d) & _M32) + cols
-    z.add_(int(seed) & _M32).bitwise_and_(_M32)
-    z.mul_(0x9E3779B9).bitwise_and_(_M32)
-    z.bitwise_xor_(z >> 16)
-    z.mul_(0x85EBCA6B).bitwise_and_(_M32)
-    z.bitwise_xor_(z >> 13)
-    z.mul_(0xC2B2AE35).bitwise_and_(_M32)
-    z.bitwise_xor_(z >> 16)
-    return z.bitwise_right_shift_(8).to(torch.float32).mul_(1.0 / (1 << 24))
+    out = torch.empty((n, d), dtype=torch.float32, device=device)
+    flat = out.view(-1)
+    # (row0 + r) * d + c + seed == row0 * d + seed + (the element's flat index)
+    base = (int(row0) * d + int(seed)) & _M32
+    for a in range(0, n * d, _HASH_CHUNK):
+        b = min(n * d, a + _HASH_CHUNK)
+        z = torch.arange(a, b, dtype=torch.int64, device=device)
+        z.add_(base).bitwise_and_(_M32)
+        z.mul_(0x9E3779B9).bitwise_and_(_M32)
+        z.bitwise_xor_(z >> 16)
+        z.mul_(0x85EBCA6B).bitwise_and_(_M32)
+        z.bitwise_xor_(z >> 13)
+        z.mul_(0xC2B2AE35).bitwise_and_(_M32)
+        z.bitwise_xor_(z >> 16)
+        flat[a:b].copy_(z.bitwise_right_shift_(8)).mul_(1.0 / (1 << 24))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,20 +102,26 @@ class QSGD(Compressor):
     """Stochastic uniform quantization to one signed byte per element
     (Alistarh et al. 2017): per-node scale ``s = max|x|``, ``L <= 127``
     levels, transmit ``q = sign(x) * floor(|x|/s * L + u)`` as int8 plus the
-    fp32 scale; unbiased thanks to the uniform noise ``u``."""
+    fp32 scale; unbiased thanks to the uniform noise ``u``.  ``row0`` is
+    the global node of the leaves' row 0, which numbers the noise (the
+    sharded engine's rank binds its first node, :meth:`at_rows`)."""
 
     levels: int = 127
+    row0: int = 0
 
     def __post_init__(self):
         if not 1 <= int(self.levels) <= 127:
             raise ValueError(f"qsgd levels must be in [1, 127], got {self.levels}")
+
+    def at_rows(self, row0):
+        return self if int(row0) == self.row0 else dataclasses.replace(self, row0=int(row0))
 
     def encode(self, x, seed, scale=None):
         flat, shape = _flat(x)
         s = flat.float().abs().amax(dim=1)
         safe = torch.where(s > 0, s, torch.ones_like(s))
         xn = flat.float() / safe[:, None]
-        u = _hash_uniform(seed, tuple(flat.shape), device=x.device)
+        u = _hash_uniform(seed, tuple(flat.shape), self.row0, device=x.device)
         meta = (shape, x.dtype)
         if scale is None:
             qf = fused.call("qsgd_quantize", xn, u, scalars=(float(self.levels),))
@@ -160,9 +186,14 @@ class TopK(Compressor):
         # a stable sort, as the reference's argsort: descending |x|, ties to
         # the lower index.  torch.topk picks the same set in another order,
         # and the order is the payload's layout (the scale path keeps its
-        # first slots)
-        order = torch.sort(-flat.float().abs(), dim=1, stable=True).indices
-        return order[:, :k].to(torch.int32).contiguous()
+        # first slots).  A node row at a time: the sort's int64 indices
+        # and buffers are O(d)
+        idx = torch.empty((flat.shape[0], k), dtype=torch.int32, device=flat.device)
+        for i in range(flat.shape[0]):
+            order = torch.sort(-flat[i].float().abs(), stable=True).indices
+            idx[i] = order[:k]
+            del order
+        return idx
 
     def encode(self, x, seed, scale=None):
         flat, shape = _flat(x)

@@ -1,0 +1,140 @@
+"""Transport backends for compressed gossip on the sharded engine.
+
+Counterpart of ``repro.compression.gossip``.  The channel layer's
+:class:`~repro_torch.compression.channels.Transport` hands a payload combine
+``(payload, dec, ctx)``: the encoded message tree (packed payloads, every
+tensor node-stacked), the locally decoded message, and the round context.
+The Simulator mixes ``dec`` densely.  The sharded engine
+(``launch/distributed.py``) moves the packed arrays themselves, so that the
+node-link bytes its mesh counts are the payload's:
+
+  * :func:`rotation_combine` -- shift-structured gossip for the sync
+    channel: roll the payload, decode per shift, weight-sum;
+  * :class:`NeighborExchange` -- the difference channels' (choco, async)
+    per-shift replica exchange from the same rolled payloads;
+  * :func:`allgather_combine` -- graphs with no shift structure:
+    all-gather the payload, decode every message, contract with W.
+
+Rolling a payload rolls every tensor of each ``Packed.data`` together
+(top-k's indices and values, QSGD's levels and scales); ``meta`` is
+unchanged.  Decoding is rowwise, so decoding a rolled payload is rolling
+the decoded one.  Sums run in fp32 in the reference's order: the self
+weight first, then the shifts in rotation order, each added in place into
+the one accumulator.  ``ctx.pattern`` is a host
+int, so a schedule selects its rotation where the reference switches with
+``lax.switch``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.mixing import Gathered, Rotation, _dense_contract
+from ..tree import map_tensors, tree_map
+from .base import Compressor
+
+Tree = Any
+Combine = Callable[[Tree, Tree, Optional[Any]], Tree]
+
+__all__ = ["rotation_combine", "NeighborExchange", "neighbor_exchange", "allgather_combine"]
+
+
+def _roll(tree: Tree, shift: int, mesh) -> Tree:
+    """Every tensor of ``tree`` (packed payloads, send masks) rolled by
+    ``-shift`` along the node axis: ``out[i] = a[(i + shift) mod N]``."""
+    if mesh is not None:
+        return mesh.roll(tree, shift)
+    return map_tensors(lambda a: torch.roll(a, -shift, 0), tree)
+
+
+def _pick(rotations, scheduled: bool, ctx):
+    if len(rotations) == 1 or not scheduled:
+        return rotations[0]
+    return rotations[int(ctx.pattern)]
+
+
+def rotation_combine(comp: Compressor, rotations: Sequence[Rotation],
+                     scheduled: bool = False, mesh=None) -> Combine:
+    """Compressed shift-structured gossip: ``x_i <- w_self D(m_i) + sum_s
+    w_s D(m_{i+s})``, the dense ``sum_j w_ij D(m_j)``, with only payload
+    rows crossing between nodes.  ``scheduled=True`` selects the rotation by
+    ``ctx.pattern``."""
+    rotations = tuple(rotations)
+    if not rotations:
+        raise ValueError("rotation_combine needs at least one rotation")
+    if not scheduled and len(rotations) != 1:
+        raise ValueError("static rotation_combine needs exactly one rotation")
+
+    def combine(payload, dec, ctx):
+        rot = _pick(rotations, scheduled, ctx)
+        acc = tree_map(lambda d: rot.self_weight * d.float(), dec)
+        for s, wgt in zip(rot.shifts, rot.weights):
+            dec_s = comp.decode_tree(_roll(payload, s, mesh))
+            acc = tree_map(lambda a, d: a.add_(wgt * d.float()), acc, dec_s)
+        return tree_map(lambda a, d: a.to(d.dtype), acc, dec)
+
+    return combine
+
+
+class NeighborExchange:
+    """Packed neighbour exchange for the difference channels.
+
+    Choco and async channels keep per-shift replica trees ``nbr[k] ==
+    roll(x̂, -shifts[k])`` in their wire and advance them from the same
+    packed payload every node transmits:
+
+      * ``shifts``   -- the union of the schedule's shifts, in first
+                        appearance order (the wire's ``nbr`` layout);
+      * ``roll``     -- a (payload) tree rolled by ``-s``: exactly the packed
+                        arrays move;
+      * ``contract`` -- the rotation-weighted sum of the self replica and the
+                        per-shift replicas, in ``Rotation.apply``'s fp32
+                        order, so the packed path computes the dense
+                        rolled-``x̂`` contraction given the replica
+                        invariant.
+    """
+
+    def __init__(self, rotations: Sequence[Rotation], scheduled: bool = False, mesh=None):
+        self.rotations = tuple(rotations)
+        if not self.rotations:
+            raise ValueError("neighbor exchange needs at least one rotation")
+        self.scheduled = scheduled
+        self.mesh = mesh
+        self.shifts = tuple(dict.fromkeys(s for rot in self.rotations for s in rot.shifts))
+
+    def roll(self, tree: Tree, shift: int) -> Tree:
+        return _roll(tree, shift, self.mesh)
+
+    def contract(self, self_tree: Tree, nbr_trees, ctx) -> Tree:
+        by_shift = dict(zip(self.shifts, nbr_trees))
+        rot = _pick(self.rotations, self.scheduled, ctx)
+        acc = tree_map(lambda x: rot.self_weight * x.float(), self_tree)
+        for s, wgt in zip(rot.shifts, rot.weights):
+            acc = tree_map(lambda a, r: a.add_(wgt * r.float()), acc, by_shift[s])
+        return tree_map(lambda a, x: a.to(x.dtype), acc, self_tree)
+
+
+def neighbor_exchange(rotations: Sequence[Rotation], scheduled: bool = False,
+                      mesh=None) -> NeighborExchange:
+    """The engine-side neighbour exchange of a rotation schedule."""
+    return NeighborExchange(rotations, scheduled=scheduled, mesh=mesh)
+
+
+def allgather_combine(comp: Compressor, mesh, w=None, scheduled: bool = False) -> Combine:
+    """Compressed allgather for the sync channel on graphs with no shift
+    structure: all-gather the packed payload (``mesh.all_gather``: only
+    payload bytes move), decode the whole message set on every rank and
+    contract with this rank's rows of W (``ctx.w`` when scheduled, else the
+    static ``w``)."""
+    if not scheduled and w is None:
+        raise ValueError("static allgather_combine needs the mixing matrix w")
+    w_static = None if w is None else torch.as_tensor(
+        np.asarray(w), dtype=torch.float32, device=mesh.device)[mesh.lo:mesh.hi]
+
+    def combine(payload, dec, ctx):
+        dec_full = Gathered(comp.decode_tree(mesh.all_gather(payload)))
+        return _dense_contract(ctx.w if scheduled else w_static, dec_full, mesh)
+
+    return combine

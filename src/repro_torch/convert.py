@@ -86,9 +86,13 @@ def _packed_from_numpy(p, device) -> Packed:
 
 def _wire_from_numpy(tree, device) -> Any:
     """One buffer's wire entry: dicts of trees (``res``, ``hat``), per-node
-    arrays (``age`` int32, ``sent`` bool) and in-flight ``Packed`` payloads."""
+    arrays (``age`` int32, ``sent`` bool), in-flight ``Packed`` payloads and
+    the sharded engine's per-shift tuples (``nbr``, ``rolled``,
+    ``rolled_sent``)."""
     if isinstance(tree, dict):
         return {k: _wire_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_wire_from_numpy(v, device) for v in tree)
     if type(tree).__name__ == "Packed":
         return _packed_from_numpy(tree, device)
     return _tensor(tree, device)

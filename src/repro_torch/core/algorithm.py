@@ -13,9 +13,11 @@ messages move on the wire (``compression``, ``channel``).
 
 Gossip runs through ``repro_torch.compression``: the codecs (identity,
 qsgd, top_k, rand_k, low_rank), the sync, choco and async channels,
-per-buffer channel mappings and comm/compute overlap, on the dense engine.
-With ``scheduled=True`` the executor takes the scenario engine's per-round
-:class:`RoundCtx` (W_t, node dropout, straggler masks, codec knobs).
+per-buffer channel mappings and comm/compute overlap, on the Simulator's
+dense engine or the sharded engine's transports (``compressed_combine``,
+``transport_hooks``).  With ``scheduled=True`` the executor takes the
+scenario engine's per-round :class:`RoundCtx` (W_t, node dropout,
+straggler masks, codec knobs).
 """
 from __future__ import annotations
 
@@ -168,6 +170,9 @@ class RoundCtx:
                 participation (stragglers, step jitter).
     pattern:    host int: index into the schedule's rotations (read by the
                 sharded engine's rotation gossip only).
+
+    On the sharded engine the tensors hold this rank's rows: ``w`` its rows
+    of W_t, ``active`` and ``local_mask`` its nodes.
     comp_scale: host ``np.float32`` in (0, 1], the share of the codec's
                 payload spent this round, or None for the static setting.
     trigger:    host ``np.float32``, the async trigger's threshold this
@@ -279,9 +284,12 @@ def make_round_step(
     full_grad_fn: Optional[GradFn] = None,
     comm_seed_fn: Optional[SeedFn] = None,
     *,
+    comm_grad_of_batch: Optional[Callable[[Tree, Any], Tree]] = None,
     scheduled: bool = False,
     gate_local: bool = True,
     gate_active: bool = True,
+    compressed_combine=None,
+    transport_hooks: Optional[dict] = None,
 ):
     """The round executor.
 
@@ -308,6 +316,17 @@ def make_round_step(
     selects out where no fault can mask a node, so a fault-free scenario
     runs exactly the static executor's operations.
 
+    ``comm_grad_of_batch`` replaces ``grad_of_batch`` for the communication
+    step only (the sharded engine's, which records the metrics loss there).
+    ``compressed_combine`` is a ``(payload, decoded, ctx) -> mixed`` payload
+    transport (the sharded engine's ``rotation_combine`` /
+    ``allgather_combine``), and ``transport_hooks`` the engine's wire hooks
+    for the difference channels (``neighbor``, ``gather_payload``,
+    ``pin_replicated``, ``run_local``, ``pin_node``); see
+    ``repro_torch.compression.gossip``.  The three are keyword-only:
+    ``comm_seed_fn`` holds the fifth place, where the reference has
+    ``comm_grad_of_batch``.
+
     The round is the composition of two phases, ``round_step.phases =
     (local_phase, comm_phase)``: ``local_phase(state, micro)`` runs the
     ``round_len - 1`` local updates on the minibatches ``micro`` and
@@ -318,7 +337,9 @@ def make_round_step(
     """
     spec = algorithm.comm
     round_len = spec.round_len(getattr(algorithm, "tau", 1))
+    comm_gb = comm_grad_of_batch or grad_of_batch
     channel = spec.resolved_channel()
+    hooks = dict(transport_hooks or {})
     if channel is not None and comm_seed_fn is None:
         raise ValueError(
             f"{type(algorithm).__name__} gossips through {channel.tag}, which "
@@ -344,7 +365,8 @@ def make_round_step(
                 "repro_torch.compression.attach_channel_state(algorithm, state)"
             )
         session = ChannelSession(
-            channel, len(spec.buffers), chan_state, Transport(mix_fn, scheduled=scheduled),
+            channel, len(spec.buffers), chan_state,
+            Transport(mix_fn, scheduled=scheduled, payload_combine=compressed_combine, **hooks),
             comm_seed_fn,
         )
         new = algorithm.comm_update(
@@ -364,7 +386,7 @@ def make_round_step(
             return state
 
         def comm_phase(state, last):
-            return _comm(state, lambda p: grad_of_batch(p, last))
+            return _comm(state, lambda p: comm_gb(p, last))
 
         def round_step(state, batches: Sequence):
             _check(batches)
@@ -392,8 +414,17 @@ def make_round_step(
         return state
 
     def comm_phase_sched(state, last, ctx: RoundCtx):
-        new = _comm(state, lambda p: grad_of_batch(p, last), ctx)
-        return _select_nodes(ctx.active if gate_active else None, new, state)
+        new = _comm(state, lambda p: comm_gb(p, last), ctx)
+        mask = ctx.active if gate_active else None
+        gated = _select_nodes(mask, new, state)
+        run_local = hooks.get("run_local")
+        if mask is not None and run_local is not None and getattr(new, "comp", None) is not None:
+            # the compressed allgather's wire holds all N rows on every rank
+            # (run_local is installed for that mode only): gate it there,
+            # with the mask gathered to all N nodes
+            gated = dataclasses.replace(gated, comp=run_local(_select_nodes)(
+                mask, new.comp, state.comp))
+        return gated
 
     def round_step_scheduled(state, batches: Sequence, ctx: RoundCtx):
         _check(batches)

@@ -1,0 +1,419 @@
+"""The sharded decentralized training job: N nodes over a node mesh.
+
+Counterpart of the training half of ``repro.launch.distributed``.
+
+  * decentralized nodes = the rows of every state tensor's leading node
+    axis; rank r of the :class:`~repro_torch.launch.mesh.NodeMesh` holds
+    the contiguous block ``[lo, hi)`` (world 1 holds all N on one device,
+    as the Simulator does);
+  * per-node model compute = a loop over this rank's nodes: each node's
+    parameter slice is detached, made a leaf, and differentiated with
+    ``torch.autograd.grad`` of its own ``Model.loss`` (bf16 activations).
+    The reference vmaps ``grad``; the kernel ops are autograd Functions
+    with CUDA bodies, which ``torch.func.vmap`` cannot carry;
+  * one ``step_fn`` call = one communication round, built by the executor
+    the Simulator uses (``core.algorithm.make_round_step``): ``round_len -
+    1`` local updates, then the algorithm's ``comm_update``, for every
+    entry of ``core.ALGORITHMS``;
+  * gossip backends: 'dense' (this rank's rows of W times the all-gathered
+    stack) and 'roll' (only ring neighbours move, by send / recv), and for
+    the gossip channels the packed transports of ``compression.gossip``
+    selected by ``wire_mode``, branch for branch as the reference selects
+    them.
+
+The reference's ``lower()`` (an XLA cost model) and its mesh-sharded
+``ServeJob`` are not carried over; the one-device serve job is
+``launch/serve.py``.  The within-node layouts the reference's sharding
+profiles pick (tp / fsdp / 2d) need more than one card a node: ROADMAP
+queue 1 item 8 (b).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..compression.base import ChannelState, abstract_channel_state, attach_channel_state
+from ..compression.channels import ChocoChannel, SeedFn, SyncChannel
+from ..compression.gossip import allgather_combine, neighbor_exchange, rotation_combine
+from ..core import make_algorithm, ring
+from ..core.algorithm import DecentralizedAlgorithm, RoundCtx, make_round_step
+from ..core.mixing import (
+    Rotation, dense_mix, identity_mix, node_pin, replicate_gather, replicate_pin,
+    replicated_local, roll_mix, scheduled_dense_mix, scheduled_rotation_mix,
+)
+from ..core.simulate import default_comm_seed_fn
+from ..models import Model, ModelConfig
+from ..tree import map_tensors, tree_flatten, tree_leaves, tree_map, tree_unflatten
+from .mesh import NodeMesh
+
+Tree = Any
+
+__all__ = ["TrainJob", "make_train_job", "state_bytes"]
+
+
+def state_bytes(state: Any) -> int:
+    """Bytes of every tensor of a (real or abstract) state."""
+    total = 0
+
+    def add(t):
+        nonlocal total
+        total += t.numel() * t.element_size()
+
+    map_tensors(add, state)
+    return total
+
+
+@dataclasses.dataclass
+class TrainJob:
+    """One sharded decentralized training round.
+
+    ``step_fn(state, batches[, ctx]) -> (state, metrics)``: ``batches`` is a
+    dict of tensors ``(round_len, n_local, b, ...)`` holding this rank's
+    nodes (:meth:`local_batch`), ``ctx`` (with a scenario) this rank's
+    :meth:`round_ctx`.  ``metrics["loss"]`` is the comm step's mean loss
+    over all N nodes and ``metrics["v_norm"]`` the direction buffer's
+    squared norm summed over all of them; with a scenario the stream
+    values join them.  ``abstract_state`` is the state as meta tensors
+    (this rank's rows), ``state_layout`` each of its tensors' layout:
+    ``"node"`` (this rank's rows), ``"replicated"`` (all N rows, the
+    compressed allgather's wire) or ``"host"`` (a host int)."""
+
+    model: Model
+    mesh: NodeMesh
+    algorithm: Any
+    tau: int                          # the algorithm's local-update interval
+    round_len: int                    # batches consumed per step_fn call
+    n_nodes: int
+    gossip: str
+    step_fn: Callable
+    abstract_state: Any
+    state_layout: Any
+    scenario: Any = None
+
+    # ---- scenario plumbing ------------------------------------------------
+    def schedule_for(self, n_rounds: int):
+        """Materialize the scenario's per-round arrays for a driver loop."""
+        if self.scenario is None:
+            raise ValueError("job has no scenario")
+        return self.scenario.materialize(self.n_nodes, n_rounds, self.round_len)
+
+    def round_ctx(self, schedule, r: int) -> RoundCtx:
+        """Round ``r``'s context at this rank's rows: its rows of W_t, its
+        nodes' ``active`` and ``local_mask``; the knobs as host scalars."""
+        m = self.mesh
+        dev, rows = m.device, slice(m.lo, m.hi)
+        return RoundCtx(
+            w=torch.as_tensor(schedule.w[r][rows], dtype=torch.float32, device=dev),
+            active=torch.as_tensor(schedule.active[r][rows], device=dev),
+            local_mask=torch.as_tensor(schedule.local_mask[r][:, rows], device=dev),
+            pattern=int(schedule.pattern[r]),
+            comp_scale=None if schedule.comp_scale is None else schedule.comp_scale[r],
+            trigger=None if schedule.trigger is None else schedule.trigger[r],
+        )
+
+    # ---- state and batches --------------------------------------------------
+    def init_state(self, seed: int = 0, params: Optional[Tree] = None) -> Any:
+        """The initial state at this rank's rows: the model's parameters
+        from ``seed`` (or ``params``, e.g. the reference's carried across by
+        ``convert.params_from_numpy``) broadcast over this rank's nodes,
+        then the channel's wire state (all N rows for a replicated wire)."""
+        m = self.mesh
+        if params is None:
+            params = self.model.init(seed, device=m.device)
+        stacked = tree_map(
+            lambda p: p.to(m.device).unsqueeze(0).repeat((m.n_local,) + (1,) * p.dim()), params)
+        return attach_channel_state(self.algorithm, self.algorithm.init(stacked),
+                                    n_nodes=self.n_nodes)
+
+    def local_batch(self, global_batches: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """This rank's nodes of ``(round_len, N, b, ...)`` batches (numpy
+        arrays or tensors), as tensors on the mesh's device."""
+        m = self.mesh
+
+        def rows(v):
+            t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+            return t[:, m.lo:m.hi].to(m.device)
+
+        return {k: rows(v) for k, v in global_batches.items()}
+
+
+def _layout(abstract_state, alg, params) -> Any:
+    """``TrainJob.state_layout``: ``abstract_state``'s structure with every
+    tensor's layout (the reference's ``state_shardings``)."""
+    chan = alg.comm.resolved_channel()
+    fields = {}
+    for f in dataclasses.fields(type(abstract_state)):
+        v = getattr(abstract_state, f.name)
+        if isinstance(v, ChannelState):
+            fields[f.name] = ChannelState(
+                wire=tuple(chan.for_buffer(i).wire_spec(params) for i in range(len(v.wire))),
+                event="host")
+        elif isinstance(v, int):
+            fields[f.name] = "host"
+        else:
+            fields[f.name] = map_tensors(lambda _: "node", v)
+    return type(abstract_state)(**fields)
+
+
+def make_train_job(
+    cfg: ModelConfig,
+    mesh: NodeMesh,
+    *,
+    algorithm="dse_mvr",
+    tau: int = 4,
+    lr: float = 1e-3,
+    alpha: float = 0.05,
+    gossip: str = "roll",
+    profile=None,
+    state_dtype=torch.float32,
+    grad_accum: int = 1,
+    algorithm_kwargs: Optional[Dict[str, Any]] = None,
+    scenario=None,
+    use_fused: bool = False,
+    compression=None,
+    channel=None,
+    wire_mode: str = "auto",
+    overlap: bool = False,
+    comm_seed_fn: Optional[SeedFn] = None,
+) -> TrainJob:
+    """Build a sharded decentralized training round for any registered
+    algorithm (a name from ``repro_torch.core.ALGORITHMS``, or a ready
+    ``DecentralizedAlgorithm``); cadence, round length and the reset
+    gradient come from its ``CommSpec``.
+
+    The keywords are the reference's.  ``use_fused=True`` routes the update
+    arithmetic through the fused-op backend (``repro_torch.kernels.api``:
+    kernel launches on CUDA tensors, the plain versions on the CPU).
+    ``compression`` and ``channel`` set the gossip codec and protocol
+    (ignored when ``algorithm`` is an instance).  ``wire_mode`` picks the
+    difference channels' wire backend:
+
+      * ``"neighbor"``  -- one replica tree per incoming shift; only the
+        packed difference payload rolls (shift-structured schedules);
+      * ``"allgather"`` -- the packed payload is all-gathered, the replica
+        update and the W contraction run on every rank (any W_t; for the
+        sync channel on the dense contraction, ``allgather_combine``);
+      * ``"dense"``     -- replica trees move through the mix, dense;
+      * ``"auto"``      -- neighbor on shift-structured schedules; allgather
+        for choco / async with an active codec where faults rewrite W;
+        dense otherwise.
+
+    ``overlap=True`` double-buffers a choco / async channel's sends against
+    the local steps.  With a ``scenario`` the step takes this rank's
+    :class:`RoundCtx`; shift-structured schedules with W-preserving faults
+    gossip by rotations selected by ``ctx.pattern`` (``gossip="roll"``),
+    everything else by the dense contraction with W_t.
+
+    ``comm_seed_fn(event, buffer, leaf)`` gives the codecs' uint32 seeds
+    (default: ``core.simulate.default_comm_seed_fn(0)``); the port never
+    re-derives the reference's threefry keys.
+
+    Every node is one model replica on its rank's device.  ``profile``, the
+    reference's within-node layout, is refused when given: ROADMAP queue 1
+    item 8 (b)."""
+    if profile is not None:
+        raise NotImplementedError(
+            f"sharding profile {profile!r}: the within-node layouts (tp / fsdp / 2d) need "
+            "more than one card a node, ROADMAP queue 1 item 8 (b)")
+    n_nodes = mesh.n_nodes
+    topology = ring(n_nodes)
+    model = Model(cfg)
+
+    if isinstance(algorithm, DecentralizedAlgorithm):
+        alg = algorithm
+    else:
+        alg = make_algorithm(
+            algorithm, lr=lr, alpha=alpha, tau=tau,
+            fuse_tracking_buffers=True, state_dtype=state_dtype,
+            use_fused=use_fused, compression=compression, channel=channel,
+            **(algorithm_kwargs or {}),
+        )
+    round_len = alg.comm.round_len(getattr(alg, "tau", 1))
+    if wire_mode not in ("auto", "dense", "neighbor", "allgather"):
+        raise ValueError(f"wire_mode must be auto/dense/neighbor/allgather, got {wire_mode!r}")
+    chan = alg.comm.resolved_channel()
+    if overlap:
+        if not isinstance(chan, ChocoChannel):
+            raise ValueError(
+                "overlap=True requires a choco/async channel (got "
+                f"{getattr(chan, 'name', None)!r}): sync gossip has no replica to mix "
+                "against while the message is in flight")
+        alg = dataclasses.replace(alg, channel=dataclasses.replace(chan, overlap=True))
+        chan = alg.comm.resolved_channel()
+    bound = None if chan is None else chan.at_rows(mesh.lo)
+    if bound is not chan:
+        # this rank's codec numbers its noise from its first global node
+        alg = dataclasses.replace(alg, channel=bound)
+        chan = alg.comm.resolved_channel()
+
+    def _rebind_channel(**updates):
+        """Rewire the difference channel's wire mode and rebuild the
+        algorithm, so that the executor and the state see one channel."""
+        nonlocal alg, chan
+        alg = dataclasses.replace(alg, channel=dataclasses.replace(chan, **updates))
+        chan = alg.comm.resolved_channel()
+
+    # the sync channel encodes the buffers themselves and its packed
+    # payloads move through the payload combine; difference / stale channels
+    # encode replica differences and deliver through the wire hooks
+    comp = chan.compression if isinstance(chan, SyncChannel) else None
+    diff_chan = isinstance(chan, ChocoChannel)
+    diff_codec = diff_chan and chan.compression is not None and not chan.compression.is_identity
+    compressed_combine = None   # None: mix the decoded messages
+    hooks: Dict[str, Any] = {}
+
+    def _replicated_wire():
+        """The compressed allgather's wire: held replicated, fed by
+        all-gathered payloads."""
+        _rebind_channel(replicated_wire=True)
+        hooks.update(gather_payload=replicate_gather(mesh), pin_replicated=replicate_pin(mesh),
+                     run_local=replicated_local(mesh), pin_node=node_pin(mesh))
+
+    if scenario is not None:
+        scenario.warn_if_vacuous(round_len, runtime_batches=True)
+        rotations = (None if scenario.mutates_w or n_nodes == 1
+                     else scenario.topology_schedule(n_nodes).rotations())
+        if n_nodes == 1:
+            mix_fn = lambda tree, ctx: tree  # noqa: E731
+        elif gossip == "roll" and rotations and wire_mode != "allgather":
+            mix_fn = scheduled_rotation_mix(rotations, mesh)
+            if comp is not None:
+                compressed_combine = rotation_combine(comp, rotations, scheduled=True, mesh=mesh)
+            if diff_chan and wire_mode in ("auto", "neighbor"):
+                ex = neighbor_exchange(rotations, scheduled=True, mesh=mesh)
+                _rebind_channel(neighbor_shifts=ex.shifts)
+                hooks["neighbor"] = ex
+        elif gossip in ("roll", "dense"):
+            mix_fn = scheduled_dense_mix(mesh)
+            # "auto" gathers payloads only where the fallback used to be
+            # dense with no wire win: fault-rewritten W on the roll backend
+            rewritten = gossip == "roll" and scenario.mutates_w
+            want_ag = wire_mode == "allgather" or (wire_mode == "auto" and rewritten)
+            if want_ag and comp is not None:
+                compressed_combine = allgather_combine(comp, mesh, scheduled=True)
+            if want_ag and diff_codec:
+                _replicated_wire()
+        else:
+            raise ValueError(gossip)
+    elif n_nodes == 1:
+        mix_fn = identity_mix
+    elif gossip == "dense" or (gossip == "roll" and wire_mode == "allgather"):
+        mix_fn = dense_mix(topology.w, mesh=mesh)
+        if wire_mode == "allgather":
+            if comp is not None:
+                compressed_combine = allgather_combine(comp, mesh, w=topology.w)
+            if diff_codec:
+                _replicated_wire()
+    elif gossip == "roll":
+        rotation = Rotation.from_topology(topology)
+        mix_fn = roll_mix(topology, mesh)
+        if comp is not None:
+            compressed_combine = rotation_combine(comp, (rotation,), mesh=mesh)
+        if diff_chan and wire_mode in ("auto", "neighbor"):
+            ex = neighbor_exchange((rotation,), scheduled=False, mesh=mesh)
+            _rebind_channel(neighbor_shifts=ex.shifts)
+            hooks["neighbor"] = ex
+    else:
+        raise ValueError(gossip)
+
+    # ---- per-node loss and gradients, a loop over this rank's nodes ----
+    def node_grads(params: Tree, batch: Dict[str, torch.Tensor], losses=None) -> Tree:
+        """Each node's gradient of its own loss, stacked; ``grad_accum``
+        microbatches accumulate in fp32.  ``losses`` collects each node's
+        loss (the first microbatch's with accumulation, the value the
+        reference's metrics read)."""
+        leaves, treedef = tree_flatten(params)
+        out = [torch.empty_like(p) for p in leaves]
+        for i in range(leaves[0].shape[0]):
+            node = {k: v[i] for k, v in batch.items()}
+            b = next(iter(node.values())).shape[0]
+            if b % grad_accum:
+                raise ValueError(f"per-node batch {b} does not split into {grad_accum} "
+                                 "microbatches")
+            mb = b // grad_accum
+            acc = None
+            for j in range(grad_accum):
+                p_i = [p[i].detach().requires_grad_(True) for p in leaves]
+                part = {k: v[j * mb:(j + 1) * mb] for k, v in node.items()}
+                with torch.enable_grad():
+                    loss = model.loss(tree_unflatten(treedef, p_i), part, dtype=torch.bfloat16)
+                    g = torch.autograd.grad(loss, p_i)
+                if losses is not None and j == 0:
+                    losses.append(loss.detach().float())
+                if grad_accum == 1:
+                    acc = g
+                elif acc is None:
+                    acc = [gi.float() for gi in g]
+                else:
+                    acc = [a + gi.float() for a, gi in zip(acc, g)]
+            for o, a in zip(out, acc):
+                o[i].copy_(a if grad_accum == 1 else a / grad_accum)
+        return tree_unflatten(treedef, out)
+
+    loss_cell: list = []
+
+    def comm_grad(params, batch):
+        """The comm step's gradients, recording the nodes' losses."""
+        losses: list = []
+        grads = node_grads(params, batch, losses)
+        loss_cell.append(torch.stack(losses).sum())
+        return grads
+
+    round_step, _ = make_round_step(
+        alg, mix_fn, grad_of_batch=node_grads,
+        comm_seed_fn=comm_seed_fn or default_comm_seed_fn(0),
+        comm_grad_of_batch=comm_grad,
+        scheduled=scenario is not None,
+        gate_local=scenario.needs_local_gate if scenario is not None else True,
+        gate_active=scenario.needs_active_gate if scenario is not None else True,
+        compressed_combine=compressed_combine,
+        transport_hooks=hooks or None,
+    )
+
+    def base_metrics(state) -> Dict[str, torch.Tensor]:
+        dev = mesh.device
+        direction = next((getattr(state, name) for name in ("v", "m", "u", "y")
+                          if getattr(state, name, None) is not None), None)
+        loss = (mesh.all_reduce_sum(loss_cell[0]) / n_nodes if loss_cell
+                else torch.zeros((), device=dev))
+        v_norm = torch.zeros((), device=dev)
+        if direction is not None:
+            v_norm = mesh.all_reduce_sum(sum(
+                torch.sum(v.float() ** 2) for v in tree_leaves(direction)))
+        return {"loss": loss, "v_norm": v_norm}
+
+    stream_fn = None
+    if scenario is not None:
+        from ..scenarios.metrics import make_stream_fn  # lazy: launch <- scenarios
+
+        # the runtime's reference is the buffer mean (no full-batch closure)
+        stream_fn = make_stream_fn(buffer_name=getattr(alg, "tracking_buffer", None),
+                                   comm_buffers=alg.comm.buffers, mesh=mesh)
+
+    def step_fn(state, batches: Dict[str, torch.Tensor], ctx: Optional[RoundCtx] = None):
+        if (ctx is None) != (scenario is None):
+            raise ValueError("step_fn takes a RoundCtx exactly when the job has a scenario")
+        loss_cell.clear()
+        steps = [{k: v[t] for k, v in batches.items()} for t in range(round_len)]
+        state = round_step(state, steps) if ctx is None else round_step(state, steps, ctx)
+        metrics = base_metrics(state)
+        if stream_fn is not None:
+            metrics.update(stream_fn(state, ctx))
+        return state, metrics
+
+    # ---- the abstract state: meta tensors, nothing allocated ----
+    shapes = model.param_shapes(dtype=torch.float32)
+    stacked = tree_map(
+        lambda s: torch.empty((mesh.n_local,) + tuple(s.shape), dtype=s.dtype, device="meta"),
+        shapes)
+    abstract_state = abstract_channel_state(alg, alg.init(stacked), n_nodes=n_nodes)
+
+    return TrainJob(
+        model=model, mesh=mesh, algorithm=alg,
+        tau=int(getattr(alg, "tau", 1)), round_len=round_len, n_nodes=n_nodes,
+        gossip=gossip, step_fn=step_fn, abstract_state=abstract_state,
+        state_layout=_layout(abstract_state, alg, stacked), scenario=scenario,
+    )

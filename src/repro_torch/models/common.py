@@ -5,7 +5,9 @@ Counterpart of ``repro.models.common`` on one device.  The reference tags
 every parameter and activation with logical sharding axes
 (``logical_constraint``, ``axis_rules``, ``LogicalAxes`` and the
 initializer's specs and shapes modes); on one device they are the identity,
-so the port has none of them (sharding is ROADMAP queue 1 item 8).
+so the port has none of them.  The sharded engine
+(``launch/distributed.py``) keeps each node on one device; the within-node
+layouts they steer are ROADMAP queue 1 item 8 (b).
 """
 from __future__ import annotations
 

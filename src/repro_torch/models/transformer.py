@@ -227,10 +227,18 @@ class Model:
     def init(self, seed: int = 0, dtype=None, device=None) -> Tree:
         """Random parameters from ``seed`` (a ``torch.Generator`` on the
         target device; not the reference's ``jax.random`` numbers)."""
-        cfg = self.cfg
         dev = resolve_device(device)
-        ini = Initializer(torch.Generator(device=dev).manual_seed(int(seed)),
-                          dtype or cfg.param_dtype, dev)
+        return self._init_with(Initializer(torch.Generator(device=dev).manual_seed(int(seed)),
+                                           dtype or self.cfg.param_dtype, dev))
+
+    def param_shapes(self, dtype=None) -> Tree:
+        """The parameter tree as meta tensors: shapes and dtypes, nothing
+        allocated (the reference's ``param_shapes``)."""
+        return self._init_with(Initializer(torch.Generator(), dtype or self.cfg.param_dtype,
+                                           "meta"))
+
+    def _init_with(self, ini: Initializer) -> Tree:
+        cfg = self.cfg
         params: Dict[str, Any] = {
             "embed": ini.param((cfg.vocab_size, cfg.d_model), init="embed", scale=0.02),
         }

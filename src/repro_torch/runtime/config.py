@@ -4,8 +4,8 @@ Counterpart of ``repro.runtime.config``, copied, with one field more,
 ``device``: the worker processes build their engines there (CUDA unless
 the caller asks for the CPU), and it travels in WELCOME with the rest.
 The reference's per-worker device mesh (``jax_distributed``,
-``host_devices``) belongs to the sharded engine, ROADMAP queue 1 item 8:
-asking for it raises ``NotImplementedError``.
+``host_devices``) needs more than one card a worker, ROADMAP queue 1 item 8
+(b): asking for it raises ``NotImplementedError``.
 
 The coordinator materializes schedules and the workers build engines from the
 same ``RuntimeConfig`` — a worker never receives arrays it could derive, it
@@ -43,9 +43,9 @@ class RuntimeConfig:
                 (:func:`owned_nodes`); n_workers == n_nodes gives one node
                 per process.
     host_devices: devices per worker; only 1 (a worker's device mesh is
-                the sharded engine's, ROADMAP queue 1 item 8).
+                ROADMAP queue 1 item 8 (b)).
     jax_distributed: the reference's global device mesh across the group;
-                only False (ROADMAP queue 1 item 8).
+                only False (ROADMAP queue 1 item 8 (b)).
     packed_transport: "auto" rides the packed (wire-true) round protocol
                 whenever the algorithm qualifies (every gossiped buffer on
                 an overlap choco-family channel — see
@@ -85,9 +85,9 @@ class RuntimeConfig:
     def __post_init__(self):
         if self.jax_distributed or self.host_devices != 1:
             raise NotImplementedError(
-                "a worker's device mesh (jax_distributed=True, host_devices != 1) belongs "
-                "to the sharded engine, which is not ported to repro_torch yet (ROADMAP "
-                "queue 1 item 8)")
+                "a worker's device mesh (jax_distributed=True, host_devices != 1) needs "
+                "more than one card a worker, which repro_torch does not support yet "
+                "(ROADMAP queue 1 item 8 (b))")
 
     @property
     def hyperparams(self) -> Dict[str, Any]:

@@ -29,6 +29,13 @@ next evaluation point, as the reference's scan emits its ys:
 
 ``STREAM_FIELDS`` is the telemetry registry's ``TRAINING_STREAM_FIELDS``
 (``repro_torch.telemetry.registry``), re-exported as the reference does.
+
+With a ``mesh`` (the sharded engine's :class:`~repro_torch.launch.mesh.
+NodeMesh`) the state and the round context hold this rank's rows, and every
+sum over nodes is completed by ``mesh.all_reduce_sum``: the active mean
+x̄, the squared distances, the residuals, the ages and send masks.  The
+spectral gap takes all of W_t and the active mask, gathered by
+``mesh.full``.  Every rank gets the same values.
 """
 from __future__ import annotations
 
@@ -62,26 +69,31 @@ def _nan(device) -> torch.Tensor:
     return torch.full((), float("nan"), dtype=torch.float32, device=device)
 
 
-def _weights(n: int, active: Optional[torch.Tensor], device):
-    """(a, k): the fp32 active mask and max(|a|, 1)."""
+def _sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A sum over this rank's nodes completed over every rank's."""
+    return x if mesh is None else mesh.all_reduce_sum(x)
+
+
+def _weights(n: int, active: Optional[torch.Tensor], device, mesh=None):
+    """(a, k): the fp32 active mask of these rows and max(|a|, 1) over all."""
     a = (torch.ones(n, dtype=torch.float32, device=device) if active is None
          else active.float())
-    return a, torch.clamp(a.sum(), min=1.0)
+    return a, torch.clamp(_sum(a.sum(), mesh), min=1.0)
 
 
-def masked_consensus(tree: Tree, active: Optional[torch.Tensor]) -> torch.Tensor:
+def masked_consensus(tree: Tree, active: Optional[torch.Tensor], mesh=None) -> torch.Tensor:
     """Σ_{i active} ||x_i - x̄_active||² over the whole tree."""
     leaves = tree_leaves(tree)
     n = leaves[0].shape[0]
-    a, k = _weights(n, active, leaves[0].device)
+    a, k = _weights(n, active, leaves[0].device, mesh)
 
     def one(x):
         xf = x.float().reshape(n, -1)
-        mean = (a @ xf) / k
+        mean = _sum(a @ xf, mesh) / k
         d = (xf - mean[None]) * a[:, None]
         return torch.sum(d * d)
 
-    return sum(one(x) for x in leaves)
+    return _sum(sum(one(x) for x in leaves), mesh)
 
 
 def tracking_buffer(state, name: Optional[str]) -> Optional[Tree]:
@@ -96,26 +108,30 @@ def tracking_error(
     active: Optional[torch.Tensor],
     grad_at_mean: Optional[Callable[[Tree], Tree]] = None,
     buffer_name: Optional[str] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Σ_{i active} ||b_i − g*||² of the declared buffer (NaN when the
     algorithm declares none).  ``grad_at_mean`` maps the node-mean params
-    x̄ to ∇f(x̄); without it the buffer's active mean is the reference."""
+    x̄ to ∇f(x̄) (the Simulator's; not with a mesh); without it the buffer's
+    active mean is the reference."""
     buf = tracking_buffer(state, buffer_name)
     if buf is None:
         return _nan(tree_leaves(state.params)[0].device)
+    if grad_at_mean is not None and mesh is not None:
+        raise ValueError("tracking_error takes grad_at_mean or a mesh, not both")
     leaves = tree_leaves(buf)
     n = leaves[0].shape[0]
-    a, k = _weights(n, active, leaves[0].device)
+    a, k = _weights(n, active, leaves[0].device, mesh)
     if grad_at_mean is not None:
         xbar = tree_map(lambda p: p.float().mean(dim=0), state.params)
         ref = [r.float().reshape(-1) for r in tree_leaves(grad_at_mean(xbar))]
     else:
-        ref = [(a @ x.float().reshape(n, -1)) / k for x in leaves]
+        ref = [_sum(a @ x.float().reshape(n, -1), mesh) / k for x in leaves]
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for x, r in zip(leaves, ref):
         d = (x.float().reshape(n, -1) - r[None]) * a[:, None]
         total = total + torch.sum(d * d)
-    return total
+    return _sum(total, mesh)
 
 
 def effective_spectral_gap(w: torch.Tensor, active: Optional[torch.Tensor]) -> torch.Tensor:
@@ -134,10 +150,12 @@ def effective_spectral_gap(w: torch.Tensor, active: Optional[torch.Tensor]) -> t
     return torch.linalg.eigvalsh(m).abs().amax(dim=-1)
 
 
-def replica_drift(state, comm_buffers: Optional[Sequence[str]] = None) -> torch.Tensor:
+def replica_drift(state, comm_buffers: Optional[Sequence[str]] = None,
+                  mesh=None) -> torch.Tensor:
     """Σ ||b − x̂||² between each gossiped buffer and its channel replica
     (the ``"hat"`` wire entries, matched to ``comm_buffers`` by position);
-    NaN for channels without replicas."""
+    NaN for channels without replicas.  A replicated wire's replica is
+    taken at this rank's rows."""
     comp = getattr(state, "comp", None)
     if comp is None or comm_buffers is None:
         return _nan(tree_leaves(state.params)[0].device)
@@ -148,27 +166,36 @@ def replica_drift(state, comm_buffers: Optional[Sequence[str]] = None) -> torch.
         buf = getattr(state, name, None)
         if buf is None:
             continue
-        for b, h in zip(tree_leaves(buf), tree_leaves(wire["hat"])):
+        hat = wire["hat"] if mesh is None else mesh.rows(wire["hat"])
+        for b, h in zip(tree_leaves(buf), tree_leaves(hat)):
             d = b.float() - h.float()
             total = torch.sum(d * d) + (0.0 if total is None else total)
-    return _nan(tree_leaves(state.params)[0].device) if total is None else total
+    return _nan(tree_leaves(state.params)[0].device) if total is None else _sum(total, mesh)
 
 
-def staleness(state) -> torch.Tensor:
+def _node_mean(v: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of a per-node vector over all N nodes; a replicated wire's
+    vector holds them all already."""
+    if mesh is None or v.shape[0] == mesh.n_nodes:
+        return v.float().mean()
+    return mesh.all_reduce_sum(v.float().sum()) / mesh.n_nodes
+
+
+def staleness(state, mesh=None) -> torch.Tensor:
     """Mean per-node snapshot age over async wire buffers (NaN otherwise)."""
     ages = _wire_entries(state, "age")
     if not ages:
         return _nan(tree_leaves(state.params)[0].device)
-    return sum(a.float().mean() for a in ages) / len(ages)
+    return sum(_node_mean(a, mesh) for a in ages) / len(ages)
 
 
-def send_rate(state) -> torch.Tensor:
+def send_rate(state, mesh=None) -> torch.Tensor:
     """Share of (node, buffer) sites that sent this round (NaN when no
     async wire state is attached)."""
     sent = _wire_entries(state, "sent")
     if not sent:
         return _nan(tree_leaves(state.params)[0].device)
-    return sum(s.float().mean() for s in sent) / len(sent)
+    return sum(_node_mean(s, mesh) for s in sent) / len(sent)
 
 
 def make_stream_fn(
@@ -176,30 +203,43 @@ def make_stream_fn(
     buffer_name: Optional[str] = None,
     comm_buffers: Optional[Sequence[str]] = None,
     spectral_gap: bool = True,
+    mesh=None,
 ):
     """The per-round stream function ``(state, ctx) -> dict`` of 0-d fp32
     tensors, one per :data:`STREAM_FIELDS` entry.
 
     ``spectral_gap=False`` leaves that field out, for callers that compute
-    it for a whole chunk of rounds in one batched call."""
+    it for a whole chunk of rounds in one batched call.  With a ``mesh`` the
+    state and ``ctx`` hold this rank's rows (module docstring)."""
 
     def stream(state, ctx) -> dict:
         active = ctx.active
         leaf = tree_leaves(state.params)[0]
         n, dev = leaf.shape[0], leaf.device
         out = {
-            "consensus": masked_consensus(state.params, active),
-            "tracking_err": tracking_error(state, active, grad_at_mean, buffer_name),
+            "consensus": masked_consensus(state.params, active, mesh),
+            "tracking_err": tracking_error(state, active, grad_at_mean, buffer_name, mesh),
         }
         if spectral_gap:
-            out["spectral_gap"] = (effective_spectral_gap(ctx.w, active)
-                                   if ctx.w is not None else _nan(dev))
-        out["active_nodes"] = (active.float().sum() if active is not None
-                               else torch.tensor(float(n), device=dev))
-        out["compression_err"] = compression_error(state)
-        out["replica_drift"] = replica_drift(state, comm_buffers)
-        out["staleness"] = staleness(state)
-        out["send_rate"] = send_rate(state)
+            if ctx.w is None:
+                out["spectral_gap"] = _nan(dev)
+            elif mesh is None:
+                out["spectral_gap"] = effective_spectral_gap(ctx.w, active)
+            else:
+                # all of W_t and of the mask, gathered where other ranks
+                # hold rows of them
+                full = mesh.full if mesh.world > 1 else (lambda t: t)
+                out["spectral_gap"] = effective_spectral_gap(
+                    full(ctx.w), None if active is None else full(active))
+        out["active_nodes"] = (_sum(active.float().sum(), mesh) if active is not None
+                               else torch.tensor(float(n if mesh is None else mesh.n_nodes),
+                                                 device=dev))
+        residual = compression_error(state)
+        out["compression_err"] = (_sum(residual, mesh) if _wire_entries(state, "res")
+                                  else residual)
+        out["replica_drift"] = replica_drift(state, comm_buffers, mesh)
+        out["staleness"] = staleness(state, mesh)
+        out["send_rate"] = send_rate(state, mesh)
         return out
 
     return stream

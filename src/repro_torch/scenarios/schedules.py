@@ -9,9 +9,9 @@ graphs — Liu et al., arXiv:2301.01313).
 
 Shift-structured schedules additionally expose a static tuple of
 :class:`~repro_torch.core.mixing.Rotation` objects plus a per-round pattern
-index, which the reference's sharded runtime lowers to collective-permute
-rotations instead of dense gossip (the port's sharded engine is ROADMAP
-queue 1 item 8; the dense engine reads only W_t).
+index, which the sharded engine (``launch/distributed.py``) turns into
+neighbour send / recv rotations instead of dense gossip (the dense engine
+reads only W_t).
 
 A copy of ``repro.scenarios.schedules`` (numpy only).
 

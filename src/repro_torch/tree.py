@@ -3,13 +3,17 @@
 The port's counterpart of the ``jax.tree`` functions the reference uses.  A
 tree is a tensor (a leaf) or a dict whose values are trees; leaves are
 visited in sorted key order, as ``jax.tree`` orders dict keys, so a flat
-leaf list lines up with the reference's.
+leaf list lines up with the reference's.  :func:`map_tensors` walks the
+wider structures of the gossip wire (tuples, packed payloads, states).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, List, Tuple
 
-__all__ = ["tree_flatten", "tree_unflatten", "tree_leaves", "tree_map"]
+import torch
+
+__all__ = ["tree_flatten", "tree_unflatten", "tree_leaves", "tree_map", "map_tensors"]
 
 Tree = Any
 TreeDef = Any    # None for a leaf, else a tuple of (key, child TreeDef)
@@ -55,3 +59,19 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
             raise ValueError(f"tree structures differ ({r_def} vs {treedef})")
         others.append(r_leaves)
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def map_tensors(fn: Callable[[torch.Tensor], Any], obj: Any) -> Any:
+    """``fn`` applied to every tensor of a nested structure of dicts,
+    tuples, lists and dataclasses (packed payloads); anything else is kept
+    as it is."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: map_tensors(fn, v) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(map_tensors(fn, v) for v in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: map_tensors(fn, getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+    return obj

@@ -327,18 +327,32 @@ def test_overlap_and_per_buffer_specs_raise_like_the_reference():
 
 
 def test_sharded_engine_options_raise_not_implemented():
-    """The sharded engine's wire modes and transport hooks are ROADMAP queue 1
-    item 8; asking for them raises and says so."""
-    for make in (lambda: ChocoChannel(neighbor_shifts=(1, -1)),
-                 lambda: ChocoChannel(replicated_wire=True),
-                 lambda: AsyncChannel(overlap=True, defer_roll=True),
-                 lambda: Transport(lambda t: t, neighbor=object()),
-                 lambda: Transport(lambda t: t, gather_payload=lambda p: p),
-                 lambda: Transport(lambda t: t, run_local=lambda f: f),
-                 lambda: tproblem.make_algorithm("dse_mvr", 0.3, 4, 8,
-                                                 channel=ChocoChannel(replicated_wire=True))):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            make()
+    """The sharded engine's wire modes and transport hooks (ROADMAP queue 1
+    item 8, refused until the engine was ported) are built, each with the
+    reference's tag and fields; the engine's own tests are
+    ``test_torch_sharded*.py``."""
+    fields = ("gamma", "neighbor_shifts", "replicated_wire", "overlap", "defer_roll")
+    for make, jmake in ((lambda: ChocoChannel(neighbor_shifts=(1, -1)),
+                         lambda: JChocoChannel(neighbor_shifts=(1, -1))),
+                        (lambda: ChocoChannel(replicated_wire=True),
+                         lambda: JChocoChannel(replicated_wire=True)),
+                        (lambda: AsyncChannel(overlap=True, defer_roll=True),
+                         lambda: JAsyncChannel(overlap=True, defer_roll=True))):
+        got, want = make(), jmake()
+        assert got.tag == want.tag
+        assert [getattr(got, f) for f in fields] == [getattr(want, f) for f in fields]
+    hook = object()
+    for kw in (dict(neighbor=hook), dict(gather_payload=hook), dict(run_local=hook)):
+        (name, value), = kw.items()
+        got, want = Transport(lambda t: t, **kw), JTransport(lambda t: t, **kw)
+        assert getattr(got, name) is getattr(want, name) is value
+    run_local = Transport(lambda t: t, run_local=lambda f: (lambda *a: ("local", f(*a))))
+    assert run_local.local(lambda x: x + 1)(1) == ("local", 2)
+    got = tproblem.make_algorithm("dse_mvr", 0.3, 4, 8,
+                                  channel=ChocoChannel(replicated_wire=True))
+    want = j_registry_make("dse_mvr", lr=0.3, tau=4, channel=JChocoChannel(replicated_wire=True))
+    assert got.comm.resolved_channel().tag == want.comm.resolved_channel().tag == "choco"
+    assert got.comm.resolved_channel().replicated_wire
 
 
 def test_choco_top_k_event_dispatches_eight_packs_and_unpacks():

@@ -146,9 +146,9 @@ def test_init_matches_reference():
 
 
 def test_compression_and_channels_not_ported():
-    """Every codec and channel of the dense engine builds, with the
-    reference's tags; only the sharded engine's wire modes raise, and they
-    name the ROADMAP item."""
+    """Every codec and channel builds with the reference's tags, the
+    sharded engine's wire modes (once refused, naming ROADMAP queue 1 item
+    8) included."""
     from repro.core import dse as jdse
 
     for kw in (dict(compression="qsgd"), dict(compression="top_k"),
@@ -160,9 +160,14 @@ def test_compression_and_channels_not_ported():
         t = tdse.DSEMVR(lr=0.1, **kw).comm.resolved_channel()
         j = jdse.DSEMVR(lr=0.1, **kw).comm.resolved_channel()
         assert (t is None and j is None) or t.tag == j.tag, kw
+    from repro.compression import ChocoChannel as JChocoChannel
     from repro_torch.compression import ChocoChannel
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tdse.DSEMVR(lr=0.1, compression="top_k:0.1", channel=ChocoChannel(neighbor_shifts=(1,)))
+    # the sharded engine's neighbour wire (ROADMAP queue 1 item 8) is built
+    t = tdse.DSEMVR(lr=0.1, compression="top_k:0.1",
+                    channel=ChocoChannel(neighbor_shifts=(1,))).comm.resolved_channel()
+    j = jdse.DSEMVR(lr=0.1, compression="top_k:0.1",
+                    channel=JChocoChannel(neighbor_shifts=(1,))).comm.resolved_channel()
+    assert t.tag == j.tag == "choco_top_k0.1" and t.neighbor_shifts == j.neighbor_shifts == (1,)
     assert tdse.DSEMVR(lr=0.1, compression="qsgd").comm.resolved_channel().tag == "sync_ef_qsgd"
     assert dataclasses.is_dataclass(tdse.DSEState)

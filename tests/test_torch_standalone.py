@@ -33,7 +33,9 @@ for want in ("repro_torch.kernels.mvr_update.kernel", "repro_torch.kernels.comm_
              "repro_torch.runtime.worker", "repro_torch.runtime.coordinator",
              "repro_torch.runtime.launch",
              "repro_torch.serving.snapshot", "repro_torch.serving.replicas",
-             "repro_torch.serving.remote"):
+             "repro_torch.serving.remote", "repro_torch.launch.mesh",
+             "repro_torch.launch.distributed",
+             "repro_torch.launch.shapes", "repro_torch.compression.gossip"):
     assert want in names, (want, names)
 assert "jax" not in sys.modules, "jax was imported"
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
@@ -104,9 +106,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 
 def test_unported_algorithms_point_at_the_roadmap():
-    """Every algorithm and every gossip option of the dense engine is
-    ported; what the sharded engine alone needs (its wire modes and
-    transport hooks) raises and names the ROADMAP item."""
+    """Every algorithm and every gossip option is ported: the dense
+    engine's and the sharded engine's wire modes and transport hooks (once
+    refused, naming ROADMAP queue 1 item 8), each built with the
+    reference's fields."""
     from repro_torch.compression import AsyncChannel, ChocoChannel, Transport
     from repro_torch.core import ALGORITHMS
     from repro_torch.core import make_algorithm as registry_make
@@ -119,11 +122,22 @@ def test_unported_algorithms_point_at_the_roadmap():
     assert registry_make("gt_hsgd", lr=0.1, channel="async:2").comm.resolved_channel()
     assert registry_make("dse_mvr", lr=0.1, channel="choco", overlap=True).comm.channel.overlap
     assert registry_make("gt_hsgd", lr=0.1, channel={"y": "sync"}).comm.resolved_channel() is None
-    for fn in (lambda: make_algorithm("dse_mvr", 0.3, 4, 8,
-                                      channel=ChocoChannel(neighbor_shifts=(1, -1))),
-               lambda: registry_make("gt_hsgd", lr=0.1,
-                                     channel=AsyncChannel(replicated_wire=True)),
-               lambda: ChocoChannel(overlap=True, defer_roll=True),
-               lambda: Transport(lambda t: t, gather_payload=lambda p: p)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-            fn()
+    from repro.compression import AsyncChannel as JAsyncChannel
+    from repro.compression import ChocoChannel as JChocoChannel
+    from repro.compression import Transport as JTransport
+    from repro.core import make_algorithm as j_registry_make
+
+    got = make_algorithm("dse_mvr", 0.3, 4, 8, channel=ChocoChannel(neighbor_shifts=(1, -1)))
+    assert got.comm.resolved_channel().neighbor_shifts == \
+        JChocoChannel(neighbor_shifts=(1, -1)).neighbor_shifts
+    got = registry_make("gt_hsgd", lr=0.1, channel=AsyncChannel(replicated_wire=True))
+    want = j_registry_make("gt_hsgd", lr=0.1, channel=JAsyncChannel(replicated_wire=True))
+    assert got.comm.resolved_channel().tag == want.comm.resolved_channel().tag
+    assert got.comm.resolved_channel().replicated_wire == \
+        want.comm.resolved_channel().replicated_wire
+    got, want = ChocoChannel(overlap=True, defer_roll=True), \
+        JChocoChannel(overlap=True, defer_roll=True)
+    assert (got.tag, got.overlap, got.defer_roll) == (want.tag, want.overlap, want.defer_roll)
+    gather = lambda p: p  # noqa: E731
+    assert Transport(lambda t: t, gather_payload=gather).gather_payload is \
+        JTransport(lambda t: t, gather_payload=gather).gather_payload is gather
