@@ -111,24 +111,44 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    one process: roll gossip on 4 nodes (ring(4)) through the kernels,
    against dense gossip and against roll under ``dispatch_mode("ref")``,
    within rtol 5e-3 / atol 1e-4 after round 1 (the gap after round 3
-   printed); sync QSGD through ``rotation_combine`` on 3 nodes (ring(3):
-   two shifts, so the payload rolls, decodes and sums per shift) and
-   CHOCO top-k 0.01 on the neighbour wire and on ``wire_mode="dense"`` on
-   2 nodes (ring(2)), the two CHOCO wires held to the same band; launches
-   by op checked exactly (flash in every layer of every node's 5 forwards
-   a round; axpby 4, mvr_update 2, dse_combine 1 a round; the codecs' per
-   leaf and shift), QSGD's node-link bytes equal to its payload's, the
-   neighbour wire at least 4x below the dense wire's.  Cuts from 4 layers
-   x 4 nodes: at 4 and 3 layers the roll run passes the card, at 2 its
-   plain twin; QSGD on 4 nodes and CHOCO's neighbour wire on 3 or 4 pass
-   it (the comm step's whole-tree temporaries next to the wire's
-   replicas; PERF.md, ROADMAP queue 3).  Then 2 gloo ranks on the card, each
+   printed); sync QSGD through ``rotation_combine`` and CHOCO top-k 0.01
+   on the neighbour wire and on ``wire_mode="dense"``, also on 4 nodes
+   (two shifts, so the payload rolls, decodes and sums per shift), the
+   two CHOCO wires held to the same band; launches by op checked exactly
+   (flash in every layer of every node's 5 forwards a round; axpby 4,
+   mvr_update 2, dse_combine 1 a round, each once a ``tree_apply`` bucket:
+   5 at this width, the leaves of 2**24 elements or more alone; the
+   codecs' per leaf and shift), QSGD's node-link bytes equal to its
+   payload's, the neighbour wire at least 4x below the dense wire's; each
+   run's peak memory printed.  Cut from 4 layers to 1: at 2 layers the
+   roll run's plain twin passes the card (PERF.md).  Then 2 gloo ranks on
+   the card, each
    its own process, against a world-1 process, both deterministic
    (``torch.use_deterministic_algorithms``, cuBLAS workspace config): roll
-   and CHOCO for 2 rounds, final params bit for bit by per-node
+   on 4 nodes and CHOCO on 2 for 2 rounds, final params bit for bit by per-node
    fingerprints, process bytes, ms a round and each rank's launches.
    Every run prints ms a round, node-steps/s, peak memory, launches by op
    and the mesh's bytes a round beside the card's name and power limit;
+3f. the training CLI, its example and the sweep, on the example's lm-100m
+   at full width (12 layers, d 768, 12 heads on 4 KV heads, d_ff 2048,
+   vocab 16,384, tied; registered as a config module by the example, as a
+   user registers one), seq 128, global batch 8, through the kernels:
+   ``examples/decentralized_lm_torch.py --full --use-fused`` at world 1 (one
+   node, DSE-MVR tau 4, 3 rounds, the loss falling) and
+   ``repro_torch.launch.train --algorithm gt_dsgd --use-fused`` (4 steps:
+   ``add_sub`` on the CLI's path), launches checked exactly; then the CLI
+   over 4 gloo ranks on the card (``python -m torch.distributed.run
+   --standalone --nproc-per-node 4 chip_smoke.py --train-rank ...``, this
+   file each rank's script; one node a rank on ring(4)), DSE-MVR tau 2 for
+   3 rounds: roll gossip, ``--compression qsgd`` and ``--compression
+   top_k:0.01 --channel choco``, each rank's ``--telemetry-out`` JSONL read
+   back: the loss at every round (falling, the same on every rank), link
+   bytes together equal to ``link_bytes_per_round``, each rank's kernel
+   launches exactly the ops' counts, s a round and peak memory by rank,
+   rank 0's checkpoint of all 4 nodes read back finite; then
+   ``repro_torch.experiments.sweep --engines sim,sharded --compressors
+   identity,qsgd`` at the reference's other defaults: 8 cells, the
+   artifacts' schema, finite final losses, the codec kernels launched;
 4. the LM serving path at Gemma-2 2B's full width (26 layers, d 2304,
    vocab 256,000; random bf16 weights from a seed): ``make_serve_job(...).
    prefill_fn`` with ``attn_impl="pallas"`` on 2 prompts of 8192 tokens,
@@ -223,8 +243,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    B=2, S=128, decays inside the clamp envelope); ``serve.main`` and a
    4-slot ``RequestDriver`` through the bf16 ``decode_fn``;
 6. a ``{"kernels": [...]}`` line (with each op's phase 3d launches by
-   worker, ``elastic_launches``, and phase 3e's by process,
-   ``sharded_launches``), then the last line
+   worker, ``elastic_launches``, phase 3e's by process,
+   ``sharded_launches``, and phase 3f's by run and rank, ``cli_launches``),
+   then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -302,16 +323,35 @@ ELASTIC_CHOCO = (("channel", "choco"), ("compression", "top_k:0.1"), ("overlap",
 # DSE-MVR through the kernels (use_fused), tau SHARD_TAU, each node a batch
 # of 1 x (256 vision + TRAIN_TEXT) tokens, the same batches for every run;
 # runs held to the reference's band between its sharded job and its
-# single-device path.  The roll runs take SHARD_NODES nodes on ring(4); the
-# QSGD run SHARD_QSGD_NODES on ring(3) (two shifts); the CHOCO runs
-# SHARD_CHOCO_NODES on ring(2): on an H100 80GB, QSGD on 4 nodes and CHOCO's
-# neighbour wire on 3 run out of the card (scripts/sharded_memory_probe.py)
-SHARD_NODES, SHARD_QSGD_NODES, SHARD_CHOCO_NODES = 4, 3, 2
+# single-device path.  Every run takes 4 nodes on ring(4) (two shifts): the
+# codec runs fit the card since their whole-tree temporaries went
+# (scripts/sharded_memory_probe.py; PERF.md)
+SHARD_NODES = SHARD_QSGD_NODES = SHARD_CHOCO_NODES = 4
+# the 2-rank group's runs (two ranks share the card, each with its own
+# state): roll on 4 nodes, CHOCO on 2 (one a rank)
+SHARD_GROUP_NODES = {"roll": 4, "choco": 2}
 SHARD_TAU, SHARD_ROUNDS, SHARD_GROUP_ROUNDS = 3, 3, 2
 SHARD_LAYERS = 1
 SHARD_LR, SHARD_ALPHA, SHARD_TOP_K = 1e-2, 0.1, "top_k:0.01"
 SHARD_RTOL, SHARD_ATOL = 5e-3, 1e-4
 SHARD_DEADLINE = 900   # s, a spawned world of phase 3e
+# the CLI and the sweep (phase 3f): the example's lm-100m at full width (12
+# layers, d 768, 12 heads on 4 KV heads, d_ff 2048, vocab 16,384, tied;
+# attn_impl "xla", the reference's default, so no flash launch), seq 128,
+# global batch 8, lr CLI_LR, DSE-MVR through the kernels.  World 1: the
+# example (tau 4,
+# CLI_EXAMPLE_ROUNDS rounds) and GT-DSGD (CLI_GT_STEPS steps).  CLI_WORLD
+# gloo ranks on the card, one node each on ring(4), each its own process
+# started by torch.distributed.run: tau CLI_GROUP_TAU, CLI_GROUP_ROUNDS
+# rounds, roll gossip, QSGD and CHOCO top-k 0.01.  Then the sweep at the
+# reference's defaults on both engines, uncompressed and with QSGD
+CLI_EXAMPLE_ROUNDS, CLI_GT_STEPS, CLI_GROUP_ROUNDS, CLI_GROUP_TAU, CLI_WORLD = 3, 4, 3, 2, 4
+CLI_GROUP_RUNS = {"roll": [], "qsgd": ["--compression", "qsgd"],
+                  "choco": ["--compression", "top_k:0.01", "--channel", "choco"]}
+CLI_LR = 0.01   # the example's 0.1 diverges on lm-100m, in the reference too
+CLI_FLAGS = ["--arch", "lm-100m", "--seq-len", "128", "--global-batch", "8", "--lr",
+             str(CLI_LR), "--use-fused"]
+CLI_DEADLINE = 600     # s, a spawned group of phase 3f
 # the LM serving path: Gemma-2 2B at full width, prompts of its 8192 context
 LM_ARCH, LM_BATCH, LM_SEQ = "gemma2-2b", 2, 8192
 # fp32 flash_attention and rms_norm vs plain: other summation orders, the
@@ -3153,14 +3193,15 @@ def node_fingerprint(tree) -> list:
             .tolist() for t in tree_leaves(tree)]
 
 
-def sharded_run(api, mesh_of, tag: str, rounds: int, on_round=None) -> dict:
+def sharded_run(api, mesh_of, tag: str, rounds: int, on_round=None, nodes=None) -> dict:
     """``rounds`` rounds of phase 3e's run ``tag`` through ``make_train_job``
-    on ``mesh_of(nodes)``: per-round wall ms (fenced), loss, launches by op,
-    the mesh's bytes, peak memory; ``on_round(r, params)`` sees the params
-    after round r (1-based)."""
+    on ``mesh_of(nodes)`` (the run's own node count unless given): per-round
+    wall ms (fenced), loss, launches by op, the mesh's bytes, peak memory;
+    ``on_round(r, params)`` sees the params after round r (1-based)."""
     from repro_torch.launch.distributed import make_train_job, state_bytes
 
-    nodes, kw, mode = SHARD_RUNS[tag]
+    run_nodes, kw, mode = SHARD_RUNS[tag]
+    nodes = nodes or run_nodes
     cfg = shard_config(SHARD_LAYERS)
     mesh = mesh_of(nodes)
     job = make_train_job(cfg, mesh, tau=SHARD_TAU, lr=SHARD_LR, alpha=SHARD_ALPHA,
@@ -3187,6 +3228,7 @@ def sharded_run(api, mesh_of, tag: str, rounds: int, on_round=None) -> dict:
     chan = job.algorithm.comm.resolved_channel()
     out = {"tag": tag, "nodes": nodes, "wire": repr(chan),
            "shifts": len(getattr(chan, "neighbor_shifts", ()) or ()),
+           "buckets": api.bucket_count(job.abstract_state.params),
            "abstract_state_bytes": abstract, "ms": ms, "loss": losses,
            "launches": api.launch_counts(), "bytes": mesh.byte_counts(),
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -3196,6 +3238,14 @@ def sharded_run(api, mesh_of, tag: str, rounds: int, on_round=None) -> dict:
     del state, batches
     torch.cuda.empty_cache()
     return out
+
+
+def dse_launches(buckets: int, tau: int, rounds: int) -> dict:
+    """DSE-MVR's update launches (fused z) over ``rounds`` rounds: a local
+    step one axpby and one mvr_update, the comm step one dse_combine and two
+    axpby, each once a ``tree_apply`` bucket."""
+    return {"axpby": rounds * (tau + 1) * buckets, "mvr_update": rounds * (tau - 1) * buckets,
+            "dse_combine": rounds * buckets}
 
 
 def shard_gap(params, held: list) -> float:
@@ -3251,8 +3301,8 @@ def sharded_worker(world: int, rank: int, store: str, out: str) -> None:
     res = {"world": world, "rank": rank, "runs": {}}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        for tag in ("roll", "choco"):
-            res["runs"][tag] = sharded_run(api, mesh_of, tag, SHARD_GROUP_ROUNDS)
+        for tag, nodes in SHARD_GROUP_NODES.items():
+            res["runs"][tag] = sharded_run(api, mesh_of, tag, SHARD_GROUP_ROUNDS, nodes=nodes)
     res["nondeterministic"] = sorted({str(w.message)[:200] for w in caught})
     if world > 1:
         dist.destroy_process_group()
@@ -3298,8 +3348,9 @@ def spawn_world(world: int, tag: str) -> list:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for rank, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"sharded {tag} rank {rank} exited {p.returncode}:\n{log[-4000:]}"
+    bad = [f"rank {rank} exited {p.returncode}:\n{log[-3000:]}"
+           for rank, (p, log) in enumerate(zip(procs, logs)) if p.returncode != 0]
+    assert not bad, f"sharded {tag}: " + "\n".join(bad)
     return [json.loads(o.read_text()) for o in outs]
 
 
@@ -3359,17 +3410,19 @@ def sharded_path(api, smi: str) -> tuple:
     # gradients a local step, 1 at the comm step); the update ops as the
     # Simulator's DSE-MVR (fused z) issues them: a local step one axpby and
     # one mvr_update, a comm step one dse_combine and two axpby
+    # (each whole-tree op once a tree_apply bucket: the leaves of 2**24
+    # elements or more alone, the rest together)
     qsgd_shifts = len(ring(SHARD_QSGD_NODES).shifts)
     assert qsgd_shifts == 2, qsgd_shifts
     for tag, run in runs.items():
         fwd = SHARD_ROUNDS * run["nodes"] * (2 * (SHARD_TAU - 1) + 1)
         want = {} if tag == "roll_plain" else {
-            "flash_attention": SHARD_LAYERS * fwd, "axpby": SHARD_ROUNDS * (SHARD_TAU - 1 + 2),
-            "mvr_update": SHARD_ROUNDS * (SHARD_TAU - 1), "dse_combine": SHARD_ROUNDS}
+            "flash_attention": SHARD_LAYERS * fwd,
+            **dse_launches(run["buckets"], SHARD_TAU, SHARD_ROUNDS)}
         n = run["n_leaves"]
         if tag == "qsgd":
             # per leaf of both buffers an event: a quantize, and a dequantize
-            # for the node's own message and for each shift's (ring(3): two)
+            # for the node's own message and for each shift's (ring(4): two)
             want.update(qsgd_quantize=SHARD_ROUNDS * 2 * n,
                         qsgd_dequantize=SHARD_ROUNDS * 2 * n * (1 + qsgd_shifts))
         if tag in ("choco", "choco_dense"):
@@ -3430,6 +3483,218 @@ def sharded_path(api, smi: str) -> tuple:
             by_process[op][name] = sum(res["runs"][t]["launches"].get(op, 0)
                                        for t in res["runs"])
     return launches, by_process
+
+
+def cli_model():
+    """Phase 3f's model: the example's lm-100m, registered as a config module
+    by the example's own ``register``, as a user registers a config."""
+    example = load_example("decentralized_lm_torch")
+    cfg = example.lm_100m()
+    example.register(cfg)
+    return cfg
+
+
+def cli_shape(cfg, nodes: int) -> tuple:
+    """``(tree_apply buckets, leaf count, the tree)`` of ``cfg``'s parameters
+    stacked over ``nodes`` nodes, as meta tensors."""
+    from repro_torch.kernels import api
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    meta = tree_map(lambda s: torch.empty((nodes,) + tuple(s.shape), dtype=s.dtype,
+                                          device="meta"),
+                    Model(cfg).param_shapes(dtype=torch.float32))
+    return api.bucket_count(meta), len(tree_leaves(meta)), meta
+
+
+def train_rank(peak_out: str, argv: list) -> None:
+    """One rank of phase 3f's group (``chip_smoke.py --train-rank``), started
+    by ``torch.distributed.run``: the CLI's ``main`` on the example's model,
+    then this rank's peak device memory to ``<peak_out>.rank<r>``."""
+    import os
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cli_model()
+    from repro_torch.launch import train
+
+    train.main(argv)
+    Path(f"{peak_out}.rank{os.environ['RANK']}").write_text(json.dumps(
+        {"peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
+
+
+def read_telemetry(path: Path) -> dict:
+    """A rank's telemetry JSONL: its losses by round, link bytes, kernel
+    launches by op and round span seconds."""
+    recs = [json.loads(line) for line in path.read_text().splitlines()]
+    samples = [r for r in recs if r["event"] == "sample"]
+    launches: dict = {}
+    for r in samples:
+        if r["stream"] == "kernel_launches":
+            launches[r["label"]] = launches.get(r["label"], 0) + int(r["value"])
+    return {"loss": {r["step"]: r["value"] for r in samples if r["stream"] == "train_loss"},
+            "link_bytes": sum(r["value"] for r in samples if r["stream"] == "link_bytes"),
+            "launches": launches,
+            "span_s": [r["seconds"] for r in recs if r["event"] == "span"]}
+
+
+def spawn_cli_group(tag: str, extra: list) -> tuple:
+    """Phase 3f's ``CLI_WORLD``-rank run ``tag``: ``torch.distributed.run``
+    starting this file as each rank's script, on the one card; returns the
+    run's directory and its wall seconds."""
+    import os
+    import signal
+
+    out = ROOT / "build" / "cli" / tag
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               PYTHONPATH=str(ROOT / "src") + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(CLI_WORLD), str(ROOT / "chip_smoke.py"), "--train-rank", str(out / "peak"),
+           *CLI_FLAGS, "--steps", str(CLI_GROUP_ROUNDS), "--tau", str(CLI_GROUP_TAU),
+           "--out", str(out), "--ckpt-every", str(CLI_GROUP_ROUNDS),
+           "--telemetry-out", str(out / "tel.jsonl"), *extra]
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        log = proc.communicate(timeout=CLI_DEADLINE)[0]
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    wall = time.perf_counter() - t
+    assert proc.returncode == 0, f"cli group {tag} exited {proc.returncode}:\n{log[-6000:]}"
+    print("\n".join(f"cli {tag}: {line}" for line in log.splitlines() if "[train]" in line))
+    return out, wall
+
+
+def cli_path(api, smi: str) -> tuple:
+    """Phase 3f: the training CLI, the example and the sweep on the card.
+    Returns every run's launches (this process's and the ranks') and each
+    op's phase 3f launches by run."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.compression import link_bytes_per_round
+    from repro_torch.core import make_algorithm, ring
+    from repro_torch.experiments import sweep
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = cli_model()
+    runs, by_run = [], {}
+
+    def count(name, launches):
+        runs.append(launches)
+        for op, n in launches.items():
+            by_run.setdefault(op, {})[name] = n
+
+    # 1. world 1: the example (DSE-MVR, tau 4) and GT-DSGD, in this process
+    buckets1, _, _ = cli_shape(cfg, 1)
+    torch.cuda.reset_peak_memory_stats()
+    api.reset_counters()
+    t = time.perf_counter()
+    hist = load_example("decentralized_lm_torch").main(
+        ["--full", "--steps", str(CLI_EXAMPLE_ROUNDS), "--use-fused", "--lr", str(CLI_LR),
+         "--out", str(ROOT / "build" / "cli" / "example")])
+    wall = time.perf_counter() - t
+    got = api.launch_counts()
+    losses = [h["loss"] for h in hist]
+    print(f"cli example lm-100m world 1 ({smi}): {CLI_EXAMPLE_ROUNDS} rounds of tau 4 in "
+          f"{wall:.1f} s (token stream included), s a round "
+          f"{[round(b['t'] - a['t'], 3) for a, b in zip([{'t': 0.0}] + hist, hist)]}, loss "
+          f"{losses}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+          f"{json.dumps(got)}; {buckets1} buckets")
+    assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], losses
+    assert got == dse_launches(buckets1, 4, CLI_EXAMPLE_ROUNDS), got
+    count("example", got)
+
+    api.reset_counters()
+    t = time.perf_counter()
+    hist = train.main(CLI_FLAGS + ["--algorithm", "gt_dsgd", "--steps", str(CLI_GT_STEPS)])
+    got = api.launch_counts()
+    print(f"cli gt_dsgd lm-100m world 1 ({smi}): {CLI_GT_STEPS} steps in "
+          f"{time.perf_counter() - t:.1f} s, loss {[h['loss'] for h in hist]}, launches "
+          f"{json.dumps(got)}")
+    assert all(math.isfinite(h["loss"]) for h in hist)
+    # a step one axpby (the x step) and one add_sub (the tracking
+    # correction), each once a bucket
+    assert got == {"axpby": CLI_GT_STEPS * buckets1, "add_sub": CLI_GT_STEPS * buckets1}, got
+    count("gt_dsgd", got)
+
+    # 2. CLI_WORLD gloo ranks on the card: roll, QSGD, CHOCO top-k
+    _, n_leaves, meta_all = cli_shape(cfg, CLI_WORLD)
+    shifts = len(ring(CLI_WORLD).shifts)
+    assert shifts == 2, shifts
+    for tag, extra in CLI_GROUP_RUNS.items():
+        out, wall = spawn_cli_group(tag, extra)
+        ranks = [read_telemetry(out / ("tel.jsonl" if r == 0 else f"tel.jsonl.rank{r}"))
+                 for r in range(CLI_WORLD)]
+        peaks = [json.loads((out / f"peak.rank{r}").read_text())["peak_gib"]
+                 for r in range(CLI_WORLD)]
+        comp = dict(zip(extra[::2], extra[1::2]))
+        alg = make_algorithm("dse_mvr", lr=CLI_LR, tau=CLI_GROUP_TAU,
+                             compression=comp.get("--compression"),
+                             channel=comp.get("--channel"))
+        link = sum(link_bytes_per_round(alg.comm, meta_all).values()) * CLI_GROUP_ROUNDS
+        want = dse_launches(buckets1, CLI_GROUP_TAU, CLI_GROUP_ROUNDS)   # a node a rank
+        codec = comp.get("--compression")
+        per_leaf = 2 * n_leaves * CLI_GROUP_ROUNDS   # both buffers, a node a rank
+        if codec == "qsgd":
+            want.update(qsgd_quantize=per_leaf, qsgd_dequantize=per_leaf * (1 + shifts))
+        elif codec:
+            want.update(top_k_pack=per_leaf, top_k_unpack=per_leaf * (1 + shifts))
+        losses = [ranks[0]["loss"].get(r) for r in range(1, CLI_GROUP_ROUNDS + 1)]
+        got_link = sum(r["link_bytes"] for r in ranks)
+        params = load_checkpoint(str(out / "ckpt"), CLI_GROUP_ROUNDS, device="cpu")[0]
+        leaves = tree_leaves(params)
+        print(f"cli {tag} lm-100m on {CLI_WORLD} gloo ranks ({smi}): {wall:.1f} s wall "
+              f"(spawn, token stream, {CLI_GROUP_ROUNDS} rounds of tau {CLI_GROUP_TAU}); s a "
+              f"round by rank {json.dumps([[round(x, 3) for x in r['span_s']] for r in ranks])}; "
+              f"peak GiB by rank {[round(p, 2) for p in peaks]}; loss {losses}; link bytes "
+              f"{got_link:.0f} (link_bytes_per_round x rounds {link:.0f}); launches by rank "
+              f"{json.dumps([r['launches'] for r in ranks])} (each {json.dumps(want)})")
+        assert all(v is not None and math.isfinite(v) for v in losses), losses
+        assert losses[-1] < losses[0], (tag, losses)
+        for r in ranks[1:]:
+            assert r["loss"] == ranks[0]["loss"], tag
+        assert got_link == link, (tag, got_link, link)
+        for r in ranks:
+            assert r["launches"] == want, (tag, r["launches"], want)
+        assert len(leaves) == n_leaves and all(
+            x.shape[0] == CLI_WORLD and bool(torch.isfinite(x.float()).all()) for x in leaves)
+        for rank, r in enumerate(ranks):
+            count(f"{tag}_rank{rank}", r["launches"])
+
+    # 3. the sweep at the reference's defaults, both engines, with and
+    #    without QSGD
+    api.reset_counters()
+    t = time.perf_counter()
+    out = ROOT / "build" / "cli" / "sweep"
+    shutil.rmtree(out, ignore_errors=True)
+    rows = sweep.main(["--engines", "sim,sharded", "--compressors", "identity,qsgd",
+                       "--out", str(out), "--bench-out", str(out / "bench.json")])
+    got = api.launch_counts()
+    cells = {p.stem: json.loads(p.read_text()) for p in (out / "cells").glob("*.json")}
+    summary = [json.loads(line) for line in (out / "summary.jsonl").read_text().splitlines()]
+    bench = json.loads((out / "bench.json").read_text())
+    print(f"cli sweep ({smi}): {len(rows)} cells in {time.perf_counter() - t:.1f} s, wall by "
+          f"cell {json.dumps({r['cell_id']: r['wall_s'] for r in rows})}, launches "
+          f"{json.dumps(got)}")
+    assert len(rows) == len(cells) == len(summary) == len(bench) == 8
+    assert {r["cell_id"] for r in summary} == set(cells)
+    for cid, art in cells.items():
+        assert set(art) == {"cell", "history", "streams", "schedule_gaps", "final", "wall_s"}
+        final = art["final"]["train_loss" if cid.startswith("sim") else "loss"]
+        assert final is not None and math.isfinite(final), (cid, art["final"])
+    assert got.get("qsgd_quantize", 0) > 0 and got.get("qsgd_dequantize", 0) > 0, got
+    count("sweep", got)
+    print(f"cli phase {time.perf_counter() - t_phase:.1f} s")
+    return runs, by_run
 
 
 def main() -> int:
@@ -3646,6 +3911,12 @@ def main() -> int:
     for name, by_process in sharded_launches.items():
         results[name]["sharded_launches"] = by_process
 
+    # --------------------------------------------------------------- 3f
+    runs, cli_launches = cli_path(api, smi)
+    kernel_runs += [{"launches": launches} for launches in runs]
+    for name, by_run in cli_launches.items():
+        results[name]["cli_launches"] = by_run
+
     # ---------------------------------------------------------------- 4
     kernel_runs += [{"launches": launches} for launches in serving_path(api)]
 
@@ -3677,7 +3948,7 @@ def main() -> int:
             "bf16", "skew_ms", "windows", "windowed_ms", "one_pass_ms", "mlp_ms_p10_p90",
             "mlp_plain_ms_p10_p90",
             "ms_p10_p90", "library_ms_p10_p90", "on_path", "cases", "snapshot",
-            "elastic_launches", "sharded_launches")
+            "elastic_launches", "sharded_launches", "cli_launches")
     kernels = []
     for name, row in results.items():
         row["launches"] = sum(r["launches"].get(name, 0) for r in kernel_runs)
@@ -3694,6 +3965,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-rank"]:
+        train_rank(sys.argv[2], sys.argv[3:])
+        sys.exit(0)
     if sys.argv[1:2] == ["--sharded-worker"]:
         world, rank, store, out = sys.argv[2:6]
         sharded_worker(int(world), int(rank), store, out)

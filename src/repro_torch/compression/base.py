@@ -100,10 +100,15 @@ class Compressor:
 
     def roundtrip(self, tree: Tree, residual: Optional[Tree], seed_of_leaf: SeedOfLeaf,
                   scale=None):
-        """(payload, decoded, new_residual) for one gossip message."""
+        """(payload, decoded, new_residual) for one gossip message, each
+        leaf encoded and decoded before the next one starts."""
         del residual  # residual-free codec
-        payload = self.encode_tree(tree, seed_of_leaf, scale=scale)
-        return payload, self.decode_tree(payload), None
+        leaves, treedef = tree_flatten(tree)
+        payload, dec = [], []
+        for i, leaf in enumerate(leaves):
+            payload.append(self.encode(leaf, seed_of_leaf(i), scale=scale))
+            dec.append(self.decode(payload[-1]))
+        return tree_unflatten(treedef, payload), tree_unflatten(treedef, dec), None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,15 +147,23 @@ class ErrorFeedback(Compressor):
         return self.inner.payload_bytes(shape, dtype, scale=scale)
 
     def roundtrip(self, tree, residual, seed_of_leaf, scale=None):
+        """A leaf at a time: its input ``x + e`` is encoded, decoded and
+        turned into the new residual, and dropped, before the next leaf's
+        is formed (a tree of inputs is never alive)."""
         if residual is None:
             raise ValueError("ErrorFeedback.roundtrip needs the residual state")
-        inp = tree_map(lambda x, e: (x.float() + e.float()).to(x.dtype), tree, residual)
-        payload = self.inner.encode_tree(inp, seed_of_leaf, scale=scale)
-        dec = self.inner.decode_tree(payload)
-        new_res = tree_map(
-            lambda i, d, e: (i.float() - d.float()).to(e.dtype), inp, dec, residual
-        )
-        return payload, dec, new_res
+        leaves, treedef = tree_flatten(tree)
+        res_leaves, res_def = tree_flatten(residual)
+        if res_def != treedef:
+            raise ValueError(f"residual structure {res_def} differs from the message's {treedef}")
+        payload, dec, new_res = [], [], []
+        for i, (x, e) in enumerate(zip(leaves, res_leaves)):
+            inp = (x.float() + e.float()).to(x.dtype)
+            payload.append(self.inner.encode(inp, seed_of_leaf(i), scale=scale))
+            dec.append(self.inner.decode(payload[-1]))
+            new_res.append((inp.float() - dec[-1].float()).to(e.dtype))
+            del inp
+        return tuple(tree_unflatten(treedef, t) for t in (payload, dec, new_res))
 
 
 # --------------------------------------------------------------------------

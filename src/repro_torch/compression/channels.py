@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from ..kernels import api as fused
-from ..tree import map_tensors, tree_leaves, tree_map
+from ..tree import map_tensors, tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .base import ChannelState, Compressor, ErrorFeedback
 
 Tree = Any
@@ -76,10 +76,6 @@ def _ctx_scale(ctx):
 def _tree_sub_f32(a: Tree, b: Tree) -> Tree:
     """a − b in fp32, cast back to a's leaf dtypes."""
     return tree_map(lambda x, y: (x.float() - y.float()).to(x.dtype), a, b)
-
-
-def _tree_add_f32(a: Tree, b: Tree) -> Tree:
-    return tree_map(lambda x, y: (x.float() + y.float()).to(x.dtype), a, b)
 
 
 class Transport:
@@ -272,7 +268,19 @@ class ChocoChannel(GossipChannel):
         step takes this rank's rows of their results;
       * ``defer_roll`` (with ``overlap``) -- the in-flight payload is stored
         unrolled and rolled when consumed, where by default it is stored
-        pre-rolled per shift (``fly["rolled"]``): the same bits.
+        pre-rolled per shift (``fly["rolled"]``): the same bits;
+      * ``in_place`` -- the replica trees (``x̂`` and each shift's) advance
+        in their own storage, and the consensus step runs in the mix's
+        output, where by default the event allocates new trees.  For a
+        caller that gives up the state a gossip reads (the sharded engine's
+        ``step_fn``): a full-width model's replica trees are GBs a node, and
+        the old and the new would otherwise be alive together.  The same
+        bits.
+
+    Every path takes the tree through its stages a leaf at a time where it
+    can: the difference is encoded, and each message decoded and added to
+    its replica, one leaf before the next, so that one leaf's temporaries
+    are alive instead of a tree's.
 
     ``overlap=True`` double-buffers the send: the wire grows ``fly`` with
     the in-flight payload; a round first applies the previous round's
@@ -284,6 +292,7 @@ class ChocoChannel(GossipChannel):
     replicated_wire: bool = False
     overlap: bool = False
     defer_roll: bool = False
+    in_place: bool = False
     name = "choco"
 
     def __post_init__(self):
@@ -352,31 +361,46 @@ class ChocoChannel(GossipChannel):
             return diff
         return self.compression.encode_tree(diff, seed_of_leaf, scale=_ctx_scale(ctx))
 
-    def _decode(self, payload):
+    def _encode_diff(self, tree, hat, seed_of_leaf, ctx):
+        """The message ``q(x − x̂)``: each leaf's difference (fp32, in x's
+        dtype) encoded and dropped before the next leaf's is formed."""
         if self._raw:
-            return payload
-        return self.compression.decode_tree(payload)
+            return _tree_sub_f32(tree, hat)
+        xs, treedef = tree_flatten(tree)
+        scale = _ctx_scale(ctx)
+        return tree_unflatten(treedef, [
+            self.compression.encode((x.float() - h.float()).to(x.dtype), seed_of_leaf(i),
+                                    scale=scale)
+            for i, (x, h) in enumerate(zip(xs, tree_leaves(hat)))])
 
-    def _gated_add(self, hat, dec, send):
-        """Replica update ``x̂⁺ = x̂ + D(q)`` in fp32, rows gated by the
-        sender's ``send`` mask when the protocol is event-triggered."""
-        if send is None:
-            return _tree_add_f32(hat, dec)
-
-        def one(h, d):
-            mask = send.reshape((send.shape[0],) + (1,) * (d.dim() - 1))
-            return (h.float() + torch.where(mask, d.float(), 0.0)).to(h.dtype)
-
-        return tree_map(one, hat, dec)
+    def _gated_add(self, hat, payload, send):
+        """Replica update ``x̂⁺ = x̂ + D(q)`` in fp32 from the message as the
+        wire stores it, a leaf at a time (decoded, added, dropped), rows
+        gated by the sender's ``send`` mask when the protocol is
+        event-triggered; into x̂'s own storage with ``in_place``."""
+        hs, treedef = tree_flatten(hat)
+        out = []
+        for h, p in zip(hs, tree_flatten(payload)[0]):
+            d = p if self._raw else self.compression.decode(p)
+            if send is not None:
+                mask = send.reshape((send.shape[0],) + (1,) * (d.dim() - 1))
+                d = torch.where(mask, d.float(), 0.0)
+            out.append(h.add_(d) if self.in_place else (h.float() + d.float()).to(h.dtype))
+            del d
+        return tree_unflatten(treedef, out)
 
     def _consensus_from(self, tree, mixed_hat, hat_new, transport):
         """x + γ (W x̂⁺ − x̂⁺) in fp32, in x's dtype; the replicated wire's
-        terms are taken at this rank's rows first."""
+        terms are taken at this rank's rows first.  With ``in_place`` it
+        runs in the mix's fp32 output where that is a tensor of its own."""
         g = float(self.gamma)
-        return tree_map(
-            lambda x, m, h: (x.float() + g * (m.float() - h.float())).to(x.dtype),
-            tree, transport.node(mixed_hat), transport.node(hat_new),
-        )
+
+        def one(x, m, h):
+            if self.in_place and m.dtype == torch.float32 and m is not h and m is not x:
+                return m.sub_(h).mul_(g).add_(x).to(x.dtype)
+            return (x.float() + g * (m.float() - h.float())).to(x.dtype)
+
+        return tree_map(one, tree, transport.node(mixed_hat), transport.node(hat_new))
 
     def _apply(self, hat, nbr, payload, sent, ctx, transport, rolled=None):
         """Apply one wire message (``payload``/``sent`` as the wire stores
@@ -386,10 +410,9 @@ class ChocoChannel(GossipChannel):
         if transport.gather_payload is not None:
             # the gathered message set updates the replicated replicas on
             # every rank
-            hat_new = transport.local(
-                lambda h, p, s: self._gated_add(h, self._decode(p), s))(hat, payload, sent)
+            hat_new = transport.local(self._gated_add)(hat, payload, sent)
             return transport.mix(transport.pin(hat_new), ctx), hat_new, None
-        hat_new = self._gated_add(hat, self._decode(payload), sent)
+        hat_new = self._gated_add(hat, payload, sent)
         if nbr is None:
             return transport.mix(hat_new, ctx), hat_new, None
         ex = transport.neighbor
@@ -402,7 +425,8 @@ class ChocoChannel(GossipChannel):
                 p_s, s_s = rolled[0][k], None if sent is None else rolled[1][k]
             else:
                 p_s, s_s = ex.roll(payload, s), None if sent is None else ex.roll(sent, s)
-            nbr_new.append(self._gated_add(nbr[k], self._decode(p_s), s_s))
+            nbr_new.append(self._gated_add(nbr[k], p_s, s_s))
+            del p_s
         nbr_new = tuple(nbr_new)
         return ex.contract(hat_new, nbr_new, ctx), hat_new, nbr_new
 
@@ -451,7 +475,7 @@ class ChocoChannel(GossipChannel):
         if self.overlap:
             return self._gossip_overlap(tree, wire, seed_of_leaf, transport, ctx)
         hat, nbr = wire["hat"], wire.get("nbr")
-        payload = self._encode(_tree_sub_f32(tree, transport.node(hat)), seed_of_leaf, ctx)
+        payload = self._encode_diff(tree, transport.node(hat), seed_of_leaf, ctx)
         mixed, hat_new, nbr_new = self._apply(hat, nbr, transport.gather(payload), None,
                                               ctx, transport)
         out = self._consensus_from(tree, mixed, hat_new, transport)

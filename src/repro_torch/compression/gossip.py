@@ -20,7 +20,7 @@ Rolling a payload rolls every tensor of each ``Packed.data`` together
 unchanged.  Decoding is rowwise, so decoding a rolled payload is rolling
 the decoded one.  Sums run in fp32 in the reference's order: the self
 weight first, then the shifts in rotation order, each added in place into
-the one accumulator.  ``ctx.pattern`` is a host
+the one accumulator, a leaf at a time.  ``ctx.pattern`` is a host
 int, so a schedule selects its rotation where the reference switches with
 ``lax.switch``.
 """
@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..core.mixing import Gathered, Rotation, _dense_contract
-from ..tree import map_tensors, tree_map
+from ..tree import map_tensors, tree_leaves, tree_map
 from .base import Compressor
 
 Tree = Any
@@ -71,8 +71,12 @@ def rotation_combine(comp: Compressor, rotations: Sequence[Rotation],
         rot = _pick(rotations, scheduled, ctx)
         acc = tree_map(lambda d: rot.self_weight * d.float(), dec)
         for s, wgt in zip(rot.shifts, rot.weights):
-            dec_s = comp.decode_tree(_roll(payload, s, mesh))
-            acc = tree_map(lambda a, d: a.add_(wgt * d.float()), acc, dec_s)
+            rolled = _roll(payload, s, mesh)
+            # a leaf at a time: each shift's message decoded, weighted and
+            # added before the next leaf's is decoded
+            for a, p in zip(tree_leaves(acc), tree_leaves(rolled)):
+                a.add_(wgt * comp.decode(p).float())
+            del rolled
         return tree_map(lambda a, d: a.to(d.dtype), acc, dec)
 
     return combine

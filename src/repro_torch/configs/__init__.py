@@ -23,18 +23,18 @@ ARCH_IDS = [
     "hubert_xlarge",
     "minitron_8b",
 ]
-PORTED = ("gemma2_2b", "yi_9b", "minitron_8b", "command_r_plus_104b", "rwkv6_3b",
-          "qwen2_moe_a2_7b", "arctic_480b", "zamba2_7b", "qwen2_vl_2b", "hubert_xlarge")
 
 # canonical dashed ids used on the CLI
 CLI_IDS = {i.replace("_", "-"): i for i in ARCH_IDS}
 
 
 def _mod(arch: str):
+    """The config module of ``arch``: ``repro_torch.configs.<arch>``, imported
+    as the reference imports its own, so that a module registered in
+    ``sys.modules`` under that name is found (an unknown arch raises
+    ``ModuleNotFoundError``)."""
     arch = CLI_IDS.get(arch, arch).replace("-", "_").replace(".", "_")
     arch = arch.replace("_reduced", "")
-    if arch not in PORTED:
-        raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return import_module(f"repro_torch.configs.{arch}")
 
 
@@ -44,3 +44,7 @@ def get_config(arch: str):
 
 def get_reduced(arch: str):
     return _mod(arch).reduced()
+
+
+def all_configs():
+    return {a: get_config(a) for a in ARCH_IDS}

@@ -170,21 +170,28 @@ class DSEMVR(DecentralizedAlgorithm):
             # one combine pass computes x_half, h and the SGT pre-mix message;
             # the z refresh and the SPA subtraction are axpby launches (they
             # cannot fuse across the gossip)
+            # each whole-tree temporary is dropped once dead, so that the
+            # second gossip does not hold the first one's (a full-width
+            # model's tree is GBs a node)
             if self.fuse_tracking_buffers:
                 u, h_new = fused.tree_dse_combine(
                     state.params, state.v, state.x_ref, state.z, gamma
                 )
                 y_new = mix_fn(u)
+                del u
                 y_upd = dict(z=fused.tree_axpby(-1.0, h_new, 1.0, y_new))
+                del h_new
             else:
                 u, h_new = fused.tree_dse_combine_yh(
                     state.params, state.v, state.x_ref, state.y, state.h_prev, gamma
                 )
                 y_new = mix_fn(u)
+                del u
                 y_upd = dict(y=y_new, h_prev=h_new)
-            x_new = mix_fn(
-                fused.tree_axpby(-1.0, y_new, 1.0, state.x_ref, like=state.params)
-            )
+            x_pre = fused.tree_axpby(-1.0, y_new, 1.0, state.x_ref, like=state.params)
+            del y_new
+            x_new = mix_fn(x_pre)
+            del x_pre
         else:
             x_half = tree_axpy(-gamma, state.v, state.params)
             h_new = tree_sub(_cast_like(state.x_ref, x_half), x_half)  # x_ref - x_half

@@ -47,13 +47,16 @@ Tree = object
 
 __all__ = [
     "FusedOp", "REGISTRY", "register", "get", "MODES", "dispatch_mode",
-    "tree_apply", "call", "tree_mvr_update", "tree_axpby", "tree_add_sub",
+    "tree_apply", "bucket_count", "OWN_BUCKET", "call", "tree_mvr_update", "tree_axpby",
+    "tree_add_sub",
     "tree_dse_combine", "tree_dse_combine_yh",
     "launch_counts", "call_counts", "reset_counters",
 ]
 
 MODES = ("kernel", "ref")
 _mode = "kernel"
+#: leaves of this many elements or more get a tree_apply bucket of their own
+OWN_BUCKET = 1 << 24
 
 
 @contextlib.contextmanager
@@ -230,12 +233,26 @@ class _RefGrad(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------- tree_apply
+def bucket_count(tree) -> int:
+    """The dispatches :func:`tree_apply` makes over trees shaped and typed
+    as ``tree`` (every input and output leaf of one dtype): one for the
+    leaves below :data:`OWN_BUCKET` elements together, one for each leaf
+    of that size or more."""
+    leaves = tree_flatten(tree)[0]
+    big = sum(leaf.numel() >= OWN_BUCKET for leaf in leaves)
+    return big + (big < len(leaves))
+
+
 def tree_apply(name: str, *trees, scalars: Sequence = (), like=None):
     """Bucketed whole-tree executor for a fused op.
 
     Leaves are grouped into buckets by their (input dtypes, output dtypes)
     signature; each bucket is raveled into one contiguous 1-D buffer per
-    input, dispatched ONCE, and split back into the trees' shapes.
+    input, dispatched ONCE, and split back into the trees' shapes.  A leaf
+    of :data:`OWN_BUCKET` elements or more forms a bucket of its own, whose
+    input buffers are ``reshape(-1)`` views of the leaves: a whole-tree op
+    over a full-width model copies no embedding (a 233 M-element leaf a
+    node at Qwen2-VL-2B's width).
     ``like`` (single-output ops) is a tree whose leaf dtypes override the
     output-dtype rule.  Returns one tree, or a tuple for multi-output ops.
     """
@@ -279,10 +296,13 @@ def tree_apply(name: str, *trees, scalars: Sequence = (), like=None):
             tuple(leaves[t][i].dtype for t in range(op.n_inputs)),
             out_dtypes_of(i),
         )
+        if leaves[0][i].numel() >= OWN_BUCKET:
+            key += (i,)   # a bucket of its own: its inputs pass as views
         buckets.setdefault(key, []).append(i)
 
     out_leaves = [[None] * n_leaves for _ in range(op.n_outputs)]
-    for (_, out_dts), idxs in buckets.items():
+    for key, idxs in buckets.items():
+        out_dts = key[1]
         sizes = [leaves[0][i].numel() for i in idxs]
         if sum(sizes) == 0:   # bucket of empty leaves: nothing to launch
             for i in idxs:

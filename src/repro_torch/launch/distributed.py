@@ -76,7 +76,11 @@ class TrainJob:
     :meth:`round_ctx`.  ``metrics["loss"]`` is the comm step's mean loss
     over all N nodes and ``metrics["v_norm"]`` the direction buffer's
     squared norm summed over all of them; with a scenario the stream
-    values join them.  ``abstract_state`` is the state as meta tensors
+    values join them.  A difference channel's replica trees advance in
+    place (``ChocoChannel.in_place``, the counterpart of the reference's
+    buffer donation): ``step_fn`` gives up the wire of the state it is
+    given, so a caller keeps the state it returns, not the one it passed.
+    ``abstract_state`` is the state as meta tensors
     (this rank's rows), ``state_layout`` each of its tensors' layout:
     ``"node"`` (this rank's rows), ``"replicated"`` (all N rows, the
     compressed allgather's wire) or ``"host"`` (a host int)."""
@@ -318,6 +322,11 @@ def make_train_job(
             hooks["neighbor"] = ex
     else:
         raise ValueError(gossip)
+
+    if isinstance(chan, ChocoChannel):
+        # the replica trees are GBs a node at full width; step_fn's caller
+        # gives up the state it passes, so they advance in their own storage
+        _rebind_channel(in_place=True)
 
     # ---- per-node loss and gradients, a loop over this rank's nodes ----
     def node_grads(params: Tree, batch: Dict[str, torch.Tensor], losses=None) -> Tree:

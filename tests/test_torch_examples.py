@@ -10,8 +10,9 @@ import torch
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 SCRIPTS = ("quickstart_torch", "scenario_robustness_torch", "serve_torch",
-           "serve_while_training_torch")
+           "serve_while_training_torch", "decentralized_lm_torch")
 SMOKE_ARGS = {
+    "decentralized_lm_torch": ["--steps", "1", "--tau", "2"],
     "quickstart_torch": ["--smoke"],
     "scenario_robustness_torch": ["--smoke"],
     "serve_torch": ["--tokens", "4"],
@@ -64,6 +65,18 @@ def test_serve_while_training_smoke_on_cpu(codec, bounds):
     b = int(bounds.split(",")[1])
     kb = out["link_bytes"]
     assert kb[1] == pytest.approx(kb[0] / 4 if b == 4 else kb[0] / 2)
+
+
+def test_decentralized_lm_on_cpu(tmp_path):
+    """The example registers its config as a module of the port's registry
+    and trains it through the CLI: lm-20m, one round of tau 2."""
+    from repro_torch.configs import get_config
+
+    hist = _load("decentralized_lm_torch").main(
+        ["--device", "cpu", "--steps", "1", "--tau", "2", "--use-fused", "--out", str(tmp_path)])
+    assert [h["round"] for h in hist] == [1] and np.isfinite(hist[0]["loss"])
+    assert get_config("lm-20m").d_model == 256
+    assert (tmp_path / "history.json").exists()
 
 
 @pytest.mark.parametrize("name", SCRIPTS)

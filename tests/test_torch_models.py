@@ -44,7 +44,7 @@ import torch
 from repro.configs import get_reduced as j_reduced
 from repro.kernels import api as japi
 from repro.models import Model as JModel
-from repro_torch.configs import PORTED, get_config, get_reduced
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.convert import cache_from_numpy, params_from_numpy
 from repro_torch.models import Model, ModelConfig
 from repro_torch.models.attention import AttentionConfig
@@ -53,7 +53,7 @@ from repro_torch.tree import tree_flatten, tree_map
 B, S, DECODE_STEPS, RING = 2, 128, 12, 8
 LOGITS = dict(rtol=1e-4, atol=1e-5)
 CACHE = dict(rtol=1e-5, atol=1e-5)
-DECODERS = tuple(a for a in PORTED if get_reduced(a).head == "lm")
+DECODERS = tuple(a for a in ARCH_IDS if get_reduced(a).head == "lm")
 
 
 def make_batch(cfg, seed: int = 1):
@@ -122,7 +122,7 @@ def _close_tree(got, want, tol):
             np.testing.assert_allclose(g.numpy(), w, **tol)
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_forward_matches_reference(arch, built):
     jm, jp, tm, tp, batch = built(arch)
     jl, jaux = jm.forward(jp, j_batch(batch), dtype=jnp.float32)
@@ -149,7 +149,7 @@ def _prefill_pair(jm, jp, tm, tp, batch, j_mode):
     _close_tree(tc, jc, CACHE)
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_prefill_through_flash_attention_matches_reference(arch, built):
     """HuBERT's bidirectional attention runs the plain ``_sdpa`` under
     ``attn_impl="pallas"`` too, in both packages (the kernel is causal)."""
@@ -187,7 +187,7 @@ def test_decode_steps_match_reference(arch, built):
     _close_tree(tc, jc, CACHE)
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_init_makes_the_reference_tree(arch, built):
     jm, jp, _, _, _ = built(arch)
     tp = Model(get_reduced(arch)).init(0, device="cpu")
@@ -201,11 +201,12 @@ def test_init_makes_the_reference_tree(arch, built):
 
 
 def test_unported_kinds_raise():
-    """An unknown arch or block kind raises; every arch builds, at full
-    width too (no parameters drawn), M-RoPE and the front ends included."""
+    """An unknown arch (``ModuleNotFoundError``, as the reference's import
+    raises) or block kind raises; every arch builds, at full width too (no
+    parameters drawn), M-RoPE and the front ends included."""
     base = dict(name="t", arch_type="dense", n_layers=2, d_model=16, n_heads=2,
                 n_kv_heads=1, d_ff=32, vocab_size=64)
-    with pytest.raises(ValueError, match="unknown arch"):
+    with pytest.raises(ModuleNotFoundError, match="gpt_2"):
         get_config("gpt-2")
     with pytest.raises(ValueError, match="nope"):
         Model(ModelConfig(**base, block_unit=("nope",)))

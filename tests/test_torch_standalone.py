@@ -35,7 +35,10 @@ for want in ("repro_torch.kernels.mvr_update.kernel", "repro_torch.kernels.comm_
              "repro_torch.serving.snapshot", "repro_torch.serving.replicas",
              "repro_torch.serving.remote", "repro_torch.launch.mesh",
              "repro_torch.launch.distributed",
-             "repro_torch.launch.shapes", "repro_torch.compression.gossip"):
+             "repro_torch.launch.shapes", "repro_torch.compression.gossip",
+             "repro_torch.launch.train", "repro_torch.experiments",
+             "repro_torch.experiments.sweep", "repro_torch.data.pipeline",
+             "repro_torch.optim.optimizers"):
     assert want in names, (want, names)
 assert "jax" not in sys.modules, "jax was imported"
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
@@ -77,8 +80,9 @@ def test_examples_import_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", _IMPORT_EXAMPLES, str(_EXAMPLES)], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["quickstart_torch", "scenario_robustness_torch",
-                                  "serve_torch", "serve_while_training_torch"]
+    assert out.stdout.split() == ["decentralized_lm_torch", "quickstart_torch",
+                                  "scenario_robustness_torch", "serve_torch",
+                                  "serve_while_training_torch"]
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():

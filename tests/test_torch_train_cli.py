@@ -1,0 +1,238 @@
+"""The port's training CLI (``repro_torch.launch.train``) against the
+reference's (``repro.launch.train``) on the CPU.
+
+The reference's ``main`` runs once per module in a subprocess with 8 fake
+CPU devices, as ``tests/test_distributed.py`` runs it: 4 nodes of a 2-way
+model axis, Yi-9B reduced, 2 rounds of tau 2 through the fused-op backend,
+a checkpoint after round 2 (CHOCO's after each round); uncompressed and
+with CHOCO top-k 0.1.  Its
+initial parameters are the model's init moved off the RMSNorm weights'
+exact top-k tie (a seeded perturbation), saved in the reference's
+checkpoint format.  The port's ``main(["--device", "cpu", ...])`` takes the
+same flags on a 4-node world-1 mesh (``make_mesh_for_devices``
+monkeypatched) from those parameters (``TrainJob.init_state``
+monkeypatched); its batches are the same numpy pipeline's, bit for bit.
+Losses a round and the checkpointed parameters of all four nodes are held
+to the reference's band between its sharded job and its one-device path,
+rtol 5e-3 / atol 1e-4 (``tests/test_distributed.py``), but for CHOCO's
+parameters after round 2, where near-ties at the top-k cut make the two
+packages keep a few other entries (``CHOCO_ROUND2_SHARE``).
+
+The port's own paths: a 2-rank gloo group launched by
+``torch.distributed.run`` gives world 1's losses and checkpoint on 2 nodes
+bit for bit, with a telemetry file a rank; the flags of a worker's device
+mesh are refused, naming ROADMAP queue 1 item 8 (b); ``--num-processes``
+and ``--coordinator`` reach the elastic runtime.
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.checkpoint import load_checkpoint
+from repro_torch.launch import train
+from repro_torch.launch.distributed import TrainJob
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.tree import tree_leaves
+
+REPO = Path(__file__).resolve().parents[1]
+BAND = dict(rtol=5e-3, atol=1e-4)
+DEADLINE = 600   # s, the reference's subprocess
+FLAGS = ["--arch", "yi_9b", "--reduced", "--steps", "2", "--tau", "2", "--use-fused",
+         "--seq-len", "32", "--global-batch", "8", "--lr", "0.01", "--alpha", "0.1"]
+RUNS = {"plain": ["--ckpt-every", "2"],
+        "choco": ["--compression", "top_k:0.1", "--channel", "choco", "--ckpt-every", "1"]}
+# CHOCO after round 2: |x - x̂| at the top-k cut is within a relative 1e-5
+# to 1e-6 of its neighbour (0 at exact ties), far below the packages' bf16
+# gradient gap, so a few kept indices differ and the replicas carry them on
+# (ROADMAP queue 3's CHOCO band): the band holds there for this share of
+# each leaf's entries
+CHOCO_ROUND2_SHARE = 0.99
+
+REFERENCE = """
+import json, sys
+import jax, jax.numpy as jnp, numpy as np
+from repro.checkpoint import save_checkpoint
+from repro.launch import train
+from repro.models import Model
+
+out, flags, runs = sys.argv[1], json.loads(sys.argv[2]), json.loads(sys.argv[3])
+orig = Model.init
+
+
+def init(self, key, *a, **kw):
+    p = orig(self, key, *a, **kw)
+    if any(isinstance(x, jax.core.Tracer) for x in jax.tree.leaves(p)):
+        return p
+    rng = np.random.default_rng(0)   # the same perturbation every call
+    p = jax.tree.map(lambda x: np.asarray(x) + np.float32(0.05) * rng.standard_normal(
+        x.shape).astype(np.float32), p)
+    save_checkpoint(out + "/init", 0, p)
+    return jax.tree.map(jnp.asarray, p)
+
+
+Model.init = init
+for tag, extra in runs.items():
+    train.main(flags + extra + ["--out", out + "/" + tag])
+"""
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's small ops: beside other test
+    workers, a pool of one OpenMP thread per core oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _port_run(monkeypatch, out: Path, extra, init_params, nodes: int = 4):
+    monkeypatch.setattr(train, "make_mesh_for_devices",
+                        lambda device=None: make_test_mesh(nodes, device="cpu"))
+    orig = TrainJob.init_state
+    monkeypatch.setattr(TrainJob, "init_state",
+                        lambda self, seed=0, params=None: orig(self, seed, params=init_params))
+    return train.main(["--device", "cpu"] + FLAGS + extra + ["--out", str(out)])
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The reference's two runs (a subprocess), then the port's from the
+    same initial parameters."""
+    tmp = tmp_path_factory.mktemp("train_cli")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    ref = subprocess.run([sys.executable, "-c", textwrap.dedent(REFERENCE), str(tmp / "ref"),
+                          json.dumps(FLAGS), json.dumps(RUNS)],
+                         env=env, capture_output=True, text=True, timeout=DEADLINE)
+    assert ref.returncode == 0, ref.stdout[-2000:] + ref.stderr[-4000:]
+    init_params = load_checkpoint(str(tmp / "ref" / "init"), device="cpu")[0]
+    out = {"ref": tmp / "ref", "port": tmp / "port", "log": ref.stdout}
+    with pytest.MonkeyPatch.context() as mp:
+        for tag, extra in RUNS.items():
+            out[tag] = _port_run(mp, tmp / "port" / tag, extra, init_params)
+            mp.undo()
+    return out
+
+
+@pytest.mark.parametrize("tag", sorted(RUNS))
+def test_losses_match_the_reference(runs, tag):
+    want = json.loads((runs["ref"] / tag / "history.json").read_text())
+    got = json.loads((runs["port"] / tag / "history.json").read_text())
+    assert [h["round"] for h in got] == [h["round"] for h in want] == [1, 2]
+    assert [h["loss"] for h in runs[tag]] == [h["loss"] for h in got]
+    np.testing.assert_allclose([h["loss"] for h in got], [h["loss"] for h in want], **BAND)
+    assert got[-1]["loss"] < got[0]["loss"]
+
+
+@pytest.mark.parametrize("tag,step", [("plain", 2), ("choco", 1), ("choco", 2)])
+def test_checkpointed_parameters_match_the_reference(runs, tag, step):
+    """Both checkpoints hold all 4 nodes' rows, in the reference's format
+    (each package reads the other's); CHOCO's after round 2 as
+    ``CHOCO_ROUND2_SHARE`` says."""
+    got, meta = load_checkpoint(str(runs["port"] / tag / "ckpt"), step, device="cpu")
+    want, want_meta = load_checkpoint(str(runs["ref"] / tag / "ckpt"), step, device="cpu")
+    g, w = tree_leaves(got), tree_leaves(want)
+    assert len(g) == len(w) > 0
+    for a, b in zip(g, w):
+        assert a.shape == b.shape and a.shape[0] == 4
+        if (tag, step) == ("choco", 2):
+            inside = np.isclose(a.numpy(), b.float().numpy(), **BAND)
+            assert inside.mean() >= CHOCO_ROUND2_SHARE, inside.mean()
+        else:
+            np.testing.assert_allclose(a.numpy(), b.float().numpy(), **BAND)
+    np.testing.assert_allclose(meta["loss"], want_meta["loss"], **BAND)
+    every = 1 if tag == "choco" else 2
+    assert sorted(os.listdir(runs["port"] / tag / "ckpt")) == [
+        f"step_{s:010d}" for s in range(every, 3, every)]
+
+
+GROUP_FLAGS = ["--arch", "yi_9b", "--reduced", "--steps", "2", "--tau", "2", "--use-fused",
+               "--seq-len", "16", "--global-batch", "4", "--lr", "0.05", "--ckpt-every", "2",
+               "--device", "cpu"]
+
+
+def test_two_gloo_ranks_are_world_one_bit_for_bit(tmp_path, monkeypatch):
+    """``torch.distributed.run`` starts 2 ranks, one node each on ring(2);
+    world 1 with the same 2 nodes in one process gives the same losses and
+    checkpoint, bit for bit.  Each rank writes its telemetry, whose link
+    bytes together are world 1's."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+        env.pop(k, None)
+    group = tmp_path / "group"
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "repro_torch.launch.train", *GROUP_FLAGS, "--out", str(group),
+         "--telemetry-out", str(group / "tel.jsonl")],
+        env=env, capture_output=True, text=True, timeout=DEADLINE)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    assert "2 decentralized nodes (world 2 on cpu)" in out.stdout
+
+    monkeypatch.setattr(train, "make_mesh_for_devices",
+                        lambda device=None: make_test_mesh(2, device="cpu"))
+    one = tmp_path / "one"
+    train.main(GROUP_FLAGS + ["--out", str(one), "--telemetry-out", str(one / "tel.jsonl")])
+    assert (json.loads((group / "history.json").read_text())[-1]["loss"]
+            == json.loads((one / "history.json").read_text())[-1]["loss"])
+    for a, b in zip(tree_leaves(load_checkpoint(str(group / "ckpt"), device="cpu")[0]),
+                    tree_leaves(load_checkpoint(str(one / "ckpt"), device="cpu")[0])):
+        assert a.shape[0] == 2 and torch.equal(a, b)
+
+    def link_bytes(path):
+        recs = [json.loads(line) for line in Path(path).read_text().splitlines()]
+        return sum(r["value"] for r in recs
+                   if r["event"] == "sample" and r["stream"] == "link_bytes")
+
+    ranks = [group / "tel.jsonl", group / "tel.jsonl.rank1"]
+    assert link_bytes(ranks[0]) == link_bytes(ranks[1]) > 0
+    assert sum(map(link_bytes, ranks)) == link_bytes(one / "tel.jsonl")
+
+
+@pytest.mark.parametrize("flags", [["--host-devices", "2"], ["--jax-distributed"],
+                                   ["--num-processes", "2", "--host-devices", "2"]])
+def test_a_workers_device_mesh_is_refused(flags):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 8 \(b\)"):
+        train.main(["--device", "cpu", "--arch", "yi_9b", "--reduced", *flags])
+
+
+def test_num_processes_and_coordinator_reach_the_elastic_runtime(monkeypatch, tmp_path):
+    import repro_torch.runtime as runtime
+    import repro_torch.runtime.worker as worker
+
+    seen = {}
+
+    def fake_launch(cfg, n_workers, **kw):
+        seen.update(cfg=cfg, n_workers=n_workers, **kw)
+        return SimpleNamespace(rounds_per_sec=1.0, epochs=[0], wall_s=0.0, run_dir=str(tmp_path),
+                               trace_path=None, diagnostics=None, round_seconds=[1.0],
+                               resync_seconds=[], active_log=np.ones((1, 4), bool))
+
+    monkeypatch.setattr(runtime, "launch", fake_launch)
+    train.main(["--num-processes", "2", "--n-nodes", "4", "--steps", "3", "--problem",
+                "pseudo_mnist", "--device", "cpu", "--compression", "qsgd", "--out",
+                str(tmp_path)])
+    cfg = seen["cfg"]
+    assert seen["n_workers"] == 2 and cfg.n_nodes == 4 and cfg.n_rounds == 3
+    assert cfg.device == "cpu" and cfg.problem == "pseudo_mnist"
+    assert dict(cfg.hyper)["compression"] == "qsgd" and cfg.batch_size == 2
+    assert json.loads((tmp_path / "elastic_summary.json").read_text())["n_processes"] == 2
+
+    monkeypatch.setattr(worker, "run_worker", lambda addr, wid: (addr, wid))
+    assert train.main(["--coordinator", "127.0.0.1:1", "--process-id", "3"]) == (
+        "127.0.0.1:1", 3)
+
+
+def test_world_one_is_one_node_and_the_card_is_the_default():
+    assert train.make_mesh_for_devices("cpu").n_nodes == 1
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train.make_mesh_for_devices()
