@@ -149,6 +149,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``repro_torch.experiments.sweep --engines sim,sharded --compressors
    identity,qsgd`` at the reference's other defaults: 8 cells, the
    artifacts' schema, finite final losses, the codec kernels launched;
+3g. the within-node layouts (``make_train_job(profile=...)`` on a
+   ``NodeMesh`` with a model axis of 2: rank d M + m holds model shard m of
+   node block d): phase 3e's DSE-MVR (tau 3, lr 0.01, alpha 0.1, roll
+   gossip) through the kernels on 1 layer of each model at full width, each
+   run on gloo ranks on the one card started by ``python -m
+   torch.distributed.run --standalone --nproc-per-node <ranks> chip_smoke.py
+   --layout-rank <runs> <dir>`` (this file each rank's script; the runs of
+   one node count share a group, each in turn): (a) ``tp`` on
+   Qwen2-VL-2B, 2 nodes x model 2 = 4 ranks, 1 x (256 + 1,792) tokens a
+   node (flash at 6 heads on 1 KV head a rank); (b) ``fsdp`` on Qwen2-VL-2B,
+   2 x (256 + 768) tokens a node, split over the model ranks; (c) ``fsdp``
+   (its default profile) on Yi-9B (d 4096, 32 heads on 4 KV heads, d_ff
+   11,008, vocab 64,000, untied), 1 node x model 2, 2 x 1,024 tokens.  Each
+   against the same nodes at model 1 in this process: within rtol 5e-3 /
+   atol 1e-4 after round 1 (rank 0 writes the parameters gathered over both
+   axes by ``TrainJob.full``), the gap after the last round printed (round
+   3 under tp, 2 under fsdp); replicated
+   leaves bit for bit across the model ranks of a node (deterministic
+   cuBLAS and algorithms); launches by op and rank exactly (flash once a
+   layer a node's forward, the update ops once a ``tree_apply`` bucket of
+   the rank's shards); the model group's movements (tp all-reduces, fsdp
+   all-gathers and reduce-scatters); ms a round, peak memory, the model
+   group's and the node axis's bytes a round, by rank.  Cuts, no width:
+   1 layer of each model (as phase 3e), Yi-9B on 1 node (4 ranks of its
+   state do not fit the card), the fsdp runs to 2 rounds (the time limit;
+   see ``LAYOUT_RUNS``);
 4. the LM serving path at Gemma-2 2B's full width (26 layers, d 2304,
    vocab 256,000; random bf16 weights from a seed): ``make_serve_job(...).
    prefill_fn`` with ``attn_impl="pallas"`` on 2 prompts of 8192 tokens,
@@ -244,7 +270,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    4-slot ``RequestDriver`` through the bf16 ``decode_fn``;
 6. a ``{"kernels": [...]}`` line (with each op's phase 3d launches by
    worker, ``elastic_launches``, phase 3e's by process,
-   ``sharded_launches``, and phase 3f's by run and rank, ``cli_launches``),
+   ``sharded_launches``, phase 3f's by run and rank, ``cli_launches``, and
+   phase 3g's by run and rank, ``layout_launches``),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -335,6 +362,27 @@ SHARD_LAYERS = 1
 SHARD_LR, SHARD_ALPHA, SHARD_TOP_K = 1e-2, 0.1, "top_k:0.01"
 SHARD_RTOL, SHARD_ATOL = 5e-3, 1e-4
 SHARD_DEADLINE = 900   # s, a spawned world of phase 3e
+# the within-node layouts (phase 3g): each node spread over LAYOUT_MODEL
+# gloo ranks on the one card (a data x model mesh, rank d M + m), started by
+# torch.distributed.run with this file as each rank's script; phase 3e's
+# DSE-MVR (tau, lr, alpha, roll gossip, the kernels), 1 layer of each model
+# at full width, attn_impl "pallas"; each run held to the same nodes at
+# model 1 in this process after round 1 (phase 3e's band).  Cuts: depth to 1
+# layer (as phase 3e: the 233 M-parameter Qwen2-VL embedding is most of a
+# node), 2 nodes for Qwen2-VL-2B and 1 for Yi-9B (4 ranks of Yi's state do
+# not fit the card beside each other: about 0.7 B parameters a node, 2.8 GB
+# a fp32 tree), the batches below, and 2 rounds for the fsdp runs (3 for
+# tp): an fsdp round moves the whole tree through the host twice a
+# gradient (10-23 s a round on the card), and the smoke's time limit holds
+# every phase
+LAYOUT_MODEL = 2
+# run -> (arch, profile, nodes, node batch, text tokens a row, rounds)
+LAYOUT_RUNS = {
+    "tp_qwen2_vl": ("qwen2-vl-2b", "tp", 2, 1, 1792, 3),      # phase 3e's batch
+    "fsdp_qwen2_vl": ("qwen2-vl-2b", "fsdp", 2, 2, 768, 2),   # splits over the 2 ranks
+    "fsdp_yi_9b": ("yi-9b", "fsdp", 1, 2, 1024, 2),
+}
+LAYOUT_DEADLINE = 600  # s, a spawned group of phase 3g
 # the CLI and the sweep (phase 3f): the example's lm-100m at full width (12
 # layers, d 768, 12 heads on 4 KV heads, d_ff 2048, vocab 16,384, tied;
 # attn_impl "xla", the reference's default, so no flash launch), seq 128,
@@ -374,6 +422,10 @@ FLASH_CASES = (
     ("zamba2", 2, 32, 32, LM_SEQ, 112, None, None),   # zero-padded to the 128 instance
     ("qwen2_vl", 2, 12, 2, LM_SEQ, 128, None, None),
     ("qwen2_vl_train", 1, 12, 2, 256 + 1792, 128, None, None),   # phase 4e's forward
+    # phase 3g's ranks: tp's 6 heads on 1 KV head; fsdp's share of a node batch
+    ("qwen2_vl_tp", 1, 6, 1, 256 + 1792, 128, None, None),
+    ("qwen2_vl_fsdp", 1, 12, 2, 256 + 768, 128, None, None),
+    ("yi_9b_fsdp", 1, 32, 4, 1024, 128, None, None),
 )
 # the kernels of a traced prefill by name: the bf16 attention kernel, and
 # the GEMMs by the substrings of cuBLAS's and CUTLASS's kernel names
@@ -3484,6 +3536,258 @@ def sharded_path(api, smi: str) -> tuple:
                                        for t in res["runs"])
     return launches, by_process
 
+def layout_config(arch: str):
+    """Phase 3g's model: ``arch`` at full width on its first block unit
+    (one layer), through the flash kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=len(cfg.block_unit), attn_impl="pallas")
+
+
+def layout_batches(cfg, nodes: int, batch: int, text: int) -> dict:
+    """One round's batches, ``(tau, N, batch, ...)``, drawn on the card from a
+    fixed seed: the same in this process and in every rank."""
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    shape = (SHARD_TAU, nodes, batch)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, shape + (text,), generator=gen,
+                                   device="cuda")}
+    if cfg.n_vision_tokens:
+        out["vision_embeds"] = torch.randn(shape + (cfg.n_vision_tokens, cfg.d_model),
+                                           generator=gen, device="cuda").to(torch.bfloat16)
+    out["targets"] = torch.randint(0, cfg.vocab_size, shape + (text,), generator=gen,
+                                   device="cuda")
+    return out
+
+
+def layout_run(api, mesh, run: str, on_round) -> dict:
+    """Phase 3g's run ``run`` on ``mesh`` (model 1 here, or a rank's mesh):
+    ms a round (fenced, the step alone), loss, launches by op, the mesh's
+    bytes, peak memory, and each replicated leaf's fingerprint;
+    ``on_round(r, job, state)`` sees the state after round r (1-based)."""
+    from repro_torch.launch.distributed import make_train_job
+    from repro_torch.tree import tree_leaves
+
+    arch, profile, nodes, batch, text, rounds = LAYOUT_RUNS[run]
+    cfg = layout_config(arch)
+    job = make_train_job(cfg, mesh, profile=profile, tau=SHARD_TAU, lr=SHARD_LR,
+                         alpha=SHARD_ALPHA, use_fused=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = job.init_state(0)
+    batches = job.local_batch(layout_batches(cfg, nodes, batch, text))
+    api.reset_counters()
+    ms, losses, moved = [], [], []
+    for r in range(rounds):
+        mesh.reset_bytes()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = job.step_fn(state, batches)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        moved.append(mesh.byte_counts())
+        losses.append(float(metrics["loss"]))
+        assert math.isfinite(losses[-1]), (run, r, losses)
+        on_round(r + 1, job, state)
+    replicated = [t for t, d in zip(tree_leaves(state.params), job.shard_dims) if d is None]
+    out = {"run": run, "ms": ms, "loss": losses, "launches": api.launch_counts(),
+           "bytes": moved, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "buckets": api.bucket_count(job.abstract_state.params),
+           "n_local": mesh.n_local, "replicated": fingerprint({str(i): t for i, t in
+                                                               enumerate(replicated)}),
+           "sharded_leaves": sum(d is not None for d in job.shard_dims),
+           "leaves": len(job.shard_dims)}
+    del state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def layout_rank(runs: str, out_dir: str) -> None:
+    """One rank of a phase 3g group (``chip_smoke.py --layout-rank``), started
+    by ``torch.distributed.run``: each run of the comma-separated ``runs``
+    (one node count) on the data x model mesh; rank 0 writes the whole
+    parameters (gathered over both axes) after round 1 and the last round;
+    every rank writes its results as JSON."""
+    import datetime
+    import warnings
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import api
+    from repro_torch.launch.mesh import make_group_mesh
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=LAYOUT_DEADLINE))
+    rank = dist.get_rank()
+    runs = runs.split(",")
+    mesh = make_group_mesh(LAYOUT_RUNS[runs[0]][2], device="cuda", model=LAYOUT_MODEL)
+    for run in runs:
+        rounds = LAYOUT_RUNS[run][5]
+
+        def on_round(r, job, state):
+            if r in (1, rounds):
+                full = job.full(state.params)      # every rank takes part
+                if rank == 0:
+                    torch.save([t.cpu() for t in tree_leaves(full)],
+                               Path(out_dir) / f"{run}_round{r}.pt")
+                del full
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = layout_run(api, mesh, run, on_round)
+        res.update(rank=rank, node_rank=mesh.rank, index=mesh.model_group.index,
+                   nondeterministic=sorted({str(w.message)[:200] for w in caught}))
+        (Path(out_dir) / f"{run}_rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def spawn_layout_group(runs: list, world: int) -> tuple:
+    """Phase 3g's ``world``-rank group for ``runs`` (one after the other):
+    ``torch.distributed.run`` starting this file as each rank's script, on
+    the one card; returns the runs' directory and the group's wall
+    seconds."""
+    import gc
+    import os
+    import signal
+
+    out = ROOT / "build" / "layout"
+    out.mkdir(parents=True, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, OMP_NUM_THREADS="2", CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+               PYTHONPATH=str(ROOT / "src") + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(world), str(ROOT / "chip_smoke.py"), "--layout-rank", ",".join(runs), str(out)]
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        log = proc.communicate(timeout=LAYOUT_DEADLINE)[0]
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    wall = time.perf_counter() - t
+    assert proc.returncode == 0, f"layout group {runs} exited {proc.returncode}:\n{log[-6000:]}"
+    return out, wall
+
+
+def layout_gap(got: list, held: list) -> float:
+    """The largest ``|got - want| / (atol + rtol |want|)`` over every leaf
+    (host copies, taken to the card one at a time): at most 1 is within
+    phase 3e's band."""
+    worst = 0.0
+    for g, w in zip(got, held):
+        g, w = g.cuda(), w.cuda()
+        worst = max(worst, float(((g - w).abs() / (SHARD_ATOL + SHARD_RTOL * w.abs())).max()))
+        del g, w
+    return worst
+
+
+def layout_path(api, smi: str) -> tuple:
+    """Phase 3g: the within-node layouts on the card.  The runs of one node
+    count share a spawned group: first each at model 1 in this process (its
+    parameters after round 1 and the last round held on the host), then the
+    nodes x LAYOUT_MODEL gloo ranks run them in turn.  Returns every run's
+    launches and each op's launches by run and rank."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    launches, by_run = [], {}
+    groups: dict = {}
+    for run, spec in LAYOUT_RUNS.items():
+        groups.setdefault(spec[2], []).append(run)
+    for nodes, runs in groups.items():
+        held, ones = {}, {}
+        for run in runs:
+            rounds = LAYOUT_RUNS[run][5]
+
+            def hold(r, job, state):
+                if r in (1, rounds):
+                    held[run, r] = [t.detach().cpu() for t in tree_leaves(state.params)]
+
+            ones[run] = layout_run(api, make_test_mesh(nodes, device="cuda"), run, hold)
+        world = nodes * LAYOUT_MODEL
+        out, wall = spawn_layout_group(runs, world)
+        print(f"layout group {runs}: {world} gloo ranks on the card, {wall:.1f} s wall with "
+              f"spawn and set-up")
+        for run in runs:
+            launches += layout_check(run, ones[run], out, held, smi)
+            for op in {op for c in launches[-world - 1:] for op in c}:
+                by_run.setdefault(op, {})[run] = {
+                    "model1" if k == 0 else f"rank{k - 1}": c.get(op, 0)
+                    for k, c in enumerate(launches[-world - 1:])}
+        held.clear()
+    print(f"layout phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, by_run
+
+
+def layout_check(run: str, one: dict, out: Path, held: dict, smi: str) -> list:
+    """Phase 3g's checks of ``run``: its ranks (results under ``out``)
+    against its model-1 run ``one`` and the parameters ``held`` from it;
+    returns the launches, model 1's first, then by rank."""
+    arch, profile, nodes, batch, text, rounds = LAYOUT_RUNS[run]
+    world = nodes * LAYOUT_MODEL
+    ranks = [json.loads((out / f"{run}_rank{r}.json").read_text()) for r in range(world)]
+    gaps = {r: layout_gap(torch.load(out / f"{run}_round{r}.pt"), held[run, r])
+            for r in (1, rounds)}
+    cfg = layout_config(arch)
+    n_tok = (cfg.n_vision_tokens + text) * (batch if profile == "tp" else
+                                           batch // LAYOUT_MODEL)
+    heads = cfg.n_heads // (LAYOUT_MODEL if profile == "tp" else 1)
+    kv = cfg.n_kv_heads // (LAYOUT_MODEL if profile == "tp" else 1)
+    fwd = rounds * (2 * (SHARD_TAU - 1) + 1)       # a node's forwards
+    per_round = [{k: {op: n for op, n in c.items() if n} for k, c in b.items()
+                  if any(c.values())} for b in ranks[0]["bytes"]]
+    print(f"layout {run} ({smi}): {arch} {profile}, {nodes} nodes x model "
+          f"{LAYOUT_MODEL} = {world} gloo ranks on the card, flash at {heads} heads on "
+          f"{kv} KV heads over {n_tok} tokens; vs model 1 in this process: {gaps[1]:.4g} "
+          f"of the band (rtol {SHARD_RTOL}, atol {SHARD_ATOL}) after round 1, "
+          f"{gaps[rounds]:.4g} after round {rounds}; ms a round model 1 "
+          f"{json.dumps([round(t, 1) for t in one['ms']])}, by rank "
+          f"{json.dumps([[round(t, 1) for t in r['ms']] for r in ranks])}; peak GiB model 1 "
+          f"{one['peak_gib']:.2f}, by rank {[round(r['peak_gib'], 2) for r in ranks]}; loss "
+          f"model 1 {one['loss']}, rank 0 {ranks[0]['loss']}; rank 0's bytes a round "
+          f"{json.dumps(per_round)}; launches model 1 {json.dumps(one['launches'])}, by rank "
+          f"{json.dumps([r['launches'] for r in ranks])}; {ranks[0]['sharded_leaves']} of "
+          f"{ranks[0]['leaves']} leaves sharded; nondeterministic-op warnings "
+          f"{json.dumps(sorted({w for r in ranks for w in r['nondeterministic']}))}")
+    assert gaps[1] <= 1.0, (run, gaps)
+    # exact launches: flash once a layer a node's forward, DSE-MVR's update
+    # ops once a tree_apply bucket (the rank's shards)
+    want1 = {"flash_attention": nodes * cfg.n_layers * fwd,
+             **dse_launches(one["buckets"], SHARD_TAU, rounds)}
+    assert one["launches"] == want1, (run, one["launches"], want1)
+    for r in ranks:
+        want = {"flash_attention": r["n_local"] * cfg.n_layers * fwd,
+                **dse_launches(r["buckets"], SHARD_TAU, rounds)}
+        assert r["launches"] == want, (run, r["rank"], r["launches"], want)
+        assert all(math.isfinite(v) for v in r["loss"]), (run, r["loss"])
+        moved = r["bytes"][0]["model"]
+        if profile == "tp":
+            assert moved["all_reduce"] > 0 and moved["all_gather"] == 0, (run, moved)
+        else:
+            assert moved["all_gather"] > 0 and moved["reduce_scatter"] > 0, (run, moved)
+        if nodes > 1:
+            assert r["bytes"][0]["roll"]["process"] > 0, (run, r["bytes"][0])
+    # replicated leaves: the same bits on every model rank of a node
+    for r in ranks:
+        assert r["replicated"] == ranks[r["node_rank"] * LAYOUT_MODEL]["replicated"], \
+            (run, r["rank"])
+    print(f"layout {run}: replicated leaves bit for bit across the model ranks "
+          f"({len(ranks[0]['replicated'])} leaves a rank)")
+    return [one["launches"]] + [r["launches"] for r in ranks]
+
 
 def cli_model():
     """Phase 3f's model: the example's lm-100m, registered as a config module
@@ -3917,6 +4221,12 @@ def main() -> int:
     for name, by_run in cli_launches.items():
         results[name]["cli_launches"] = by_run
 
+    # --------------------------------------------------------------- 3g
+    runs, layout_launches = layout_path(api, smi)
+    kernel_runs += [{"launches": launches} for launches in runs]
+    for name, by_run in layout_launches.items():
+        results[name]["layout_launches"] = by_run
+
     # ---------------------------------------------------------------- 4
     kernel_runs += [{"launches": launches} for launches in serving_path(api)]
 
@@ -3948,7 +4258,7 @@ def main() -> int:
             "bf16", "skew_ms", "windows", "windowed_ms", "one_pass_ms", "mlp_ms_p10_p90",
             "mlp_plain_ms_p10_p90",
             "ms_p10_p90", "library_ms_p10_p90", "on_path", "cases", "snapshot",
-            "elastic_launches", "sharded_launches", "cli_launches")
+            "elastic_launches", "sharded_launches", "cli_launches", "layout_launches")
     kernels = []
     for name, row in results.items():
         row["launches"] = sum(r["launches"].get(name, 0) for r in kernel_runs)
@@ -3967,6 +4277,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-rank"]:
         train_rank(sys.argv[2], sys.argv[3:])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--layout-rank"]:
+        layout_rank(sys.argv[2], sys.argv[3])
         sys.exit(0)
     if sys.argv[1:2] == ["--sharded-worker"]:
         world, rank, store, out = sys.argv[2:6]

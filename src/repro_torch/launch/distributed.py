@@ -21,11 +21,31 @@ Counterpart of the training half of ``repro.launch.distributed``.
     selected by ``wire_mode``, branch for branch as the reference selects
     them.
 
-The reference's ``lower()`` (an XLA cost model) and its mesh-sharded
-``ServeJob`` are not carried over; the one-device serve job is
-``launch/serve.py``.  The within-node layouts the reference's sharding
-profiles pick (tp / fsdp / 2d) need more than one card a node: ROADMAP
-queue 1 item 8 (b).
+Within-node layouts: a mesh with a model axis (``NodeMesh(model=M)``)
+spreads every node over M ranks, as the job's sharding profile
+(``launch/sharding.py``; by default the arch's) lays it out.  Each state
+leaf's layout is its parameter's logical axes resolved under the profile's
+``train_param_rules`` (``TrainJob.state_layout``); a rank holds its shard of
+every node-stacked buffer, the update arithmetic runs on the shards as it
+is (it is elementwise), and gossip mixes each shard with the same model
+index on the other nodes (mixing is linear).  Per node:
+
+  * 'fsdp' -- the rank all-gathers the whole parameter tree over the model
+    group before the node's forward, differentiates its share of the node
+    batch and reduce-scatters the gradients' sum, divided by M.  Where the
+    node batch does not divide by M (or holds a mask, or the model has MoE
+    blocks, whose router losses are not means over tokens) every model rank
+    computes the whole node batch and keeps its part of the gradient;
+  * 'tp'   -- ``Model.loss(..., tp=group)``: the rank's heads, hidden units
+    and vocabulary shard (Megatron), every model rank on the whole node
+    batch.
+
+On a model axis of 1 every profile is the node-a-replica job bit for bit.
+On a larger one, the '2d' profile, tp over the MoE, Mamba-2, RWKV blocks
+or HuBERT's encoder, a codec or a CHOCO / async channel, and a scenario
+raise: ROADMAP queue 1 item 8 (b).  The reference's ``lower()`` (an XLA
+cost model) and its mesh-sharded ``ServeJob`` are not carried over; the
+one-device serve job is ``launch/serve.py``.
 """
 from __future__ import annotations
 
@@ -46,8 +66,11 @@ from ..core.mixing import (
 )
 from ..core.simulate import default_comm_seed_fn
 from ..models import Model, ModelConfig
-from ..tree import map_tensors, tree_flatten, tree_leaves, tree_map, tree_unflatten
+from ..models.common import axis_rules, resolve_specs
+from ..models.transformer import TP_REFUSED
+from ..tree import map_tensors, tree_flatten, tree_leaves, tree_unflatten
 from .mesh import NodeMesh
+from .sharding import PROFILES, ShardingProfile, profile_for_arch
 
 Tree = Any
 
@@ -81,9 +104,13 @@ class TrainJob:
     buffer donation): ``step_fn`` gives up the wire of the state it is
     given, so a caller keeps the state it returns, not the one it passed.
     ``abstract_state`` is the state as meta tensors
-    (this rank's rows), ``state_layout`` each of its tensors' layout:
-    ``"node"`` (this rank's rows), ``"replicated"`` (all N rows, the
-    compressed allgather's wire) or ``"host"`` (a host int)."""
+    (this rank's rows and shards), ``state_layout`` each of its tensors'
+    layout: ``"node"`` (this rank's rows), ``"replicated"`` (all N rows, the
+    compressed allgather's wire) or ``"host"`` (a host int); on a model
+    axis a node-stacked tensor's layout is its spec instead, ``(node axes,
+    *mesh axis or None a dim)`` (the reference's ``state_shardings``).
+    ``shard_dims`` gives each parameter leaf's model-sharded dim (None:
+    replicated; all None on a model axis of 1)."""
 
     model: Model
     mesh: NodeMesh
@@ -95,6 +122,8 @@ class TrainJob:
     step_fn: Callable
     abstract_state: Any
     state_layout: Any
+    profile: ShardingProfile
+    shard_dims: Any
     scenario: Any = None
 
     # ---- scenario plumbing ------------------------------------------------
@@ -120,17 +149,28 @@ class TrainJob:
 
     # ---- state and batches --------------------------------------------------
     def init_state(self, seed: int = 0, params: Optional[Tree] = None) -> Any:
-        """The initial state at this rank's rows: the model's parameters
-        from ``seed`` (or ``params``, e.g. the reference's carried across by
-        ``convert.params_from_numpy``) broadcast over this rank's nodes,
-        then the channel's wire state (all N rows for a replicated wire)."""
+        """The initial state at this rank's rows: the model's full
+        parameters from ``seed`` (or ``params``, e.g. the reference's carried
+        across by ``convert.params_from_numpy``), this rank's shard of each
+        kept, broadcast over this rank's nodes, then the channel's wire
+        state (all N rows for a replicated wire)."""
         m = self.mesh
         if params is None:
             params = self.model.init(seed, device=m.device)
-        stacked = tree_map(
-            lambda p: p.to(m.device).unsqueeze(0).repeat((m.n_local,) + (1,) * p.dim()), params)
+        leaves, treedef = tree_flatten(params)
+        shards = [_shard(p.to(m.device), d, m) for p, d in zip(leaves, self.shard_dims)]
+        stacked = tree_unflatten(treedef, [
+            p.unsqueeze(0).repeat((m.n_local,) + (1,) * p.dim()) for p in shards])
         return attach_channel_state(self.algorithm, self.algorithm.init(stacked),
                                     n_nodes=self.n_nodes)
+
+    def full(self, tree: Tree) -> Tree:
+        """A parameter-shaped node-stacked tree of this rank's rows and
+        shards (the parameters, or any buffer of the state) gathered over
+        both axes: all N nodes, whole leaves, on every rank (a collective:
+        every rank calls it)."""
+        dims = [None if d is None else d + 1 for d in self.shard_dims]
+        return self.mesh.full(tree, dims)
 
     def local_batch(self, global_batches: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """This rank's nodes of ``(round_len, N, b, ...)`` batches (numpy
@@ -144,9 +184,19 @@ class TrainJob:
         return {k: rows(v) for k, v in global_batches.items()}
 
 
-def _layout(abstract_state, alg, params) -> Any:
+def _shard(p: torch.Tensor, dim: Optional[int], mesh: NodeMesh) -> torch.Tensor:
+    """This rank's model shard of a full parameter along ``dim`` (None: the
+    whole of it)."""
+    if dim is None:
+        return p
+    n = p.shape[dim] // mesh.model
+    return p.narrow(dim, mesh.model_group.index * n, n).contiguous()
+
+
+def _layout(abstract_state, alg, params, param_spec=None) -> Any:
     """``TrainJob.state_layout``: ``abstract_state``'s structure with every
-    tensor's layout (the reference's ``state_shardings``)."""
+    tensor's layout (the reference's ``state_shardings``); ``param_spec``
+    (on a model axis) is the parameter-shaped buffers' spec tree."""
     chan = alg.comm.resolved_channel()
     fields = {}
     for f in dataclasses.fields(type(abstract_state)):
@@ -157,9 +207,29 @@ def _layout(abstract_state, alg, params) -> Any:
                 event="host")
         elif isinstance(v, int):
             fields[f.name] = "host"
+        elif param_spec is not None and v is not None:
+            fields[f.name] = param_spec
         else:
             fields[f.name] = map_tensors(lambda _: "node", v)
     return type(abstract_state)(**fields)
+
+
+def _refuse_layout(profile: ShardingProfile, cfg: ModelConfig, chan, scenario) -> None:
+    """What a model axis larger than 1 cannot run yet: ROADMAP queue 1
+    item 8 (b)."""
+    why = None
+    if profile.name == "2d":
+        why = "the '2d' profile"
+    elif profile.name == "tp" and (set(cfg.block_unit) & set(TP_REFUSED)
+                                   or cfg.audio_frontend_dim):
+        why = f"tp over {cfg.name}'s {'audio encoder' if cfg.audio_frontend_dim else 'blocks'}"
+    elif chan is not None:
+        why = f"gossip through {chan!r}"
+    elif scenario is not None:
+        why = "a scenario"
+    if why is not None:
+        raise NotImplementedError(
+            f"{why} on a node spread over a model axis is ROADMAP queue 1 item 8 (b)")
 
 
 def make_train_job(
@@ -215,13 +285,14 @@ def make_train_job(
     (default: ``core.simulate.default_comm_seed_fn(0)``); the port never
     re-derives the reference's threefry keys.
 
-    Every node is one model replica on its rank's device.  ``profile``, the
-    reference's within-node layout, is refused when given: ROADMAP queue 1
-    item 8 (b)."""
-    if profile is not None:
-        raise NotImplementedError(
-            f"sharding profile {profile!r}: the within-node layouts (tp / fsdp / 2d) need "
-            "more than one card a node, ROADMAP queue 1 item 8 (b)")
+    ``profile`` (a ``ShardingProfile`` or its name; None: the arch's
+    default, ``profile_for_arch``) lays each node out over the mesh's model
+    axis (see the module docstring); on a model axis of 1 it changes
+    nothing."""
+    if profile is None:
+        profile = profile_for_arch(cfg.name)
+    elif isinstance(profile, str):
+        profile = PROFILES[profile]
     n_nodes = mesh.n_nodes
     topology = ring(n_nodes)
     model = Model(cfg)
@@ -239,6 +310,17 @@ def make_train_job(
     if wire_mode not in ("auto", "dense", "neighbor", "allgather"):
         raise ValueError(f"wire_mode must be auto/dense/neighbor/allgather, got {wire_mode!r}")
     chan = alg.comm.resolved_channel()
+    if mesh.model > 1:
+        _refuse_layout(profile, cfg, chan, scenario)
+    group = mesh.model_group
+    # each parameter leaf's spec under the profile, and its model-sharded dim
+    with axis_rules(profile.train_rules(mesh), mesh, param_rules=profile.train_param_rules(mesh)):
+        node_axes = profile.node_axes(mesh)
+        param_spec = resolve_specs(model.param_specs(), prefix=(node_axes or None,))
+    shard_dims = [None if group is None or "model" not in spec else spec.index("model") - 1
+                  for spec in tree_leaves(param_spec)]
+    fsdp = group is not None and profile.name == "fsdp"
+    tp = group if group is not None and profile.name == "tp" else None
     if overlap:
         if not isinstance(chan, ChocoChannel):
             raise ValueError(
@@ -329,35 +411,60 @@ def make_train_job(
         _rebind_channel(in_place=True)
 
     # ---- per-node loss and gradients, a loop over this rank's nodes ----
+    def share(node: Dict[str, torch.Tensor]):
+        """fsdp: this model rank's rows of a node batch, or None where every
+        rank computes the whole of it (see the module docstring)."""
+        b = next(iter(node.values())).shape[0]
+        if b % group.size or "mask" in node or "moe" in cfg.block_unit:
+            return None
+        n = b // group.size
+        return {k: v[group.index * n:(group.index + 1) * n] for k, v in node.items()}
+
     def node_grads(params: Tree, batch: Dict[str, torch.Tensor], losses=None) -> Tree:
         """Each node's gradient of its own loss, stacked; ``grad_accum``
         microbatches accumulate in fp32.  ``losses`` collects each node's
         loss (the first microbatch's with accumulation, the value the
-        reference's metrics read)."""
+        reference's metrics read).  Under fsdp the loss and the gradient
+        are those of the whole tree gathered over the model group, the
+        gradient reduce-scattered back to this rank's shards."""
         leaves, treedef = tree_flatten(params)
         out = [torch.empty_like(p) for p in leaves]
         for i in range(leaves[0].shape[0]):
             node = {k: v[i] for k, v in batch.items()}
+            mine = share(node) if fsdp else None
+            if mine is not None:
+                node = mine
             b = next(iter(node.values())).shape[0]
             if b % grad_accum:
                 raise ValueError(f"per-node batch {b} does not split into {grad_accum} "
                                  "microbatches")
             mb = b // grad_accum
+            whole = (group.all_gather([p[i] for p in leaves], shard_dims) if fsdp
+                     else [p[i] for p in leaves])
             acc = None
             for j in range(grad_accum):
-                p_i = [p[i].detach().requires_grad_(True) for p in leaves]
+                p_i = [p.detach().requires_grad_(True) for p in whole]
                 part = {k: v[j * mb:(j + 1) * mb] for k, v in node.items()}
                 with torch.enable_grad():
-                    loss = model.loss(tree_unflatten(treedef, p_i), part, dtype=torch.bfloat16)
+                    loss = model.loss(tree_unflatten(treedef, p_i), part, dtype=torch.bfloat16,
+                                      tp=tp)
                     g = torch.autograd.grad(loss, p_i)
                 if losses is not None and j == 0:
-                    losses.append(loss.detach().float())
+                    loss = loss.detach().float()
+                    if mine is not None:
+                        loss = group.all_reduce(loss) / group.size
+                    losses.append(loss)
                 if grad_accum == 1:
                     acc = g
                 elif acc is None:
                     acc = [gi.float() for gi in g]
                 else:
                     acc = [a + gi.float() for a, gi in zip(acc, g)]
+            del whole, p_i
+            if mine is not None:
+                acc = [a / group.size for a in group.reduce_scatter(acc, shard_dims)]
+            elif fsdp:
+                acc = [_shard(a, d, mesh) for a, d in zip(acc, shard_dims)]
             for o, a in zip(out, acc):
                 o[i].copy_(a if grad_accum == 1 else a / grad_accum)
         return tree_unflatten(treedef, out)
@@ -390,8 +497,14 @@ def make_train_job(
                 else torch.zeros((), device=dev))
         v_norm = torch.zeros((), device=dev)
         if direction is not None:
-            v_norm = mesh.all_reduce_sum(sum(
-                torch.sum(v.float() ** 2) for v in tree_leaves(direction)))
+            # on a model axis: the shards' squares summed over the group, a
+            # replicated leaf's once
+            v_norm = sum((torch.sum(v.float() ** 2)
+                          for v, d in zip(tree_leaves(direction), shard_dims)
+                          if d is not None or group is None or group.index == 0), v_norm)
+            if group is not None:
+                v_norm = group.all_reduce(v_norm)
+            v_norm = mesh.all_reduce_sum(v_norm)
         return {"loss": loss, "v_norm": v_norm}
 
     stream_fn = None
@@ -414,15 +527,17 @@ def make_train_job(
         return state, metrics
 
     # ---- the abstract state: meta tensors, nothing allocated ----
-    shapes = model.param_shapes(dtype=torch.float32)
-    stacked = tree_map(
-        lambda s: torch.empty((mesh.n_local,) + tuple(s.shape), dtype=s.dtype, device="meta"),
-        shapes)
+    leaves, treedef = tree_flatten(model.param_shapes(dtype=torch.float32))
+    stacked = tree_unflatten(treedef, [
+        torch.empty((mesh.n_local,) + tuple(_shard(s, d, mesh).shape), dtype=s.dtype,
+                    device="meta") for s, d in zip(leaves, shard_dims)])
     abstract_state = abstract_channel_state(alg, alg.init(stacked), n_nodes=n_nodes)
 
     return TrainJob(
         model=model, mesh=mesh, algorithm=alg,
         tau=int(getattr(alg, "tau", 1)), round_len=round_len, n_nodes=n_nodes,
         gossip=gossip, step_fn=step_fn, abstract_state=abstract_state,
-        state_layout=_layout(abstract_state, alg, stacked), scenario=scenario,
+        state_layout=_layout(abstract_state, alg, stacked,
+                             param_spec if group is not None else None),
+        profile=profile, shard_dims=shard_dims, scenario=scenario,
     )

@@ -20,6 +20,18 @@ are rows delivered from one node to another (on one rank too), process
 bytes those that crossed ranks; each rank counts what it receives.  This
 count replaces ``launch/hlo_analysis.py``'s reading of a compiled module.
 
+A mesh with a model axis (``model`` = M > 1) is the reference's data x
+model mesh: ``world = D x M`` ranks, rank ``d M + m`` holds model shard m
+of node block d (the order of ``repro.launch.mesh.make_test_mesh((D, M))``
+'s devices).  The three node-axis primitives then run on the gloo subgroup
+of the D ranks with model index m, so they move only the shard m holds;
+the within-node movements go through :class:`ModelGroup` (the M ranks of
+one node block): an all-gather along a dim, a reduce-scatter and an
+all-reduce, each summed in rank order so that every rank gets the same
+bits, and the two Megatron autograd Functions.  Its bytes are counted
+under ``byte_counts()["model"]``.  ``model=1`` makes no subgroup and
+calls no collective of its own.
+
 The backend is gloo.  Gloo moves no CUDA tensor on send, recv or
 all-gather, so on the card the mesh stages exactly the payload rows through
 host buffers: one device-to-host copy of the rows a peer needs, the gloo
@@ -31,18 +43,21 @@ over.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
 from ..tree import map_tensors
 
-__all__ = ["NodeMesh", "make_test_mesh", "make_group_mesh", "OPS"]
+__all__ = ["NodeMesh", "ModelGroup", "make_test_mesh", "make_group_mesh", "OPS", "MODEL_OPS"]
 
 #: the three primitives, the keys of :meth:`NodeMesh.byte_counts`
 OPS = ("roll", "all_gather", "all_reduce")
+#: the model group's movements, the keys of ``byte_counts()["model"]``
+MODEL_OPS = ("all_gather", "reduce_scatter", "all_reduce")
 
 
 def _tensors(obj: Any) -> List[torch.Tensor]:
@@ -81,6 +96,170 @@ def _from_bytes(buf: torch.Tensor, at: int, dtype, shape) -> Tuple[torch.Tensor,
     return buf[at:at + size].view(dtype).reshape(shape), at + _padded(size)
 
 
+def _split(x: torch.Tensor, dim: int, parts: int, i: int) -> torch.Tensor:
+    """Part ``i`` of ``parts`` equal parts of ``x`` along ``dim``."""
+    n = x.shape[dim] // parts
+    return x.narrow(dim, i * n, n)
+
+
+class ModelGroup:
+    """The M ranks of one node block along the model axis.
+
+    ``index`` is this rank's model index m, ``size`` is M.  Every movement
+    sends one message to each peer (gloo send / recv), staged through host
+    buffers (gloo moves no CUDA tensor; on the card the buffers are pinned
+    and kept for the next call of the same size), and sums in rank order,
+    so that a sum is the same bits on every rank and does not depend on
+    which rank computes it.  The tensor-parallel model code calls
+    :meth:`copy_to` (identity forward, all-reduce backward) on the input of
+    a parallel region and :meth:`reduce_from` (all-reduce forward, identity
+    backward) on its partial output.
+    """
+
+    def __init__(self, group, size: int, index: int, device):
+        self.group = group
+        self.size = int(size)
+        self.index = int(index)
+        self.device = device
+        self._host: Dict[Tuple[str, int, int], torch.Tensor] = {}
+        self.reset_bytes()
+
+    def __repr__(self) -> str:
+        return f"ModelGroup(size={self.size}, index={self.index})"
+
+    def reset_bytes(self) -> None:
+        self._bytes = {op: 0 for op in MODEL_OPS}
+
+    def byte_counts(self) -> Dict[str, int]:
+        """Bytes this rank received over the model group, by movement."""
+        return dict(self._bytes)
+
+    def _staging(self, slot: str, peer: int, nbytes: int) -> torch.Tensor:
+        """A host buffer of ``nbytes`` for one peer's message: pinned and
+        kept on the card, a fresh one on the CPU."""
+        if self.device.type != "cuda":
+            return torch.empty(nbytes, dtype=torch.uint8)
+        key = (slot, peer, nbytes)
+        if key not in self._host:
+            self._host[key] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        return self._host[key]
+
+    def _exchange(self, msgs: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
+        """Send ``msgs[r]`` (uint8, on the device) to each peer r; return
+        what each peer sent, on the device (every message between two ranks
+        has one size both ways)."""
+        ops, recv = [], {}
+        for r, msg in msgs.items():
+            peer = dist.get_global_rank(self.group, r)
+            out = self._staging("send", r, msg.numel())
+            out.copy_(msg)
+            recv[r] = self._staging("recv", r, msg.numel())
+            ops += [dist.P2POp(dist.isend, out, peer, self.group),
+                    dist.P2POp(dist.irecv, recv[r], peer, self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return {r: b.to(self.device) for r, b in recv.items()}
+
+    def _peers(self) -> List[int]:
+        return [r for r in range(self.size) if r != self.index]
+
+    def all_gather(self, leaves: Sequence[torch.Tensor], dims: Sequence[Optional[int]]
+                   ) -> List[torch.Tensor]:
+        """Each leaf's shards concatenated along its dim, in one message to
+        each peer; a leaf with dim None is replicated and passes as it is."""
+        idx = [i for i, d in enumerate(dims) if d is not None]
+        out = list(leaves)
+        if not idx:
+            return out
+        parts = [leaves[i].detach() for i in idx]
+        mine = torch.cat([_as_bytes(x) for x in parts])
+        arrived = self._exchange({r: mine for r in self._peers()})
+        del mine
+        self._bytes["all_gather"] += (self.size - 1) * sum(
+            x.numel() * x.element_size() for x in parts)
+        at = 0
+        for i, x in zip(idx, parts):
+            shards = [x if r == self.index else
+                      _from_bytes(arrived[r], at, x.dtype, tuple(x.shape))[0]
+                      for r in range(self.size)]
+            out[i] = torch.cat(shards, dim=dims[i])
+            at += _padded(x.numel() * x.element_size())
+        return out
+
+    def reduce_scatter(self, leaves: Sequence[torch.Tensor], dims: Sequence[Optional[int]]
+                       ) -> List[torch.Tensor]:
+        """The sum over the ranks of each leaf, this rank's part of it along
+        its dim (the whole sum for dim None), all leaves in one message to
+        each peer; the parts are summed in rank order."""
+        def part(x, d, r):
+            return x.detach() if d is None else _split(x.detach(), d, self.size, r)
+
+        arrived = self._exchange({
+            r: torch.cat([_as_bytes(part(x, d, r)) for x, d in zip(leaves, dims)])
+            for r in self._peers()})
+        self._bytes["reduce_scatter"] += (self.size - 1) * sum(
+            part(x, d, self.index).numel() * x.element_size() for x, d in zip(leaves, dims))
+        out, at = [], 0
+        for x, d in zip(leaves, dims):
+            mine = part(x, d, self.index)
+            shape, size = tuple(mine.shape), mine.numel() * mine.element_size()
+            acc = None
+            for r in range(self.size):
+                p = mine if r == self.index else _from_bytes(arrived[r], at, x.dtype, shape)[0]
+                acc = p.clone() if acc is None else acc.add_(p)
+            out.append(acc)
+            at += _padded(size)
+        return out
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (in rank order) or the max of ``x`` over the ranks."""
+        self._bytes["all_reduce"] += (self.size - 1) * x.numel() * x.element_size()
+        if op == "max":
+            host = x.detach().cpu().clone()
+            dist.all_reduce(host, op=dist.ReduceOp.MAX, group=self.group)
+            return host.to(x.device)
+        if op != "sum":
+            raise ValueError(op)
+        mine = x.detach()
+        arrived = self._exchange({r: _as_bytes(mine) for r in self._peers()})
+        acc = None
+        for r in range(self.size):
+            p = mine if r == self.index else _from_bytes(arrived[r], 0, x.dtype,
+                                                          tuple(x.shape))[0]
+            acc = p.clone() if acc is None else acc.add_(p)
+        return acc
+
+    def copy_to(self, x: torch.Tensor) -> torch.Tensor:
+        """Identity forward, gradient all-reduced (fp32) backward."""
+        return _CopyToModel.apply(x, self)
+
+    def reduce_from(self, x: torch.Tensor) -> torch.Tensor:
+        """All-reduce (fp32, cast back to x's dtype) forward, identity
+        backward."""
+        return _ReduceFromModel.apply(x, self)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.float()).to(g.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class NodeMesh:
     """``n_nodes`` nodes over the ranks of ``group`` (None: world 1, every
     node on this process's device).
@@ -89,10 +268,14 @@ class NodeMesh:
     Tensors are node-stacked on ``device``; host staging is explicit (see
     the module docstring)."""
 
-    def __init__(self, n_nodes: int, group=None, device=None):
+    def __init__(self, n_nodes: int, group=None, device=None, model: int = 1):
         self.n_nodes = int(n_nodes)
-        self.group = group
+        self.model = int(model)
+        self.device = resolve_device(device)
+        self.model_group: Optional[ModelGroup] = None
         if group is None:
+            if self.model != 1:
+                raise ValueError(f"a model axis of {self.model} needs a process group")
             self.world, self.rank = 1, 0
         else:
             backend = dist.get_backend(group)
@@ -102,26 +285,63 @@ class NodeMesh:
                     "NCCL) is ROADMAP queue 1 item 8 (b); the port's mesh runs on gloo")
             self.world = dist.get_world_size(group)
             self.rank = dist.get_rank(group)
+            if self.model < 1 or self.world % self.model:
+                raise ValueError(f"a model axis of {self.model} does not split "
+                                 f"{self.world} ranks")
+            if self.model > 1:
+                group = self._split_axes(group)
+        self.group = group
         if self.n_nodes < 1 or self.n_nodes % self.world:
             raise ValueError(f"{self.n_nodes} nodes do not split over {self.world} ranks")
         self.n_local = self.n_nodes // self.world
         self.lo = self.rank * self.n_local
         self.hi = self.lo + self.n_local
-        self.device = resolve_device(device)
         self.reset_bytes()
+
+    def _split_axes(self, group):
+        """Make the node-axis and model-axis subgroups of ``group`` (every
+        rank of it makes all of them, in one order); this rank's node
+        subgroup is returned and ``world`` / ``rank`` become its node-axis
+        size and index."""
+        ranks = dist.get_process_group_ranks(group)
+        m_size, d_size = self.model, self.world // self.model
+        d, m = divmod(self.rank, m_size)
+        node_groups = [dist.new_group([ranks[i * m_size + j] for i in range(d_size)],
+                                      backend="gloo") for j in range(m_size)]
+        model_groups = [dist.new_group([ranks[i * m_size + j] for j in range(m_size)],
+                                       backend="gloo") for i in range(d_size)]
+        self.model_group = ModelGroup(model_groups[d], m_size, m, self.device)
+        self.world, self.rank = d_size, d
+        return node_groups[m]
+
+    # the data x model mesh the sharding profiles read
+    axis_names = ("data", "model")
+
+    @property
+    def devices(self) -> np.ndarray:
+        """The ranks as a (data, model) array (the reference's
+        ``mesh.devices``; its shape gives the axis sizes)."""
+        return np.arange(self.world * self.model).reshape(self.world, self.model)
 
     def __repr__(self) -> str:
         return (f"NodeMesh(n_nodes={self.n_nodes}, world={self.world}, rank={self.rank}, "
-                f"rows=[{self.lo}, {self.hi}), device={self.device})")
+                f"model={self.model}, rows=[{self.lo}, {self.hi}), device={self.device})")
 
     # ---------------------------------------------------------- accounting
     def reset_bytes(self) -> None:
         self._bytes = {op: {"node_link": 0, "process": 0} for op in OPS}
+        if self.model_group is not None:
+            self.model_group.reset_bytes()
 
     def byte_counts(self) -> Dict[str, Dict[str, int]]:
         """``{primitive: {"node_link": B, "process": B}}`` received by this
-        rank's nodes since the last :meth:`reset_bytes`."""
-        return {op: dict(c) for op, c in self._bytes.items()}
+        rank's nodes since the last :meth:`reset_bytes`; on a model axis
+        also ``"model"``: ``{movement: B}`` this rank received over its
+        :class:`ModelGroup`."""
+        out = {op: dict(c) for op, c in self._bytes.items()}
+        if self.model_group is not None:
+            out["model"] = self.model_group.byte_counts()
+        return out
 
     def _count(self, op: str, node_link: int, process: int) -> None:
         self._bytes[op]["node_link"] += int(node_link)
@@ -170,7 +390,8 @@ class NodeMesh:
                      for x in leaves]
             if parts:
                 # host staging: gloo sends CPU tensors only
-                ops.append(dist.P2POp(dist.isend, torch.cat(parts).cpu(), dst, self.group))
+                ops.append(dist.P2POp(dist.isend, torch.cat(parts).cpu(),
+                                      dist.get_global_rank(self.group, dst), self.group))
         crossed = 0
         for src, _, take, _ in mine:
             if src != self.rank:
@@ -178,7 +399,8 @@ class NodeMesh:
                                   dtype=torch.uint8)
                 recv[src] = buf
                 crossed += take * row_bytes
-                ops.append(dist.P2POp(dist.irecv, buf, src, self.group))
+                ops.append(dist.P2POp(dist.irecv, buf, dist.get_global_rank(self.group, src),
+                                      self.group))
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         arrived = {src: buf.to(self.device) for src, buf in recv.items()}
@@ -250,9 +472,14 @@ class NodeMesh:
         return map_tensors(
             lambda x: x[self.lo:self.hi] if x.dim() and x.shape[0] == self.n_nodes else x, tree)
 
-    def full(self, tree: Any) -> Any:
+    def full(self, tree: Any, model_dims: Optional[Sequence[Optional[int]]] = None) -> Any:
         """``tree`` with every tensor of this rank's rows gathered to all N
-        rows (:meth:`all_gather`); replicated tensors pass."""
+        rows (:meth:`all_gather`); replicated tensors pass.  ``model_dims``
+        (on a model axis) gives each tensor's model-sharded dim, or None, in
+        the order the tree's tensors are walked: those shards are gathered
+        over the model group first, so every rank gets the whole tree."""
+        if model_dims is not None and self.model_group is not None:
+            tree = _refill(tree, self.model_group.all_gather(_tensors(tree), model_dims))
         local = [x for x in _tensors(tree) if not self._replicated(x)]
         if not local:
             return tree
@@ -266,10 +493,13 @@ def make_test_mesh(n_nodes: int, device=None) -> NodeMesh:
     return NodeMesh(n_nodes, group=None, device=device)
 
 
-def make_group_mesh(n_nodes: int, group=None, device=None) -> NodeMesh:
+def make_group_mesh(n_nodes: int, group=None, device=None, model: int = 1) -> NodeMesh:
     """A mesh over an initialized ``torch.distributed`` group (the default
-    group when None): rank r holds nodes ``[r N / W, (r + 1) N / W)``."""
+    group when None): with ``model`` = 1, rank r holds nodes ``[r N / W,
+    (r + 1) N / W)``; with M > 1, rank ``d M + m`` holds model shard m of
+    nodes ``[d N M / W, (d + 1) N M / W)``.  A model axis makes subgroups,
+    so every rank of ``group`` must call this."""
     if not dist.is_initialized():
         raise RuntimeError("make_group_mesh needs an initialized torch.distributed group")
     return NodeMesh(n_nodes, group=group if group is not None else dist.group.WORLD,
-                    device=device)
+                    device=device, model=model)

@@ -54,18 +54,18 @@ class AttentionConfig:
 def init_attention(cfg: AttentionConfig, ini: Initializer):
     d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
-        "wq": ini.param((d, h, hd)),
-        "wk": ini.param((d, k, hd)),
-        "wv": ini.param((d, k, hd)),
-        "wo": ini.param((h, hd, d)),
+        "wq": ini.param((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": ini.param((d, k, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ini.param((d, k, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ini.param((h, hd, d), ("heads", "head_dim", "embed")),
     }
     if cfg.use_bias:
-        p["bq"] = ini.param((h, hd), init="zeros")
-        p["bk"] = ini.param((k, hd), init="zeros")
-        p["bv"] = ini.param((k, hd), init="zeros")
+        p["bq"] = ini.param((h, hd), ("heads", "head_dim"), init="zeros")
+        p["bk"] = ini.param((k, hd), ("kv_heads", "head_dim"), init="zeros")
+        p["bv"] = ini.param((k, hd), ("kv_heads", "head_dim"), init="zeros")
     if cfg.qk_norm:
-        p["q_norm"] = ini.param((hd,), init="ones")
-        p["k_norm"] = ini.param((hd,), init="ones")
+        p["q_norm"] = ini.param((hd,), ("head_dim",), init="ones")
+        p["k_norm"] = ini.param((hd,), ("head_dim",), init="ones")
     return p
 
 
@@ -153,10 +153,49 @@ def _blockwise_sdpa(cfg: AttentionConfig, q, k, v, q_pos, kv_pos, block: int = 5
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
+def _head_shard(cfg: AttentionConfig, params, x: torch.Tensor, tp):
+    """A tensor-parallel rank's attention: its query heads (``wq`` holds
+    H / M of them) and the KV heads they read.  KV heads sharded with the
+    query heads are used as they are; where they fell back to replicated,
+    the rank slices the ones its heads use (each head its own where the
+    groups do not line up), through ``tp.copy_to`` so that the replicated
+    leaf's gradient is summed over the ranks, as the QK norms' are.
+    Returns the rank's config, parameters and input (identity forward,
+    gradient all-reduced backward)."""
+    h_loc = params["wq"].shape[1]
+    k_loc = params["wk"].shape[1]
+    p = dict(params)
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            p[name] = tp.copy_to(p[name])
+    if k_loc == cfg.n_kv_heads:            # KV heads replicated: slice them
+        qpk, h0 = cfg.q_per_kv, tp.index * h_loc
+        if h_loc % qpk == 0 or qpk % h_loc == 0:
+            lo, k_loc = h0 // qpk, max(h_loc // qpk, 1)
+            take = lambda w, dim: w.narrow(dim, lo, k_loc)  # noqa: E731
+        else:
+            idx = torch.tensor([(h0 + i) // qpk for i in range(h_loc)], device=x.device)
+            k_loc = h_loc
+            take = lambda w, dim: w.index_select(dim, idx)  # noqa: E731
+        for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+            if name in p:
+                p[name] = take(tp.copy_to(p[name]), dim)
+    local = dataclasses.replace(cfg, n_heads=h_loc, n_kv_heads=k_loc)
+    return local, p, tp.copy_to(x)
+
+
 def attention_forward(cfg: AttentionConfig, params, x: torch.Tensor,
-                      positions: torch.Tensor, return_cache: bool = False):
+                      positions: torch.Tensor, return_cache: bool = False, tp=None):
     """Full-sequence (training / prefill) attention.  x: (B, S, d);
-    positions (B, S), or (3, B, S) under M-RoPE."""
+    positions (B, S), or (3, B, S) under M-RoPE.
+
+    ``tp`` (a model group) runs the rank's heads of a tensor-parallel node
+    (:func:`_head_shard`); ``wo``'s partial sums are all-reduced in fp32.
+    Where the heads fell back to replicated (``wq`` holds all of them) the
+    layer runs whole, with no collective."""
+    sharded = tp is not None and params["wq"].shape[1] != cfg.n_heads
+    if sharded:
+        cfg, params, x = _head_shard(cfg, params, x, tp)
     q, k, v = _project_qkv(cfg, params, x, positions)
     pos1 = positions[0] if cfg.mrope_sections is not None else positions
     if cfg.attn_impl == "pallas" and cfg.causal:
@@ -171,6 +210,8 @@ def attention_forward(cfg: AttentionConfig, params, x: torch.Tensor,
     else:
         out = _sdpa(cfg, q, k, v, pos1, pos1)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(out.dtype))
+    if sharded:
+        y = tp.reduce_from(y)
     if return_cache:
         return y, {"k": k, "v": v, "pos": pos1}
     return y

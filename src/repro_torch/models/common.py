@@ -1,54 +1,169 @@
-"""Model building blocks: the parameter initializer, norms, rotary
-embeddings and the loss.
+"""Model building blocks: logical parameter axes, the parameter
+initializer, norms, rotary embeddings and the loss.
 
-Counterpart of ``repro.models.common`` on one device.  The reference tags
-every parameter and activation with logical sharding axes
-(``logical_constraint``, ``axis_rules``, ``LogicalAxes`` and the
-initializer's specs and shapes modes); on one device they are the identity,
-so the port has none of them.  The sharded engine
-(``launch/distributed.py``) keeps each node on one device; the within-node
-layouts they steer are ROADMAP queue 1 item 8 (b).
+Counterpart of ``repro.models.common``.  Every parameter is drawn with the
+reference's *logical* axis names (``Initializer.param(shape, axes)``), and
+``Model.param_specs()`` returns them as a tree of :class:`LogicalAxes`; a
+rules table (``axis_rules``, set by the sharding profile) maps the names to
+mesh axes, and :func:`resolve_specs` turns the tree into per-dim specs, a
+name that does not divide its dim staying replicated and a mesh axis used
+once a leaf.  The sharded engine (``launch/distributed.py``) lays the state
+out by those specs.  The reference's ``logical_constraint`` (a sharding hint
+on activations for GSPMD) does not come over: the port has no partitioner,
+so its tensor-parallel forward names every movement explicitly, through the
+model group the engine passes down (``tp=``; ``launch/mesh.py``'s
+``ModelGroup``), and :func:`cross_entropy_loss` takes vocab-sharded logits
+with that group.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
-from typing import Optional, Sequence, Tuple
+import threading
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
 from ..kernels.rms_norm.ref import rms_norm_ref
 
 __all__ = [
-    "Initializer", "rms_norm", "layer_norm", "softcap", "rope_frequencies", "apply_rope",
+    "LogicalAxes", "axis_rules", "resolve_specs", "Initializer", "rms_norm", "layer_norm",
+    "softcap", "rope_frequencies", "apply_rope",
     "make_mrope_positions", "apply_mrope", "cross_entropy_loss",
 ]
 
 
+# --------------------------------------------------------------------------
+# logical axis rules
+# --------------------------------------------------------------------------
+class _Rules(threading.local):
+    def __init__(self):
+        self.acts: dict = {}
+        self.params: dict = {}
+        self.mesh = None
+
+
+_RULES = _Rules()
+
+
+@contextlib.contextmanager
+def axis_rules(rules: dict, mesh=None, param_rules: Optional[dict] = None):
+    """Activate logical -> mesh axis rules for the enclosed region (this
+    thread's).  ``rules`` are the activation rules, ``param_rules``
+    (default ``rules``) those :func:`resolve_specs` reads; ``mesh`` (any
+    object with ``axis_names`` and ``devices.shape``) enables the
+    divisibility check."""
+    old = (_RULES.acts, _RULES.params, _RULES.mesh)
+    _RULES.acts = dict(rules)
+    _RULES.params = dict(param_rules if param_rules is not None else rules)
+    _RULES.mesh = mesh
+    try:
+        yield
+    finally:
+        _RULES.acts, _RULES.params, _RULES.mesh = old
+
+
+def _axis_size(mesh_axes) -> int:
+    mesh = _RULES.mesh
+    if mesh is None:
+        return 1
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    size = 1
+    for a in ((mesh_axes,) if isinstance(mesh_axes, str) else mesh_axes):
+        size *= sizes[a]
+    return size
+
+
+def _resolve_axes(names: Sequence[Optional[str]], shape: Optional[Sequence[int]] = None,
+                  table: Optional[dict] = None) -> Tuple:
+    """Logical names -> a spec tuple of mesh axes.  Each mesh axis is used
+    at most once a spec (the first divisible dim wins: Qwen2-MoE's 60
+    experts do not divide a 16-way model axis, so its expert-hidden dim
+    shards instead); a dim the axis does not divide stays replicated."""
+    table = _RULES.acts if table is None else table
+    out = []
+    used: set = set()
+    for i, name in enumerate(names):
+        mesh_axes = table.get(name) if name else None
+        if mesh_axes is not None:
+            key = tuple(mesh_axes) if isinstance(mesh_axes, (tuple, list)) else (mesh_axes,)
+            if any(a in used for a in key):
+                mesh_axes = None
+            elif shape is not None and shape[i] % max(1, _axis_size(mesh_axes)) != 0:
+                mesh_axes = None
+            else:
+                used.update(key)
+        out.append(mesh_axes)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class LogicalAxes:
+    """A tree *leaf*: one parameter's per-dim logical names and shape."""
+
+    names: Tuple[Optional[str], ...]
+    shape: Tuple[int, ...] = ()
+
+    def spec(self) -> Tuple:
+        return _resolve_axes(self.names, self.shape if self.shape else None, _RULES.params)
+
+
+def resolve_specs(spec_tree: Any, prefix: Tuple = ()) -> Any:
+    """A :class:`LogicalAxes` tree -> a tree of spec tuples under the
+    active *param* rules; ``prefix`` is prepended (the node axis of a
+    node-stacked state).  A leaf that is not ``LogicalAxes`` gets
+    ``prefix`` alone."""
+    if isinstance(spec_tree, dict):
+        return {k: resolve_specs(v, prefix) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, LogicalAxes):
+        return tuple(prefix) + spec_tree.spec()
+    return tuple(prefix)
+
+
+# --------------------------------------------------------------------------
+# the parameter initializer
+# --------------------------------------------------------------------------
 class Initializer:
     """Draws parameters from an explicit ``torch.Generator`` (the
-    reference's ``"params"`` mode).
+    reference's ``"params"`` mode), or, with ``mode="specs"``, returns each
+    parameter's :class:`LogicalAxes` instead (the reference's ``"specs"``
+    mode; no generator, nothing drawn).
 
-    ``lead`` is prepended to every parameter's shape: a model's block
-    parameters are drawn stacked over their ``(repeats,)`` axis at once.
-    A normal init scales by 1/sqrt(fan_in) of the per-layer shape, as the
-    reference does.  The generator's numbers are not ``jax.random``'s: the
-    parity tests carry the reference's parameters over through numpy.
+    ``lead`` is prepended to every parameter's shape, and ``lead_axes`` to
+    its axes: a model's block parameters are drawn stacked over their
+    ``(repeats,)`` axis at once, named ``"layers"``.  A normal init scales
+    by 1/sqrt(fan_in) of the per-layer shape, as the reference does.  The
+    generator's numbers are not ``jax.random``'s: the parity tests carry the
+    reference's parameters over through numpy.
     """
 
-    def __init__(self, generator: torch.Generator, dtype=torch.float32, device=None,
-                 lead: Tuple[int, ...] = ()):
+    def __init__(self, generator: Optional[torch.Generator], dtype=torch.float32, device=None,
+                 lead: Tuple[int, ...] = (), lead_axes: Tuple[Optional[str], ...] = (),
+                 mode: str = "params"):
+        if mode not in ("params", "specs"):
+            raise ValueError(mode)
         self.generator = generator
         self.dtype = dtype
-        self.device = torch.device(device) if device is not None else generator.device
+        self.device = (torch.device(device) if device is not None
+                       else None if generator is None else generator.device)
         self.lead = tuple(lead)
+        self.lead_axes = tuple(lead_axes)
+        self.mode = mode
 
     def stacked(self, n: int) -> "Initializer":
         """The same generator, drawing ``(n, ...)``-stacked parameters."""
-        return Initializer(self.generator, self.dtype, self.device, (n,) + self.lead)
+        return Initializer(self.generator, self.dtype, self.device, (n,) + self.lead,
+                           ("layers",) + self.lead_axes, self.mode)
 
-    def param(self, shape: Sequence[int], init: str = "normal",
-              scale: Optional[float] = None, dtype=None) -> torch.Tensor:
+    def param(self, shape: Sequence[int], axes: Sequence[Optional[str]], init: str = "normal",
+              scale: Optional[float] = None, dtype=None):
         shape = tuple(int(s) for s in shape)
+        axes = tuple(axes)
+        if len(shape) != len(axes):
+            raise ValueError(f"{len(axes)} axis names for shape {shape}")
+        if self.mode == "specs":
+            return LogicalAxes(self.lead_axes + axes, self.lead + shape)
         full = self.lead + shape
         dt = dtype or self.dtype
         if init == "zeros":
@@ -159,11 +274,25 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
 # losses
 # --------------------------------------------------------------------------
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Token-level cross entropy, fp32. logits (..., V), targets (...)."""
+                       mask: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
+    """Token-level cross entropy, fp32. logits (..., V), targets (...).
+
+    With ``tp`` (a model group) the logits are this rank's contiguous
+    vocabulary shard, shard ``tp.index`` of ``tp.size``: the max, the sum of
+    exponentials and the target's logit are each all-reduced over the
+    group, so every rank gets the same loss."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    if tp is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    else:
+        rows = logits.shape[-1]
+        top = tp.all_reduce(logits.detach().amax(dim=-1), op="max")
+        logz = torch.log(tp.reduce_from(torch.exp(logits - top[..., None]).sum(dim=-1))) + top
+        local = targets.long() - tp.index * rows
+        inside = (local >= 0) & (local < rows)
+        gold = torch.gather(logits, -1, local.clamp(0, rows - 1)[..., None])[..., 0]
+        gold = tp.reduce_from(gold * inside)
     nll = logz - gold
     if mask is not None:
         mask = mask.float()

@@ -46,13 +46,13 @@ def init_mamba(cfg: MambaConfig, ini: Initializer):
     d, di, n, h = cfg.d_model, cfg.d_inner, cfg.state_dim, cfg.n_heads
     return {
         # fused input projection -> [z, x, B, C, dt]
-        "w_in": ini.param((d, 2 * di + 2 * n + h)),
-        "conv_w": ini.param((cfg.conv_width, di + 2 * n), scale=0.5),
-        "a_log": ini.param((h,), init="zeros"),
-        "d_skip": ini.param((h,), init="ones"),
-        "dt_bias": ini.param((h,), init="zeros"),
-        "norm": ini.param((di,), init="ones"),
-        "w_out": ini.param((di, d)),
+        "w_in": ini.param((d, 2 * di + 2 * n + h), ("embed", "ssm_in")),
+        "conv_w": ini.param((cfg.conv_width, di + 2 * n), (None, "ssm_in"), scale=0.5),
+        "a_log": ini.param((h,), ("heads",), init="zeros"),
+        "d_skip": ini.param((h,), ("heads",), init="ones"),
+        "dt_bias": ini.param((h,), ("heads",), init="zeros"),
+        "norm": ini.param((di,), ("ffn",), init="ones"),
+        "w_out": ini.param((di, d), ("ffn", "embed")),
     }
 
 

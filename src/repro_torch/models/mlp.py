@@ -58,18 +58,25 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 def init_mlp(cfg: MLPConfig, ini: Initializer):
     d, f = cfg.d_model, cfg.d_ff
     p = {
-        "w_up": ini.param((d, f)),
-        "w_down": ini.param((f, d)),
+        "w_up": ini.param((d, f), ("embed", "ffn")),
+        "w_down": ini.param((f, d), ("ffn", "embed")),
     }
     if cfg.activation in ("silu", "gelu"):
-        p["w_gate"] = ini.param((d, f))
+        p["w_gate"] = ini.param((d, f), ("embed", "ffn"))
     if cfg.use_bias:
-        p["b_up"] = ini.param((f,), init="zeros")
-        p["b_down"] = ini.param((d,), init="zeros")
+        p["b_up"] = ini.param((f,), ("ffn",), init="zeros")
+        p["b_down"] = ini.param((d,), ("embed",), init="zeros")
     return p
 
 
-def mlp_forward(cfg: MLPConfig, params, x: torch.Tensor) -> torch.Tensor:
+def mlp_forward(cfg: MLPConfig, params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The GLU / plain MLP.  ``tp`` (a model group) runs the rank's share of
+    the hidden units of a tensor-parallel node: ``w_down``'s partial sums
+    are all-reduced in fp32 before ``b_down``.  Where the hidden dim fell
+    back to replicated the layer runs whole, with no collective."""
+    sharded = tp is not None and params["w_up"].shape[-1] != cfg.d_ff
+    if sharded:
+        x = tp.copy_to(x)
     up = torch.einsum("bsd,df->bsf", x, params["w_up"].to(x.dtype))
     if cfg.use_bias:
         up = up + params["b_up"].to(x.dtype)
@@ -79,6 +86,8 @@ def mlp_forward(cfg: MLPConfig, params, x: torch.Tensor) -> torch.Tensor:
     else:
         h = _act(cfg.activation, up)
     y = torch.einsum("bsf,fd->bsd", h, params["w_down"].to(x.dtype))
+    if sharded:
+        y = tp.reduce_from(y)
     if cfg.use_bias:
         y = y + params["b_down"].to(x.dtype)
     return y
@@ -107,10 +116,10 @@ class MoEConfig:
 def init_moe(cfg: MoEConfig, ini: Initializer):
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     p = {
-        "router": ini.param((d, e)),
-        "w_gate": ini.param((e, d, f)),
-        "w_up": ini.param((e, d, f)),
-        "w_down": ini.param((e, f, d)),
+        "router": ini.param((d, e), ("embed", "experts")),
+        "w_gate": ini.param((e, d, f), ("experts", "embed", "ffn")),
+        "w_up": ini.param((e, d, f), ("experts", "embed", "ffn")),
+        "w_down": ini.param((e, f, d), ("experts", "ffn", "embed")),
     }
     if cfg.n_shared_experts:
         p["shared"] = init_mlp(MLPConfig(d, f * cfg.n_shared_experts, cfg.activation), ini)

@@ -52,27 +52,27 @@ def init_rwkv(cfg: RWKVConfig, ini: Initializer):
     d, f = cfg.d_model, cfg.d_ff
     return {
         # time-mix
-        "mix_r": ini.param((d,), init="zeros"),
-        "mix_k": ini.param((d,), init="zeros"),
-        "mix_v": ini.param((d,), init="zeros"),
-        "mix_w": ini.param((d,), init="zeros"),
-        "mix_g": ini.param((d,), init="zeros"),
-        "w_r": ini.param((d, d)),
-        "w_k": ini.param((d, d)),
-        "w_v": ini.param((d, d)),
-        "w_g": ini.param((d, d)),
-        "w_o": ini.param((d, d)),
-        "decay_base": ini.param((d,), init="zeros"),
-        "decay_lora_a": ini.param((d, cfg.decay_lora)),
-        "decay_lora_b": ini.param((cfg.decay_lora, d), scale=0.1),
-        "bonus_u": ini.param((d,), init="zeros"),
-        "ln_x": ini.param((d,), init="ones"),
+        "mix_r": ini.param((d,), ("embed",), init="zeros"),
+        "mix_k": ini.param((d,), ("embed",), init="zeros"),
+        "mix_v": ini.param((d,), ("embed",), init="zeros"),
+        "mix_w": ini.param((d,), ("embed",), init="zeros"),
+        "mix_g": ini.param((d,), ("embed",), init="zeros"),
+        "w_r": ini.param((d, d), ("embed", "heads_flat")),
+        "w_k": ini.param((d, d), ("embed", "heads_flat")),
+        "w_v": ini.param((d, d), ("embed", "heads_flat")),
+        "w_g": ini.param((d, d), ("embed", "heads_flat")),
+        "w_o": ini.param((d, d), ("heads_flat", "embed")),
+        "decay_base": ini.param((d,), ("heads_flat",), init="zeros"),
+        "decay_lora_a": ini.param((d, cfg.decay_lora), ("embed", None)),
+        "decay_lora_b": ini.param((cfg.decay_lora, d), (None, "heads_flat"), scale=0.1),
+        "bonus_u": ini.param((d,), ("heads_flat",), init="zeros"),
+        "ln_x": ini.param((d,), ("heads_flat",), init="ones"),
         # channel-mix
-        "cmix_k": ini.param((d,), init="zeros"),
-        "cmix_r": ini.param((d,), init="zeros"),
-        "cw_k": ini.param((d, f)),
-        "cw_v": ini.param((f, d)),
-        "cw_r": ini.param((d, d)),
+        "cmix_k": ini.param((d,), ("embed",), init="zeros"),
+        "cmix_r": ini.param((d,), ("embed",), init="zeros"),
+        "cw_k": ini.param((d, f), ("embed", "ffn")),
+        "cw_v": ini.param((f, d), ("ffn", "embed")),
+        "cw_r": ini.param((d, d), ("embed", "embed")),
     }
 
 

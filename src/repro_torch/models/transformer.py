@@ -35,6 +35,19 @@ field is not read: the port keeps every activation for the backward.
 ``init`` and
 ``init_cache`` make tensors on CUDA unless the caller asks for the CPU;
 the rest follow their inputs' device.
+
+``forward`` and ``loss`` take ``tp``, a model group (``launch/mesh.py``'s
+``ModelGroup``), for a node spread tensor-parallel over M ranks: each rank
+holds its shard of the parameters, as the 'tp' profile lays them out, and
+the model reads the layout off the shards' shapes.  The embedding is
+vocab-parallel (each rank looks up its rows and the lookups are summed),
+attention takes the rank's heads, the dense MLP its hidden units (their
+partial outputs all-reduced in fp32), the head gives vocab-sharded logits
+and the loss reduces over the vocabulary's shards
+(``cross_entropy_loss(..., tp=)``).  A layer whose parallel dim fell back to
+replicated runs whole on every rank.  Every rank sees the whole batch.  The
+MoE, Mamba-2 and RWKV blocks and the audio front end have no
+tensor-parallel form yet (ROADMAP queue 1 item 8 (b)).
 """
 from __future__ import annotations
 
@@ -57,6 +70,8 @@ Tree = Any
 __all__ = ["ModelConfig", "Model"]
 
 KINDS = ("attn", "local", "moe", "shared_attn", "mamba", "rwkv")
+# the block kinds that have no tensor-parallel form yet
+TP_REFUSED = ("moe", "mamba", "rwkv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,23 +220,23 @@ class Model:
     def _init_element(self, kind: str, ini: Initializer) -> Dict[str, Any]:
         cfg = self.cfg
         d = cfg.d_model
-        p: Dict[str, Any] = {"norm1": ini.param((d,), init="ones")}
+        p: Dict[str, Any] = {"norm1": ini.param((d,), ("embed",), init="ones")}
         if kind == "rwkv":
-            p["norm2"] = ini.param((d,), init="ones")
+            p["norm2"] = ini.param((d,), ("embed",), init="ones")
             p["rwkv"] = rwkv_lib.init_rwkv(cfg.rwkv_cfg(), ini)
             return p
         if kind == "mamba":
             p["mamba"] = mamba_lib.init_mamba(cfg.mamba_cfg(), ini)
             return p
         p["attn"] = attn_lib.init_attention(cfg.attn_cfg(kind), ini)
-        p["norm2"] = ini.param((d,), init="ones")
+        p["norm2"] = ini.param((d,), ("embed",), init="ones")
         if kind == "moe":
             p["ffn"] = mlp_lib.init_moe(cfg.moe_cfg(), ini)
         else:
             p["ffn"] = mlp_lib.init_mlp(cfg.mlp_cfg(), ini)
         if cfg.use_post_norm:
-            p["post_norm1"] = ini.param((d,), init="ones")
-            p["post_norm2"] = ini.param((d,), init="ones")
+            p["post_norm1"] = ini.param((d,), ("embed",), init="ones")
+            p["post_norm2"] = ini.param((d,), ("embed",), init="ones")
         return p
 
     def init(self, seed: int = 0, dtype=None, device=None) -> Tree:
@@ -237,23 +252,31 @@ class Model:
         return self._init_with(Initializer(torch.Generator(), dtype or self.cfg.param_dtype,
                                            "meta"))
 
+    def param_specs(self) -> Tree:
+        """The parameter tree's :class:`~repro_torch.models.common.LogicalAxes`
+        (resolve them under ``axis_rules`` with ``resolve_specs``): the
+        reference's axis names, stacked block leaves led by ``"layers"``."""
+        return self._init_with(Initializer(None, mode="specs"))
+
     def _init_with(self, ini: Initializer) -> Tree:
         cfg = self.cfg
         params: Dict[str, Any] = {
-            "embed": ini.param((cfg.vocab_size, cfg.d_model), init="embed", scale=0.02),
+            "embed": ini.param((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), init="embed",
+                                scale=0.02),
         }
         if cfg.audio_frontend_dim:
-            params["audio_proj"] = ini.param((cfg.audio_frontend_dim, cfg.d_model))
+            params["audio_proj"] = ini.param((cfg.audio_frontend_dim, cfg.d_model), (None, "embed"))
         if cfg.n_vision_tokens:
-            params["vision_proj"] = ini.param((cfg.d_model, cfg.d_model))
+            params["vision_proj"] = ini.param((cfg.d_model, cfg.d_model), (None, "embed"))
         stacked = ini.stacked(cfg.repeats)
         # a shared_attn element is one copy, used at every repeat
         params["blocks"] = {
             f"b{i}": self._init_element(kind, ini if kind == "shared_attn" else stacked)
             for i, kind in enumerate(cfg.block_unit)}
-        params["final_norm"] = ini.param((cfg.d_model,), init="ones")
+        params["final_norm"] = ini.param((cfg.d_model,), ("embed",), init="ones")
         if not cfg.tie_embeddings:
-            params["lm_head"] = ini.param((cfg.d_model, cfg.vocab_size), init="normal")
+            params["lm_head"] = ini.param((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
+                                          init="normal")
         return params
 
     # ------------------------------------------------------------------
@@ -267,7 +290,14 @@ class Model:
         root = torch.tensor(float(self.cfg.d_model), dtype=torch.float32).sqrt()
         return x * root.to(device=x.device, dtype=x.dtype)
 
-    def _embed_inputs(self, params, batch, dtype=torch.bfloat16):
+    def _vocab_sharded(self, params, tp) -> bool:
+        """True where ``tp`` is given and the rank holds a vocabulary shard
+        of the head (the vocab dim divides by the model axis)."""
+        w = params.get("lm_head")
+        n = params["embed"].shape[0] if w is None else w.shape[-1]
+        return tp is not None and n != self.cfg.vocab_size
+
+    def _embed_inputs(self, params, batch, dtype=torch.bfloat16, tp=None):
         """Returns (x, positions): (B, S) int32, or (3, B, S) under M-RoPE.
 
         An audio model takes ``batch["frames"]`` (B, S, F) and returns
@@ -275,11 +305,24 @@ class Model:
         takes ``batch["vision_embeds"]`` (B, n_vis, d) beside the tokens."""
         cfg = self.cfg
         if cfg.audio_frontend_dim:
+            if tp is not None:
+                raise NotImplementedError(
+                    "a tensor-parallel audio encoder is ROADMAP queue 1 item 8 (b)")
             x = torch.einsum("bsf,fd->bsd", batch["frames"].to(dtype),
                              params["audio_proj"].to(dtype))
             b, s = x.shape[:2]
             return x, torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
-        x = params["embed"][batch["tokens"]].to(dtype)
+        embed = params["embed"]
+        if tp is not None and embed.shape[0] != cfg.vocab_size:
+            # vocab-parallel: the rank's rows, zero elsewhere, summed over
+            # the ranks (one nonzero term: the same bits as the whole table)
+            rows = embed.shape[0]
+            local = batch["tokens"] - tp.index * rows
+            inside = (local >= 0) & (local < rows)
+            x = embed[local.clamp(0, rows - 1)].to(dtype) * inside[..., None].to(dtype)
+            x = tp.reduce_from(x)
+        else:
+            x = embed[batch["tokens"]].to(dtype)
         if cfg.n_vision_tokens:
             ve = torch.einsum("bvd,de->bve", batch["vision_embeds"].to(dtype),
                               params["vision_proj"].to(dtype))
@@ -294,22 +337,28 @@ class Model:
             x = self._scale_embeddings(x)
         return x, positions
 
-    def _head(self, params, x):
+    def _head(self, params, x, tp=None):
         x = self._norm(x, params["final_norm"])
         w = params.get("lm_head")
         if w is None:
             w = params["embed"].T
+        if self._vocab_sharded(params, tp):
+            x = tp.copy_to(x)          # logits of the rank's vocabulary shard
         logits = torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
         return softcap(logits, self.cfg.logit_softcap)
 
     # ------------------------------------------------------------------
     # block application
     # ------------------------------------------------------------------
-    def _apply_block(self, kind, bp, x, positions, mode, cache=None, position=None):
+    def _apply_block(self, kind, bp, x, positions, mode, cache=None, position=None, tp=None):
         """Apply one block.  mode: 'fwd' | 'prefill' | 'decode'.
         Returns (x, new_cache, aux): aux is a MoE block's router losses in
-        'fwd' mode, else None."""
+        'fwd' mode, else None.  ``tp`` (forward only): see the module
+        docstring."""
         cfg = self.cfg
+        if tp is not None and kind in TP_REFUSED:
+            raise NotImplementedError(
+                f"a tensor-parallel {kind!r} block is ROADMAP queue 1 item 8 (b)")
         if kind == "rwkv":
             return self._apply_rwkv(bp, x, mode, cache) + (None,)
         if kind == "mamba":
@@ -323,7 +372,8 @@ class Model:
             y, new_cache = attn_lib.attention_forward(acfg, bp["attn"], h, positions,
                                                       return_cache=True)
         else:
-            y, new_cache = attn_lib.attention_forward(acfg, bp["attn"], h, positions), None
+            y, new_cache = attn_lib.attention_forward(acfg, bp["attn"], h, positions,
+                                                      tp=tp), None
         if cfg.use_post_norm:
             y = self._norm(y, bp["post_norm1"])
         x = x + y
@@ -332,7 +382,7 @@ class Model:
         if kind == "moe":
             y, aux = mlp_lib.moe_forward(cfg.moe_cfg(), bp["ffn"], h, return_aux=mode == "fwd")
         else:
-            y = mlp_lib.mlp_forward(cfg.mlp_cfg(), bp["ffn"], h)
+            y = mlp_lib.mlp_forward(cfg.mlp_cfg(), bp["ffn"], h, tp=tp)
         if cfg.use_post_norm:
             y = self._norm(y, bp["post_norm2"])
         x = x + y
@@ -369,7 +419,7 @@ class Model:
         x = x + y
         return x, (None if mode == "fwd" else {"rwkv": {**tc, **cc}})
 
-    def _scan_blocks(self, params, x, positions, mode, caches=None, position=None):
+    def _scan_blocks(self, params, x, positions, mode, caches=None, position=None, tp=None):
         """Loop over repeats; within a repeat apply each unit element in
         order.  Returns (x, caches stacked over repeats or None, the summed
         auxiliary loss (fp32) in 'fwd' mode or None)."""
@@ -384,7 +434,7 @@ class Model:
                 bp = params["blocks"][key] if kind == "shared_attn" else layers[key][r]
                 c = None if caches is None else tree_map(lambda t: t[r], caches[key])
                 x, nc, block_aux = self._apply_block(kind, bp, x, positions, mode, cache=c,
-                                                     position=position)
+                                                     position=position, tp=tp)
                 if nc is not None:
                     out[key].append(nc)
                 if block_aux is not None:
@@ -397,21 +447,26 @@ class Model:
     # ------------------------------------------------------------------
     # public entry points
     # ------------------------------------------------------------------
-    def forward(self, params, batch, dtype=torch.bfloat16):
+    def forward(self, params, batch, dtype=torch.bfloat16, tp=None):
         """Logits (B, S, V) and the auxiliary loss: the MoE blocks' router
-        z-losses and load-balance losses (fp32; 0 without MoE blocks)."""
-        x, positions = self._embed_inputs(params, batch, dtype)
-        x, aux = self._scan_blocks(params, x, positions, "fwd")
-        return self._head(params, x), aux
+        z-losses and load-balance losses (fp32; 0 without MoE blocks).
+        With ``tp`` the logits are the rank's vocabulary shard where the
+        head is vocab-parallel."""
+        x, positions = self._embed_inputs(params, batch, dtype, tp=tp)
+        x, aux = self._scan_blocks(params, x, positions, "fwd", tp=tp)
+        return self._head(params, x, tp=tp), aux
 
-    def loss(self, params, batch, dtype=torch.bfloat16):
+    def loss(self, params, batch, dtype=torch.bfloat16, tp=None):
         """Mean token cross entropy plus the auxiliary loss, fp32.  A vision
         model's loss reads the text positions only (after the vision
-        block).  Differentiable with respect to ``params``."""
-        logits, aux = self.forward(params, batch, dtype)
+        block).  Differentiable with respect to ``params``; with ``tp``,
+        every rank of the model group gets the same loss."""
+        logits, aux = self.forward(params, batch, dtype, tp=tp)
         if self.cfg.n_vision_tokens:
             logits = logits[:, self.cfg.n_vision_tokens:]
-        return cross_entropy_loss(logits, batch["targets"], batch.get("mask")) + aux
+        vocab_tp = tp if self._vocab_sharded(params, tp) else None
+        return cross_entropy_loss(logits, batch["targets"], batch.get("mask"),
+                                  tp=vocab_tp) + aux
 
     def prefill(self, params, batch, dtype=torch.bfloat16):
         """Last-token logits (B, 1, V) and the prompt's caches: per block

@@ -492,15 +492,20 @@ def test_grad_accum_matches_one_microbatch():
         job.step_fn(job.init_state(0), job.local_batch(batches))
 
 
-@pytest.mark.parametrize("profile", ["tp", "fsdp", "2d"])
+@pytest.mark.parametrize("profile", ["2d"])
 def test_train_job_refuses_a_sharding_profile(profile):
-    """Every node is one replica on its rank's device; the within-node
-    layouts a sharding profile picks wait for ROADMAP queue 1 item 8 (b),
-    so asking for one raises instead of training without it."""
+    """The '2d' layout on a model axis of 2 waits for ROADMAP queue 1 item
+    8 (b): asking for it raises before anything is built, instead of
+    training a replica (the mesh here is a stand-in with a model axis of 2;
+    the spawned groups of ``test_torch_layout_group.py`` raise it on a real
+    one).  On a model axis of 1 every profile is the replica job."""
     from repro_torch.launch.distributed import make_train_job
 
     with pytest.raises(NotImplementedError, match=r"item 8 \(b\)"):
-        make_train_job(_lm_tiny(), make_test_mesh(4, device="cpu"), profile=profile)
+        make_train_job(_lm_tiny(), SimpleNamespace(n_nodes=2, model=2), profile=profile)
+    for name in ("tp", "fsdp", "2d"):
+        job = make_train_job(_lm_tiny(), make_test_mesh(4, device="cpu"), profile=name)
+        assert job.profile.name == name and set(job.shard_dims) == {None}
 
 
 def test_ring_mix_is_the_flipped_rotation():

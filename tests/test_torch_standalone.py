@@ -34,7 +34,7 @@ for want in ("repro_torch.kernels.mvr_update.kernel", "repro_torch.kernels.comm_
              "repro_torch.runtime.launch",
              "repro_torch.serving.snapshot", "repro_torch.serving.replicas",
              "repro_torch.serving.remote", "repro_torch.launch.mesh",
-             "repro_torch.launch.distributed",
+             "repro_torch.launch.distributed", "repro_torch.launch.sharding",
              "repro_torch.launch.shapes", "repro_torch.compression.gossip",
              "repro_torch.launch.train", "repro_torch.experiments",
              "repro_torch.experiments.sweep", "repro_torch.data.pipeline",
