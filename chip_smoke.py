@@ -36,7 +36,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    Qwen2-VL-2B's (H=12, K=2, D=128) at the prefill's B=2, S=8192 and at
    the training step's B=1, S=2048, bf16, SDPA timed beside the seven
    cases it computes, and checked untimed in
-   fp32 at S=1024 and at a ragged S=1000 (D=112 too), the first call of
+   fp32 at S=1024, at a ragged S=1000 (D=112 too) and at phase 3g's fp32
+   tp ranks (H=K=8, S=2048, D=128; H=K=16, S=1024, D=112), the first call of
    each case under
    torch.profiler to print its launch's grid, block, registers and shared
    memory; rms_norm (CUDA C++, src/repro_torch/csrc/rms_norm.cu) on 16,384
@@ -125,7 +126,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the card, each
    its own process, against a world-1 process, both deterministic
    (``torch.use_deterministic_algorithms``, cuBLAS workspace config): roll
-   on 4 nodes and CHOCO on 2 for 2 rounds, final params bit for bit by per-node
+   on 4 nodes and CHOCO on 2 for 2 rounds (CHOCO's error feedback carried
+   between them), final params bit for bit by per-node
    fingerprints, process bytes, ms a round and each rank's launches.
    Every run prints ms a round, node-steps/s, peak memory, launches by op
    and the mesh's bytes a round beside the card's name and power limit;
@@ -140,14 +142,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    over 4 gloo ranks on the card (``python -m torch.distributed.run
    --standalone --nproc-per-node 4 chip_smoke.py --train-rank ...``, this
    file each rank's script; one node a rank on ring(4)), DSE-MVR tau 2 for
-   3 rounds: roll gossip, ``--compression qsgd`` and ``--compression
+   2 rounds (3 before phase 3g took on four more runs: the time limit):
+   roll gossip, ``--compression qsgd`` and ``--compression
    top_k:0.01 --channel choco``, each rank's ``--telemetry-out`` JSONL read
    back: the loss at every round (falling, the same on every rank), link
    bytes together equal to ``link_bytes_per_round``, each rank's kernel
    launches exactly the ops' counts, s a round and peak memory by rank,
    rank 0's checkpoint of all 4 nodes read back finite; then
    ``repro_torch.experiments.sweep --engines sim,sharded --compressors
-   identity,qsgd`` at the reference's other defaults: 8 cells, the
+   identity,qsgd --rounds 4`` at the reference's other defaults: 8 cells, the
    artifacts' schema, finite final losses, the codec kernels launched;
 3g. the within-node layouts (``make_train_job(profile=...)`` on a
    ``NodeMesh`` with a model axis of 2: rank d M + m holds model shard m of
@@ -161,20 +164,39 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    node (flash at 6 heads on 1 KV head a rank); (b) ``fsdp`` on Qwen2-VL-2B,
    2 x (256 + 768) tokens a node, split over the model ranks; (c) ``fsdp``
    (its default profile) on Yi-9B (d 4096, 32 heads on 4 KV heads, d_ff
-   11,008, vocab 64,000, untied), 1 node x model 2, 2 x 1,024 tokens.  Each
-   against the same nodes at model 1 in this process: within rtol 5e-3 /
-   atol 1e-4 after round 1 (rank 0 writes the parameters gathered over both
-   axes by ``TrainJob.full``), the gap after the last round printed (round
-   3 under tp, 2 under fsdp); replicated
-   leaves bit for bit across the model ranks of a node (deterministic
-   cuBLAS and algorithms); launches by op and rank exactly (flash once a
-   layer a node's forward, the update ops once a ``tree_apply`` bucket of
-   the rank's shards); the model group's movements (tp all-reduces, fsdp
+   11,008, vocab 64,000, untied), 1 node x model 2, 2 x 1,024 tokens;
+   (d)-(g) ``tp``, the default profile of the rest, on each one's first
+   block unit: RWKV-6 3B (1 layer; ``wkv_chunk`` at 20 of 40 heads a
+   rank), Zamba2-7B (2 Mamba-2 layers, 56 of 112 SSM heads a rank, and the
+   shared attention, flash at 16 of 32 heads, D 112) and HuBERT X-Large (1
+   layer, the plain bidirectional attention at 8 of 16 heads; 1 x 1,500
+   frames of 512 features and frame targets drawn on the card), each 2
+   nodes x model 2; Qwen1.5-MoE-A2.7B (1 layer, 30 of 60 experts and flash
+   at 8 of 16 heads a rank), 1 node x model 2; 1 x 512, 1,024 and 2,048
+   tokens a node.  RWKV-6, Zamba2 and Qwen1.5-MoE run twice: in the
+   engine's bf16 activations, held to ``LAYOUT_FLOOR_TIMES``
+   times the floor of the same round, model 1 against itself from its init
+   one fp32 ulp up (in bf16 a tp round's partial sums round apart past the
+   band), and in fp32 activations (``LAYOUT_FP32``), held to the band.  Each against the same nodes at model
+   1 in this process, run after the group, after round 1 and the last
+   round (each rank writes its rows and shards, which the model-1 run
+   reads a leaf at a time; (f)'s ranks also gather the whole tree with
+   ``TrainJob.full``, held the same way); the loss falling, the same on
+   every rank; replicated leaves bit for bit across the model ranks of a
+   node (deterministic cuBLAS and algorithms); launches by op and rank
+   exactly (flash once a causal attention layer, ``wkv_chunk`` once an
+   RWKV layer, a node's forward, none in a backward; the update ops once a
+   ``tree_apply`` bucket of the rank's shards); Qwen1.5-MoE's routing
+   decisions by round that differ from model 1's (and the floor's), the
+   same on both ranks; the model group's movements (tp all-reduces, and
+   all-gathers the MoE router's logits and Mamba-2's projection and conv
+   weights, reduce-scattering their gradients, to the byte; fsdp
    all-gathers and reduce-scatters); ms a round, peak memory, the model
-   group's and the node axis's bytes a round, by rank.  Cuts, no width:
-   1 layer of each model (as phase 3e), Yi-9B on 1 node (4 ranks of its
-   state do not fit the card), the fsdp runs to 2 rounds (the time limit;
-   see ``LAYOUT_RUNS``);
+   group's and the node axis's bytes a round, by rank.  Cuts, no width: 1
+   block unit of each model (as phase 3e), Yi-9B and Qwen1.5-MoE on 1 node
+   (two nodes of their state do not fit the card), the batches above, the
+   fsdp runs to 1 round and the rest to 2 (the time limit; see
+   ``LAYOUT_RUNS``);
 4. the LM serving path at Gemma-2 2B's full width (26 layers, d 2304,
    vocab 256,000; random bf16 weights from a seed): ``make_serve_job(...).
    prefill_fn`` with ``attn_impl="pallas"`` on 2 prompts of 8192 tokens,
@@ -279,9 +301,11 @@ Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib.metadata
 import json
 import math
+import resource
 import shutil
 import statistics
 import subprocess
@@ -365,23 +389,53 @@ SHARD_DEADLINE = 900   # s, a spawned world of phase 3e
 # the within-node layouts (phase 3g): each node spread over LAYOUT_MODEL
 # gloo ranks on the one card (a data x model mesh, rank d M + m), started by
 # torch.distributed.run with this file as each rank's script; phase 3e's
-# DSE-MVR (tau, lr, alpha, roll gossip, the kernels), 1 layer of each model
-# at full width, attn_impl "pallas"; each run held to the same nodes at
-# model 1 in this process after round 1 (phase 3e's band).  Cuts: depth to 1
-# layer (as phase 3e: the 233 M-parameter Qwen2-VL embedding is most of a
-# node), 2 nodes for Qwen2-VL-2B and 1 for Yi-9B (4 ranks of Yi's state do
-# not fit the card beside each other: about 0.7 B parameters a node, 2.8 GB
-# a fp32 tree), the batches below, and 2 rounds for the fsdp runs (3 for
-# tp): an fsdp round moves the whole tree through the host twice a
-# gradient (10-23 s a round on the card), and the smoke's time limit holds
+# DSE-MVR (tau, lr, alpha, roll gossip, the kernels), the first block unit
+# of each model at full width (attn_impl "pallas"; RWKV through wkv_chunk);
+# each run held to the same nodes at model 1 in this process after round 1
+# and the last round (phase 3e's band).  Cuts: depth to one block unit (as
+# phase 3e: the 233 M-parameter Qwen2-VL embedding is most of a node), 2
+# nodes for Qwen2-VL-2B, RWKV-6 3B (about 0.42 B parameters a node),
+# Zamba2-7B (0.48 B) and HuBERT X-Large and 1 for Yi-9B and Qwen1.5-MoE (4
+# ranks of their state do not fit the card beside each other: about 0.70 B
+# and 1.19 B parameters a node, at about 40 bytes of a node's state a
+# parameter), the batches below (RWKV-6 on 512 tokens a node: its training
+# backward recomputes the plain per-token recurrence, 8-10 s a round at
+# 1,024 in fp32; Zamba2 on 1,024: host staging, 8-10 s a round at 2,048 in
+# fp32), and the rounds below (an fsdp round moves the whole tree through the host twice a
+# gradient, 10-23 s a round on the card): the smoke's time limit holds
 # every phase
 LAYOUT_MODEL = 2
-# run -> (arch, profile, nodes, node batch, text tokens a row, rounds)
+# run -> (arch, profile, nodes, node batch, text tokens (HuBERT: frames) a
+# row, rounds)
 LAYOUT_RUNS = {
-    "tp_qwen2_vl": ("qwen2-vl-2b", "tp", 2, 1, 1792, 3),      # phase 3e's batch
-    "fsdp_qwen2_vl": ("qwen2-vl-2b", "fsdp", 2, 2, 768, 2),   # splits over the 2 ranks
-    "fsdp_yi_9b": ("yi-9b", "fsdp", 1, 2, 1024, 2),
+    "tp_qwen2_vl": ("qwen2-vl-2b", "tp", 2, 1, 1792, 2),      # phase 3e's batch
+    "fsdp_qwen2_vl": ("qwen2-vl-2b", "fsdp", 2, 2, 768, 1),   # splits over the 2 ranks
+    "fsdp_yi_9b": ("yi-9b", "fsdp", 1, 2, 1024, 1),
+    "tp_rwkv6": ("rwkv6-3b", "tp", 2, 1, 512, 2),
+    "tp_rwkv6_fp32": ("rwkv6-3b", "tp", 2, 1, 512, 2),
+    "tp_zamba2": ("zamba2-7b", "tp", 2, 1, 1024, 2),
+    "tp_zamba2_fp32": ("zamba2-7b", "tp", 2, 1, 1024, 2),
+    "tp_hubert": ("hubert-xlarge", "tp", 2, 1, 1500, 2),
+    "tp_qwen2_moe": ("qwen2-moe-a2.7b", "tp", 1, 1, 2048, 2),
+    "tp_qwen2_moe_fp32": ("qwen2-moe-a2.7b", "tp", 1, 1, 2048, 2),
 }
+# RWKV-6, Mamba-2 and the MoE in bf16 activations (the engine's own path):
+# a tp round rounds each row-parallel partial sum to bf16 before the fp32
+# all-reduce, which moves RWKV-6's and the MoE's rounds past the band from
+# model 1, so these runs are held to LAYOUT_FLOOR_TIMES times the floor of
+# the same round: model 1 against itself from its init one fp32 ulp up,
+# which the same bf16 roundings (and the MoE's flipped routes) amplify as
+# far (PERF.md §6: the tp gap 0.8-1.5 times the floor)
+LAYOUT_FLOOR = ("tp_rwkv6", "tp_zamba2", "tp_qwen2_moe")
+LAYOUT_FLOOR_TIMES = 4
+# and their twins in fp32 activations (Model.loss wrapped; the engine asks
+# for bf16), each and its model-1 run: held to the band, as the rest
+LAYOUT_FP32 = ("tp_rwkv6_fp32", "tp_zamba2_fp32", "tp_qwen2_moe_fp32")
+# the run whose ranks also gather their parameters over both axes with
+# TrainJob.full (the rest write their own rows and shards): the cheapest
+LAYOUT_FULL = ("tp_hubert",)
+# the block kinds that run attention (through flash where causal)
+ATTENTION_KINDS = ("attn", "local", "moe", "shared_attn")
 LAYOUT_DEADLINE = 600  # s, a spawned group of phase 3g
 # the CLI and the sweep (phase 3f): the example's lm-100m at full width (12
 # layers, d 768, 12 heads on 4 KV heads, d_ff 2048, vocab 16,384, tied;
@@ -393,7 +447,11 @@ LAYOUT_DEADLINE = 600  # s, a spawned group of phase 3g
 # started by torch.distributed.run: tau CLI_GROUP_TAU, CLI_GROUP_ROUNDS
 # rounds, roll gossip, QSGD and CHOCO top-k 0.01.  Then the sweep at the
 # reference's defaults on both engines, uncompressed and with QSGD
-CLI_EXAMPLE_ROUNDS, CLI_GT_STEPS, CLI_GROUP_ROUNDS, CLI_GROUP_TAU, CLI_WORLD = 3, 4, 3, 2, 4
+CLI_EXAMPLE_ROUNDS, CLI_GT_STEPS, CLI_GROUP_ROUNDS, CLI_GROUP_TAU, CLI_WORLD = 3, 4, 2, 2, 4
+# the sweep's rounds a cell (the reference's default is 16); the groups'
+# rounds were 3: both cut for the smoke's time limit when phase 3g took on
+# four more runs
+CLI_SWEEP_ROUNDS = 4
 CLI_GROUP_RUNS = {"roll": [], "qsgd": ["--compression", "qsgd"],
                   "choco": ["--compression", "top_k:0.01", "--channel", "choco"]}
 CLI_LR = 0.01   # the example's 0.1 diverges on lm-100m, in the reference too
@@ -426,6 +484,9 @@ FLASH_CASES = (
     ("qwen2_vl_tp", 1, 6, 1, 256 + 1792, 128, None, None),
     ("qwen2_vl_fsdp", 1, 12, 2, 256 + 768, 128, None, None),
     ("yi_9b_fsdp", 1, 32, 4, 1024, 128, None, None),
+    # and tp's heads of Qwen1.5-MoE and of Zamba2's shared attention
+    ("qwen2_moe_tp", 1, 8, 8, 2048, 128, None, None),
+    ("zamba2_tp", 1, 16, 16, 1024, 112, None, None),
 )
 # the kernels of a traced prefill by name: the bf16 attention kernel, and
 # the GEMMs by the substrings of cuBLAS's and CUTLASS's kernel names
@@ -483,6 +544,9 @@ SNAP_SETS = (("qsgd", (1, 2)), ("top_k:0.01", (1,)), ("identity", (1,)))
 SNAP_REMOTE_CODEC = "top_k:0.01"
 # RWKV-6 3B at full width: 2 prompts of 8192 tokens, the wkv chunk of 16
 RWKV_ARCH, RWKV_BATCH, RWKV_SEQ, WKV_CHUNK = "rwkv6-3b", 2, 8192, 16
+# a tp rank's wkv_chunk call in phase 3g: RWKV-6 3B's 20 of 40 heads on a
+# node batch of 1 x 512 tokens, (B, S, heads)
+WKV_TP_SHAPE = (1, 512, 20)
 # wkv_chunk vs the plain chunked form: the same fp32 arithmetic in other
 # summation orders; vs the per-token recurrence inside the clamp envelope:
 # the reference's kernel-test tolerance (tests/test_kernels.py)
@@ -1176,7 +1240,9 @@ def check_attention_kernels(api, bw) -> dict:
     del x, w, w1, got, want
     torch.cuda.empty_cache()
 
-    # untimed: fp32 at S=1024 and ragged lengths, Gemma-2's and Yi's heads
+    # untimed: fp32 at S=1024 and ragged lengths, Gemma-2's and Yi's heads,
+    # and the fp32 ranks of phase 3g (tp Qwen1.5-MoE's and Zamba2's shared
+    # attention's heads)
     fp32_err, bf16_err = 0.0, 0.0
     for b, h, kh, s, d, window, cap, dtype in (
         (1, 8, 4, 1024, 256, 256, 50.0, torch.float32),
@@ -1185,6 +1251,8 @@ def check_attention_kernels(api, bw) -> dict:
         (2, 8, 4, 1000, 256, 400, 50.0, torch.bfloat16),
         (1, 32, 4, 1000, 128, None, None, torch.bfloat16),
         (1, 32, 32, 1000, 112, None, None, torch.float32),
+        (1, 8, 8, 2048, 128, None, None, torch.float32),
+        (1, 16, 16, 1024, 112, None, None, torch.float32),
     ):
         q, k, v = qkv(b, h, kh, s, d, dtype)
         kw = dict(causal=True, sliding_window=window, softcap=cap)
@@ -2602,7 +2670,26 @@ def check_wkv_kernel(api, bw) -> dict:
           f"plain_ms={row['plain_ms']:.4f} (per-token) library_ms=None; group of "
           f"{row['group']} chunks; by pass (CUPTI, median of {WKV_PASS_CALLS} calls) "
           + json.dumps({k_: round(v_, 4) for k_, v_ in row["pass_ms"].items()}))
-    del r, k, v, logw
+    # a tp rank's share of phase 3g's RWKV-6 3B layer (WKV_TP_SHAPE)
+    b, s, h = WKV_TP_SHAPE
+    x = [t[:b, :s, :h].contiguous() for t in (r, k, v, logw)]
+    (y, st), (y_want, st_want) = kernel(x), plain_chunked(x)
+    torch.testing.assert_close(y, y_want, rtol=WKV_TOL, atol=WKV_TOL)
+    torch.testing.assert_close(st, st_want, rtol=WKV_TOL, atol=WKV_TOL)
+    case = {"case": "rwkv6_tp", "shape": [b, s, h, p],
+            "max_abs_err": float((y - y_want).abs().max())}
+    del y, st, y_want, st_want
+    case["ms"], case["plain_chunked_ms"] = abba_ms(lambda: kernel(x), lambda: plain_chunked(x))
+    n_bytes = (3 * x[0].numel() * x[0].element_size() + 2 * x[0].numel() * 4
+               + b * h * p * p * 4)
+    flops = b * h * (s // WKV_CHUNK) * (2 * WKV_CHUNK * (WKV_CHUNK - 1) * p
+                                        + 4 * WKV_CHUNK * p * p)
+    case["bound_ms"] = max(n_bytes / bw, flops / FP32_PEAK_FLOPS) * 1e3
+    row["cases"] = [case]
+    print(f"kernel wkv_chunk rwkv6_tp (B={b}, S={s}, H={h}): ms={case['ms']:.4f} "
+          f"bound_ms={case['bound_ms']:.4f} plain_chunked_ms={case['plain_chunked_ms']:.4f} "
+          f"max_abs_err={case['max_abs_err']:.3g}")
+    del r, k, v, logw, x
     torch.cuda.empty_cache()
     return row
 
@@ -3537,21 +3624,29 @@ def sharded_path(api, smi: str) -> tuple:
     return launches, by_process
 
 def layout_config(arch: str):
-    """Phase 3g's model: ``arch`` at full width on its first block unit
-    (one layer), through the flash kernel."""
+    """Phase 3g's model: ``arch`` at full width on its first block unit,
+    through the flash kernel (and an RWKV model through ``wkv_chunk``)."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    return dataclasses.replace(cfg, n_layers=len(cfg.block_unit), attn_impl="pallas")
+    rwkv = dict(rwkv_chunk=WKV_CHUNK, rwkv_pallas=True) if "rwkv" in cfg.block_unit else {}
+    return dataclasses.replace(cfg, n_layers=len(cfg.block_unit), attn_impl="pallas", **rwkv)
 
 
 def layout_batches(cfg, nodes: int, batch: int, text: int) -> dict:
     """One round's batches, ``(tau, N, batch, ...)``, drawn on the card from a
-    fixed seed: the same in this process and in every rank."""
+    fixed seed: the same in this process and in every rank.  An audio
+    model takes ``text`` frames of its features (bf16) and frame targets."""
     gen = torch.Generator(device="cuda").manual_seed(43)
     shape = (SHARD_TAU, nodes, batch)
+    if cfg.audio_frontend_dim:
+        frames = torch.randn(shape + (text, cfg.audio_frontend_dim), generator=gen,
+                             device="cuda")
+        return {"frames": frames.to(torch.bfloat16),
+                "targets": torch.randint(0, cfg.vocab_size, shape + (text,), generator=gen,
+                                         device="cuda")}
     out = {"tokens": torch.randint(0, cfg.vocab_size, shape + (text,), generator=gen,
                                    device="cuda")}
     if cfg.n_vision_tokens:
@@ -3562,13 +3657,49 @@ def layout_batches(cfg, nodes: int, batch: int, text: int) -> dict:
     return out
 
 
-def layout_run(api, mesh, run: str, on_round) -> dict:
+@contextlib.contextmanager
+def fp32_activations():
+    """``Model.loss`` with fp32 activations whatever dtype the engine asks
+    for (``LAYOUT_FP32``)."""
+    from repro_torch.models import Model
+
+    loss = Model.loss
+    Model.loss = lambda self, p, b, dtype=None, tp=None: loss(self, p, b, torch.float32, tp)
+    try:
+        yield
+    finally:
+        Model.loss = loss
+
+
+@contextlib.contextmanager
+def recording_routes(routes: list):
+    """Every MoE forward's routing decisions appended to ``routes`` as
+    ``(experts, kept)``, both (G, T, k), on the host."""
+    from repro_torch.models import mlp
+
+    route = mlp._route
+
+    def record(*args, **kw):
+        out = route(*args, **kw)
+        routes.append((out[3].cpu(), out[5].cpu()))
+        return out
+
+    mlp._route = record
+    try:
+        yield
+    finally:
+        mlp._route = route
+
+
+def layout_run(api, mesh, run: str, on_round, moved: bool = False) -> dict:
     """Phase 3g's run ``run`` on ``mesh`` (model 1 here, or a rank's mesh):
     ms a round (fenced, the step alone), loss, launches by op, the mesh's
-    bytes, peak memory, and each replicated leaf's fingerprint;
-    ``on_round(r, job, state)`` sees the state after round r (1-based)."""
+    bytes, peak memory, each replicated leaf's fingerprint and, for a MoE,
+    each round's routing decisions; ``on_round(r, job, state)`` sees the
+    state after round r (1-based).  ``moved``: from the init one fp32 ulp
+    up (the floor of a ``LAYOUT_FLOOR`` run)."""
     from repro_torch.launch.distributed import make_train_job
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_map
 
     arch, profile, nodes, batch, text, rounds = LAYOUT_RUNS[run]
     cfg = layout_config(arch)
@@ -3576,29 +3707,42 @@ def layout_run(api, mesh, run: str, on_round) -> dict:
                          alpha=SHARD_ALPHA, use_fused=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    state = job.init_state(0)
+    params = job.model.init(0, device=mesh.device)
+    if moved:
+        params = tree_map(lambda t: torch.nextafter(t, torch.full_like(t, math.inf)), params)
+    state = job.init_state(0, params=params)
+    del params
     batches = job.local_batch(layout_batches(cfg, nodes, batch, text))
     api.reset_counters()
-    ms, losses, moved = [], [], []
-    for r in range(rounds):
-        mesh.reset_bytes()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        state, metrics = job.step_fn(state, batches)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t) * 1e3)
-        moved.append(mesh.byte_counts())
-        losses.append(float(metrics["loss"]))
-        assert math.isfinite(losses[-1]), (run, r, losses)
-        on_round(r + 1, job, state)
+    ms, losses, moved_bytes, routes, recorded = [], [], [], [], []
+    with contextlib.ExitStack() as stack:
+        if run in LAYOUT_FP32:
+            stack.enter_context(fp32_activations())
+        if "moe" in cfg.block_unit:
+            stack.enter_context(recording_routes(recorded))
+        for r in range(rounds):
+            mesh.reset_bytes()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = job.step_fn(state, batches)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            moved_bytes.append(mesh.byte_counts())
+            losses.append(float(metrics["loss"]))
+            routes.append(recorded[:])
+            recorded.clear()
+            assert math.isfinite(losses[-1]), (run, r, losses)
+            on_round(r + 1, job, state)
     replicated = [t for t, d in zip(tree_leaves(state.params), job.shard_dims) if d is None]
     out = {"run": run, "ms": ms, "loss": losses, "launches": api.launch_counts(),
-           "bytes": moved, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "bytes": moved_bytes, "routes": routes,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "host_peak_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
            "buckets": api.bucket_count(job.abstract_state.params),
            "n_local": mesh.n_local, "replicated": fingerprint({str(i): t for i, t in
                                                                enumerate(replicated)}),
            "sharded_leaves": sum(d is not None for d in job.shard_dims),
-           "leaves": len(job.shard_dims)}
+           "leaves": len(job.shard_dims), "shard_dims": job.shard_dims}
     del state, batches
     torch.cuda.empty_cache()
     return out
@@ -3607,9 +3751,10 @@ def layout_run(api, mesh, run: str, on_round) -> dict:
 def layout_rank(runs: str, out_dir: str) -> None:
     """One rank of a phase 3g group (``chip_smoke.py --layout-rank``), started
     by ``torch.distributed.run``: each run of the comma-separated ``runs``
-    (one node count) on the data x model mesh; rank 0 writes the whole
-    parameters (gathered over both axes) after round 1 and the last round;
-    every rank writes its results as JSON."""
+    (one node count) on the data x model mesh; every rank writes its rows
+    and shards of the parameters after round 1 and the last round (and, for
+    ``LAYOUT_FULL``, rank 0 the whole parameters ``TrainJob.full`` gathers
+    over both axes), and its results as JSON."""
     import datetime
     import warnings
 
@@ -3625,17 +3770,21 @@ def layout_rank(runs: str, out_dir: str) -> None:
     torch.use_deterministic_algorithms(True, warn_only=True)
     dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=LAYOUT_DEADLINE))
     rank = dist.get_rank()
-    runs = runs.split(",")
-    mesh = make_group_mesh(LAYOUT_RUNS[runs[0]][2], device="cuda", model=LAYOUT_MODEL)
-    for run in runs:
+    for run in runs.split(","):
+        # a mesh a run: its model group's pinned staging buffers, kept for
+        # the sizes a run repeats, go with it
+        mesh = make_group_mesh(LAYOUT_RUNS[run][2], device="cuda", model=LAYOUT_MODEL)
         rounds = LAYOUT_RUNS[run][5]
 
         def on_round(r, job, state):
             if r in (1, rounds):
+                torch.save([t.cpu() for t in tree_leaves(state.params)],
+                           Path(out_dir) / f"{run}_round{r}_rank{rank}.pt")
+            if r == rounds and run in LAYOUT_FULL:
                 full = job.full(state.params)      # every rank takes part
                 if rank == 0:
                     torch.save([t.cpu() for t in tree_leaves(full)],
-                               Path(out_dir) / f"{run}_round{r}.pt")
+                               Path(out_dir) / f"{run}_full.pt")
                 del full
 
         with warnings.catch_warnings(record=True) as caught:
@@ -3643,6 +3792,7 @@ def layout_rank(runs: str, out_dir: str) -> None:
             res = layout_run(api, mesh, run, on_round)
         res.update(rank=rank, node_rank=mesh.rank, index=mesh.model_group.index,
                    nondeterministic=sorted({str(w.message)[:200] for w in caught}))
+        torch.save(res.pop("routes"), Path(out_dir) / f"{run}_routes_rank{rank}.pt")
         (Path(out_dir) / f"{run}_rank{rank}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
 
@@ -3681,24 +3831,42 @@ def spawn_layout_group(runs: list, world: int) -> tuple:
     return out, wall
 
 
-def layout_gap(got: list, held: list) -> float:
+def layout_gap(got: list, want: list) -> float:
     """The largest ``|got - want| / (atol + rtol |want|)`` over every leaf
-    (host copies, taken to the card one at a time): at most 1 is within
-    phase 3e's band."""
+    (``got`` on the host, taken to the card a leaf at a time, or on the
+    card; ``want`` on the card): at most 1 is within phase 3e's band."""
     worst = 0.0
-    for g, w in zip(got, held):
-        g, w = g.cuda(), w.cuda()
+    for g, w in zip(got, want):
+        g = g.to(w.device)
         worst = max(worst, float(((g - w).abs() / (SHARD_ATOL + SHARD_RTOL * w.abs())).max()))
-        del g, w
+        del g
     return worst
+
+
+def layout_rank_part(params, rank: int, n_local: int, dims) -> list:
+    """Rank ``rank``'s rows and model shards of a whole node-stacked tree
+    (its leaves; ``dims`` each leaf's model-sharded dim or None)."""
+    from repro_torch.tree import tree_leaves
+
+    d, m = divmod(rank, LAYOUT_MODEL)
+    out = []
+    for t, dim in zip(tree_leaves(params), dims):
+        t = t[d * n_local:(d + 1) * n_local]
+        if dim is not None:
+            n = t.shape[dim + 1] // LAYOUT_MODEL
+            t = t.narrow(dim + 1, m * n, n)
+        out.append(t)
+    return out
 
 
 def layout_path(api, smi: str) -> tuple:
     """Phase 3g: the within-node layouts on the card.  The runs of one node
-    count share a spawned group: first each at model 1 in this process (its
-    parameters after round 1 and the last round held on the host), then the
-    nodes x LAYOUT_MODEL gloo ranks run them in turn.  Returns every run's
-    launches and each op's launches by run and rank."""
+    count share a spawned group: the nodes x LAYOUT_MODEL gloo ranks run
+    them in turn (each rank writes its rows and shards after round 1 and
+    the last round to disk), then each runs at model 1 in this process,
+    held leaf by leaf against those files as it goes, so that no run's
+    parameters wait on the host and no rank gathers a whole tree.  Returns
+    every run's launches and each op's launches by run and rank."""
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.tree import tree_leaves
 
@@ -3708,74 +3876,191 @@ def layout_path(api, smi: str) -> tuple:
     for run, spec in LAYOUT_RUNS.items():
         groups.setdefault(spec[2], []).append(run)
     for nodes, runs in groups.items():
-        held, ones = {}, {}
-        for run in runs:
-            rounds = LAYOUT_RUNS[run][5]
-
-            def hold(r, job, state):
-                if r in (1, rounds):
-                    held[run, r] = [t.detach().cpu() for t in tree_leaves(state.params)]
-
-            ones[run] = layout_run(api, make_test_mesh(nodes, device="cuda"), run, hold)
         world = nodes * LAYOUT_MODEL
         out, wall = spawn_layout_group(runs, world)
         print(f"layout group {runs}: {world} gloo ranks on the card, {wall:.1f} s wall with "
               f"spawn and set-up")
         for run in runs:
-            launches += layout_check(run, ones[run], out, held, smi)
+            rounds = LAYOUT_RUNS[run][5]
+            ranks = [json.loads((out / f"{run}_rank{k}.json").read_text())
+                     for k in range(world)]
+            gaps, floor, twin, twin_run = {}, {}, {}, None
+            if run in LAYOUT_FLOOR:
+                # model 1 from its init one fp32 ulp up: the floor (its
+                # parameters after round 1 and the last kept on the card)
+                def keep(r, job, state):
+                    if r in (1, rounds):
+                        twin[r] = [t.clone() for t in tree_leaves(state.params)]
+
+                twin_run = layout_run(api, make_test_mesh(nodes, device="cuda"), run, keep,
+                                      moved=True)
+
+            def hold(r, job, state):
+                if r in (1, rounds):
+                    gaps[r] = 0.0
+                    for k, res in enumerate(ranks):
+                        path = out / f"{run}_round{r}_rank{k}.pt"
+                        gaps[r] = max(gaps[r], layout_gap(
+                            torch.load(path, mmap=True),
+                            layout_rank_part(state.params, k, res["n_local"],
+                                             res["shard_dims"])))
+                        path.unlink()
+                    if r in twin:
+                        floor[r] = layout_gap(twin.pop(r), tree_leaves(state.params))
+                if r == rounds and run in LAYOUT_FULL:
+                    # TrainJob.full gathered the same tree over both axes
+                    path = out / f"{run}_full.pt"
+                    gaps["full"] = layout_gap(torch.load(path, mmap=True),
+                                              tree_leaves(state.params))
+                    path.unlink()
+
+            one = layout_run(api, make_test_mesh(nodes, device="cuda"), run, hold)
+            launches += layout_check(run, one, out, gaps, smi, floor, twin_run)
             for op in {op for c in launches[-world - 1:] for op in c}:
                 by_run.setdefault(op, {})[run] = {
                     "model1" if k == 0 else f"rank{k - 1}": c.get(op, 0)
                     for k, c in enumerate(launches[-world - 1:])}
-        held.clear()
     print(f"layout phase {time.perf_counter() - t_phase:.1f} s")
     return launches, by_run
 
 
-def layout_check(run: str, one: dict, out: Path, held: dict, smi: str) -> list:
+def layout_kernels(cfg, nodes: int, forwards: int) -> dict:
+    """A run's model-kernel launches: flash_attention once a causal attention
+    layer and wkv_chunk once an RWKV layer, each a node's forward (a
+    backward recomputes the plain version and launches none)."""
+    attention = sum(k in ATTENTION_KINDS for k in cfg.block_unit) * cfg.causal
+    per = {"flash_attention": attention, "wkv_chunk": cfg.block_unit.count("rwkv")}
+    return {op: nodes * n * cfg.repeats * forwards for op, n in per.items() if n}
+
+
+def layout_gathers(cfg, tokens: int, forwards: int, act_bytes: int) -> tuple:
+    """The bytes a tp rank receives over its model group in ``forwards``
+    forwards and backwards of one node by all-gather and by reduce-scatter:
+    a MoE layer gathers its router's fp32 logits (the peers' experts'
+    columns); a Mamba-2 layer its projection's columns (activations of
+    ``act_bytes``) and its fp32 conv weights, and reduce-scatters their
+    fp32 gradients."""
+    peers = LAYOUT_MODEL - 1
+    moe = cfg.block_unit.count("moe") * cfg.repeats
+    gather = moe * tokens * (cfg.n_experts // LAYOUT_MODEL) * 4
+    scatter = 0
+    mamba = cfg.block_unit.count("mamba") * cfg.repeats
+    if mamba:
+        m = cfg.mamba_cfg()
+        cols = (2 * m.d_inner + 2 * m.state_dim + m.n_heads) // LAYOUT_MODEL
+        conv = m.conv_width * (m.d_inner + 2 * m.state_dim) // LAYOUT_MODEL * 4
+        gather += mamba * (tokens * cols * act_bytes + conv)
+        scatter += mamba * (tokens * cols * 4 + conv)
+    return forwards * peers * gather, forwards * peers * scatter
+
+
+def layout_shape(cfg, profile: str, tokens: int) -> str:
+    """What a rank of a run computes, for the report."""
+    m = LAYOUT_MODEL if profile == "tp" else 1
+    parts = []
+    if any(k in ATTENTION_KINDS for k in cfg.block_unit):
+        how = "flash" if cfg.causal else "the plain bidirectional attention"
+        parts.append(f"{how} at {cfg.n_heads // m} of {cfg.n_heads} heads on "
+                     f"{cfg.n_kv_heads // m} KV heads (D {cfg.hd})")
+    if "rwkv" in cfg.block_unit:
+        h = cfg.rwkv_cfg().n_heads
+        parts.append(f"wkv_chunk at {h // m} of {h} heads")
+    if "mamba" in cfg.block_unit:
+        h = cfg.mamba_cfg().n_heads
+        parts.append(f"the SSD scan at {h // m} of {h} heads")
+    if "moe" in cfg.block_unit:
+        parts.append(f"{cfg.n_experts // m} of {cfg.n_experts} experts")
+    return ", ".join(parts) + f" over {tokens} tokens"
+
+
+def route_flips(got: list, want: list) -> int:
+    """The routing decisions of one round's forwards (``recording_routes``)
+    that differ between two runs: entries whose expert or kept bit
+    differ."""
+    assert len(got) == len(want), (len(got), len(want))
+    return sum(int(((ge != we) | (gk != wk)).sum())
+               for (ge, gk), (we, wk) in zip(got, want))
+
+
+def layout_check(run: str, one: dict, out: Path, gaps: dict, smi: str, floor: dict,
+                 twin: dict | None) -> list:
     """Phase 3g's checks of ``run``: its ranks (results under ``out``)
-    against its model-1 run ``one`` and the parameters ``held`` from it;
-    returns the launches, model 1's first, then by rank."""
+    against its model-1 run ``one`` and the gaps of their parameters after
+    round 1 and the last round (for ``LAYOUT_FLOOR``, ``floor`` the gaps of
+    model 1's ``twin`` from its init one ulp up); returns the launches,
+    model 1's first, then by rank."""
     arch, profile, nodes, batch, text, rounds = LAYOUT_RUNS[run]
     world = nodes * LAYOUT_MODEL
     ranks = [json.loads((out / f"{run}_rank{r}.json").read_text()) for r in range(world)]
-    gaps = {r: layout_gap(torch.load(out / f"{run}_round{r}.pt"), held[run, r])
-            for r in (1, rounds)}
     cfg = layout_config(arch)
     n_tok = (cfg.n_vision_tokens + text) * (batch if profile == "tp" else
                                            batch // LAYOUT_MODEL)
-    heads = cfg.n_heads // (LAYOUT_MODEL if profile == "tp" else 1)
-    kv = cfg.n_kv_heads // (LAYOUT_MODEL if profile == "tp" else 1)
     fwd = rounds * (2 * (SHARD_TAU - 1) + 1)       # a node's forwards
     per_round = [{k: {op: n for op, n in c.items() if n} for k, c in b.items()
                   if any(c.values())} for b in ranks[0]["bytes"]]
+    routes = [torch.load(out / f"{run}_routes_rank{r}.pt") for r in range(world)]
+    for r in range(world):
+        (out / f"{run}_routes_rank{r}.pt").unlink()
+    flips = ""
+    if one["routes"][0]:
+        # every rank routes every token of its nodes: the same decisions
+        # on the model ranks of a node, and (one node) model 1's or not
+        assert nodes == 1, run
+        decisions = sum(e.numel() for e, _ in one["routes"][0])
+        for rk in routes[1:]:
+            assert all(route_flips(a, b) == 0 for a, b in zip(rk, routes[0])), run
+        got = [route_flips(a, b) for a, b in zip(routes[0], one["routes"])]
+        flips = (f"; routing decisions that differ from model 1's, by round, of {decisions} "
+                 f"a round: the ranks {got}")
+        if twin is not None:
+            flips += f", model 1 from its init one ulp up " + str(
+                [route_flips(a, b) for a, b in zip(twin["routes"], one["routes"])])
+    held = (f"{LAYOUT_FLOOR_TIMES} times the floor, model 1 from its init one fp32 ulp up "
+            f"{floor[1]:.4g} after round 1, {floor[rounds]:.4g} after round {rounds}"
+            if run in LAYOUT_FLOOR else "the band")
     print(f"layout {run} ({smi}): {arch} {profile}, {nodes} nodes x model "
-          f"{LAYOUT_MODEL} = {world} gloo ranks on the card, flash at {heads} heads on "
-          f"{kv} KV heads over {n_tok} tokens; vs model 1 in this process: {gaps[1]:.4g} "
+          f"{LAYOUT_MODEL} = {world} gloo ranks on the card, "
+          f"{layout_shape(cfg, profile, n_tok)}, {'fp32' if run in LAYOUT_FP32 else 'bf16'} "
+          f"activations; vs model 1 in this process: {gaps[1]:.4g} "
           f"of the band (rtol {SHARD_RTOL}, atol {SHARD_ATOL}) after round 1, "
-          f"{gaps[rounds]:.4g} after round {rounds}; ms a round model 1 "
+          f"{gaps[rounds]:.4g} after round {rounds}"
+          + (f" (the TrainJob.full gather {gaps['full']:.4g})" if "full" in gaps else "")
+          + f"; held to {held}{flips}; ms a round model 1 "
           f"{json.dumps([round(t, 1) for t in one['ms']])}, by rank "
           f"{json.dumps([[round(t, 1) for t in r['ms']] for r in ranks])}; peak GiB model 1 "
-          f"{one['peak_gib']:.2f}, by rank {[round(r['peak_gib'], 2) for r in ranks]}; loss "
+          f"{one['peak_gib']:.2f}, by rank {[round(r['peak_gib'], 2) for r in ranks]}; host "
+          f"peak RSS GiB so far, this process {one['host_peak_gib']:.1f}, by rank "
+          f"{[round(r['host_peak_gib'], 1) for r in ranks]}; loss "
           f"model 1 {one['loss']}, rank 0 {ranks[0]['loss']}; rank 0's bytes a round "
           f"{json.dumps(per_round)}; launches model 1 {json.dumps(one['launches'])}, by rank "
           f"{json.dumps([r['launches'] for r in ranks])}; {ranks[0]['sharded_leaves']} of "
           f"{ranks[0]['leaves']} leaves sharded; nondeterministic-op warnings "
           f"{json.dumps(sorted({w for r in ranks for w in r['nondeterministic']}))}")
-    assert gaps[1] <= 1.0, (run, gaps)
-    # exact launches: flash once a layer a node's forward, DSE-MVR's update
+    if run in LAYOUT_FLOOR:
+        assert all(gaps[r] <= LAYOUT_FLOOR_TIMES * floor[r] for r in (1, rounds)), \
+            (run, gaps, floor)
+    else:
+        assert gaps[1] <= 1.0 and gaps[rounds] <= 1.0 and gaps.get("full", 0) <= 1.0, (run, gaps)
+    # training: the loss falls from round to round, the same on every rank
+    assert all(b < a for a, b in zip(one["loss"], one["loss"][1:])), (run, one["loss"])
+    # exact launches: the model's kernels a node's forward, DSE-MVR's update
     # ops once a tree_apply bucket (the rank's shards)
-    want1 = {"flash_attention": nodes * cfg.n_layers * fwd,
-             **dse_launches(one["buckets"], SHARD_TAU, rounds)}
+    want1 = {**layout_kernels(cfg, nodes, fwd), **dse_launches(one["buckets"], SHARD_TAU, rounds)}
     assert one["launches"] == want1, (run, one["launches"], want1)
     for r in ranks:
-        want = {"flash_attention": r["n_local"] * cfg.n_layers * fwd,
+        want = {**layout_kernels(cfg, r["n_local"], fwd),
                 **dse_launches(r["buckets"], SHARD_TAU, rounds)}
         assert r["launches"] == want, (run, r["rank"], r["launches"], want)
         assert all(math.isfinite(v) for v in r["loss"]), (run, r["loss"])
+        assert r["loss"] == ranks[0]["loss"], (run, r["rank"], r["loss"])
+        assert all(b < a for a, b in zip(r["loss"], r["loss"][1:])), (run, r["loss"])
         moved = r["bytes"][0]["model"]
         if profile == "tp":
-            assert moved["all_reduce"] > 0 and moved["all_gather"] == 0, (run, moved)
+            gather, scatter = layout_gathers(cfg, n_tok, r["n_local"] * (2 * SHARD_TAU - 1),
+                                             4 if run in LAYOUT_FP32 else 2)
+            assert moved["all_reduce"] > 0, (run, moved)
+            assert (moved["all_gather"], moved["reduce_scatter"]) == (gather, scatter), \
+                (run, moved, gather, scatter)
         else:
             assert moved["all_gather"] > 0 and moved["reduce_scatter"] > 0, (run, moved)
         if nodes > 1:
@@ -3981,6 +4266,7 @@ def cli_path(api, smi: str) -> tuple:
     out = ROOT / "build" / "cli" / "sweep"
     shutil.rmtree(out, ignore_errors=True)
     rows = sweep.main(["--engines", "sim,sharded", "--compressors", "identity,qsgd",
+                       "--rounds", str(CLI_SWEEP_ROUNDS),
                        "--out", str(out), "--bench-out", str(out / "bench.json")])
     got = api.launch_counts()
     cells = {p.stem: json.loads(p.read_text()) for p in (out / "cells").glob("*.json")}
@@ -4028,6 +4314,11 @@ def main() -> int:
           f"HBM bound at {bw / 1e12} TB/s; host CPU path "
           f"{torch.backends.cpu.get_cpu_capability()} x{torch.get_num_threads()}")
     t0 = time.perf_counter()
+
+    def done(phase):
+        print(f"smoke: phase {phase} done {time.perf_counter() - t0:.1f} s after the build began",
+              flush=True)
+
     sources = ("top_k", "flash_attention", "wkv_chunk", "rms_norm")
     _cuda.build(sources)   # one nvcc per source, together
     print(f"nvcc built {', '.join(f'{name}.cu' for name in sources)} in "
@@ -4052,6 +4343,7 @@ def main() -> int:
     results.update(check_attention_kernels(api, bw))
     results["wkv_chunk"] = check_wkv_kernel(api, bw)
 
+    done("2")
     # ---------------------------------------------------------------- 3
     data, _ = make_paper_problem(OMEGA, seed=0)
     idx_cpu = torch.randint(
@@ -4197,60 +4489,74 @@ def main() -> int:
           f"{json.dumps(link[None])}, qsgd {qsgd:.0f} {json.dumps(link['qsgd'])}, "
           f"ratio {raw / qsgd:.3f}")
 
+    done("3")
     # --------------------------------------------------------------- 3b
     scenario_path(run, agree)
 
+    done("3b")
     # --------------------------------------------------------------- 3c
     telemetry_path(run, idx_cuda, seed_fn, smi)
 
+    done("3c")
     # --------------------------------------------------------------- 3d
     runs, elastic_launches = elastic_path(api, smi)
     kernel_runs += [{"launches": launches} for launches in runs]
     for name, by_worker in elastic_launches.items():
         results[name]["elastic_launches"] = by_worker
 
+    done("3d")
     # --------------------------------------------------------------- 3e
     runs, sharded_launches = sharded_path(api, smi)
     kernel_runs += [{"launches": launches} for launches in runs]
     for name, by_process in sharded_launches.items():
         results[name]["sharded_launches"] = by_process
 
+    done("3e")
     # --------------------------------------------------------------- 3f
     runs, cli_launches = cli_path(api, smi)
     kernel_runs += [{"launches": launches} for launches in runs]
     for name, by_run in cli_launches.items():
         results[name]["cli_launches"] = by_run
 
+    done("3f")
     # --------------------------------------------------------------- 3g
     runs, layout_launches = layout_path(api, smi)
     kernel_runs += [{"launches": launches} for launches in runs]
     for name, by_run in layout_launches.items():
         results[name]["layout_launches"] = by_run
 
+    done("3g")
     # ---------------------------------------------------------------- 4
     kernel_runs += [{"launches": launches} for launches in serving_path(api)]
 
+    done("4")
     # --------------------------------------------------------------- 4b
     kernel_runs += [{"launches": launches} for launches in moe_serving_path(api)]
 
+    done("4b")
     # --------------------------------------------------------------- 4c
     kernel_runs += [{"launches": launches} for launches in hybrid_serving_path(api)]
 
+    done("4c")
     # --------------------------------------------------------------- 4d
     kernel_runs += [{"launches": launches} for launches in vlm_audio_path(api)]
 
+    done("4d")
     # --------------------------------------------------------------- 4e
     kernel_runs += [{"launches": launches} for launches in training_path(api)]
 
+    done("4e")
     # --------------------------------------------------------------- 4f
     runs, snapshot_rows = serve_while_training_path(api, bw)
     kernel_runs += [{"launches": launches} for launches in runs]
     for name, row in snapshot_rows.items():
         results[name]["snapshot"] = row
 
+    done("4f")
     # ---------------------------------------------------------------- 5
     kernel_runs += [{"launches": launches} for launches in rwkv_serving_path(api)]
 
+    done("5")
     # ---------------------------------------------------------------- 6
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "bf16_max_abs_err",

@@ -36,14 +36,13 @@ index on the other nodes (mixing is linear).  Per node:
     node batch does not divide by M (or holds a mask, or the model has MoE
     blocks, whose router losses are not means over tokens) every model rank
     computes the whole node batch and keeps its part of the gradient;
-  * 'tp'   -- ``Model.loss(..., tp=group)``: the rank's heads, hidden units
-    and vocabulary shard (Megatron), every model rank on the whole node
-    batch.
+  * 'tp'   -- ``Model.loss(..., tp=group)``: the rank's heads, hidden units,
+    experts, SSM heads and vocabulary shard (Megatron; every block kind and
+    the audio encoder), every model rank on the whole node batch.
 
 On a model axis of 1 every profile is the node-a-replica job bit for bit.
-On a larger one, the '2d' profile, tp over the MoE, Mamba-2, RWKV blocks
-or HuBERT's encoder, a codec or a CHOCO / async channel, and a scenario
-raise: ROADMAP queue 1 item 8 (b).  The reference's ``lower()`` (an XLA
+On a larger one, the '2d' profile, a codec or a CHOCO / async channel, and
+a scenario raise: ROADMAP queue 1 item 8 (b).  The reference's ``lower()`` (an XLA
 cost model) and its mesh-sharded ``ServeJob`` are not carried over; the
 one-device serve job is ``launch/serve.py``.
 """
@@ -67,7 +66,6 @@ from ..core.mixing import (
 from ..core.simulate import default_comm_seed_fn
 from ..models import Model, ModelConfig
 from ..models.common import axis_rules, resolve_specs
-from ..models.transformer import TP_REFUSED
 from ..tree import map_tensors, tree_flatten, tree_leaves, tree_unflatten
 from .mesh import NodeMesh
 from .sharding import PROFILES, ShardingProfile, profile_for_arch
@@ -214,15 +212,12 @@ def _layout(abstract_state, alg, params, param_spec=None) -> Any:
     return type(abstract_state)(**fields)
 
 
-def _refuse_layout(profile: ShardingProfile, cfg: ModelConfig, chan, scenario) -> None:
-    """What a model axis larger than 1 cannot run yet: ROADMAP queue 1
-    item 8 (b)."""
+def _refuse_layout(profile: ShardingProfile, chan, scenario) -> None:
+    """What a model axis larger than 1 cannot run yet (the '2d' profile,
+    codecs and channels, scenarios): ROADMAP queue 1 item 8 (b)."""
     why = None
     if profile.name == "2d":
         why = "the '2d' profile"
-    elif profile.name == "tp" and (set(cfg.block_unit) & set(TP_REFUSED)
-                                   or cfg.audio_frontend_dim):
-        why = f"tp over {cfg.name}'s {'audio encoder' if cfg.audio_frontend_dim else 'blocks'}"
     elif chan is not None:
         why = f"gossip through {chan!r}"
     elif scenario is not None:
@@ -311,7 +306,7 @@ def make_train_job(
         raise ValueError(f"wire_mode must be auto/dense/neighbor/allgather, got {wire_mode!r}")
     chan = alg.comm.resolved_channel()
     if mesh.model > 1:
-        _refuse_layout(profile, cfg, chan, scenario)
+        _refuse_layout(profile, chan, scenario)
     group = mesh.model_group
     # each parameter leaf's spec under the profile, and its model-sharded dim
     with axis_rules(profile.train_rules(mesh), mesh, param_rules=profile.train_param_rules(mesh)):
@@ -448,7 +443,9 @@ def make_train_job(
                 with torch.enable_grad():
                     loss = model.loss(tree_unflatten(treedef, p_i), part, dtype=torch.bfloat16,
                                       tp=tp)
-                    g = torch.autograd.grad(loss, p_i)
+                    # a leaf the loss does not read (HuBERT's token
+                    # embedding) gets a zero gradient, as under jax.grad
+                    g = torch.autograd.grad(loss, p_i, materialize_grads=True)
                 if losses is not None and j == 0:
                     loss = loss.detach().float()
                     if mine is not None:

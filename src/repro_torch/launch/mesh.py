@@ -28,9 +28,12 @@ of the D ranks with model index m, so they move only the shard m holds;
 the within-node movements go through :class:`ModelGroup` (the M ranks of
 one node block): an all-gather along a dim, a reduce-scatter and an
 all-reduce, each summed in rank order so that every rank gets the same
-bits, and the two Megatron autograd Functions.  Its bytes are counted
-under ``byte_counts()["model"]``.  ``model=1`` makes no subgroup and
-calls no collective of its own.
+bits, and the tensor-parallel autograd Functions built on them (Megatron's
+``copy_to`` and ``reduce_from``; ``sum_shards`` for a statistic summed over
+the shards; ``gather_from`` and ``gather_sum``, all-gathers whose
+backwards take this rank's part of the gradient or reduce-scatter its
+sum).  Its bytes are counted under ``byte_counts()["model"]``.
+``model=1`` makes no subgroup and calls no collective of its own.
 
 The backend is gloo.  Gloo moves no CUDA tensor on send, recv or
 all-gather, so on the card the mesh stages exactly the payload rows through
@@ -113,7 +116,13 @@ class ModelGroup:
     which rank computes it.  The tensor-parallel model code calls
     :meth:`copy_to` (identity forward, all-reduce backward) on the input of
     a parallel region and :meth:`reduce_from` (all-reduce forward, identity
-    backward) on its partial output.
+    backward) on its partial output; :meth:`sum_shards` (all-reduce both
+    ways) on a sum over the shards that feeds each rank's own shard (a
+    norm's statistic); :meth:`gather_from` (all-gather forward, the rank's
+    part of the gradient backward) on shards every rank then uses whole
+    (the MoE router's logits); :meth:`gather_sum` (all-gather forward,
+    reduce-scatter backward) on shards of which each rank uses its own part
+    (Mamba-2's fused projection).
     """
 
     def __init__(self, group, size: int, index: int, device):
@@ -235,8 +244,26 @@ class ModelGroup:
 
     def reduce_from(self, x: torch.Tensor) -> torch.Tensor:
         """All-reduce (fp32, cast back to x's dtype) forward, identity
-        backward."""
+        backward: for a partial output that every rank then uses whole."""
         return _ReduceFromModel.apply(x, self)
+
+    def sum_shards(self, x: torch.Tensor) -> torch.Tensor:
+        """All-reduce (fp32, cast back) forward and backward: for a sum
+        over the shards (a norm's statistic) that feeds each rank's own
+        shard, so that every rank's part of the gradient reaches every
+        shard."""
+        return _SumShards.apply(x, self)
+
+    def gather_from(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """All-gather along ``dim`` forward, this rank's part of the
+        gradient backward: for shards that every rank then uses whole."""
+        return _GatherFromModel.apply(x, self, dim)
+
+    def gather_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """All-gather along ``dim`` forward, the gradient's sum over the
+        ranks reduce-scattered (fp32, cast back) backward: for shards of
+        which each rank uses a part of its own."""
+        return _GatherSum.apply(x, self, dim)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -258,6 +285,39 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _SumShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_reduce(x.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.float()).to(g.dtype), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather([x], [dim])[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _split(g, ctx.dim, ctx.group.size, ctx.group.index).contiguous(), None, None
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather([x], [dim])[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.reduce_scatter([g.float()], [ctx.dim])[0].to(g.dtype), None, None
 
 
 class NodeMesh:

@@ -28,8 +28,8 @@ import torch
 from ..kernels.rms_norm.ref import rms_norm_ref
 
 __all__ = [
-    "LogicalAxes", "axis_rules", "resolve_specs", "Initializer", "rms_norm", "layer_norm",
-    "softcap", "rope_frequencies", "apply_rope",
+    "LogicalAxes", "axis_rules", "resolve_specs", "Initializer", "rms_norm", "sharded_rms_norm",
+    "layer_norm", "softcap", "rope_frequencies", "apply_rope",
     "make_mrope_positions", "apply_mrope", "cross_entropy_loss",
 ]
 
@@ -187,6 +187,18 @@ class Initializer:
 # the models' norm is the plain RMSNorm, as repro.models.common.rms_norm
 # (the fused kernel behind api.call("rms_norm", ...) is opt-in, as there)
 rms_norm = rms_norm_ref
+
+
+def sharded_rms_norm(x: torch.Tensor, weight: torch.Tensor, tp, width: int,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm`` of rows whose ``width`` channels lie over a model group,
+    this rank holding ``x.shape[-1]`` of them and ``weight``'s matching
+    part: the mean of squares is the fp32 sum of the group's shards
+    (``tp.sum_shards``, whose backward sums too: the statistic feeds every
+    rank's own channels) divided by ``width``.  Output in x's dtype."""
+    xf = x.float()
+    var = tp.sum_shards((xf * xf).sum(dim=-1, keepdim=True)) / width
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -12,6 +12,31 @@ same recurrence one token at a time with a rolling conv window.  The reference c
 Pallas kernel; so does the port, in PyTorch (the chunk products are
 cuBLAS batched GEMMs on the card).  Each prefill's scan runs inside a
 ``repro/ssd_scan`` profiler range, so a trace can attribute its kernels.
+
+``mamba_forward`` takes ``tp``, a model group (``launch/mesh.py``'s
+``ModelGroup``), for a node spread tensor-parallel over M ranks as the 'tp'
+profile lays it out.  A rank computes its own H / M heads: ``a_log``,
+``d_skip`` and ``dt_bias`` are its heads, ``norm`` and ``w_out`` its
+channels of ``d_inner``.  The fused input projection ``w_in`` (columns
+``[z | x | B | C | dt]``) and ``conv_w`` (columns ``[x | B | C]``) shard
+their columns in M contiguous blocks, which do not line up with the heads
+(Zamba2-7B: rank 0's ``w_in`` columns are all of ``z`` and 120 of ``x``).
+So the rank computes its block of the projection's columns
+(column-parallel, from ``copy_to`` of the input) and all-gathers that
+activation (``gather_sum``: its backward reduce-scatters the gradient's
+sum over the ranks), then takes the ``z``, ``x`` and ``dt`` columns of its
+heads and ``B`` and ``C`` whole: those two are shared by every head,
+computed on every rank, and each rank's heads add their part of their
+gradient, which the reduce-scatter sums.  ``conv_w`` (a few KB) is gathered
+the same way.  Gathering the projection's output rather than ``w_in``
+itself moves ``tokens x 2 d_inner`` values a forward instead of ``d_model x
+2 d_inner``: less for batches under about ``2 d_model`` tokens a node in
+bf16 (Zamba2-7B's 2,048-token node batch: 30 MB a rank against 104 MB), and
+no projection is computed twice.  The gated norm normalises over the whole
+``d_inner`` (``sharded_rms_norm``), and ``w_out`` is row-parallel, its
+partial sums all-reduced (``reduce_from``).  The SSD scan runs on the
+rank's heads unchanged.  Where the heads fell back to replicated, the block
+runs whole on every rank, its sharded leaves gathered first.
 """
 from __future__ import annotations
 
@@ -20,7 +45,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from .common import Initializer, rms_norm
+from .common import Initializer, rms_norm, sharded_rms_norm
 
 __all__ = ["MambaConfig", "init_mamba", "mamba_forward", "init_mamba_cache", "mamba_decode"]
 
@@ -112,11 +137,16 @@ def _ssd_chunked(cfg: MambaConfig, a, xh, b_in, c_in, dt, h0=None):
     cum = torch.cumsum(dtk * a[:, None], dim=-1)
     total = cum[..., -1]                                            # (B, C, H)
     # decay matrix L[t, j] = exp(cum_t - cum_j), j <= t; scores cb * L * dt_j
-    scores = torch.exp(cum[..., :, None] - cum[..., None, :])
+    diff = cum[..., :, None] - cum[..., None, :]
     cb = (ck @ bk.transpose(-1, -2))[:, :, None]
-    if scores.requires_grad:   # autograd keeps each step's input
-        scores = scores.masked_fill(above, 0.0) * cb * dtk[..., None, :]
+    if diff.requires_grad:   # autograd keeps each step's input
+        # masked before the exp: above the diagonal exp(cum_t - cum_j)
+        # overflows to inf on long chunks (Zamba2-7B's 128 tokens), and a
+        # mask applied after it backpropagates 0 * inf = nan (the
+        # reference's jnp.where does); the forward's bits are the same
+        scores = torch.exp(diff.masked_fill(above, -torch.inf)) * cb * dtk[..., None, :]
     else:
+        scores = torch.exp_(diff)
         scores.masked_fill_(above, 0.0).mul_(cb).mul_(dtk[..., None, :])
     y = scores @ x                                                  # intra-chunk
     del scores, cb
@@ -134,9 +164,65 @@ def _ssd_chunked(cfg: MambaConfig, a, xh, b_in, c_in, dt, h0=None):
     return y.transpose(2, 3).reshape(bsz, s, nh, p).to(xh.dtype), h
 
 
-def mamba_forward(cfg: MambaConfig, params, u: torch.Tensor, return_cache: bool = False):
+def _full_shapes(cfg: MambaConfig) -> dict:
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.state_dim, cfg.n_heads
+    return {"w_in": (d, 2 * di + 2 * n + h), "conv_w": (cfg.conv_width, di + 2 * n),
+            "a_log": (h,), "d_skip": (h,), "dt_bias": (h,), "norm": (di,), "w_out": (di, d)}
+
+
+def _sharded_dim(p: torch.Tensor, full) -> int:
+    """The dim along which ``p`` holds a shard of a leaf of shape ``full``
+    (-1: it holds the whole leaf)."""
+    return next((i for i, (a, b) in enumerate(zip(p.shape, full)) if a != b), -1)
+
+
+def _forward_tp(cfg: MambaConfig, params, u: torch.Tensor, tp) -> torch.Tensor:
+    """The rank's heads of a tensor-parallel Mamba-2 block (see the module
+    docstring).  u: (B, S, d_model), replicated; returns the block's
+    output, all-reduced."""
+    full = _full_shapes(cfg)
+    di, n, p = cfg.d_inner, cfg.state_dim, cfg.head_dim
+    h_loc = params["a_log"].shape[0]
+    width, c0, h0 = h_loc * p, tp.index * h_loc * p, tp.index * h_loc
+    if _sharded_dim(params["w_in"], full["w_in"]) == 1:
+        proj = torch.einsum("bsd,de->bse", tp.copy_to(u), params["w_in"].to(u.dtype))
+        proj = tp.gather_sum(proj, 2)
+    else:
+        proj = tp.copy_to(torch.einsum("bsd,de->bse", u, params["w_in"].to(u.dtype)))
+    conv_w = params["conv_w"]
+    conv_w = (tp.gather_sum(conv_w, 1) if _sharded_dim(conv_w, full["conv_w"]) == 1
+              else tp.copy_to(conv_w))
+    z = proj[..., c0:c0 + width]
+    bc = slice(2 * di, 2 * di + 2 * n)
+    xbc = torch.cat([proj[..., di + c0:di + c0 + width], proj[..., bc]], dim=-1)
+    conv_w = torch.cat([conv_w[:, c0:c0 + width], conv_w[:, di:di + 2 * n]], dim=-1)
+    dt_raw = proj[..., 2 * di + 2 * n + h0:2 * di + 2 * n + h0 + h_loc]
+    xbc, _ = _conv(cfg, xbc, conv_w)
+    x, b_in, c_in = xbc[..., :width], xbc[..., width:width + n], xbc[..., width + n:]
+    bsz, s, _ = x.shape
+    xh = x.reshape(bsz, s, h_loc, p)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
+    a = -torch.exp(params["a_log"].float())
+    with torch.profiler.record_function("repro/ssd_scan"):
+        y, _ = _ssd_chunked(cfg, a, xh, b_in, c_in, dt)
+    y = y + xh * params["d_skip"].to(y.dtype)[None, None, :, None]
+    y = sharded_rms_norm(y.reshape(bsz, s, width) * F.silu(z), params["norm"], tp, di)
+    return tp.reduce_from(torch.einsum("bse,ed->bsd", y, params["w_out"].to(y.dtype)))
+
+
+def mamba_forward(cfg: MambaConfig, params, u: torch.Tensor, return_cache: bool = False,
+                  tp=None):
     """Full-sequence forward. u: (B, S, d_model).  With ``return_cache``
-    also the decode cache ``{"conv", "ssm"}`` the sequence leaves."""
+    also the decode cache ``{"conv", "ssm"}`` the sequence leaves.  ``tp``
+    (forward only): the rank's heads of a tensor-parallel node (see the
+    module docstring)."""
+    if tp is not None:
+        full = _full_shapes(cfg)
+        if params["a_log"].shape[0] != cfg.n_heads:
+            return _forward_tp(cfg, params, u, tp)
+        # heads replicated: the whole block on every rank, from whole leaves
+        params = {k: v if _sharded_dim(v, full[k]) < 0 else
+                  tp.gather_from(v, _sharded_dim(v, full[k])) for k, v in params.items()}
     z, xbc, dt_raw = _project(cfg, params, u)
     xbc, conv_state = _conv(cfg, xbc, params["conv_w"])
     x, b_in, c_in = _split_xbc(cfg, xbc)

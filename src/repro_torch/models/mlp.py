@@ -22,6 +22,24 @@ The dispatch writes each kept (expert, slot) once, so its scatter is an
 ``index_put_`` without accumulation: the reference adds each token into a
 zero queue (0 + x = x, the same bits), and only the discarded trash row
 takes several writes, in no set order.  No atomics are needed.
+
+``moe_forward`` takes ``tp``, a model group (``launch/mesh.py``'s
+``ModelGroup``), for a node spread tensor-parallel over M ranks as the 'tp'
+profile lays it out.  An expert leaf uses the model axis once: on
+``experts`` where the expert count divides by M (a rank holds E / M whole
+experts: Qwen1.5-MoE 30 of 60), else on the experts' hidden dim.  Every
+rank routes every token as the whole model does (the same capacity, the
+same stable top-k, the same queue positions): the router's logits are
+column-parallel on ``experts`` and all-gathered (``gather_from``: the
+router losses, which every rank computes whole, give every rank the same
+gradient, of which a rank keeps its columns) -- or computed whole where
+the router fell back to replicated.  The renormalised gates feed the
+rank's experts only, so they pass ``copy_to``: their gradient is summed
+over the ranks before it joins the router losses'.  The rank dispatches
+the entries of its own experts (the rest go to the trash slot), runs its
+experts' GEMMs on ``copy_to`` of the tokens, combines its gated outputs
+and all-reduces them (``reduce_from``).  The shared experts and a dense
+residual are Megatron MLPs (``mlp_forward(..., tp=)``).
 """
 from __future__ import annotations
 
@@ -139,13 +157,23 @@ def _groups_and_capacity(cfg: MoEConfig, n_tok: int):
     return groups, min(capacity, per)
 
 
-def _route(cfg: MoEConfig, router, tokens, capacity: int):
+def _router_logits(cfg: MoEConfig, router, tokens, tp=None):
+    """tokens (G, T, d) -> the router's logits (G, T, E), fp32; with ``tp``
+    and a router sharded on ``experts``, the rank's columns all-gathered."""
+    if tp is not None and router.shape[-1] != cfg.n_experts:
+        part = torch.einsum("gtd,de->gte", tp.copy_to(tokens).float(), router.float())
+        return tp.gather_from(part, 2)
+    return torch.einsum("gtd,de->gte", tokens.float(), router.float())
+
+
+def _route(cfg: MoEConfig, router, tokens, capacity: int, tp=None):
     """tokens (G, T, d) -> logits and probs (G, T, E) fp32, gates, experts,
     queue positions and the kept mask, each (G, T, k).
 
     Top-k is a stable descending sort, so equal probabilities rank by
-    expert index, as ``lax.top_k`` ranks them."""
-    logits = torch.einsum("gtd,de->gte", tokens.float(), router.float())
+    expert index, as ``lax.top_k`` ranks them.  ``tp``: see the module
+    docstring (the gates come back through ``copy_to``)."""
+    logits = _router_logits(cfg, router, tokens, tp)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, expert_idx = gate_vals[..., :cfg.top_k], expert_idx[..., :cfg.top_k]
@@ -157,17 +185,29 @@ def _route(cfg: MoEConfig, router, tokens, capacity: int):
     flat = F.one_hot(expert_idx.reshape(g, t * k), cfg.n_experts).transpose(1, 2).contiguous()
     before = torch.cumsum(flat, dim=2) - flat
     pos = before.gather(1, expert_idx.reshape(g, 1, t * k)).reshape(g, t, k)
+    if tp is not None:
+        gate_vals = tp.copy_to(gate_vals)
     return logits, probs, gate_vals, expert_idx, pos, pos < capacity
 
 
-def _dispatch_compute_combine(cfg: MoEConfig, params, tokens, capacity: int):
+def _dispatch_compute_combine(cfg: MoEConfig, params, tokens, capacity: int, tp=None):
     """The capacity MoE on token groups (G, T, d), each group with its own
-    queues.  Returns (y (G, T, d), logits, probs, experts)."""
+    queues.  Returns (y (G, T, d), logits, probs, experts).  With ``tp``
+    the rank's experts (or its share of every expert's hidden units) alone:
+    y is the rank's partial sum."""
     g, t, d = tokens.shape
-    k, e = cfg.top_k, cfg.n_experts
+    k, e = cfg.top_k, params["w_gate"].shape[0]
     logits, probs, gate_vals, expert_idx, pos, keep = _route(cfg, params["router"], tokens,
-                                                             capacity)
+                                                             capacity, tp)
     e_flat = expert_idx.reshape(g, t * k)
+    if e != cfg.n_experts:
+        # the rank's experts [e0, e0 + e); entries routed elsewhere go to
+        # the trash slot
+        e0 = tp.index * e
+        keep = keep & (expert_idx >= e0) & (expert_idx < e0 + e)
+        e_flat = (e_flat - e0).clamp(0, e - 1)
+    if tp is not None:
+        tokens = tp.copy_to(tokens)
     pos_flat = torch.where(keep, pos, capacity).reshape(g, t * k)
     g_flat = torch.arange(g, device=tokens.device)[:, None].expand(g, t * k)
     with torch.profiler.record_function("repro/moe_dispatch"):
@@ -187,21 +227,33 @@ def _dispatch_compute_combine(cfg: MoEConfig, params, tokens, capacity: int):
     return y, logits, probs, expert_idx
 
 
-def moe_forward(cfg: MoEConfig, params, x: torch.Tensor, return_aux: bool = False):
+def _expert_parallel(cfg: MoEConfig, params, tp):
+    """``tp`` where the rank holds a shard of the experts (of their count or
+    of their hidden units), else None: the experts run whole."""
+    whole = (cfg.n_experts, cfg.d_model, cfg.d_ff)
+    return tp if tp is not None and tuple(params["w_gate"].shape) != whole else None
+
+
+def moe_forward(cfg: MoEConfig, params, x: torch.Tensor, return_aux: bool = False, tp=None):
     """x: (B, S, d).  Returns ``(y, aux)``: the router's z-loss plus the
-    Switch load-balance loss in fp32 with ``return_aux``, else None."""
+    Switch load-balance loss in fp32 with ``return_aux``, else None.
+    ``tp`` (forward only): a tensor-parallel node (see the module
+    docstring)."""
     b, s, d = x.shape
     n_tok = b * s
     groups, capacity = _groups_and_capacity(cfg, n_tok)
+    ep = _expert_parallel(cfg, params, tp)
     y, logits, probs, expert_idx = _dispatch_compute_combine(
-        cfg, params, x.reshape(groups, n_tok // groups, d), capacity)
+        cfg, params, x.reshape(groups, n_tok // groups, d), capacity, ep)
     y = y.reshape(b, s, d)
+    if ep is not None:
+        y = ep.reduce_from(y)
     if cfg.n_shared_experts:
         shared = MLPConfig(cfg.d_model, cfg.d_ff * cfg.n_shared_experts, cfg.activation)
-        y = y + mlp_forward(shared, params["shared"], x)
+        y = y + mlp_forward(shared, params["shared"], x, tp=tp)
     if cfg.dense_residual:
         dense = MLPConfig(cfg.d_model, cfg.dense_d_ff or cfg.d_ff, cfg.activation)
-        y = y + mlp_forward(dense, params["dense"], x)
+        y = y + mlp_forward(dense, params["dense"], x, tp=tp)
     if not return_aux:
         return y, None
     z = torch.logsumexp(logits, dim=-1)
@@ -213,12 +265,13 @@ def moe_forward(cfg: MoEConfig, params, x: torch.Tensor, return_aux: bool = Fals
     return y, z_loss + lb_loss
 
 
-def moe_routing(cfg: MoEConfig, params, x: torch.Tensor):
+def moe_routing(cfg: MoEConfig, params, x: torch.Tensor, tp=None):
     """The experts each token of x (B, S, d) goes to and whether each
     entry is kept, as ``moe_forward`` routes them: ``(experts, keep)``, both
-    (B*S, k), in token order."""
+    (B*S, k), in token order (with ``tp``, every rank the whole routing)."""
     b, s, d = x.shape
     groups, capacity = _groups_and_capacity(cfg, b * s)
     *_, expert_idx, _, keep = _route(cfg, params["router"],
-                                     x.reshape(groups, b * s // groups, d), capacity)
+                                     x.reshape(groups, b * s // groups, d), capacity,
+                                     _expert_parallel(cfg, params, tp))
     return expert_idx.reshape(b * s, cfg.top_k), keep.reshape(b * s, cfg.top_k)

@@ -14,6 +14,22 @@ form (``chunk > 0``), and the per-token recurrence (``chunk == 0`` or a
 length that is not a multiple of the chunk).  The chunked forms clamp the
 decay exponents at +-25 (``kernels/wkv_chunk/ref.py``).  Decode is the O(1)
 single-step recurrence.
+
+``timemix_forward`` and ``chanmix_forward`` take ``tp``, a model group
+(``launch/mesh.py``'s ``ModelGroup``), for a node spread tensor-parallel
+over M ranks as the 'tp' profile lays it out (Megatron).  The time mix:
+``w_r``, ``w_k``, ``w_v``, ``w_g`` and ``decay_lora_b`` are column-parallel
+on ``heads_flat``, ``decay_base``, ``bonus_u`` and ``ln_x`` are the rank's
+heads, and the rank runs the recurrence (the ``wkv_chunk`` kernel, or a
+plain form) on its H / M heads; the input, the token-shift lerps' ``mix_*``
+and ``decay_lora_a`` are replicated and enter through ``copy_to``, so that
+their gradients are summed over the ranks; ``ln_x`` normalises over the
+whole width (``sharded_rms_norm``) and ``w_o`` is row-parallel, its partial
+sums all-reduced (``reduce_from``).  The channel mix: ``cw_k`` is
+column-parallel on ``ffn``, ``cw_v`` row-parallel then ``reduce_from``;
+``cw_r`` (``(embed, embed)``) is replicated and its gate runs whole on every
+rank.  Each mix reads its layout off its shards' shapes: where its parallel
+dim fell back to replicated it runs whole.
 """
 from __future__ import annotations
 
@@ -24,7 +40,7 @@ import torch.nn.functional as F
 
 from ..kernels import api
 from ..kernels.wkv_chunk.ref import wkv_chunked_ref, wkv_ref
-from .common import Initializer, rms_norm
+from .common import Initializer, rms_norm, sharded_rms_norm
 
 __all__ = ["RWKVConfig", "init_rwkv", "timemix_forward", "chanmix_forward",
            "init_rwkv_cache", "timemix_decode", "chanmix_decode"]
@@ -104,8 +120,10 @@ def _timemix_inputs(cfg, params, x, shifted):
 
 
 def _heads(cfg, t):
-    b, s, _ = t.shape
-    return t.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    """(B, S, H * P) -> (B, S, H, P): the head count is read off the
+    tensor (a tensor-parallel rank holds H / M heads)."""
+    b, s, width = t.shape
+    return t.reshape(b, s, width // cfg.head_dim, cfg.head_dim)
 
 
 def _chunked_wkv(cfg: RWKVConfig, rh, kh, vh, wh, s0):
@@ -121,37 +139,71 @@ def _bonus(rh, kh, vh, u):
     return rk * vh.float()
 
 
-def timemix_forward(cfg: RWKVConfig, params, x, return_cache: bool = False):
-    """Full-sequence time-mix.  x: (B, S, d), already normed."""
+def _timemix_shard(cfg: RWKVConfig, params, x, tp):
+    """A tensor-parallel rank's time mix: its input and parameters, the
+    replicated ones through ``tp.copy_to`` (identity forward, gradient
+    summed over the ranks backward)."""
+    width = params["w_r"].shape[-1]
+    if width % cfg.head_dim:
+        raise NotImplementedError(
+            f"a tensor-parallel RWKV time mix needs whole heads a rank: {width} channels "
+            f"of heads of {cfg.head_dim}")
+    p = dict(params)
+    for name in ("mix_r", "mix_k", "mix_v", "mix_w", "mix_g", "decay_lora_a"):
+        p[name] = tp.copy_to(p[name])
+    return p, tp.copy_to(x)
+
+
+def timemix_forward(cfg: RWKVConfig, params, x, return_cache: bool = False, tp=None):
+    """Full-sequence time-mix.  x: (B, S, d), already normed.  ``tp``: the
+    rank's heads of a tensor-parallel node (see the module docstring)."""
     b, s, d = x.shape
+    sharded = tp is not None and params["w_r"].shape[-1] != cfg.d_model
+    if sharded:
+        params, x = _timemix_shard(cfg, params, x, tp)
     r, k, v, g, logw = _timemix_inputs(cfg, params, x, _shift(x))
     rh, kh, vh = _heads(cfg, r), _heads(cfg, k), _heads(cfg, v)
     wh = _heads(cfg, logw)
-    u = params["bonus_u"].float().reshape(cfg.n_heads, cfg.head_dim)
+    h = rh.shape[2]
+    u = params["bonus_u"].float().reshape(h, cfg.head_dim)
     if cfg.chunk and s % cfg.chunk == 0:
         if cfg.use_pallas:
             y, s_final = api.call("wkv_chunk", rh, kh, vh, wh, chunk=cfg.chunk)
         else:
-            s0 = torch.zeros((b, cfg.n_heads, cfg.head_dim, cfg.head_dim),
+            s0 = torch.zeros((b, h, cfg.head_dim, cfg.head_dim),
                              dtype=torch.float32, device=x.device)
             y, s_final = _chunked_wkv(cfg, rh, kh, vh, wh, s0)
     else:
         y, s_final = wkv_ref(rh, kh, vh, wh)
-    y = (y + _bonus(rh, kh, vh, u)).reshape(b, s, d).to(x.dtype)
-    y = rms_norm(y, params["ln_x"]) * g
+    y = (y + _bonus(rh, kh, vh, u)).reshape(b, s, h * cfg.head_dim).to(x.dtype)
+    if sharded:
+        y = sharded_rms_norm(y, params["ln_x"], tp, d) * g
+    else:
+        y = rms_norm(y, params["ln_x"]) * g
     out = y @ params["w_o"].to(y.dtype)
+    if sharded:
+        out = tp.reduce_from(out)
     if return_cache:
         return out, {"wkv": s_final, "shift_t": x[:, -1:]}
     return out
 
 
-def chanmix_forward(cfg: RWKVConfig, params, x, return_cache: bool = False):
-    """Full-sequence channel-mix (squared ReLU).  x: (B, S, d), normed."""
+def chanmix_forward(cfg: RWKVConfig, params, x, return_cache: bool = False, tp=None):
+    """Full-sequence channel-mix (squared ReLU).  x: (B, S, d), normed.
+    ``tp``: the rank's hidden units of a tensor-parallel node."""
     shifted = _shift(x)
-    kc = _lerp(x, shifted, params["cmix_k"]) @ params["cw_k"].to(x.dtype)
+    sharded = tp is not None and params["cw_k"].shape[-1] != cfg.d_ff
+    xk, sk, mix_k = x, shifted, params["cmix_k"]
+    if sharded:
+        xk, mix_k = tp.copy_to(x), tp.copy_to(mix_k)
+        sk = _shift(xk)
+    kc = _lerp(xk, sk, mix_k) @ params["cw_k"].to(x.dtype)
     kc = torch.square(torch.relu(kc))
     rc = torch.sigmoid(_lerp(x, shifted, params["cmix_r"]) @ params["cw_r"].to(x.dtype))
-    out = rc * (kc @ params["cw_v"].to(kc.dtype))
+    kv = kc @ params["cw_v"].to(kc.dtype)
+    if sharded:
+        kv = tp.reduce_from(kv)
+    out = rc * kv
     if return_cache:
         return out, {"shift_c": x[:, -1:]}
     return out

@@ -42,12 +42,14 @@ holds its shard of the parameters, as the 'tp' profile lays them out, and
 the model reads the layout off the shards' shapes.  The embedding is
 vocab-parallel (each rank looks up its rows and the lookups are summed),
 attention takes the rank's heads, the dense MLP its hidden units (their
-partial outputs all-reduced in fp32), the head gives vocab-sharded logits
-and the loss reduces over the vocabulary's shards
-(``cross_entropy_loss(..., tp=)``).  A layer whose parallel dim fell back to
-replicated runs whole on every rank.  Every rank sees the whole batch.  The
-MoE, Mamba-2 and RWKV blocks and the audio front end have no
-tensor-parallel form yet (ROADMAP queue 1 item 8 (b)).
+partial outputs all-reduced in fp32), the MoE block the rank's experts
+(``mlp.py``), the Mamba-2 block its SSM heads (``mamba.py``), the RWKV
+block its time-mix heads and channel-mix hidden units (``rwkv.py``); the
+head gives vocab-sharded logits and the loss reduces over the vocabulary's
+shards (``cross_entropy_loss(..., tp=)``).  The audio front end's
+projection is replicated and runs whole on every rank.  A layer whose
+parallel dim fell back to replicated runs whole on every rank.  Every rank
+sees the whole batch.
 """
 from __future__ import annotations
 
@@ -70,8 +72,6 @@ Tree = Any
 __all__ = ["ModelConfig", "Model"]
 
 KINDS = ("attn", "local", "moe", "shared_attn", "mamba", "rwkv")
-# the block kinds that have no tensor-parallel form yet
-TP_REFUSED = ("moe", "mamba", "rwkv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,9 +305,6 @@ class Model:
         takes ``batch["vision_embeds"]`` (B, n_vis, d) beside the tokens."""
         cfg = self.cfg
         if cfg.audio_frontend_dim:
-            if tp is not None:
-                raise NotImplementedError(
-                    "a tensor-parallel audio encoder is ROADMAP queue 1 item 8 (b)")
             x = torch.einsum("bsf,fd->bsd", batch["frames"].to(dtype),
                              params["audio_proj"].to(dtype))
             b, s = x.shape[:2]
@@ -356,13 +353,10 @@ class Model:
         'fwd' mode, else None.  ``tp`` (forward only): see the module
         docstring."""
         cfg = self.cfg
-        if tp is not None and kind in TP_REFUSED:
-            raise NotImplementedError(
-                f"a tensor-parallel {kind!r} block is ROADMAP queue 1 item 8 (b)")
         if kind == "rwkv":
-            return self._apply_rwkv(bp, x, mode, cache) + (None,)
+            return self._apply_rwkv(bp, x, mode, cache, tp=tp) + (None,)
         if kind == "mamba":
-            return self._apply_mamba(bp, x, mode, cache) + (None,)
+            return self._apply_mamba(bp, x, mode, cache, tp=tp) + (None,)
         acfg = cfg.attn_cfg(kind)
         h = self._norm(x, bp["norm1"])
         if mode == "decode":
@@ -380,7 +374,8 @@ class Model:
         h = self._norm(x, bp["norm2"])
         aux = None
         if kind == "moe":
-            y, aux = mlp_lib.moe_forward(cfg.moe_cfg(), bp["ffn"], h, return_aux=mode == "fwd")
+            y, aux = mlp_lib.moe_forward(cfg.moe_cfg(), bp["ffn"], h, return_aux=mode == "fwd",
+                                         tp=tp)
         else:
             y = mlp_lib.mlp_forward(cfg.mlp_cfg(), bp["ffn"], h, tp=tp)
         if cfg.use_post_norm:
@@ -388,7 +383,7 @@ class Model:
         x = x + y
         return x, (None if new_cache is None else {"attn": new_cache}), aux
 
-    def _apply_mamba(self, bp, x, mode, cache=None):
+    def _apply_mamba(self, bp, x, mode, cache=None, tp=None):
         """One Mamba-2 block behind its norm.  The cache is ``{"mamba":
         {"conv", "ssm"}}``."""
         mcfg = self.cfg.mamba_cfg()
@@ -398,10 +393,10 @@ class Model:
         elif mode == "prefill":
             y, new_cache = mamba_lib.mamba_forward(mcfg, bp["mamba"], h, return_cache=True)
         else:
-            y, new_cache = mamba_lib.mamba_forward(mcfg, bp["mamba"], h), None
+            y, new_cache = mamba_lib.mamba_forward(mcfg, bp["mamba"], h, tp=tp), None
         return x + y, (None if new_cache is None else {"mamba": new_cache})
 
-    def _apply_rwkv(self, bp, x, mode, cache=None):
+    def _apply_rwkv(self, bp, x, mode, cache=None, tp=None):
         """One RWKV block: time-mix then channel-mix, each behind its norm.
         The cache is ``{"rwkv": {"wkv", "shift_t", "shift_c"}}``."""
         rcfg = self.cfg.rwkv_cfg()
@@ -409,13 +404,13 @@ class Model:
         if mode == "decode":
             y, tc = rwkv_lib.timemix_decode(rcfg, bp["rwkv"], h, cache["rwkv"])
         else:
-            y, tc = rwkv_lib.timemix_forward(rcfg, bp["rwkv"], h, return_cache=True)
+            y, tc = rwkv_lib.timemix_forward(rcfg, bp["rwkv"], h, return_cache=True, tp=tp)
         x = x + y
         h = self._norm(x, bp["norm2"])
         if mode == "decode":
             y, cc = rwkv_lib.chanmix_decode(rcfg, bp["rwkv"], h, cache["rwkv"])
         else:
-            y, cc = rwkv_lib.chanmix_forward(rcfg, bp["rwkv"], h, return_cache=True)
+            y, cc = rwkv_lib.chanmix_forward(rcfg, bp["rwkv"], h, return_cache=True, tp=tp)
         x = x + y
         return x, (None if mode == "fwd" else {"rwkv": {**tc, **cc}})
 

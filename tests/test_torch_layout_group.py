@@ -35,9 +35,9 @@ job.
     reduce-scatters).
   * A 2-rank group (1 node x model 2): every ``ALGORITHMS`` entry takes one
     fused step under each profile, and every refusal of a model axis (the
-    '2d' profile; tp over the MoE, Mamba-2, RWKV blocks and HuBERT's
-    encoder; a codec, a CHOCO and an async channel; a scenario) raises
-    naming ROADMAP queue 1 item 8 (b).
+    '2d' profile; a codec, a CHOCO and an async channel; a scenario) raises
+    naming ROADMAP queue 1 item 8 (b).  tp over the MoE, Mamba-2 and RWKV
+    blocks and HuBERT's encoder is ``test_torch_layout_blocks.py``'s.
 
 Each group initializes from a ``FileStore`` under the test's temporary
 directory; every process and the whole group have deadlines of their own,
@@ -57,6 +57,8 @@ import numpy as np
 import pytest
 import torch
 
+from _reference_env import reference_env
+
 REPO = Path(__file__).resolve().parents[1]
 NODES, MODEL, TAU, ROUNDS, S, VOCAB = 2, 2, 3, 3, 16, 256
 CFGS = {
@@ -73,17 +75,13 @@ HYPER = dict(tau=TAU, lr=1e-2, alpha=0.1)
 PROFILE_NAMES = ("tp", "fsdp")
 ALGORITHM_NAMES = ("dlsgd", "dse_mvr", "dse_sgd", "dsgd", "gt_dsgd", "gt_hsgd", "pd_sgdm",
                    "slowmo_d")
-# refusal case -> (config override, make_train_job keywords)
+# refusal case -> make_train_job keywords
 REFUSALS = {
-    "2d": (None, dict(profile="2d")),
-    "tp_moe": ("qwen2_moe_a2_7b", dict(profile="tp")),
-    "tp_mamba": ("zamba2_7b", dict(profile="tp")),
-    "tp_rwkv": ("rwkv6_3b", dict(profile="tp")),
-    "tp_hubert": ("hubert_xlarge", dict(profile="tp")),
-    "qsgd": (None, dict(profile="tp", compression="qsgd")),
-    "choco": (None, dict(profile="fsdp", channel="choco", compression="top_k:0.1")),
-    "async": (None, dict(profile="tp", channel="async:2")),
-    "scenario": (None, dict(profile="fsdp", scenario="dropout_ring")),
+    "2d": dict(profile="2d"),
+    "qsgd": dict(profile="tp", compression="qsgd"),
+    "choco": dict(profile="fsdp", channel="choco", compression="top_k:0.1"),
+    "async": dict(profile="tp", channel="async:2"),
+    "scenario": dict(profile="fsdp", scenario="dropout_ring"),
 }
 PROCESS_DEADLINE = 240     # s, one rank process
 GROUP_DEADLINE = 300       # s, a whole group
@@ -208,9 +206,6 @@ def pair_group(mesh) -> dict:
     """The 2-rank group's cases: every algorithm under each profile, the
     tensor-parallel model in fp32, and the refusals (each one's message, or
     None where nothing was raised)."""
-    import dataclasses
-
-    from repro_torch.configs import get_reduced
     from repro_torch.launch.distributed import make_train_job
     from repro_torch.models import ModelConfig
     from repro_torch.scenarios import make_scenario
@@ -230,14 +225,12 @@ def pair_group(mesh) -> dict:
             out["algorithms"][(name, p)] = {
                 "round_len": job.round_len, "loss": float(m["loss"]),
                 "finite": all(bool(np.isfinite(x).all()) for x in _numpy(state.params))}
-    for case, (arch, kw) in REFUSALS.items():
+    for case, kw in REFUSALS.items():
         kw = dict(kw)
         if "scenario" in kw:
             kw["scenario"] = make_scenario(kw["scenario"], seed=0)
-        c = cfg if arch is None else dataclasses.replace(get_reduced(arch), n_layers=len(
-            get_reduced(arch).block_unit))
         try:
-            make_train_job(c, mesh, **HYPER, **kw)
+            make_train_job(cfg, mesh, **HYPER, **kw)
             out["refusals"][case] = None
         except NotImplementedError as e:
             out["refusals"][case] = str(e)
@@ -272,8 +265,9 @@ def _rank_main(argv=None) -> None:
 
 
 # ---------------------------------------------------------- the parent side
-def _spawn_group(world: int, tmp: Path, extra=()) -> list:
-    """Run this file as ``world`` rank processes; their results by rank."""
+def _spawn_group(world: int, tmp: Path, extra=(), script=__file__) -> list:
+    """Run ``script`` (this file) as ``world`` rank processes; their
+    results by rank."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
     store = tmp / f"store{world}"
     procs, outs = [], []
@@ -281,7 +275,7 @@ def _spawn_group(world: int, tmp: Path, extra=()) -> list:
         out = tmp / f"rank{world}_{r}.pt"
         outs.append(out)
         procs.append(subprocess.Popen(
-            [sys.executable, __file__, "--rank", str(r), "--world", str(world),
+            [sys.executable, script, "--rank", str(r), "--world", str(world),
              "--store", str(store), "--out", str(out), *extra],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     deadline = time.monotonic() + GROUP_DEADLINE
@@ -346,8 +340,7 @@ def runs(tmp_path_factory):
 
     tmp = tmp_path_factory.mktemp("layout")
     ref_npz = tmp / "reference.npz"
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    env = reference_env(GROUP_DEADLINE, devices=NODES * MODEL)
     code = textwrap.dedent(REFERENCE.format(
         cfg=CFGS["tiny"], nodes=NODES, model=MODEL, tau=TAU, b=BATCH["tiny"], s=S, vocab=VOCAB,
         profiles=PROFILE_NAMES, hyper=HYPER))

@@ -46,6 +46,8 @@ import numpy as np
 import pytest
 import torch
 
+from _reference_env import reference_env
+
 REPO = Path(__file__).resolve().parents[1]
 N, TAU, ROUNDS, B, S, VOCAB = 8, 3, 3, 2, 16, 256
 CFG = dict(name="lm-tiny", arch_type="dense", n_layers=1, d_model=32, n_heads=4,
@@ -282,8 +284,7 @@ def runs(tmp_path_factory):
 
     tmp = tmp_path_factory.mktemp("sharded")
     ref_npz = tmp / "reference.npz"
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    env = reference_env(GROUP_DEADLINE, devices=4)
     code = textwrap.dedent(REFERENCE.format(cfg=CFG, vocab=VOCAB, tau=TAU, b=B, s=S,
                                             hyper=HYPER))
     ref = subprocess.Popen([sys.executable, "-c", code, str(ref_npz)], env=env,

@@ -18,7 +18,6 @@ between its sharded job and its one-device path (rtol 5e-3 / atol 1e-4).
 """
 import functools
 import json
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -33,9 +32,9 @@ from repro.models import ModelConfig as JModelConfig
 from repro_torch.convert import params_from_numpy
 from repro_torch.experiments import sweep
 from repro_torch.launch.distributed import TrainJob
+from _reference_env import reference_env
 from test_torch_simulator import _reference_indices
 
-REPO = Path(__file__).resolve().parents[1]
 SIM_BAND = dict(rtol=5e-4, atol=1e-5)
 SHARD_BAND = dict(rtol=5e-3, atol=1e-4)
 DEADLINE = 600   # s, the reference's subprocess
@@ -69,8 +68,7 @@ def _reference_tokens(args, round_len, vocab, r):
 @pytest.fixture(scope="module")
 def outs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sweep")
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
-    env.pop("XLA_FLAGS", None)
+    env = reference_env(DEADLINE)   # the reference's sweep adds its fake devices
     ref = subprocess.run(
         [sys.executable, "-m", "repro.experiments.sweep", *ARGS, "--out", str(tmp / "ref"),
          "--bench-out", str(tmp / "ref" / "bench.json")],

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from _reference_env import reference_env
 from repro_torch.checkpoint import load_checkpoint
 from repro_torch.launch import train
 from repro_torch.launch.distributed import TrainJob
@@ -108,8 +109,7 @@ def runs(tmp_path_factory):
     """The reference's two runs (a subprocess), then the port's from the
     same initial parameters."""
     tmp = tmp_path_factory.mktemp("train_cli")
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    env = reference_env(DEADLINE, devices=8)
     ref = subprocess.run([sys.executable, "-c", textwrap.dedent(REFERENCE), str(tmp / "ref"),
                           json.dumps(FLAGS), json.dumps(RUNS)],
                          env=env, capture_output=True, text=True, timeout=DEADLINE)
