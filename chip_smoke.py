@@ -24,8 +24,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    scan, place, tile; the pack's one kernel) and the pack's windowed
    passes against one pass; then repeated indices against the unpack's
    fp32-accumulate mirror, subnormal values, every index in one tile or
-   window (timed once), k = d, a ragged last tile, out-of-range indices and
-   a row of 4,097 tiles;
+   window (timed once), k = d, a ragged last tile, out-of-range indices,
+   a model rank's tp shard of Qwen2-VL-2B's embedding at top-k 0.01 (the
+   shard's candidates packed; the merged payload's in-shard entries
+   unpacked, the rest padded as +0.0 at spread indices) and a row of 4,097
+   tiles;
    flash_attention (CUDA C++, src/repro_torch/csrc/flash_attention.cu:
    in bf16 at D=128 and 256 a warp-specialised TMA + wgmma kernel) is held
    against its plain version on Gemma-2 2B's global and local layer shapes
@@ -93,7 +96,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    straggler sleep on worker 0 at round 4, worker 2 respawned before round
    6 and resynced through the on-disk bundle.  Three launches: the dense
    protocol; CHOCO top-k 0.1 with overlap on the packed protocol; the same
-   config on the dense protocol, for bytes.  Each: ``active_log`` and the
+   config on the dense protocol, for bytes; the three side by side, a
+   thread each (one after another before: the time limit).  Each:
+   ``active_log`` and the
    epochs exactly as planned (a round abandoned would bump an epoch), one
    resync, the final leaves bit for bit ``simulate_reference`` run in this
    process on the card through the kernels; that replay's final loss and
@@ -126,8 +131,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the card, each
    its own process, against a world-1 process, both deterministic
    (``torch.use_deterministic_algorithms``, cuBLAS workspace config): roll
-   on 4 nodes and CHOCO on 2 for 2 rounds (CHOCO's error feedback carried
-   between them), final params bit for bit by per-node
+   on 4 nodes for 1 round (2 before phase 3g's codec runs took on the roll
+   between gloo ranks: the time limit) and CHOCO on 2 for 2 rounds (its
+   replicas carried between them), final params bit for bit by per-node
    fingerprints, process bytes, ms a round and each rank's launches.
    Every run prints ms a round, node-steps/s, peak memory, launches by op
    and the mesh's bytes a round beside the card's name and power limit;
@@ -138,17 +144,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``examples/decentralized_lm_torch.py --full --use-fused`` at world 1 (one
    node, DSE-MVR tau 4, 3 rounds, the loss falling) and
    ``repro_torch.launch.train --algorithm gt_dsgd --use-fused`` (4 steps:
-   ``add_sub`` on the CLI's path), launches checked exactly; then the CLI
-   over 4 gloo ranks on the card (``python -m torch.distributed.run
-   --standalone --nproc-per-node 4 chip_smoke.py --train-rank ...``, this
-   file each rank's script; one node a rank on ring(4)), DSE-MVR tau 2 for
-   2 rounds (3 before phase 3g took on four more runs: the time limit):
-   roll gossip, ``--compression qsgd`` and ``--compression
-   top_k:0.01 --channel choco``, each rank's ``--telemetry-out`` JSONL read
-   back: the loss at every round (falling, the same on every rank), link
-   bytes together equal to ``link_bytes_per_round``, each rank's kernel
-   launches exactly the ops' counts, s a round and peak memory by rank,
-   rank 0's checkpoint of all 4 nodes read back finite; then
+   ``add_sub`` on the CLI's path), launches checked exactly, and the sweep
+   (below), all in this process while the CLI runs over 4 gloo ranks on
+   the card (``python -m torch.distributed.run --standalone
+   --nproc-per-node 4 chip_smoke.py --train-rank ...``, this file each
+   rank's script; the three runs in turn in the one group, one spawn
+   where there were three: the time limit) at the reference's layout: 2 nodes x a model
+   axis of 2 on ring(2), lm-100m's default tp (the printed
+   ``mesh={'data': 2, 'model': 2}`` checked), DSE-MVR tau 2 for 2 rounds
+   (3 before phase 3g took on four more runs: the time limit): roll
+   gossip, ``--compression qsgd`` and ``--compression top_k:0.01 --channel
+   choco``, each rank's ``--telemetry-out`` JSONL read back: the loss at
+   every round (falling, the same on every rank), link bytes together equal
+   to the byte rule of ``compression/gossip.py`` (model 1's
+   ``link_bytes_per_round`` plus the replicated leaves' messages), each
+   rank's kernel launches exactly the ops' counts, s a round and peak
+   memory by rank; the losses and rank 0's checkpoint of both nodes
+   against the same 2 nodes at model 1 in this process (the CLI's flags,
+   init and token pipeline): roll within the band, QSGD and CHOCO within
+   ``LAYOUT_FLOOR_TIMES`` times the floor of model 1 from its init one
+   fp32 ulp up (as phase 3g's codec runs); the sweep:
    ``repro_torch.experiments.sweep --engines sim,sharded --compressors
    identity,qsgd --rounds 4`` at the reference's other defaults: 8 cells, the
    artifacts' schema, finite final losses, the codec kernels launched;
@@ -192,11 +207,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    all-gathers the MoE router's logits and Mamba-2's projection and conv
    weights, reduce-scattering their gradients, to the byte; fsdp
    all-gathers and reduce-scatters); ms a round, peak memory, the model
-   group's and the node axis's bytes a round, by rank.  Cuts, no width: 1
+   group's and the node axis's bytes a round, by rank.  Then the codecs
+   and channels on the model axis, in the 2-node group, tp on
+   Qwen2-VL-2B as (a), 2 rounds each: sync QSGD (its int8 payload rolled
+   through ``rotation_combine``), CHOCO top-k 0.01 on the neighbour wire
+   (the merged payload's chunks rolled and joined over the model group),
+   async:3 QSGD under ``dropout_ring`` (the allgather, replicated wire, the
+   scenario's streams and ``replicated_local`` at model 2); each held to
+   ``LAYOUT_FLOOR_TIMES`` times the floor of model 1 with the same codec
+   from its init one fp32 ulp up, after rounds 1 and 2; node-link bytes
+   over the ranks and the model group's payload and codec bytes to the
+   byte by ``compression/gossip.py``'s rule; every model rank of a node
+   moved the same payloads and send masks (fingerprints); the codecs'
+   launches by rank; the scenario's streams the same on every rank and
+   within the band of model 1's.  Node block 0's ranks also encode their tp
+   shards of a seeded full-width Qwen2-VL-2B embedding (151,936 x 1,536
+   fp32) with QSGD and top-k 0.01: the payload gathered over the model
+   group and the decoded shard are the whole leaf's in this process, bit
+   for bit (chunked fingerprints).  Cuts, no width: 1
    block unit of each model (as phase 3e), Yi-9B and Qwen1.5-MoE on 1 node
    (two nodes of their state do not fit the card), the batches above, the
-   fsdp runs to 1 round and the rest to 2 (the time limit; see
-   ``LAYOUT_RUNS``);
+   fsdp runs to 1 round, (a) to 1 (the codec runs take its path, 2 rounds
+   each), the fp32 twins to 1 (their bf16 runs keep round 2) and the rest
+   to 2 (the time limit; see ``LAYOUT_RUNS``);
 4. the LM serving path at Gemma-2 2B's full width (26 layers, d 2304,
    vocab 256,000; random bf16 weights from a seed): ``make_serve_job(...).
    prefill_fn`` with ``attn_impl="pallas"`` on 2 prompts of 8192 tokens,
@@ -379,9 +412,11 @@ ELASTIC_CHOCO = (("channel", "choco"), ("compression", "top_k:0.1"), ("overlap",
 # (scripts/sharded_memory_probe.py; PERF.md)
 SHARD_NODES = SHARD_QSGD_NODES = SHARD_CHOCO_NODES = 4
 # the 2-rank group's runs (two ranks share the card, each with its own
-# state): roll on 4 nodes, CHOCO on 2 (one a rank)
-SHARD_GROUP_NODES = {"roll": 4, "choco": 2}
-SHARD_TAU, SHARD_ROUNDS, SHARD_GROUP_ROUNDS = 3, 3, 2
+# state): tag -> (nodes, rounds); roll on 4 nodes, 1 round (2 before phase
+# 3g's codec runs took on the roll between gloo ranks; the time limit),
+# CHOCO on 2 (one a rank), 2 rounds (its replicas carried between them)
+SHARD_GROUP_RUNS = {"roll": (4, 1), "choco": (2, 2)}
+SHARD_TAU, SHARD_ROUNDS = 3, 3
 SHARD_LAYERS = 1
 SHARD_LR, SHARD_ALPHA, SHARD_TOP_K = 1e-2, 0.1, "top_k:0.01"
 SHARD_RTOL, SHARD_ATOL = 5e-3, 1e-4
@@ -408,16 +443,22 @@ LAYOUT_MODEL = 2
 # run -> (arch, profile, nodes, node batch, text tokens (HuBERT: frames) a
 # row, rounds)
 LAYOUT_RUNS = {
-    "tp_qwen2_vl": ("qwen2-vl-2b", "tp", 2, 1, 1792, 2),      # phase 3e's batch
+    # 1 round (2 before the codec runs below took on its path, each 2)
+    "tp_qwen2_vl": ("qwen2-vl-2b", "tp", 2, 1, 1792, 1),      # phase 3e's batch
+    "tp_qwen2_vl_qsgd": ("qwen2-vl-2b", "tp", 2, 1, 1792, 2),
+    "tp_qwen2_vl_choco": ("qwen2-vl-2b", "tp", 2, 1, 1792, 2),
+    "tp_qwen2_vl_async_dropout": ("qwen2-vl-2b", "tp", 2, 1, 1792, 2),
     "fsdp_qwen2_vl": ("qwen2-vl-2b", "fsdp", 2, 2, 768, 1),   # splits over the 2 ranks
     "fsdp_yi_9b": ("yi-9b", "fsdp", 1, 2, 1024, 1),
     "tp_rwkv6": ("rwkv6-3b", "tp", 2, 1, 512, 2),
-    "tp_rwkv6_fp32": ("rwkv6-3b", "tp", 2, 1, 512, 2),
     "tp_zamba2": ("zamba2-7b", "tp", 2, 1, 1024, 2),
-    "tp_zamba2_fp32": ("zamba2-7b", "tp", 2, 1, 1024, 2),
     "tp_hubert": ("hubert-xlarge", "tp", 2, 1, 1500, 2),
     "tp_qwen2_moe": ("qwen2-moe-a2.7b", "tp", 1, 1, 2048, 2),
-    "tp_qwen2_moe_fp32": ("qwen2-moe-a2.7b", "tp", 1, 1, 2048, 2),
+    # the fp32 twins 1 round (2 before: the time limit; their bf16 runs
+    # keep round 2, where the loss must fall)
+    "tp_rwkv6_fp32": ("rwkv6-3b", "tp", 2, 1, 512, 1),
+    "tp_zamba2_fp32": ("zamba2-7b", "tp", 2, 1, 1024, 1),
+    "tp_qwen2_moe_fp32": ("qwen2-moe-a2.7b", "tp", 1, 1, 2048, 1),
 }
 # RWKV-6, Mamba-2 and the MoE in bf16 activations (the engine's own path):
 # a tp round rounds each row-parallel partial sum to bf16 before the fp32
@@ -426,8 +467,31 @@ LAYOUT_RUNS = {
 # the same round: model 1 against itself from its init one fp32 ulp up,
 # which the same bf16 roundings (and the MoE's flipped routes) amplify as
 # far (PERF.md §6: the tp gap 0.8-1.5 times the floor)
-LAYOUT_FLOOR = ("tp_rwkv6", "tp_zamba2", "tp_qwen2_moe")
+LAYOUT_FLOOR = ("tp_rwkv6", "tp_zamba2", "tp_qwen2_moe", "tp_qwen2_vl_qsgd", "tp_qwen2_vl_choco",
+                "tp_qwen2_vl_async_dropout")
 LAYOUT_FLOOR_TIMES = 4
+# the codecs and channels on a model axis: run -> (make_train_job
+# keywords, scenario preset or None).  Sync QSGD rolls its int8 payload
+# through rotation_combine; CHOCO top-k 0.01 rolls the merged payload's
+# chunks on the neighbour wire; async:3 QSGD under dropout_ring takes the
+# allgather (replicated) wire.  Each is held to LAYOUT_FLOOR_TIMES times the
+# floor of model 1 with the same codec (in bf16 a tp round's roundings flip
+# QSGD levels and top-k picks at the cut past the band, as an ulp of the
+# init does at model 1; PERF.md's prediction for these runs)
+LAYOUT_CODECS = {
+    "tp_qwen2_vl_qsgd": (dict(compression="qsgd"), None),
+    "tp_qwen2_vl_choco": (dict(channel="choco", compression="top_k:0.01"), None),
+    "tp_qwen2_vl_async_dropout": (dict(channel="async:3", compression="qsgd"), "dropout_ring"),
+}
+# the codec-level check in the group: each rank of node block 0 encodes its
+# tp shard of a seeded full-width Qwen2-VL-2B embedding (151,936 x 1,536
+# fp32) with each codec; its payload gathered over the model group and its
+# decoded shard are the whole leaf's, bit for bit (chunked fingerprints)
+LAYOUT_LEAF_CODECS = ("qsgd", "top_k:0.01")
+# the runs a node count's group runs as its first stage, apart from the
+# rest: the rank files of one stage at a time fit the machine's disk
+LAYOUT_STAGE_FIRST = ("tp_qwen2_vl",) + tuple(LAYOUT_CODECS)
+LAYOUT_LEAF_SEED = 0x5EED
 # and their twins in fp32 activations (Model.loss wrapped; the engine asks
 # for bf16), each and its model-1 run: held to the band, as the rest
 LAYOUT_FP32 = ("tp_rwkv6_fp32", "tp_zamba2_fp32", "tp_qwen2_moe_fp32")
@@ -436,14 +500,15 @@ LAYOUT_FP32 = ("tp_rwkv6_fp32", "tp_zamba2_fp32", "tp_qwen2_moe_fp32")
 LAYOUT_FULL = ("tp_hubert",)
 # the block kinds that run attention (through flash where causal)
 ATTENTION_KINDS = ("attn", "local", "moe", "shared_attn")
-LAYOUT_DEADLINE = 600  # s, a spawned group of phase 3g
+LAYOUT_DEADLINE = 900  # s, a spawned group of phase 3g
 # the CLI and the sweep (phase 3f): the example's lm-100m at full width (12
 # layers, d 768, 12 heads on 4 KV heads, d_ff 2048, vocab 16,384, tied;
 # attn_impl "xla", the reference's default, so no flash launch), seq 128,
 # global batch 8, lr CLI_LR, DSE-MVR through the kernels.  World 1: the
 # example (tau 4,
 # CLI_EXAMPLE_ROUNDS rounds) and GT-DSGD (CLI_GT_STEPS steps).  CLI_WORLD
-# gloo ranks on the card, one node each on ring(4), each its own process
+# gloo ranks on the card at the reference's layout, 2 nodes x model 2 on
+# ring(2) (one node a rank on ring(4) before), each its own process
 # started by torch.distributed.run: tau CLI_GROUP_TAU, CLI_GROUP_ROUNDS
 # rounds, roll gossip, QSGD and CHOCO top-k 0.01.  Then the sweep at the
 # reference's defaults on both engines, uncompressed and with QSGD
@@ -458,6 +523,7 @@ CLI_LR = 0.01   # the example's 0.1 diverges on lm-100m, in the reference too
 CLI_FLAGS = ["--arch", "lm-100m", "--seq-len", "128", "--global-batch", "8", "--lr",
              str(CLI_LR), "--use-fused"]
 CLI_DEADLINE = 600     # s, a spawned group of phase 3f
+CLI_TOKENS: dict = {}  # the CLI's token stream by vocabulary, for the model-1 twins
 # the LM serving path: Gemma-2 2B at full width, prompts of its 8192 context
 LM_ARCH, LM_BATCH, LM_SEQ = "gemma2-2b", 2, 8192
 # fp32 flash_attention and rms_norm vs plain: other summation orders, the
@@ -926,6 +992,29 @@ def check_top_k_cases(api) -> dict:
         assert same_bits(v, pack(x, i, "ref")), f"top_k_pack d={d} k={k}"
         assert same_bits(unpack(i, v, d), unpack(i, v, d, "ref")), f"top_k_unpack d={d} k={k}"
 
+    # a model rank's tp shard of Qwen2-VL-2B's embedding at top-k 0.01 (phase
+    # 3g's codec runs): the pack of the shard's candidates, and the unpack of
+    # the merged payload's entries in the shard, re-indexed, the rest padded
+    # as +0.0 at spread indices (a ragged in-shard count padded to k)
+    d_whole = 151_936 * 1536
+    d = d_whole // 2
+    k = math.ceil(0.01 * d_whole)
+    x = torch.randn((1, d), generator=gen, device="cuda")
+    i = perm_rows(1, d, k)
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = x.to(dtype)
+        assert same_bits(pack(xt, i), pack(xt, i, "ref")), f"top_k_pack shard {dtype}"
+        inside = torch.rand((1, k), generator=gen, device="cuda") < 0.5
+        pad = (torch.arange(k, device="cuda") % d).to(torch.int32)[None]
+        il = torch.where(inside, i, pad)
+        v = torch.where(inside, torch.randn((1, k), generator=gen, device="cuda"), 0.0).to(dtype)
+        assert same_bits(unpack(il, v, d), unpack(il, v, d, "ref")), f"top_k_unpack shard {dtype}"
+        del xt, il, v
+    out["shard"] = (f"a tp shard of Qwen2-VL-2B's embedding: pack and padded unpack, d {d}, "
+                    f"k {k}, fp32 and bf16, bit for bit")
+    del x, i
+    torch.cuda.empty_cache()
+
     # a row of 4,097 tiles: one global atomic per entry for counts and cursors
     d = 4097 * UNPACK_TILE + 5
     i = perm_rows(1, d, 20000)
@@ -933,8 +1022,8 @@ def check_top_k_cases(api) -> dict:
     assert same_bits(unpack(i, v, d), unpack(i, v, d, "ref")), "top_k_unpack 4097 tiles"
     del i, v
     torch.cuda.empty_cache()
-    print("top_k cases: repeated, subnormal, skew, k = d, ragged last tile, out-of-range and "
-          "4,097-tile rows held; skew ms " + json.dumps(
+    print("top_k cases: repeated, subnormal, skew, k = d, ragged last tile, out-of-range, "
+          "a padded tp shard and 4,097-tile rows held; skew ms " + json.dumps(
               {k_: round(out[k_], 4) for k_ in ("unpack_skew_ms", "pack_skew_ms")}))
     return out
 
@@ -3172,6 +3261,7 @@ def elastic_path(api, smi: str) -> tuple:
     every DONE.  Returns the workers' launches, one dict a launch, and each
     op's launches by worker over the phase."""
     from collections import Counter
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
     from repro_torch.runtime import RuntimeConfig, launch, simulate_reference
@@ -3197,12 +3287,23 @@ def elastic_path(api, smi: str) -> tuple:
                    + [2] * (ELASTIC_ROUNDS - ELASTIC_REJOIN))
     cuda_idx = index_stream(dense.seed, 8, 128, ELASTIC_BATCH, "cuda")
 
-    launches, by_worker, replays, results = [], {}, {}, {}
-    outside = []   # replay metrics outside their band, asserted at the end
-    for tag, cfg in runs:
+    # the three launches side by side (one thread each: a launch's
+    # coordinator waits on its workers' sockets), then each checked in turn
+    def timed(cfg):
         t0 = time.perf_counter()
         res = launch(cfg, ELASTIC_WORKERS, plan=plan)
-        wall = time.perf_counter() - t0
+        return res, time.perf_counter() - t0
+
+    t_launch = time.perf_counter()
+    with ThreadPoolExecutor(len(runs)) as pool:
+        futures = [pool.submit(timed, cfg) for _, cfg in runs]
+        launched = [f.result() for f in futures]
+    print(f"elastic: {len(runs)} launches side by side, {ELASTIC_WORKERS} workers each, in "
+          f"{time.perf_counter() - t_launch:.2f} s")
+
+    launches, by_worker, replays, results = [], {}, {}, {}
+    outside = []   # replay metrics outside their band, asserted at the end
+    for (tag, cfg), (res, wall) in zip(runs, launched):
         assert np.array_equal(res.active_log, want_log), (tag, res.active_log.astype(int))
         assert res.epochs == want_epochs, (tag, res.epochs)
         assert len(res.resync_seconds) == 1, (tag, res.resync_seconds)
@@ -3267,7 +3368,8 @@ def elastic_path(api, smi: str) -> tuple:
         assert sleeps["worker:0"] >= ELASTIC_SLEEP, sleeps
         results[tag] = res
         print(f"elastic {tag} ({smi}): {ELASTIC_ROUNDS} rounds over {ELASTIC_WORKERS} worker "
-              f"processes, launch() {wall:.2f} s (spawn, rounds, kill, rejoin, shutdown); "
+              f"processes, launch() {wall:.2f} s (spawn, rounds, kill, rejoin, shutdown; "
+              f"beside the other launches); "
               f"start-up to every READY {res.startup_seconds:.2f} s, rejoin from spawn to "
               f"resync_ok {json.dumps(res.join_seconds)} s; "
               f"{res.rounds_per_sec:.2f} rounds/s; round seconds "
@@ -3417,7 +3519,7 @@ def shard_report(run: dict, smi: str) -> None:
 def sharded_worker(world: int, rank: int, store: str, out: str) -> None:
     """One process of phase 3e's gloo group on the card (``world`` 1: the
     deterministic world-1 twin): the roll and CHOCO runs for
-    SHARD_GROUP_ROUNDS rounds, results to ``out`` as JSON."""
+    rounds of ``SHARD_GROUP_RUNS``, results to ``out`` as JSON."""
     import datetime
     import warnings
 
@@ -3440,8 +3542,8 @@ def sharded_worker(world: int, rank: int, store: str, out: str) -> None:
     res = {"world": world, "rank": rank, "runs": {}}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        for tag, nodes in SHARD_GROUP_NODES.items():
-            res["runs"][tag] = sharded_run(api, mesh_of, tag, SHARD_GROUP_ROUNDS, nodes=nodes)
+        for tag, (nodes, rounds) in SHARD_GROUP_RUNS.items():
+            res["runs"][tag] = sharded_run(api, mesh_of, tag, rounds, nodes=nodes)
     res["nondeterministic"] = sorted({str(w.message)[:200] for w in caught})
     if world > 1:
         dist.destroy_process_group()
@@ -3598,9 +3700,10 @@ def sharded_path(api, smi: str) -> tuple:
         got = [sum((r["runs"][tag]["fingerprint"][i] for r in two), []) for i in range(len(want))]
         same = got == want
         ms1 = one["runs"][tag]["ms"]
-        ms2 = [max(r["runs"][tag]["ms"][k] for r in two) for k in range(SHARD_GROUP_ROUNDS)]
+        rounds = SHARD_GROUP_RUNS[tag][1]
+        ms2 = [max(r["runs"][tag]["ms"][k] for r in two) for k in range(rounds)]
         proc = [r["runs"][tag]["bytes"] for r in two]
-        print(f"sharded {tag} on 2 gloo ranks vs world 1 ({smi}), {SHARD_GROUP_ROUNDS} rounds: "
+        print(f"sharded {tag} on 2 gloo ranks vs world 1 ({smi}), {rounds} rounds: "
               f"final params bit for bit {same}; ms a round world 1 "
               f"{json.dumps([round(t, 1) for t in ms1])}, 2 ranks "
               f"{json.dumps([round(t, 1) for t in ms2])}; rank bytes {json.dumps(proc)}; "
@@ -3691,6 +3794,53 @@ def recording_routes(routes: list):
         mlp._route = route
 
 
+def chunk_fingerprint(t: torch.Tensor, chunk: int = 4096) -> list:
+    """A tensor's bytes as 32-bit words (zero-padded), in chunks of
+    ``chunk`` words, each chunk's sum of word x (position mod 251 + 1) in
+    int64: any change of a byte, or of the order within a chunk, moves a sum
+    with near certainty."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    pad = (-b.numel()) % (4 * chunk)
+    if pad:
+        b = torch.cat([b, b.new_zeros(pad)])
+    words = b.view(torch.int32).reshape(-1, chunk).long()
+    weights = torch.arange(chunk, device=t.device) % 251 + 1
+    return (words * weights).sum(1).tolist()
+
+
+@contextlib.contextmanager
+def recording_payloads(fps: list, dims):
+    """Every payload tree the node axis moves (``gossip.share_split``),
+    fingerprinted into ``fps``: of each sharded leaf its tensors that are
+    the whole node's (``shared``) and its per-node scalars (QSGD's scale,
+    the adaptive level count), of each replicated leaf the whole payload,
+    and bare tensors (send masks) whole: what every model rank of a node
+    must hold the same."""
+    from repro_torch.compression import gossip
+    from repro_torch.compression.base import Packed
+    from repro_torch.tree import tree_leaves
+
+    split = gossip.share_split
+
+    def record(tree, group):
+        fp = []
+        for i, p in enumerate(tree_leaves(tree)):
+            if not isinstance(p, Packed):
+                fp.append(chunk_fingerprint(p))
+                continue
+            keys = (sorted(p.data) if dims[i] is None
+                    else sorted(set(p.shared) | ({"scale", "lv"} & set(p.data))))
+            fp.append({k: chunk_fingerprint(p.data[k]) for k in keys})
+        fps.append(fp)
+        return split(tree, group)
+
+    gossip.share_split = record
+    try:
+        yield
+    finally:
+        gossip.share_split = split
+
+
 def layout_run(api, mesh, run: str, on_round, moved: bool = False) -> dict:
     """Phase 3g's run ``run`` on ``mesh`` (model 1 here, or a rank's mesh):
     ms a round (fenced, the step alone), loss, launches by op, the mesh's
@@ -3699,12 +3849,16 @@ def layout_run(api, mesh, run: str, on_round, moved: bool = False) -> dict:
     state after round r (1-based).  ``moved``: from the init one fp32 ulp
     up (the floor of a ``LAYOUT_FLOOR`` run)."""
     from repro_torch.launch.distributed import make_train_job
+    from repro_torch.scenarios import make_scenario
     from repro_torch.tree import tree_leaves, tree_map
 
     arch, profile, nodes, batch, text, rounds = LAYOUT_RUNS[run]
     cfg = layout_config(arch)
+    kw, scen_name = LAYOUT_CODECS.get(run, ({}, None))
+    scen = None if scen_name is None else make_scenario(scen_name, seed=0)
     job = make_train_job(cfg, mesh, profile=profile, tau=SHARD_TAU, lr=SHARD_LR,
-                         alpha=SHARD_ALPHA, use_fused=True)
+                         alpha=SHARD_ALPHA, use_fused=True, scenario=scen, **kw)
+    sched = None if scen is None else job.schedule_for(rounds)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = job.model.init(0, device=mesh.device)
@@ -3715,19 +3869,26 @@ def layout_run(api, mesh, run: str, on_round, moved: bool = False) -> dict:
     batches = job.local_batch(layout_batches(cfg, nodes, batch, text))
     api.reset_counters()
     ms, losses, moved_bytes, routes, recorded = [], [], [], [], []
+    streams, payloads = [], []
     with contextlib.ExitStack() as stack:
         if run in LAYOUT_FP32:
             stack.enter_context(fp32_activations())
         if "moe" in cfg.block_unit:
             stack.enter_context(recording_routes(recorded))
+        if run in LAYOUT_CODECS and mesh.model_group is not None:
+            stack.enter_context(recording_payloads(payloads, job.shard_dims))
         for r in range(rounds):
             mesh.reset_bytes()
             torch.cuda.synchronize()
             t = time.perf_counter()
-            state, metrics = job.step_fn(state, batches)
+            if sched is None:
+                state, metrics = job.step_fn(state, batches)
+            else:
+                state, metrics = job.step_fn(state, batches, job.round_ctx(sched, r))
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t) * 1e3)
             moved_bytes.append(mesh.byte_counts())
+            streams.append({k: float(v) for k, v in metrics.items()})
             losses.append(float(metrics["loss"]))
             routes.append(recorded[:])
             recorded.clear()
@@ -3742,7 +3903,10 @@ def layout_run(api, mesh, run: str, on_round, moved: bool = False) -> dict:
            "n_local": mesh.n_local, "replicated": fingerprint({str(i): t for i, t in
                                                                enumerate(replicated)}),
            "sharded_leaves": sum(d is not None for d in job.shard_dims),
-           "leaves": len(job.shard_dims), "shard_dims": job.shard_dims}
+           "leaves": len(job.shard_dims), "shard_dims": job.shard_dims,
+           "streams": streams, "payloads": payloads,
+           "whole_shapes": [list(t.shape) for t in
+                            tree_leaves(job.model.param_shapes(dtype=torch.float32))]}
     del state, batches
     torch.cuda.empty_cache()
     return out
@@ -3751,26 +3915,50 @@ def layout_run(api, mesh, run: str, on_round, moved: bool = False) -> dict:
 def layout_rank(runs: str, out_dir: str) -> None:
     """One rank of a phase 3g group (``chip_smoke.py --layout-rank``), started
     by ``torch.distributed.run``: each run of the comma-separated ``runs``
-    (one node count) on the data x model mesh; every rank writes its rows
-    and shards of the parameters after round 1 and the last round (and, for
-    ``LAYOUT_FULL``, rank 0 the whole parameters ``TrainJob.full`` gathers
-    over both axes), and its results as JSON."""
+    (one node count; stages separated by ``;``) on the data x model mesh;
+    every rank writes its rows and shards of the parameters after round 1
+    and the last round (and, for ``LAYOUT_FULL``, rank 0 the whole
+    parameters ``TrainJob.full`` gathers over both axes), and its results as
+    JSON.  Between stages the ranks wait for the smoke process, which holds
+    a stage's runs against model 1 and deletes their files, so that one
+    stage's files are on the disk at a time."""
     import datetime
-    import warnings
 
     import torch.distributed as dist
 
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import api
-    from repro_torch.launch.mesh import make_group_mesh
-    from repro_torch.tree import tree_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.use_deterministic_algorithms(True, warn_only=True)
     dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=LAYOUT_DEADLINE))
-    rank = dist.get_rank()
-    for run in runs.split(","):
+    rank, world = dist.get_rank(), dist.get_world_size()
+    stages = runs.split(";")
+    for i, stage in enumerate(stages):
+        layout_stage(api, stage.split(","), out_dir, rank)
+        if i < len(stages) - 1:
+            # this process's device memory back, then wait until the smoke
+            # process has held the stage's runs (and deleted their files)
+            dist.barrier()
+            torch.cuda.empty_cache()
+            if rank == 0:
+                (Path(out_dir) / f"stage{world}_{i}_done").write_text("")
+            go = Path(out_dir) / f"stage{world}_{i}_go"
+            while not go.exists():
+                time.sleep(0.2)
+            dist.barrier()
+    dist.destroy_process_group()
+
+
+def layout_stage(api, runs: list, out_dir: str, rank: int) -> None:
+    """A rank's runs of one stage of a phase 3g group (``layout_rank``)."""
+    import warnings
+
+    from repro_torch.launch.mesh import make_group_mesh
+    from repro_torch.tree import tree_leaves
+
+    for run in runs:
         # a mesh a run: its model group's pinned staging buffers, kept for
         # the sizes a run repeats, go with it
         mesh = make_group_mesh(LAYOUT_RUNS[run][2], device="cuda", model=LAYOUT_MODEL)
@@ -3794,17 +3982,105 @@ def layout_rank(runs: str, out_dir: str) -> None:
                    nondeterministic=sorted({str(w.message)[:200] for w in caught}))
         torch.save(res.pop("routes"), Path(out_dir) / f"{run}_routes_rank{rank}.pt")
         (Path(out_dir) / f"{run}_rank{rank}.json").write_text(json.dumps(res))
-    dist.destroy_process_group()
+        if (run in LAYOUT_CODECS and mesh.rank == 0
+                and not (Path(out_dir) / f"leaf_rank{rank}.json").exists()):
+            # node block 0's model group, once: the codec-level check
+            layout_leaf_rank(mesh, Path(out_dir), rank, res)
+        del mesh, res
 
 
-def spawn_layout_group(runs: list, world: int) -> tuple:
-    """Phase 3g's ``world``-rank group for ``runs`` (one after the other):
-    ``torch.distributed.run`` starting this file as each rank's script, on
-    the one card; returns the runs' directory and the group's wall
-    seconds."""
+def layout_leaf(res: dict) -> tuple:
+    """The codec-level check's leaf: the embedding's whole per-node shape
+    and tp shard dim (from a run's result), and the leaf itself, drawn on
+    the card from LAYOUT_LEAF_SEED (node-stacked, one node)."""
+    shape = [tuple(s) for s in res["whole_shapes"]]
+    i = max(range(len(shape)), key=lambda j: math.prod(shape[j]))
+    gen = torch.Generator(device="cuda").manual_seed(LAYOUT_LEAF_SEED)
+    return shape[i], res["shard_dims"][i], torch.randn((1,) + shape[i], generator=gen,
+                                                       device="cuda")
+
+
+def layout_leaf_codec(spec: str):
+    from repro_torch.compression import make_compressor
+
+    return make_compressor(spec, error_feedback=False)
+
+
+def layout_leaf_rank(mesh, out_dir: Path, rank: int, res: dict) -> None:
+    """Rank side of the codec-level check: this rank's shard of the leaf
+    encoded and decoded by each codec bound to its shard; fingerprints of
+    the payload gathered over the model group and of the decoded shard,
+    encode + decode ms and the model group's codec bytes to
+    ``leaf_rank<r>.json``."""
+    from repro_torch.compression.base import AtShard, Shard
+
+    whole, dim, leaf = layout_leaf(res)
+    sh = Shard(mesh.model_group, dim, whole)
+    x = leaf.narrow(dim + 1, sh.lo, sh.n).contiguous()
+    del leaf
+    out = {"whole": list(whole), "dim": dim}
+    for spec in LAYOUT_LEAF_CODECS:
+        bound = AtShard(inner=layout_leaf_codec(spec), shard=sh)
+        before = mesh.model_group.byte_counts()["codec"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        packed = bound.encode(x, LAYOUT_LEAF_SEED)
+        dec = bound.decode(packed)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        moved = mesh.model_group.byte_counts()["codec"] - before
+        whole_p = bound.whole(packed)
+        out[spec] = {"ms": ms, "codec_bytes": moved, "decoded": chunk_fingerprint(dec),
+                     "payload": {k: chunk_fingerprint(v) for k, v in whole_p.data.items()},
+                     "shapes": {k: list(v.shape) for k, v in whole_p.data.items()}}
+        del packed, dec, whole_p
+    (out_dir / f"leaf_rank{rank}.json").write_text(json.dumps(out))
+    del x
+    torch.cuda.empty_cache()
+
+
+def layout_leaf_check(out: Path, res: dict, smi: str) -> None:
+    """The codec-level check, this process's side: the whole leaf encoded
+    and decoded by each codec; node block 0's ranks' gathered payloads and
+    decoded shards must be its, bit for bit (their fingerprints)."""
+    whole, dim, leaf = layout_leaf(res)
+    ranks = [json.loads((out / f"leaf_rank{k}.json").read_text()) for k in range(LAYOUT_MODEL)]
+    for k in range(LAYOUT_MODEL):
+        (out / f"leaf_rank{k}.json").unlink()
+    n = whole[dim] // LAYOUT_MODEL
+    for spec in LAYOUT_LEAF_CODECS:
+        codec = layout_leaf_codec(spec)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        packed = codec.encode(leaf, LAYOUT_LEAF_SEED)
+        dec = codec.decode(packed)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        payload = {k: chunk_fingerprint(v) for k, v in packed.data.items()}
+        for m, got in enumerate(ranks):
+            assert got[spec]["shapes"] == {k: list(v.shape) for k, v in packed.data.items()}, \
+                (spec, m, got[spec]["shapes"])
+            assert got[spec]["payload"] == payload, (spec, m, "payload")
+            assert got[spec]["decoded"] == chunk_fingerprint(
+                dec.narrow(dim + 1, m * n, n).contiguous()), (spec, m, "decoded shard")
+        print(f"layout leaf {spec} ({smi}): Qwen2-VL-2B's embedding {tuple(whole)} fp32, tp "
+              f"shard dim {dim}: both model ranks' gathered payloads and decoded shards are "
+              f"the whole leaf's, bit for bit; encode + decode ms whole {ms:.1f}, a rank's "
+              f"shard {[round(r[spec]['ms'], 1) for r in ranks]}; the model group's codec "
+              f"bytes a rank {[r[spec]['codec_bytes'] for r in ranks]}")
+        del packed, dec
+    del leaf
+    torch.cuda.empty_cache()
+
+
+def spawn_layout_group(stages: list, world: int) -> tuple:
+    """Phase 3g's ``world``-rank group for ``stages`` (lists of runs, one
+    after the other): ``torch.distributed.run`` starting this file as each
+    rank's script, on the one card, its output to a log file; returns the
+    runs' directory, the process, its start time and the log's path (see
+    ``layout_stage_wait``)."""
     import gc
     import os
-    import signal
 
     out = ROOT / "build" / "layout"
     out.mkdir(parents=True, exist_ok=True)
@@ -3816,19 +4092,32 @@ def spawn_layout_group(runs: list, world: int) -> tuple:
     for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
         env.pop(k, None)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           str(world), str(ROOT / "chip_smoke.py"), "--layout-rank", ",".join(runs), str(out)]
-    t = time.perf_counter()
-    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True, start_new_session=True)
-    try:
-        log = proc.communicate(timeout=LAYOUT_DEADLINE)[0]
-    finally:
-        if proc.poll() is None:
+           str(world), str(ROOT / "chip_smoke.py"), "--layout-rank",
+           ";".join(",".join(runs) for runs in stages), str(out)]
+    log = out / f"group{world}.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, env=env, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    return out, proc, time.perf_counter(), log
+
+
+def layout_stage_wait(proc, marker, t0: float, log: Path) -> float:
+    """Wait for a stage's ``marker`` file (None: for the group to end);
+    the group is killed, and this raises, if it fails or passes
+    LAYOUT_DEADLINE.  Returns the seconds since the group started."""
+    import os
+    import signal
+
+    while proc.poll() is None and (marker is None or not marker.exists()):
+        if time.perf_counter() - t0 > LAYOUT_DEADLINE:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
-    wall = time.perf_counter() - t
-    assert proc.returncode == 0, f"layout group {runs} exited {proc.returncode}:\n{log[-6000:]}"
-    return out, wall
+            break
+        time.sleep(0.2)
+    done = marker is not None and marker.exists()
+    assert done or proc.returncode == 0, \
+        f"layout group exited {proc.returncode}:\n{log.read_text()[-6000:]}"
+    return time.perf_counter() - t0
 
 
 def layout_gap(got: list, want: list) -> float:
@@ -3865,11 +4154,11 @@ def layout_path(api, smi: str) -> tuple:
     them in turn (each rank writes its rows and shards after round 1 and
     the last round to disk), then each runs at model 1 in this process,
     held leaf by leaf against those files as it goes, so that no run's
-    parameters wait on the host and no rank gathers a whole tree.  Returns
-    every run's launches and each op's launches by run and rank."""
-    from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.tree import tree_leaves
-
+    parameters wait on the host and no rank gathers a whole tree.  A group
+    runs in stages (``LAYOUT_STAGE_FIRST`` first): its ranks wait while this
+    process holds a stage's runs, so that one stage's files are on the disk
+    at a time.  Returns every run's launches and each op's launches by run
+    and rank."""
     t_phase = time.perf_counter()
     launches, by_run = [], {}
     groups: dict = {}
@@ -3877,51 +4166,74 @@ def layout_path(api, smi: str) -> tuple:
         groups.setdefault(spec[2], []).append(run)
     for nodes, runs in groups.items():
         world = nodes * LAYOUT_MODEL
-        out, wall = spawn_layout_group(runs, world)
-        print(f"layout group {runs}: {world} gloo ranks on the card, {wall:.1f} s wall with "
-              f"spawn and set-up")
-        for run in runs:
-            rounds = LAYOUT_RUNS[run][5]
-            ranks = [json.loads((out / f"{run}_rank{k}.json").read_text())
-                     for k in range(world)]
-            gaps, floor, twin, twin_run = {}, {}, {}, None
-            if run in LAYOUT_FLOOR:
-                # model 1 from its init one fp32 ulp up: the floor (its
-                # parameters after round 1 and the last kept on the card)
-                def keep(r, job, state):
-                    if r in (1, rounds):
-                        twin[r] = [t.clone() for t in tree_leaves(state.params)]
-
-                twin_run = layout_run(api, make_test_mesh(nodes, device="cuda"), run, keep,
-                                      moved=True)
-
-            def hold(r, job, state):
-                if r in (1, rounds):
-                    gaps[r] = 0.0
-                    for k, res in enumerate(ranks):
-                        path = out / f"{run}_round{r}_rank{k}.pt"
-                        gaps[r] = max(gaps[r], layout_gap(
-                            torch.load(path, mmap=True),
-                            layout_rank_part(state.params, k, res["n_local"],
-                                             res["shard_dims"])))
-                        path.unlink()
-                    if r in twin:
-                        floor[r] = layout_gap(twin.pop(r), tree_leaves(state.params))
-                if r == rounds and run in LAYOUT_FULL:
-                    # TrainJob.full gathered the same tree over both axes
-                    path = out / f"{run}_full.pt"
-                    gaps["full"] = layout_gap(torch.load(path, mmap=True),
-                                              tree_leaves(state.params))
-                    path.unlink()
-
-            one = layout_run(api, make_test_mesh(nodes, device="cuda"), run, hold)
-            launches += layout_check(run, one, out, gaps, smi, floor, twin_run)
-            for op in {op for c in launches[-world - 1:] for op in c}:
-                by_run.setdefault(op, {})[run] = {
-                    "model1" if k == 0 else f"rank{k - 1}": c.get(op, 0)
-                    for k, c in enumerate(launches[-world - 1:])}
+        # Qwen2-VL-2B's tp runs first, apart: one stage's rank files on the
+        # disk at a time (the machine's disk limit)
+        stages = [s for s in ([r for r in runs if r in LAYOUT_STAGE_FIRST],
+                              [r for r in runs if r not in LAYOUT_STAGE_FIRST]) if s]
+        out, proc, t0, log = spawn_layout_group(stages, world)
+        for i, runs in enumerate(stages):
+            marker = out / f"stage{world}_{i}_done" if i < len(stages) - 1 else None
+            wall = layout_stage_wait(proc, marker, t0, log)
+            print(f"layout group {runs}: {world} gloo ranks on the card, {wall:.1f} s wall with "
+                  f"spawn and set-up since the group started")
+            layout_stage_check(api, smi, runs, nodes, out, launches, by_run)
+            if marker is not None:
+                (out / f"stage{world}_{i}_go").write_text("")
     print(f"layout phase {time.perf_counter() - t_phase:.1f} s")
     return launches, by_run
+
+
+def layout_stage_check(api, smi: str, runs: list, nodes: int, out: Path, launches: list,
+                       by_run: dict) -> None:
+    """The smoke process's side of one stage of a phase 3g group: each run
+    at model 1 here, held against the ranks' files (and, for
+    ``LAYOUT_FLOOR``, the floor), the files deleted as they are read."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.tree import tree_leaves
+
+    world = nodes * LAYOUT_MODEL
+    for run in runs:
+        rounds = LAYOUT_RUNS[run][5]
+        ranks = [json.loads((out / f"{run}_rank{k}.json").read_text())
+                 for k in range(world)]
+        gaps, floor, twin, twin_run = {}, {}, {}, None
+        if run in LAYOUT_FLOOR:
+            # model 1 from its init one fp32 ulp up: the floor (its
+            # parameters after round 1 and the last kept on the card)
+            def keep(r, job, state):
+                if r in (1, rounds):
+                    twin[r] = [t.clone() for t in tree_leaves(state.params)]
+
+            twin_run = layout_run(api, make_test_mesh(nodes, device="cuda"), run, keep,
+                                  moved=True)
+
+        def hold(r, job, state):
+            if r in (1, rounds):
+                gaps[r] = 0.0
+                for k, res in enumerate(ranks):
+                    path = out / f"{run}_round{r}_rank{k}.pt"
+                    gaps[r] = max(gaps[r], layout_gap(
+                        torch.load(path, mmap=True),
+                        layout_rank_part(state.params, k, res["n_local"],
+                                         res["shard_dims"])))
+                    path.unlink()
+                if r in twin:
+                    floor[r] = layout_gap(twin.pop(r), tree_leaves(state.params))
+            if r == rounds and run in LAYOUT_FULL:
+                # TrainJob.full gathered the same tree over both axes
+                path = out / f"{run}_full.pt"
+                gaps["full"] = layout_gap(torch.load(path, mmap=True),
+                                          tree_leaves(state.params))
+                path.unlink()
+
+        one = layout_run(api, make_test_mesh(nodes, device="cuda"), run, hold)
+        launches += layout_check(run, one, out, gaps, smi, floor, twin_run)
+        if run in LAYOUT_CODECS and (out / "leaf_rank0.json").exists():
+            layout_leaf_check(out, ranks[0], smi)
+        for op in {op for c in launches[-world - 1:] for op in c}:
+            by_run.setdefault(op, {})[run] = {
+                "model1" if k == 0 else f"rank{k - 1}": c.get(op, 0)
+                for k, c in enumerate(launches[-world - 1:])}
 
 
 def layout_kernels(cfg, nodes: int, forwards: int) -> dict:
@@ -4045,11 +4357,15 @@ def layout_check(run: str, one: dict, out: Path, gaps: dict, smi: str, floor: di
     assert all(b < a for a, b in zip(one["loss"], one["loss"][1:])), (run, one["loss"])
     # exact launches: the model's kernels a node's forward, DSE-MVR's update
     # ops once a tree_apply bucket (the rank's shards)
-    want1 = {**layout_kernels(cfg, nodes, fwd), **dse_launches(one["buckets"], SHARD_TAU, rounds)}
+    codec_ops = layout_codec_launches(run, one["leaves"], nodes, rounds)
+    want1 = {**layout_kernels(cfg, nodes, fwd), **dse_launches(one["buckets"], SHARD_TAU, rounds),
+             **codec_ops}
     assert one["launches"] == want1, (run, one["launches"], want1)
+    if run in LAYOUT_CODECS:
+        layout_codec_check(run, one, ranks, smi)
     for r in ranks:
         want = {**layout_kernels(cfg, r["n_local"], fwd),
-                **dse_launches(r["buckets"], SHARD_TAU, rounds)}
+                **dse_launches(r["buckets"], SHARD_TAU, rounds), **codec_ops}
         assert r["launches"] == want, (run, r["rank"], r["launches"], want)
         assert all(math.isfinite(v) for v in r["loss"]), (run, r["loss"])
         assert r["loss"] == ranks[0]["loss"], (run, r["rank"], r["loss"])
@@ -4063,8 +4379,9 @@ def layout_check(run: str, one: dict, out: Path, gaps: dict, smi: str, floor: di
                 (run, moved, gather, scatter)
         else:
             assert moved["all_gather"] > 0 and moved["reduce_scatter"] > 0, (run, moved)
-        if nodes > 1:
-            assert r["bytes"][0]["roll"]["process"] > 0, (run, r["bytes"][0])
+        if nodes > 1:   # the roll, or the allgather wire's gathers
+            assert (r["bytes"][0]["roll"]["process"]
+                    + r["bytes"][0]["all_gather"]["process"]) > 0, (run, r["bytes"][0])
     # replicated leaves: the same bits on every model rank of a node
     for r in ranks:
         assert r["replicated"] == ranks[r["node_rank"] * LAYOUT_MODEL]["replicated"], \
@@ -4072,6 +4389,117 @@ def layout_check(run: str, one: dict, out: Path, gaps: dict, smi: str, floor: di
     print(f"layout {run}: replicated leaves bit for bit across the model ranks "
           f"({len(ranks[0]['replicated'])} leaves a rank)")
     return [one["launches"]] + [r["launches"] for r in ranks]
+
+
+def layout_codec_launches(run: str, n_leaves: int, nodes: int, rounds: int) -> dict:
+    """A codec run's codec launches a process (model 1, or a rank: the same
+    count, once a leaf whether sharded or not): both buffers encode every
+    leaf once an event (QSGD's quantize; top-k's pack, on a sharded leaf
+    of its shard's candidates) and decode it once (the error feedback's,
+    the replica update's, or the replicated wire's decode of the gathered
+    set) and, on the roll and the neighbour wire, once more a shift."""
+    from repro_torch.core import ring
+
+    if run not in LAYOUT_CODECS:
+        return {}
+    kw, scen = LAYOUT_CODECS[run]
+    per = 2 * n_leaves * rounds
+    decodes = per if scen is not None else per * (1 + len(ring(nodes).shifts))
+    if kw["compression"] == "qsgd":
+        return {"qsgd_quantize": per, "qsgd_dequantize": decodes}
+    return {"top_k_pack": per, "top_k_unpack": decodes}
+
+
+def layout_codec_bytes(run: str, res: dict) -> tuple:
+    """The byte rule of ``compression/gossip.py`` for a codec run:
+    ``(P, R, S, mask, codec)``: a node's message at model 1 (the whole
+    leaves' payloads), what the model ranks of a node move more a message
+    each (the replicated leaves' payloads, QSGD's 4 B scale a sharded
+    leaf), the shared bytes of a message the model group joins, the send
+    mask's bytes a message, and the model group's codec bytes a rank
+    receives a round (QSGD's scales, top-k's 8 B candidates, the async
+    trigger's two sums, a node each)."""
+    from repro_torch.compression import make_compressor
+
+    kw, _ = LAYOUT_CODECS[run]
+    comp = make_compressor(kw["compression"])
+    inner = getattr(comp, "inner", comp)
+    qsgd = kw["compression"] == "qsgd"
+    shapes, dims = [tuple(x) for x in res["whole_shapes"]], res["shard_dims"]
+    size = [comp.payload_bytes(x, torch.float32) for x in shapes]
+    whole = sum(size)
+    extra = sum(b for b, d in zip(size, dims) if d is None)
+    shared = 0
+    if qsgd:
+        extra += 4 * sum(d is not None for d in dims)
+    else:
+        shared = sum(b for b, d in zip(size, dims) if d is not None)
+    mask = 1 if kw.get("channel", "").startswith("async") else 0
+    per_buffer = 0
+    for x, d in zip(shapes, dims):
+        if d is not None:
+            d_shard = math.prod(x) // LAYOUT_MODEL
+            per_buffer += 4 if qsgd else 8 * min(inner.k_for(math.prod(x)), d_shard)
+    per_buffer += 2 * 4 * mask
+    codec = 2 * per_buffer * res["n_local"] * (LAYOUT_MODEL - 1)
+    return whole, extra, shared, mask, codec
+
+
+def layout_codec_check(run: str, one: dict, ranks: list, smi: str) -> None:
+    """A codec run's exact checks: node-link bytes over the ranks, the model
+    group's payload and codec bytes a rank, to the byte; every model rank of
+    a node moved the same payloads and send masks (fingerprints); the
+    scenario streams the same on every rank and within the band of model
+    1's."""
+    whole, extra, shared, mask, codec = layout_codec_bytes(run, ranks[0])
+    kw, scen = LAYOUT_CODECS[run]
+    # beside the payloads, a scenario's round gathers over the node axis
+    # each rank's rows of W_t (4 N B a row, for the streams' spectral gap)
+    # and of the active mask twice (1 B a row: the gap, the replicated
+    # wire's gate): none on model 1's one rank
+    n_nodes, n_local = LAYOUT_RUNS[run][2], ranks[0]["n_local"]
+    ctx_bytes = 0 if scen is None else n_local * (n_nodes - 1) * (4 * n_nodes + 2)
+    for i in range(len(one["bytes"])):
+        messages = 0
+        for op in ("roll", "all_gather"):
+            one_nl = one["bytes"][i][op]["node_link"]
+            assert one_nl % (whole + mask) == 0, (run, op, one_nl, whole, mask)
+            n = one_nl // (whole + mask)
+            got = sum(r["bytes"][i][op]["node_link"] for r in ranks)
+            ctx = len(ranks) * ctx_bytes if op == "all_gather" else 0
+            assert got == one_nl + n * (LAYOUT_MODEL - 1) * (extra + mask) + ctx, \
+                (run, op, i, got, one_nl, n, extra, mask, ctx)
+            messages += n
+        assert messages > 0, run
+        joined = sum(r["bytes"][i]["model"]["payload"] for r in ranks)
+        assert joined == messages * shared, (run, i, joined, messages, shared)
+        for r in ranks:
+            assert r["bytes"][i]["model"]["codec"] == codec, \
+                (run, i, r["rank"], r["bytes"][i]["model"]["codec"], codec)
+    for r in ranks:
+        assert r["payloads"] and r["payloads"] == ranks[r["node_rank"] * LAYOUT_MODEL][
+            "payloads"], (run, r["rank"], "payload")
+    line = ""
+    if scen is not None:
+        keys = sorted(k for k in one["streams"][0] if k not in ("loss", "v_norm"))
+        for r in ranks:
+            for a, b in zip(r["streams"], ranks[0]["streams"]):
+                assert all(a[k] == b[k] or (math.isnan(a[k]) and math.isnan(b[k]))
+                           for k in keys), (run, r["rank"], a, b)
+        for a, b in zip(ranks[0]["streams"], one["streams"]):
+            for k in keys:
+                assert (math.isnan(a[k]) and math.isnan(b[k])) or abs(a[k] - b[k]) <= (
+                    SHARD_ATOL + SHARD_RTOL * abs(b[k])), (run, k, a[k], b[k])
+        line = (f"; streams (rank 0 / model 1) " + json.dumps(
+            [{k: [a[k], b[k]] for k in keys} for a, b in zip(ranks[0]["streams"],
+                                                           one["streams"])]))
+    print(f"layout {run} ({smi}): {kw}{'' if scen is None else ' under ' + scen}; a round's "
+          f"node-link bytes over the ranks {[sum(r['bytes'][i][op]['node_link'] for r in ranks for op in ('roll', 'all_gather')) for i in range(len(one['bytes']))]} "
+          f"= model 1's {[sum(one['bytes'][i][op]['node_link'] for op in ('roll', 'all_gather')) for i in range(len(one['bytes']))]} "
+          f"+ (M - 1) x {extra + mask} B a message; the model group's payload bytes a round "
+          f"{[sum(r['bytes'][i]['model']['payload'] for r in ranks) for i in range(len(one['bytes']))]}, "
+          f"codec bytes a rank-round {codec}; {len(ranks[0]['payloads'])} payloads a rank, the "
+          f"same on both model ranks of a node" + line)
 
 
 def cli_model():
@@ -4096,21 +4524,51 @@ def cli_shape(cfg, nodes: int) -> tuple:
     return api.bucket_count(meta), len(tree_leaves(meta)), meta
 
 
-def train_rank(peak_out: str, argv: list) -> None:
+def train_rank(root: str, argv: list) -> None:
     """One rank of phase 3f's group (``chip_smoke.py --train-rank``), started
-    by ``torch.distributed.run``: the CLI's ``main`` on the example's model,
-    then this rank's peak device memory to ``<peak_out>.rank<r>``."""
-    import os
+    by ``torch.distributed.run``: the gloo group joined once, then the CLI's
+    ``main`` on the example's model for each run of ``CLI_GROUP_RUNS`` in
+    turn (``main`` takes the group it finds and leaves it standing), each
+    run's output under ``<root>/<run>`` and, after it, this rank's peak
+    device memory, its job's shard dims and its shards' ``tree_apply``
+    buckets to ``<root>/<run>/peak.rank<r>``.  Rank 0 marks each run's start
+    in the log with a ``[cli-run] <run>`` line."""
+    import gc
+
+    import torch.distributed as dist
 
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cli_model()
+    from repro_torch.kernels import api
     from repro_torch.launch import train
 
-    train.main(argv)
-    Path(f"{peak_out}.rank{os.environ['RANK']}").write_text(json.dumps(
-        {"peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    dist.init_process_group("gloo")   # env://, as the CLI joins it
+    rank = dist.get_rank()
+    make, jobs = train.make_train_job, []
+
+    def recorded(*a, **kw):
+        jobs.append(make(*a, **kw))
+        return jobs[-1]
+
+    train.make_train_job = recorded
+    for tag, extra in CLI_GROUP_RUNS.items():
+        out = Path(root) / tag
+        if rank == 0:
+            print(f"[cli-run] {tag}", flush=True)
+        jobs.clear()
+        api.reset_counters()   # the CLI's telemetry counts launches from 0
+        torch.cuda.reset_peak_memory_stats()
+        train.main([*argv, "--out", str(out), "--telemetry-out", str(out / "tel.jsonl"), *extra])
+        (out / f"peak.rank{rank}").write_text(json.dumps(
+            {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "shard_dims": jobs[0].shard_dims,
+             "buckets": api.bucket_count(jobs[0].abstract_state.params)}))
+        jobs.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
 
 
 def read_telemetry(path: Path) -> dict:
@@ -4128,38 +4586,102 @@ def read_telemetry(path: Path) -> dict:
             "span_s": [r["seconds"] for r in recs if r["event"] == "span"]}
 
 
-def spawn_cli_group(tag: str, extra: list) -> tuple:
-    """Phase 3f's ``CLI_WORLD``-rank run ``tag``: ``torch.distributed.run``
-    starting this file as each rank's script, on the one card; returns the
-    run's directory and its wall seconds."""
+def spawn_cli_group() -> tuple:
+    """Start phase 3f's ``CLI_WORLD``-rank group: ``torch.distributed.run``
+    starting this file as each rank's script, on the one card, every run of
+    ``CLI_GROUP_RUNS`` in the one group (``train_rank``), its output to a
+    log file (nothing waits on a pipe while this process runs on); returns
+    the runs' root, the process and its start time (see
+    ``finish_cli_group``)."""
     import os
-    import signal
 
-    out = ROOT / "build" / "cli" / tag
-    shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
+    root = ROOT / "build" / "cli" / "group"
+    shutil.rmtree(root, ignore_errors=True)
+    for tag in CLI_GROUP_RUNS:
+        (root / tag).mkdir(parents=True)
     env = dict(os.environ, OMP_NUM_THREADS="2",
                PYTHONPATH=str(ROOT / "src") + os.pathsep + os.environ.get("PYTHONPATH", ""))
     for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
         env.pop(k, None)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           str(CLI_WORLD), str(ROOT / "chip_smoke.py"), "--train-rank", str(out / "peak"),
+           str(CLI_WORLD), str(ROOT / "chip_smoke.py"), "--train-rank", str(root),
            *CLI_FLAGS, "--steps", str(CLI_GROUP_ROUNDS), "--tau", str(CLI_GROUP_TAU),
-           "--out", str(out), "--ckpt-every", str(CLI_GROUP_ROUNDS),
-           "--telemetry-out", str(out / "tel.jsonl"), *extra]
-    t = time.perf_counter()
-    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True, start_new_session=True)
+           "--ckpt-every", str(CLI_GROUP_ROUNDS)]
+    with open(root / "group.log", "w") as f:
+        proc = subprocess.Popen(cmd, env=env, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    return root, proc, time.perf_counter()
+
+
+def stop_group(proc) -> None:
+    """Kill a spawned group's process session if it still runs."""
+    import os
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def finish_cli_group(root: Path, proc, t0: float) -> tuple:
+    """Wait for the group ``spawn_cli_group`` started (killed, and this
+    raises, if it fails or passes ``CLI_DEADLINE``); returns its wall seconds
+    and its log split by run."""
     try:
-        log = proc.communicate(timeout=CLI_DEADLINE)[0]
+        proc.wait(timeout=max(1.0, CLI_DEADLINE - (time.perf_counter() - t0)))
     finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-    wall = time.perf_counter() - t
-    assert proc.returncode == 0, f"cli group {tag} exited {proc.returncode}:\n{log[-6000:]}"
-    print("\n".join(f"cli {tag}: {line}" for line in log.splitlines() if "[train]" in line))
-    return out, wall
+        stop_group(proc)
+    wall = time.perf_counter() - t0
+    log = (root / "group.log").read_text()
+    assert proc.returncode == 0, f"cli group exited {proc.returncode}:\n{log[-6000:]}"
+    logs, tag = {}, None
+    for line in log.splitlines():
+        if line.startswith("[cli-run] "):
+            tag = line.split()[1]
+        elif tag is not None:
+            logs.setdefault(tag, []).append(line)
+    assert sorted(logs) == sorted(CLI_GROUP_RUNS), (sorted(logs), log[-2000:])
+    for tag, lines in logs.items():
+        print("\n".join(f"cli {tag}: {line}" for line in lines if "[train]" in line))
+    return wall, {tag: "\n".join(lines) for tag, lines in logs.items()}
+
+
+def cli_twin(cfg, comp: dict, nodes: int, moved: bool = False) -> tuple:
+    """A phase 3f group run at model 1 in this process: the same nodes,
+    flags, init and token pipeline as the CLI (``moved``: the init one fp32
+    ulp up, the floor); the losses by round and the whole parameters."""
+    import numpy as np
+
+    from repro_torch.data import TokenPipeline, make_lm_tokens
+    from repro_torch.launch.distributed import make_train_job
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.tree import tree_leaves, tree_map
+
+    job = make_train_job(cfg, make_test_mesh(nodes, device="cuda"), algorithm="dse_mvr",
+                         tau=CLI_GROUP_TAU, lr=CLI_LR, alpha=0.05, gossip="roll",
+                         use_fused=True, compression=comp.get("--compression"),
+                         channel=comp.get("--channel"))
+    params = job.model.init(0, device="cuda")
+    if moved:
+        params = tree_map(lambda t: torch.nextafter(t, torch.full_like(t, math.inf)), params)
+    state = job.init_state(0, params=params)
+    del params
+    seq = int(CLI_FLAGS[CLI_FLAGS.index("--seq-len") + 1])
+    batch = int(CLI_FLAGS[CLI_FLAGS.index("--global-batch") + 1])
+    if cfg.vocab_size not in CLI_TOKENS:   # the CLI's stream, made once for every twin
+        CLI_TOKENS[cfg.vocab_size] = make_lm_tokens(2_000_000, cfg.vocab_size, seed=0)
+    pipe = TokenPipeline(CLI_TOKENS[cfg.vocab_size], seq, batch, seed=0)
+    losses = []
+    for _ in range(CLI_GROUP_ROUNDS):
+        xs, ys = [], []
+        for _ in range(job.round_len):
+            x, y = pipe.batch()
+            xs.append(x.reshape(nodes, batch // nodes, seq))
+            ys.append(y.reshape(nodes, batch // nodes, seq))
+        state, metrics = job.step_fn(state, job.local_batch({"tokens": np.stack(xs),
+                                                             "targets": np.stack(ys)}))
+        losses.append(float(metrics["loss"]))
+    return losses, tree_leaves(job.full(state.params))
 
 
 def cli_path(api, smi: str) -> tuple:
@@ -4176,113 +4698,159 @@ def cli_path(api, smi: str) -> tuple:
     t_phase = time.perf_counter()
     cfg = cli_model()
     runs, by_run = [], {}
+    # the CLI_WORLD-rank group starts first; the world-1 runs and the sweep
+    # run in this process while its ranks start and train
+    root, proc, t_group = spawn_cli_group()
 
     def count(name, launches):
         runs.append(launches)
         for op, n in launches.items():
             by_run.setdefault(op, {})[name] = n
 
-    # 1. world 1: the example (DSE-MVR, tau 4) and GT-DSGD, in this process
-    buckets1, _, _ = cli_shape(cfg, 1)
-    torch.cuda.reset_peak_memory_stats()
-    api.reset_counters()
-    t = time.perf_counter()
-    hist = load_example("decentralized_lm_torch").main(
-        ["--full", "--steps", str(CLI_EXAMPLE_ROUNDS), "--use-fused", "--lr", str(CLI_LR),
-         "--out", str(ROOT / "build" / "cli" / "example")])
-    wall = time.perf_counter() - t
-    got = api.launch_counts()
-    losses = [h["loss"] for h in hist]
-    print(f"cli example lm-100m world 1 ({smi}): {CLI_EXAMPLE_ROUNDS} rounds of tau 4 in "
-          f"{wall:.1f} s (token stream included), s a round "
-          f"{[round(b['t'] - a['t'], 3) for a, b in zip([{'t': 0.0}] + hist, hist)]}, loss "
-          f"{losses}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
-          f"{json.dumps(got)}; {buckets1} buckets")
-    assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], losses
-    assert got == dse_launches(buckets1, 4, CLI_EXAMPLE_ROUNDS), got
-    count("example", got)
+    try:
+        # 1. world 1: the example (DSE-MVR, tau 4) and GT-DSGD, in this process
+        buckets1, _, _ = cli_shape(cfg, 1)
+        torch.cuda.reset_peak_memory_stats()
+        api.reset_counters()
+        t = time.perf_counter()
+        hist = load_example("decentralized_lm_torch").main(
+            ["--full", "--steps", str(CLI_EXAMPLE_ROUNDS), "--use-fused", "--lr", str(CLI_LR),
+             "--out", str(ROOT / "build" / "cli" / "example")])
+        wall = time.perf_counter() - t
+        got = api.launch_counts()
+        losses = [h["loss"] for h in hist]
+        print(f"cli example lm-100m world 1 ({smi}): {CLI_EXAMPLE_ROUNDS} rounds of tau 4 in "
+              f"{wall:.1f} s (token stream included), s a round "
+              f"{[round(b['t'] - a['t'], 3) for a, b in zip([{'t': 0.0}] + hist, hist)]}, loss "
+              f"{losses}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+              f"{json.dumps(got)}; {buckets1} buckets")
+        assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], losses
+        assert got == dse_launches(buckets1, 4, CLI_EXAMPLE_ROUNDS), got
+        count("example", got)
 
-    api.reset_counters()
-    t = time.perf_counter()
-    hist = train.main(CLI_FLAGS + ["--algorithm", "gt_dsgd", "--steps", str(CLI_GT_STEPS)])
-    got = api.launch_counts()
-    print(f"cli gt_dsgd lm-100m world 1 ({smi}): {CLI_GT_STEPS} steps in "
-          f"{time.perf_counter() - t:.1f} s, loss {[h['loss'] for h in hist]}, launches "
-          f"{json.dumps(got)}")
-    assert all(math.isfinite(h["loss"]) for h in hist)
-    # a step one axpby (the x step) and one add_sub (the tracking
-    # correction), each once a bucket
-    assert got == {"axpby": CLI_GT_STEPS * buckets1, "add_sub": CLI_GT_STEPS * buckets1}, got
-    count("gt_dsgd", got)
+        api.reset_counters()
+        t = time.perf_counter()
+        hist = train.main(CLI_FLAGS + ["--algorithm", "gt_dsgd", "--steps", str(CLI_GT_STEPS)])
+        got = api.launch_counts()
+        print(f"cli gt_dsgd lm-100m world 1 ({smi}): {CLI_GT_STEPS} steps in "
+              f"{time.perf_counter() - t:.1f} s, loss {[h['loss'] for h in hist]}, launches "
+              f"{json.dumps(got)}")
+        assert all(math.isfinite(h["loss"]) for h in hist)
+        # a step one axpby (the x step) and one add_sub (the tracking
+        # correction), each once a bucket
+        assert got == {"axpby": CLI_GT_STEPS * buckets1, "add_sub": CLI_GT_STEPS * buckets1}, got
+        count("gt_dsgd", got)
 
-    # 2. CLI_WORLD gloo ranks on the card: roll, QSGD, CHOCO top-k
-    _, n_leaves, meta_all = cli_shape(cfg, CLI_WORLD)
-    shifts = len(ring(CLI_WORLD).shifts)
-    assert shifts == 2, shifts
+        # 2. the sweep at the reference's defaults, both engines, with and
+        #    without QSGD
+        api.reset_counters()
+        t = time.perf_counter()
+        out = ROOT / "build" / "cli" / "sweep"
+        shutil.rmtree(out, ignore_errors=True)
+        rows = sweep.main(["--engines", "sim,sharded", "--compressors", "identity,qsgd",
+                           "--rounds", str(CLI_SWEEP_ROUNDS),
+                           "--out", str(out), "--bench-out", str(out / "bench.json")])
+        got = api.launch_counts()
+        cells = {p.stem: json.loads(p.read_text()) for p in (out / "cells").glob("*.json")}
+        summary = [json.loads(line) for line in (out / "summary.jsonl").read_text().splitlines()]
+        bench = json.loads((out / "bench.json").read_text())
+        print(f"cli sweep ({smi}): {len(rows)} cells in {time.perf_counter() - t:.1f} s, wall by "
+              f"cell {json.dumps({r['cell_id']: r['wall_s'] for r in rows})}, launches "
+              f"{json.dumps(got)}")
+        assert len(rows) == len(cells) == len(summary) == len(bench) == 8
+        assert {r["cell_id"] for r in summary} == set(cells)
+        for cid, art in cells.items():
+            assert set(art) == {"cell", "history", "streams", "schedule_gaps", "final", "wall_s"}
+            final = art["final"]["train_loss" if cid.startswith("sim") else "loss"]
+            assert final is not None and math.isfinite(final), (cid, art["final"])
+        assert got.get("qsgd_quantize", 0) > 0 and got.get("qsgd_dequantize", 0) > 0, got
+        count("sweep", got)
+    except BaseException:
+        stop_group(proc)
+        raise
+    # 3. CLI_WORLD gloo ranks on the card at the reference's layout (2 nodes
+    #    x model 2, lm-100m's tp): roll, QSGD, CHOCO top-k; each against the
+    #    same 2 nodes at model 1 in this process
+    data, model = train.mesh_shape(CLI_WORLD)
+    _, n_leaves, meta_all = cli_shape(cfg, data)
+    per_node = tree_leaves(cli_shape(cfg, 1)[2])
+    shifts = len(ring(data).shifts)
+    wall, logs = finish_cli_group(root, proc, t_group)
+    print(f"cli group {list(CLI_GROUP_RUNS)} lm-100m on {CLI_WORLD} gloo ranks, one "
+          f"torch.distributed.run ({smi}): {wall:.1f} s wall (spawn, token streams, "
+          f"{CLI_GROUP_ROUNDS} rounds of tau {CLI_GROUP_TAU} a run, beside this process's "
+          f"world-1 runs and sweep)")
     for tag, extra in CLI_GROUP_RUNS.items():
-        out, wall = spawn_cli_group(tag, extra)
+        out, log = root / tag, logs[tag]
+        assert f"mesh={{'data': {data}, 'model': {model}}}" in log, log[-2000:]
         ranks = [read_telemetry(out / ("tel.jsonl" if r == 0 else f"tel.jsonl.rank{r}"))
                  for r in range(CLI_WORLD)]
-        peaks = [json.loads((out / f"peak.rank{r}").read_text())["peak_gib"]
-                 for r in range(CLI_WORLD)]
+        info = [json.loads((out / f"peak.rank{r}").read_text()) for r in range(CLI_WORLD)]
+        dims = info[0]["shard_dims"]
         comp = dict(zip(extra[::2], extra[1::2]))
-        alg = make_algorithm("dse_mvr", lr=CLI_LR, tau=CLI_GROUP_TAU,
-                             compression=comp.get("--compression"),
-                             channel=comp.get("--channel"))
-        link = sum(link_bytes_per_round(alg.comm, meta_all).values()) * CLI_GROUP_ROUNDS
-        want = dse_launches(buckets1, CLI_GROUP_TAU, CLI_GROUP_ROUNDS)   # a node a rank
         codec = comp.get("--compression")
-        per_leaf = 2 * n_leaves * CLI_GROUP_ROUNDS   # both buffers, a node a rank
+        alg = make_algorithm("dse_mvr", lr=CLI_LR, tau=CLI_GROUP_TAU, compression=codec,
+                             channel=comp.get("--channel"))
+        # the byte rule (compression/gossip.py): model 1's link bytes plus,
+        # a node and buffer, (M - 1) x the replicated leaves' message and
+        # QSGD's 4 B scale a sharded leaf
+        chan = alg.comm.resolved_channel()
+        rep = {str(i): t[0] for i, (t, d) in enumerate(zip(per_node, dims)) if d is None}
+        more = 0
+        for i in range(len(alg.comm.buffers)):
+            c = chan.for_buffer(i) if chan is not None else None
+            msg = (sum(t.numel() * t.element_size() for t in rep.values()) if c is None
+                   else c.message_bytes(rep))
+            if codec == "qsgd":
+                msg += 4 * sum(d is not None for d in dims)
+            more += data * (model - 1) * msg
+        link = (sum(link_bytes_per_round(alg.comm, meta_all).values()) + more) * CLI_GROUP_ROUNDS
+        per_leaf = 2 * n_leaves * CLI_GROUP_ROUNDS   # both buffers, a leaf a rank
+        codec_ops = {}
         if codec == "qsgd":
-            want.update(qsgd_quantize=per_leaf, qsgd_dequantize=per_leaf * (1 + shifts))
+            codec_ops = dict(qsgd_quantize=per_leaf, qsgd_dequantize=per_leaf * (1 + shifts))
         elif codec:
-            want.update(top_k_pack=per_leaf, top_k_unpack=per_leaf * (1 + shifts))
+            codec_ops = dict(top_k_pack=per_leaf, top_k_unpack=per_leaf * (1 + shifts))
+        want = [{**dse_launches(x["buckets"], CLI_GROUP_TAU, CLI_GROUP_ROUNDS), **codec_ops}
+                for x in info]
         losses = [ranks[0]["loss"].get(r) for r in range(1, CLI_GROUP_ROUNDS + 1)]
         got_link = sum(r["link_bytes"] for r in ranks)
-        params = load_checkpoint(str(out / "ckpt"), CLI_GROUP_ROUNDS, device="cpu")[0]
-        leaves = tree_leaves(params)
-        print(f"cli {tag} lm-100m on {CLI_WORLD} gloo ranks ({smi}): {wall:.1f} s wall "
-              f"(spawn, token stream, {CLI_GROUP_ROUNDS} rounds of tau {CLI_GROUP_TAU}); s a "
+        leaves = tree_leaves(load_checkpoint(str(out / "ckpt"), CLI_GROUP_ROUNDS,
+                                             device="cpu")[0])
+        # the same 2 nodes at model 1 (and from its init one ulp up: the floor)
+        t = time.perf_counter()
+        twin_loss, twin = cli_twin(cfg, comp, data)
+        gap = layout_gap(leaves, twin)
+        floor = None
+        if codec:
+            floor = layout_gap(cli_twin(cfg, comp, data, moved=True)[1], twin)
+        twin_s = time.perf_counter() - t
+        del twin
+        held = ("the band" if floor is None else
+                f"{LAYOUT_FLOOR_TIMES} times the floor {floor:.4g}")
+        print(f"cli {tag} lm-100m on {CLI_WORLD} gloo ranks, {data} nodes x model {model} "
+              f"({smi}): s a "
               f"round by rank {json.dumps([[round(x, 3) for x in r['span_s']] for r in ranks])}; "
-              f"peak GiB by rank {[round(p, 2) for p in peaks]}; loss {losses}; link bytes "
-              f"{got_link:.0f} (link_bytes_per_round x rounds {link:.0f}); launches by rank "
-              f"{json.dumps([r['launches'] for r in ranks])} (each {json.dumps(want)})")
+              f"peak GiB by rank {[round(x['peak_gib'], 2) for x in info]}; loss {losses}, "
+              f"model 1 {twin_loss}; rank 0's checkpoint {gap:.4g} of the band from model 1's "
+              f"parameters, held to {held} (model 1 runs {twin_s:.1f} s); link bytes "
+              f"{got_link:.0f} (the rule x rounds {link:.0f}); launches by rank "
+              f"{json.dumps([r['launches'] for r in ranks])} (want {json.dumps(want)})")
         assert all(v is not None and math.isfinite(v) for v in losses), losses
         assert losses[-1] < losses[0], (tag, losses)
+        assert all(abs(a - b) <= SHARD_RTOL * abs(b) for a, b in zip(losses, twin_loss)), \
+            (tag, losses, twin_loss)
+        assert gap <= (1.0 if floor is None else LAYOUT_FLOOR_TIMES * floor), (tag, gap, floor)
         for r in ranks[1:]:
             assert r["loss"] == ranks[0]["loss"], tag
         assert got_link == link, (tag, got_link, link)
-        for r in ranks:
-            assert r["launches"] == want, (tag, r["launches"], want)
+        for r, w in zip(ranks, want):
+            assert r["launches"] == w, (tag, r["launches"], w)
         assert len(leaves) == n_leaves and all(
-            x.shape[0] == CLI_WORLD and bool(torch.isfinite(x.float()).all()) for x in leaves)
+            x.shape[0] == data and bool(torch.isfinite(x.float()).all()) for x in leaves)
         for rank, r in enumerate(ranks):
             count(f"{tag}_rank{rank}", r["launches"])
 
-    # 3. the sweep at the reference's defaults, both engines, with and
-    #    without QSGD
-    api.reset_counters()
-    t = time.perf_counter()
-    out = ROOT / "build" / "cli" / "sweep"
-    shutil.rmtree(out, ignore_errors=True)
-    rows = sweep.main(["--engines", "sim,sharded", "--compressors", "identity,qsgd",
-                       "--rounds", str(CLI_SWEEP_ROUNDS),
-                       "--out", str(out), "--bench-out", str(out / "bench.json")])
-    got = api.launch_counts()
-    cells = {p.stem: json.loads(p.read_text()) for p in (out / "cells").glob("*.json")}
-    summary = [json.loads(line) for line in (out / "summary.jsonl").read_text().splitlines()]
-    bench = json.loads((out / "bench.json").read_text())
-    print(f"cli sweep ({smi}): {len(rows)} cells in {time.perf_counter() - t:.1f} s, wall by "
-          f"cell {json.dumps({r['cell_id']: r['wall_s'] for r in rows})}, launches "
-          f"{json.dumps(got)}")
-    assert len(rows) == len(cells) == len(summary) == len(bench) == 8
-    assert {r["cell_id"] for r in summary} == set(cells)
-    for cid, art in cells.items():
-        assert set(art) == {"cell", "history", "streams", "schedule_gaps", "final", "wall_s"}
-        final = art["final"]["train_loss" if cid.startswith("sim") else "loss"]
-        assert final is not None and math.isfinite(final), (cid, art["final"])
-    assert got.get("qsgd_quantize", 0) > 0 and got.get("qsgd_dequantize", 0) > 0, got
-    count("sweep", got)
     print(f"cli phase {time.perf_counter() - t_phase:.1f} s")
     return runs, by_run
 
@@ -4574,6 +5142,7 @@ def main() -> int:
         else:
             assert row["launches"] == 0, f"{name} is on no path but launched"
         kernels.append({k: row.get(k) for k in keys})
+    print(f"smoke: {time.perf_counter() - t0:.1f} s from the build to the kernels line")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

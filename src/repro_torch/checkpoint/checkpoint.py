@@ -111,7 +111,7 @@ def _rebuild(like: Tree, leaves) -> Tree:
     if like is None:
         return None
     if isinstance(like, Packed):
-        return Packed(_rebuild(like.data, leaves), meta=like.meta)
+        return Packed(_rebuild(like.data, leaves), meta=like.meta, shared=like.shared)
     if isinstance(like, ChannelState):
         wire = _rebuild(like.wire, leaves)
         event = next(leaves)   # a port's event (0-d), or a reference's key data

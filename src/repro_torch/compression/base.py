@@ -17,13 +17,28 @@ residuals, replica estimates, staleness ages, in-flight payloads) plus the
 number of communication events so far; the seeds of event ``e`` come from
 the executor's ``comm_seed_fn``.
 
+On a node spread over a model axis (the sharded engine's
+``NodeMesh(model=M)``), a leaf sharded along a dim is bound to its
+:class:`Shard` (:meth:`Compressor.at_shards`, one binding a leaf): a node's
+message stays a function of the whole node, never of a shard.  Every model
+rank of a node arrives at the same scale, the same index set in the same
+order and the same send decision, through collectives over the model group
+that move scalars, candidate lists and low-rank factors, never a shard; the
+decoded shard is the shard of what the whole leaf decodes to (low-rank's
+fp32 partial sums may reorder).  A replicated leaf is encoded whole on
+every model rank, with identical bits and no group traffic.  A sharded
+leaf's :class:`Packed` names its ``shared`` tensors: those that are the
+whole node's payload, the same on every model rank, which the node axis
+moves in chunks (:func:`share_split` / :func:`share_join`).
+
 This module imports nothing of ``repro_torch.core`` (the executor imports
 us, not vice versa).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+import math
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,17 +50,88 @@ SeedOfLeaf = Callable[[int], int]
 __all__ = [
     "Packed", "Compressor", "ErrorFeedback", "ChannelState", "COMPRESSORS",
     "register_compressor", "make_compressor", "attach_channel_state",
-    "abstract_channel_state", "compression_error",
+    "abstract_channel_state", "compression_error", "Shard", "AtShard", "LeafCodecs",
+    "share_split", "share_join",
 ]
 
 
 @dataclasses.dataclass
 class Packed:
     """Encoded form of ONE node-stacked leaf: ``data`` holds payload tensors
-    (each with the leading node axis), ``meta`` what decoding needs."""
+    (each with the leading node axis), ``meta`` what decoding needs.
+    ``shared`` names the tensors of a sharded leaf's payload that are the
+    whole node's, the same on every model rank (top-k's indices and values,
+    a low-rank factor); the rest are this rank's own (QSGD's levels of its
+    shard) or, like QSGD's scale, small per-node values every rank moves."""
 
     data: Dict[str, torch.Tensor]
     meta: Tuple = ()
+    shared: Tuple[str, ...] = ()
+
+
+def _to_global(local: torch.Tensor, whole: Tuple[int, ...], dim: int, lo: int,
+               n: int) -> torch.Tensor:
+    """Flat indices into the whole per-node shape ``whole`` of the flat
+    (int64) indices ``local`` into its shard ``[lo, lo + n)`` along ``dim``
+    (row-major both): ``l + (l // (n inner)) (S - n) inner + lo inner``."""
+    inner = math.prod(whole[dim + 1:])
+    span = whole[dim]
+    return local + (local // (n * inner)) * ((span - n) * inner) + lo * inner
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Shard:
+    """One leaf's model shard on a node spread over a model group: the
+    leaf's whole per-node shape ``whole``, split in ``group.size`` equal
+    parts along ``dim``; this rank holds part ``group.index``."""
+
+    group: Any
+    dim: int
+    whole: Tuple[int, ...]
+
+    @property
+    def n(self) -> int:
+        """The shard's length along ``dim``."""
+        return self.whole[self.dim] // self.group.size
+
+    @property
+    def lo(self) -> int:
+        return self.group.index * self.n
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The shard's per-node shape."""
+        return self.whole[:self.dim] + (self.n,) + self.whole[self.dim + 1:]
+
+    @property
+    def d(self) -> int:
+        """Elements of the whole leaf a node."""
+        return math.prod(self.whole)
+
+    def to_global(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole leaf's flat indices of flat (int64) shard indices."""
+        return _to_global(local, self.whole, self.dim, self.lo, self.n)
+
+    def to_local(self, flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(local, inside)``: the shard's flat indices of the whole leaf's
+        flat (int64) indices, and whether each lies in this shard (where it
+        does not, ``local`` is meaningless)."""
+        inner = math.prod(self.whole[self.dim + 1:])
+        span = self.whole[self.dim]
+        outer, rest = flat // (span * inner), flat % (span * inner)
+        c, i = rest // inner, rest % inner
+        inside = (c >= self.lo) & (c < self.lo + self.n)
+        return (outer * self.n + (c - self.lo)) * inner + i, inside
+
+    def owner(self, flat: torch.Tensor) -> torch.Tensor:
+        """The model index holding each of the whole leaf's flat indices."""
+        inner = math.prod(self.whole[self.dim + 1:])
+        return (flat // inner) % self.whole[self.dim] // self.n
+
+    def gather(self, t: torch.Tensor, lead: int = 1) -> torch.Tensor:
+        """The whole leaf from every rank's shard ``t``, shaped ``lead``
+        leading dims + the shard's per-node shape (a collective)."""
+        return self.group.all_gather([t], [self.dim + lead])[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +164,40 @@ class Compressor:
         del row0
         return self
 
+    def at_shards(self, shards: Sequence[Optional[Shard]]) -> "Compressor":
+        """This codec bound to each leaf's model shard (None: a replicated
+        leaf, encoded whole), leaves in tree order: a :class:`LeafCodecs`
+        of :class:`AtShard` bindings; itself where no leaf is sharded."""
+        if all(s is None for s in shards):
+            return self
+        return LeafCodecs(tuple(self if s is None else AtShard(inner=self, shard=s)
+                                for s in shards))
+
+    def for_leaf(self, i: int) -> "Compressor":
+        """The codec of leaf ``i`` (itself unless bound per leaf)."""
+        del i
+        return self
+
+    # -- a shard of a leaf (AtShard): the whole leaf's message -------------
+    def encode_shard(self, x: torch.Tensor, seed: int, shard: Shard, scale=None) -> Packed:
+        """This rank's part of the whole leaf's message, from its shard ``x``
+        (a collective over ``shard.group``)."""
+        raise NotImplementedError(f"{type(self).__name__} has no sharded encode")
+
+    def decode_shard(self, packed: Packed, shard: Shard) -> torch.Tensor:
+        """The shard of the whole leaf's decoded message."""
+        raise NotImplementedError(f"{type(self).__name__} has no sharded decode")
+
+    def whole_payload(self, packed: Packed, shard: Shard) -> Packed:
+        """The whole leaf's payload from every rank's part (a collective)."""
+        raise NotImplementedError(f"{type(self).__name__} has no sharded payload")
+
+    def share_bytes(self, shape: Tuple[int, ...], dtype) -> int:
+        """Bytes ONE node's message of a leaf of per-node ``shape`` puts on
+        the node axis from this rank: the payload's (a replicated leaf
+        moves whole from every model rank)."""
+        return self.payload_bytes(shape, dtype)
+
     def payload_bytes(self, shape: Tuple[int, ...], dtype, scale=None) -> int:
         """Analytic bytes ONE node puts on the wire for a leaf of per-node
         ``shape`` and ``dtype``."""
@@ -87,16 +207,20 @@ class Compressor:
     def encode_tree(self, tree: Tree, seed_of_leaf: SeedOfLeaf, scale=None) -> Tree:
         leaves, treedef = tree_flatten(tree)
         return tree_unflatten(treedef, [
-            self.encode(leaf, seed_of_leaf(i), scale=scale) for i, leaf in enumerate(leaves)
+            self.for_leaf(i).encode(leaf, seed_of_leaf(i), scale=scale)
+            for i, leaf in enumerate(leaves)
         ])
 
     def decode_tree(self, ptree: Tree) -> Tree:
-        return tree_map(self.decode, ptree)
+        leaves, treedef = tree_flatten(ptree)
+        return tree_unflatten(treedef, [self.for_leaf(i).decode(p) for i, p in enumerate(leaves)])
 
     def tree_bytes(self, tree: Tree) -> int:
         """Analytic per-node wire bytes for one message of ``tree``'s shape
-        (leaves without the node axis)."""
-        return sum(self.payload_bytes(tuple(l.shape), l.dtype) for l in tree_leaves(tree))
+        (leaves without the node axis); bound to shards, the bytes this
+        rank moves (:meth:`share_bytes`)."""
+        return sum(self.for_leaf(i).share_bytes(tuple(l.shape), l.dtype)
+                   for i, l in enumerate(tree_leaves(tree)))
 
     def roundtrip(self, tree: Tree, residual: Optional[Tree], seed_of_leaf: SeedOfLeaf,
                   scale=None):
@@ -106,8 +230,9 @@ class Compressor:
         leaves, treedef = tree_flatten(tree)
         payload, dec = [], []
         for i, leaf in enumerate(leaves):
-            payload.append(self.encode(leaf, seed_of_leaf(i), scale=scale))
-            dec.append(self.decode(payload[-1]))
+            codec = self.for_leaf(i)
+            payload.append(codec.encode(leaf, seed_of_leaf(i), scale=scale))
+            dec.append(codec.decode(payload[-1]))
         return tree_unflatten(treedef, payload), tree_unflatten(treedef, dec), None
 
 
@@ -143,8 +268,19 @@ class ErrorFeedback(Compressor):
         inner = self.inner.at_rows(row0)
         return self if inner is self.inner else dataclasses.replace(self, inner=inner)
 
+    def at_shards(self, shards):
+        inner = self.inner.at_shards(shards)
+        return self if inner is self.inner else dataclasses.replace(self, inner=inner)
+
+    def for_leaf(self, i):
+        inner = self.inner.for_leaf(i)
+        return self if inner is self.inner else dataclasses.replace(self, inner=inner)
+
     def payload_bytes(self, shape, dtype, scale=None):
         return self.inner.payload_bytes(shape, dtype, scale=scale)
+
+    def share_bytes(self, shape, dtype):
+        return self.inner.share_bytes(shape, dtype)
 
     def roundtrip(self, tree, residual, seed_of_leaf, scale=None):
         """A leaf at a time: its input ``x + e`` is encoded, decoded and
@@ -158,12 +294,143 @@ class ErrorFeedback(Compressor):
             raise ValueError(f"residual structure {res_def} differs from the message's {treedef}")
         payload, dec, new_res = [], [], []
         for i, (x, e) in enumerate(zip(leaves, res_leaves)):
+            inner = self.inner.for_leaf(i)
             inp = (x.float() + e.float()).to(x.dtype)
-            payload.append(self.inner.encode(inp, seed_of_leaf(i), scale=scale))
-            dec.append(self.inner.decode(payload[-1]))
+            payload.append(inner.encode(inp, seed_of_leaf(i), scale=scale))
+            dec.append(inner.decode(payload[-1]))
             new_res.append((inp.float() - dec[-1].float()).to(e.dtype))
             del inp
         return tuple(tree_unflatten(treedef, t) for t in (payload, dec, new_res))
+
+
+@dataclasses.dataclass(frozen=True)
+class AtShard(Compressor):
+    """``inner`` bound to one leaf's model shard: ``encode`` takes this
+    rank's shard and gives this rank's part of the whole leaf's message,
+    ``decode`` gives the shard of the whole leaf's decoded message
+    (``inner.encode_shard`` / ``decode_shard``).  ``payload_bytes`` stays
+    the whole leaf's."""
+
+    inner: Compressor = None  # type: ignore[assignment]
+    shard: Shard = None       # type: ignore[assignment]
+
+    @property
+    def is_identity(self):  # type: ignore[override]
+        return self.inner.is_identity
+
+    @property
+    def tag(self) -> str:
+        return self.inner.tag
+
+    def at_rows(self, row0):
+        inner = self.inner.at_rows(row0)
+        return self if inner is self.inner else dataclasses.replace(self, inner=inner)
+
+    def encode(self, x, seed, scale=None):
+        return self.inner.encode_shard(x, seed, self.shard, scale=scale)
+
+    def decode(self, packed):
+        return self.inner.decode_shard(packed, self.shard)
+
+    def whole(self, packed: Packed) -> Packed:
+        """The whole leaf's payload (a collective over the model group)."""
+        return self.inner.whole_payload(packed, self.shard)
+
+    def payload_bytes(self, shape, dtype, scale=None):
+        del shape
+        return self.inner.payload_bytes(self.shard.whole, dtype, scale=scale)
+
+    def share_bytes(self, shape, dtype):
+        """This rank's local tensors and its chunk of the shared ones, from
+        the packed structure of a meta tensor (nothing moves)."""
+        from ..kernels import api as fused  # lazy: the kernels import the codecs' ops
+
+        with fused.dispatch_mode("ref"):
+            packed = self.encode(torch.empty((1,) + tuple(shape), dtype=dtype, device="meta"), 0)
+        moved, _ = share_split({"x": packed}, self.shard.group)
+        return sum(t.numel() * t.element_size() for t in moved["x"].data.values())
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafCodecs(Compressor):
+    """One codec a leaf, in tree order (:meth:`Compressor.at_shards`):
+    every per-leaf call site dispatches through :meth:`for_leaf`."""
+
+    codecs: Tuple[Compressor, ...] = ()
+
+    @property
+    def is_identity(self):  # type: ignore[override]
+        return self.codecs[0].is_identity
+
+    @property
+    def tag(self) -> str:
+        return self.codecs[0].tag
+
+    def for_leaf(self, i):
+        return self.codecs[i]
+
+    def at_shards(self, shards):
+        """The unbound codec bound to ``shards`` anew."""
+        base = next(c.inner if isinstance(c, AtShard) else c for c in self.codecs)
+        return base.at_shards(shards)
+
+    def at_rows(self, row0):
+        bound = tuple(c.at_rows(row0) for c in self.codecs)
+        same = all(b is c for b, c in zip(bound, self.codecs))
+        return self if same else dataclasses.replace(self, codecs=bound)
+
+    def _per_leaf(self, *_a, **_k):
+        raise ValueError("LeafCodecs is bound per leaf: dispatch through for_leaf(i)")
+
+    encode = decode = payload_bytes = _per_leaf
+
+
+def _chunk(e: int, m: int, size: int) -> Tuple[int, int]:
+    """Part m of ``size`` contiguous parts of ``e`` elements."""
+    return m * e // size, (m + 1) * e // size
+
+
+def share_split(tree: Tree, group) -> Tuple[Tree, List[Tuple[int, str, Tuple[int, ...]]]]:
+    """What this model rank moves over the node axis of a payload tree:
+    each sharded leaf's ``shared`` tensors cut to this rank's chunk of each
+    node's elements (part ``group.index`` of ``group.size`` contiguous
+    parts), every other tensor whole.  Returns the tree and the plan
+    :func:`share_join` reads: (leaf, key, per-node shape) of each cut."""
+    if group is None:
+        return tree, []
+    leaves, treedef = tree_flatten(tree)
+    plan = []
+    for i, leaf in enumerate(leaves):
+        if isinstance(leaf, Packed) and leaf.shared:
+            data = dict(leaf.data)
+            for k in leaf.shared:
+                t = data[k]
+                flat = t.reshape(t.shape[0], -1)
+                a, b = _chunk(flat.shape[1], group.index, group.size)
+                data[k] = flat[:, a:b]
+                plan.append((i, k, tuple(t.shape[1:])))
+            leaves[i] = dataclasses.replace(leaf, data=data)
+    return tree_unflatten(treedef, leaves), plan
+
+
+def share_join(tree: Tree, plan, group) -> Tree:
+    """The payload tree whole again after its chunks moved: every model
+    rank's chunks of each cut tensor, gathered over the model group in one
+    message to each peer (counted as ``payload``) and concatenated in rank
+    order."""
+    if not plan:
+        return tree
+    leaves, treedef = tree_flatten(tree)
+    parts = [leaves[i].data[k] for i, k, _ in plan]
+    shapes = [[(p.shape[0],) + (lambda ab: (ab[1] - ab[0],))(
+        _chunk(math.prod(rest), r, group.size)) for p, (_, _, rest) in zip(parts, plan)]
+        for r in range(group.size)]
+    got = group.gather(parts, key="payload", shapes=shapes)
+    for j, (i, k, rest) in enumerate(plan):
+        whole = torch.cat([got[r][j] for r in range(group.size)], dim=1)
+        leaves[i] = dataclasses.replace(
+            leaves[i], data={**leaves[i].data, k: whole.reshape((whole.shape[0],) + rest)})
+    return tree_unflatten(treedef, leaves)
 
 
 # --------------------------------------------------------------------------

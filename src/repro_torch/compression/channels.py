@@ -31,6 +31,13 @@ the replica update and the W contraction run on every rank); ``defer_roll``
 rolls an overlapped payload when it is consumed instead of when it is
 stored, which gives the same bits.
 
+On a node spread over a model axis (:meth:`GossipChannel.at_shards`) the
+codec is bound to each leaf's shard (``base.AtShard``), the replica
+algebra runs on the shards as it is (it is elementwise), and the async
+trigger's per-node sums add the shards over the model group, each
+replicated leaf once, so that every model rank of a node makes the same
+send decision.
+
 Under the scenario engine every gossip gets the round's context ``ctx``
 (:class:`~repro_torch.core.algorithm.RoundCtx`): the transport mixes with
 its W_t, the codecs spend ``ctx.comp_scale`` of their payload, and the async
@@ -53,7 +60,7 @@ import torch
 
 from ..kernels import api as fused
 from ..tree import map_tensors, tree_flatten, tree_leaves, tree_map, tree_unflatten
-from .base import ChannelState, Compressor, ErrorFeedback
+from .base import ChannelState, Compressor, ErrorFeedback, Shard
 
 Tree = Any
 SeedFn = Callable[[int, int, int], int]   # (event, buffer, leaf) -> uint32 seed
@@ -153,6 +160,9 @@ class GossipChannel:
     with (a resolved ``Compressor``, or None for raw)."""
 
     compression: Any = None
+    #: each leaf's model shard (None: replicated), leaves in tree order; ()
+    #: off a model axis
+    shards: Tuple[Optional[Shard], ...] = ()
 
     name = "base"
 
@@ -185,10 +195,32 @@ class GossipChannel:
         bound = None if comp is None else comp.at_rows(row0)
         return self if bound is comp else dataclasses.replace(self, compression=bound)
 
+    def at_shards(self, shards) -> "GossipChannel":
+        """This channel on a node spread over a model axis: ``shards`` is
+        each leaf's :class:`~.base.Shard` (None: replicated), which binds
+        the codec (:meth:`Compressor.at_shards`) and the async trigger's
+        sums."""
+        comp = self.compression
+        return dataclasses.replace(self, shards=tuple(shards),
+                                   compression=None if comp is None else comp.at_shards(shards))
+
+    def node_sum(self, parts) -> torch.Tensor:
+        """Σ over a buffer's leaves of per-leaf per-node values ``parts``,
+        over the whole node: on a model axis the shards' values summed over
+        the model group in rank order, each replicated leaf's once, the
+        same bits on every rank."""
+        group = next((s.group for s in self.shards if s is not None), None)
+        if group is None:
+            return sum(parts)
+        total = sum((p for p, s in zip(parts, self.shards) if s is not None or group.index == 0),
+                    torch.zeros_like(parts[0]))
+        return group.all_reduce(total, key="codec")
+
     def message_bytes(self, tree: Tree) -> int:
         """Analytic wire bytes of ONE node's send of this buffer (``tree``
         without the node axis): raw bytes with no active codec, else the
-        codec's payload bytes."""
+        codec's payload bytes; on a model axis, those this rank moves
+        (``tree`` holds its shards)."""
         comp = self.compression
         if comp is None or comp.is_identity:
             return sum(math.prod(l.shape) * l.dtype.itemsize for l in tree_leaves(tree))
@@ -203,13 +235,25 @@ class GossipChannel:
         meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params)
         return self.init_wire(meta)
 
-    def wire_spec(self, params: Tree) -> Optional[Tree]:
-        """Each wire leaf's layout on the sharded engine: ``"node"`` (this
-        rank's rows) or ``"replicated"`` (all N rows on every rank), in the
-        structure of :meth:`abstract_wire`."""
+    def wire_spec(self, params: Tree, param_spec: Optional[Tree] = None,
+                  node_spec: Any = None) -> Optional[Tree]:
+        """Each wire leaf's layout on the sharded engine, in the structure
+        of :meth:`abstract_wire`: ``"replicated"`` (all N rows on every
+        rank) for a replicated wire; else ``"node"`` (this rank's rows), or
+        on a model axis (``param_spec``, the parameters' spec tree) the
+        reference's ``wire_spec``: ``param_spec`` for a params-shaped tree,
+        ``node_spec`` for a per-node vector and every payload tensor."""
         wire = self.abstract_wire(params)
-        layout = "replicated" if getattr(self, "replicated_wire", False) else "node"
-        return None if wire is None else map_tensors(lambda _: layout, wire)
+        if wire is None:
+            return None
+        if getattr(self, "replicated_wire", False):
+            return map_tensors(lambda _: "replicated", wire)
+        if param_spec is None:
+            return map_tensors(lambda _: "node", wire)
+        params_like = {"res", "hat", "nbr"}
+        return {k: ((param_spec if not isinstance(v, tuple) else tuple(param_spec for _ in v))
+                    if k in params_like else map_tensors(lambda _: node_spec, v))
+                for k, v in wire.items()}
 
     def gossip(self, tree: Tree, wire, seed_of_leaf, transport: Transport, ctx=None):
         """One buffer's communication: ``(mixed_tree, new_wire)``; ``ctx`` is
@@ -369,8 +413,8 @@ class ChocoChannel(GossipChannel):
         xs, treedef = tree_flatten(tree)
         scale = _ctx_scale(ctx)
         return tree_unflatten(treedef, [
-            self.compression.encode((x.float() - h.float()).to(x.dtype), seed_of_leaf(i),
-                                    scale=scale)
+            self.compression.for_leaf(i).encode((x.float() - h.float()).to(x.dtype),
+                                                seed_of_leaf(i), scale=scale)
             for i, (x, h) in enumerate(zip(xs, tree_leaves(hat)))])
 
     def _gated_add(self, hat, payload, send):
@@ -380,8 +424,8 @@ class ChocoChannel(GossipChannel):
         event-triggered; into x̂'s own storage with ``in_place``."""
         hs, treedef = tree_flatten(hat)
         out = []
-        for h, p in zip(hs, tree_flatten(payload)[0]):
-            d = p if self._raw else self.compression.decode(p)
+        for i, (h, p) in enumerate(zip(hs, tree_flatten(payload)[0])):
+            d = p if self._raw else self.compression.for_leaf(i).decode(p)
             if send is not None:
                 mask = send.reshape((send.shape[0],) + (1,) * (d.dim() - 1))
                 d = torch.where(mask, d.float(), 0.0)
@@ -535,8 +579,10 @@ class AsyncChannel(ChocoChannel):
     def _trigger_send(self, tree, diff, age, ctx):
         """Forced when the age hits the bound, or on relative drift."""
         n = _n_nodes(tree)
-        drift2 = sum(torch.sum(d.float().reshape(n, -1) ** 2, dim=1) for d in tree_leaves(diff))
-        ref2 = sum(torch.sum(x.float().reshape(n, -1) ** 2, dim=1) for x in tree_leaves(tree))
+        drift2 = self.node_sum([torch.sum(d.float().reshape(n, -1) ** 2, dim=1)
+                                for d in tree_leaves(diff)])
+        ref2 = self.node_sum([torch.sum(x.float().reshape(n, -1) ** 2, dim=1)
+                              for x in tree_leaves(tree)])
         thr = np.float32(self.threshold)
         ctx_thr = getattr(ctx, "trigger", None) if ctx is not None else None
         if ctx_thr is not None and ctx_thr >= 0:
@@ -615,6 +661,10 @@ class PerBufferChannel(GossipChannel):
         bound = tuple(c.at_rows(row0) for c in self.channels)
         same = all(b is c for b, c in zip(bound, self.channels))
         return self if same else dataclasses.replace(self, channels=bound)
+
+    def at_shards(self, shards):
+        return dataclasses.replace(self, shards=tuple(shards),
+                                   channels=tuple(c.at_shards(shards) for c in self.channels))
 
     def for_buffer(self, i: int) -> GossipChannel:
         if not 0 <= i < len(self.channels):

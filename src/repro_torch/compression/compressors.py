@@ -20,6 +20,27 @@ draws on one rank and in the reference, whose hash runs over the global
 iota.  Rand-k's and low-rank's draws are one per leaf, shared by all nodes,
 and need no offset.
 
+On a node spread over a model axis each codec also encodes a leaf's shard
+(``encode_shard``, bound by :class:`~.base.AtShard`) to its part of the whole
+leaf's message, bit for bit (low-rank: up to its partial sums' order):
+
+  * QSGD: the scale is the group max of the shards' maxima; the noise
+    hashes each element's index in the whole leaf's (N, d) flattening (for
+    a shard on a later dim, a strided index); the levels of the shard are
+    this rank's, the scale every rank's;
+  * top-k: each rank takes its shard's best ``min(k, d_shard)``
+    candidates (the pack kernel at the shard's shape) with their whole-leaf
+    indices; the group gathers them and every rank merges them in the
+    whole leaf's stable order (descending |x|, ties to the lower index):
+    the whole payload, on every rank; decoding unpacks the entries in this
+    shard, re-indexed, the others padded as +0.0 adds;
+  * rand-k: the whole leaf's index draw on every rank; each rank packs the
+    entries in its shard and the group takes each slot's value from its
+    owner;
+  * low-rank: ``_plan`` and the sketch of the whole leaf, ``M Q0`` and
+    ``Mᵀ P`` as partial products summed (or row blocks concatenated) over
+    the group in rank order, and QR on the replicated product.
+
 The int64 work of the noise hash and of top-k's stable sort runs a slice
 at a time (a chunk of elements, a node row), so that its temporaries stay
 O(d) next to a node-stacked leaf: a full-width tied embedding is 233 M
@@ -35,7 +56,7 @@ import numpy as np
 import torch
 
 from ..kernels import api as fused
-from .base import Compressor, Packed, register_compressor
+from .base import Compressor, Packed, Shard, _to_global, register_compressor
 
 __all__ = ["Identity", "QSGD", "TopK", "RandK", "LowRank"]
 
@@ -49,24 +70,32 @@ def _flat(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...]]:
 
 
 def _hash_uniform(seed: int, shape: Tuple[int, int], row0: int = 0,
-                  device=None) -> torch.Tensor:
+                  device=None, shard: Optional[Shard] = None) -> torch.Tensor:
     """Counter-based Uniform[0, 1) noise, bit for bit the reference's: a
     murmur3 finalizer of ``row * d + col + seed`` in uint32 arithmetic,
-    ``row`` counted from global node ``row0``.
+    ``row`` counted from global node ``row0``; with a ``shard``, ``shape``
+    is the shard's (N, d_shard) and ``col`` each element's index in the
+    whole leaf's d.
 
     ``seed`` is the reference's ``key_data[0] ^ key_data[-1]``.  torch has no
     usable uint32, so the hash runs in int64 and keeps the low 32 bits after
     every multiply, add and xor; they survive int64 wraparound.  It runs
     :data:`_HASH_CHUNK` elements at a time, in place, into the fp32 result,
-    so that its two int64 buffers stay that size whatever the leaf's."""
+    so that its int64 buffers stay that size whatever the leaf's."""
     n, d = shape
     out = torch.empty((n, d), dtype=torch.float32, device=device)
     flat = out.view(-1)
+    whole = d if shard is None else shard.d
     # (row0 + r) * d + c + seed == row0 * d + seed + (the element's flat index)
-    base = (int(row0) * d + int(seed)) & _M32
+    base = (int(row0) * whole + int(seed)) & _M32
     for a in range(0, n * d, _HASH_CHUNK):
         b = min(n * d, a + _HASH_CHUNK)
         z = torch.arange(a, b, dtype=torch.int64, device=device)
+        if shard is not None:
+            # row r, shard column l -> r * whole + (l's whole-leaf column)
+            r = z // d
+            z = shard.to_global(z.sub_(r * d)).add_(r.mul_(whole))
+            del r
         z.add_(base).bitwise_and_(_M32)
         z.mul_(0x9E3779B9).bitwise_and_(_M32)
         z.bitwise_xor_(z >> 16)
@@ -96,6 +125,15 @@ class Identity(Compressor):
         del scale
         return int(math.prod(shape)) * dtype.itemsize
 
+    def encode_shard(self, x, seed, shard, scale=None):
+        return self.encode(x, seed, scale)
+
+    def decode_shard(self, packed, shard):
+        return self.decode(packed)
+
+    def whole_payload(self, packed, shard):
+        return Packed({"raw": shard.gather(packed.data["raw"])})
+
 
 @dataclasses.dataclass(frozen=True)
 class QSGD(Compressor):
@@ -116,12 +154,14 @@ class QSGD(Compressor):
     def at_rows(self, row0):
         return self if int(row0) == self.row0 else dataclasses.replace(self, row0=int(row0))
 
-    def encode(self, x, seed, scale=None):
+    def encode(self, x, seed, scale=None, shard: Optional[Shard] = None):
         flat, shape = _flat(x)
         s = flat.float().abs().amax(dim=1)
+        if shard is not None:
+            s = shard.group.all_reduce(s, op="max", key="codec")
         safe = torch.where(s > 0, s, torch.ones_like(s))
         xn = flat.float() / safe[:, None]
-        u = _hash_uniform(seed, tuple(flat.shape), self.row0, device=x.device)
+        u = _hash_uniform(seed, tuple(flat.shape), self.row0, device=x.device, shard=shard)
         meta = (shape, x.dtype)
         if scale is None:
             qf = fused.call("qsgd_quantize", xn, u, scalars=(float(self.levels),))
@@ -151,6 +191,19 @@ class QSGD(Compressor):
                 scalars=(1.0 / float(self.levels),),
             )
         return deq.reshape((q.shape[0],) + shape).to(dtype)
+
+    def encode_shard(self, x, seed, shard, scale=None):
+        """The shard's levels (this rank's) and the node's scale (every
+        rank's)."""
+        return self.encode(x, seed, scale, shard=shard)
+
+    def decode_shard(self, packed, shard):
+        return self.decode(packed)
+
+    def whole_payload(self, packed, shard):
+        q = packed.data["q"]
+        q = shard.gather(q.reshape((q.shape[0],) + shard.shape)).reshape(q.shape[0], -1)
+        return Packed({**packed.data, "q": q}, meta=(shard.whole,) + packed.meta[1:])
 
     def payload_bytes(self, shape, dtype, scale=None):
         del dtype  # 1 byte/element + the fp32 scale
@@ -195,26 +248,76 @@ class TopK(Compressor):
             del order
         return idx
 
-    def encode(self, x, seed, scale=None):
+    def encode(self, x, seed, scale=None, shard: Optional[Shard] = None):
         flat, shape = _flat(x)
         flat = flat.contiguous()
         d = flat.shape[1]
-        k = self.k_for(d)
-        idx = self._indices(flat, seed, k)
-        vals = fused.call("top_k_pack", flat, idx)
+        if shard is None:
+            k = self.k_for(d)
+            idx = self._indices(flat, seed, k)
+            vals = fused.call("top_k_pack", flat, idx)
+        else:
+            k = self.k_for(shard.d)
+            idx, vals = self._shard_select(flat, seed, k, shard)
         if scale is not None:
             # adaptive ratio: keep the first ceil(scale * k) slots (the
             # largest magnitudes) and zero the rest; the payload keeps its shape
             k_eff = min(max(math.ceil(np.float32(k) * np.float32(scale)), 1), k)
             keep = torch.arange(k, device=x.device)[None, :] < k_eff
             vals = torch.where(keep, vals, torch.zeros((), dtype=vals.dtype, device=x.device))
-        return Packed({"idx": idx, "vals": vals}, meta=(shape, x.dtype, d))
+        return Packed({"idx": idx, "vals": vals}, meta=(shape, x.dtype, d),
+                      shared=() if shard is None else ("idx", "vals"))
 
     def decode(self, packed):
         shape, dtype, d = packed.meta
         idx, vals = packed.data["idx"], packed.data["vals"]
         dense = fused.call("top_k_unpack", idx, vals, d=d)
         return dense.reshape((idx.shape[0],) + shape).to(dtype)
+
+    def _shard_select(self, flat, seed, k, shard):
+        """The whole leaf's k indices (int32) and values from this rank's
+        shard: the shard's best candidates, gathered and merged in the
+        whole leaf's stable order, the same on every rank."""
+        cand = self._indices(flat, seed, min(k, flat.shape[1]))
+        vals = fused.call("top_k_pack", flat, cand)
+        # whole-leaf indices as int32, as the payload holds them: 8 B a
+        # candidate with its value
+        got = shard.group.gather([shard.to_global(cand.long()).to(torch.int32), vals],
+                                 key="codec")
+        g = torch.cat([p[0] for p in got], dim=1)
+        v = torch.cat([p[1] for p in got], dim=1)
+        del got
+        idx = torch.empty((flat.shape[0], k), dtype=torch.int32, device=flat.device)
+        out = torch.empty((flat.shape[0], k), dtype=flat.dtype, device=flat.device)
+        for i in range(flat.shape[0]):
+            # by index first, then stably by descending |x|: ties to the
+            # lower whole-leaf index, as the whole leaf's sort orders them
+            by_index = torch.sort(g[i]).indices
+            order = by_index[torch.sort(-v[i, by_index].float().abs(), stable=True).indices[:k]]
+            idx[i] = g[i, order]
+            out[i] = v[i, order]
+        return idx, out
+
+    def encode_shard(self, x, seed, shard, scale=None):
+        """The whole leaf's payload, on every rank (``shared``)."""
+        return self.encode(x, seed, scale, shard=shard)
+
+    def decode_shard(self, packed, shard):
+        """This shard of the whole leaf's decoded message: the entries in
+        the shard, re-indexed; the rest padded as +0.0 added at spread
+        in-shard indices, which changes no bit of an fp32 sum from +0.0."""
+        shape, dtype, d = packed.meta
+        idx, vals = packed.data["idx"], packed.data["vals"]
+        local, inside = shard.to_local(idx.long())
+        spread = torch.arange(idx.shape[1], device=idx.device) % d
+        local = torch.where(inside, local, spread).to(torch.int32)
+        vals = torch.where(inside, vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
+        dense = fused.call("top_k_unpack", local, vals, d=d)
+        return dense.reshape((idx.shape[0],) + shape).to(dtype)
+
+    def whole_payload(self, packed, shard):
+        shape, dtype, _ = packed.meta
+        return Packed(dict(packed.data), meta=(shard.whole, dtype, shard.d))
 
     def payload_bytes(self, shape, dtype, scale=None):
         d = int(math.prod(shape))
@@ -250,6 +353,23 @@ class RandK(TopK):
         idx = torch.as_tensor(draw(seed, flat.shape[1], k))
         idx = idx.to(device=flat.device, dtype=torch.int32)
         return idx[None].expand(flat.shape[0], k).contiguous()
+
+    def _shard_select(self, flat, seed, k, shard):
+        """The whole leaf's draw on every rank; each rank packs the entries
+        in its shard, and each slot takes its owner's value."""
+        draw = self.index_draw or _randperm_draw
+        whole = torch.as_tensor(draw(seed, shard.d, k)).to(device=flat.device,
+                                                            dtype=torch.int64)
+        local, inside = shard.to_local(whole)
+        local = torch.where(inside, local, 0).to(torch.int32)
+        mine = fused.call("top_k_pack", flat, local[None].expand(flat.shape[0], k).contiguous())
+        got = shard.group.gather([mine], key="codec")
+        owner = shard.owner(whole)
+        vals = got[0][0]
+        for r in range(1, shard.group.size):
+            vals = torch.where(owner == r, got[r][0], vals)
+        idx = whole.to(torch.int32)[None].expand(flat.shape[0], k).contiguous()
+        return idx, vals.contiguous()
 
 
 def _normal_draw(seed: int, rows: int, cols: int) -> torch.Tensor:
@@ -312,6 +432,54 @@ class LowRank(Compressor):
         p, q = packed.data["p"], packed.data["q"]
         mat = torch.einsum("nmr,ncr->nmc", p, q)
         return mat.reshape((p.shape[0],) + shape).to(dtype)
+
+    def encode_shard(self, x, seed, shard, scale=None):
+        """The whole leaf's factors: sharded on the matrix rows (dim 0),
+        ``M Q0``'s row blocks are concatenated and ``Mᵀ P`` summed over the
+        group, and this rank keeps its rows of P; sharded on a later dim
+        (columns), ``M Q0`` is summed from the shard's columns of the sketch
+        and this rank keeps its rows of Q.  The replicated factor is
+        ``shared``."""
+        del scale
+        shape, n = tuple(x.shape[1:]), x.shape[0]
+        plan = self._plan(shard.whole)
+        if plan is None:
+            return Packed({"raw": x}, meta=(shape, x.dtype, None))
+        m, nn, r = plan
+        draw = self.sketch_draw or _normal_draw
+        q0 = torch.as_tensor(draw(seed, nn, r)).to(device=x.device, dtype=torch.float32)
+        group = shard.group
+        if shard.dim == 0:
+            mat = x.reshape(n, shard.n, nn).float()
+            y = torch.cat([p[0] for p in group.gather([mat @ q0], key="codec")], dim=1)
+            p = torch.linalg.qr(y).Q[:, shard.lo:shard.lo + shard.n].contiguous()
+            q = group.all_reduce(torch.einsum("nmc,nmr->ncr", mat, p), key="codec")
+            return Packed({"p": p, "q": q}, meta=(shape, x.dtype, plan), shared=("q",))
+        cols = _to_global(torch.arange(math.prod(shape[1:]), device=x.device),
+                          shard.whole[1:], shard.dim - 1, shard.lo, shard.n)
+        mat = x.reshape(n, m, -1).float()
+        p = torch.linalg.qr(group.all_reduce(mat @ q0[cols], key="codec")).Q
+        q = torch.einsum("nmc,nmr->ncr", mat, p)
+        return Packed({"p": p, "q": q}, meta=(shape, x.dtype, plan), shared=("p",))
+
+    def decode_shard(self, packed, shard):
+        return self.decode(packed)
+
+    def whole_payload(self, packed, shard):
+        _, dtype, plan = packed.meta
+        meta = (shard.whole, dtype, plan)
+        if plan is None:
+            return Packed({"raw": shard.gather(packed.data["raw"])}, meta=meta)
+        p, q = packed.data["p"], packed.data["q"]
+        if shard.dim == 0:
+            p = shard.group.all_gather([p], [1])[0]
+        else:
+            # this rank's rows of Q are its columns of the leaf: gather them
+            # along the leaf's sharded dim, then flatten again
+            n, r = q.shape[0], q.shape[-1]
+            q = q.reshape((n,) + shard.shape[1:] + (r,))
+            q = shard.group.all_gather([q], [shard.dim])[0].reshape(n, -1, r)
+        return Packed({"p": p, "q": q}, meta=meta)
 
     def payload_bytes(self, shape, dtype, scale=None):
         del scale

@@ -23,6 +23,29 @@ weight first, then the shifts in rotation order, each added in place into
 the one accumulator, a leaf at a time.  ``ctx.pattern`` is a host
 int, so a schedule selects its rotation where the reference switches with
 ``lax.switch``.
+
+On a node spread over a model axis (``NodeMesh(model=M)``) a payload moves
+over the node axis between the ranks of one model index.  A sharded
+leaf's own tensors (QSGD's levels of the shard, a low-rank factor's rows
+of it) and its per-node scalars (QSGD's scale) move whole from every rank;
+its ``shared`` tensors (top-k's and rand-k's indices and values, the
+replicated low-rank factor), which every model rank of a node holds
+whole, move as rank m's chunk of each node's elements and are joined over
+the model group after they arrive (``base.share_split`` /
+``share_join``).  A replicated leaf's payload moves whole from every
+rank, as the uncompressed roll moves it.  So a round's node-link bytes,
+summed over a node's M ranks, are
+
+    (the model-1 job's, to the byte)
+    + (M - 1) x (the replicated leaves' payload bytes
+                 + 4 B a sharded leaf for QSGD's scale, 8 B with the
+                   adaptive level count)
+    + (M - 1) x (1 B a node for an async send mask)
+
+for every message a node receives, and the model group's ``payload``
+bytes are, on each rank, the other ranks' chunks.  (A scenario's round
+also gathers each rank's rows of W_t and of the active mask over the node
+axis, as at model 1 on more than one rank.)
 """
 from __future__ import annotations
 
@@ -33,20 +56,29 @@ import torch
 
 from ..core.mixing import Gathered, Rotation, _dense_contract
 from ..tree import map_tensors, tree_leaves, tree_map
-from .base import Compressor
+from .base import Compressor, share_join, share_split
 
 Tree = Any
 Combine = Callable[[Tree, Tree, Optional[Any]], Tree]
 
-__all__ = ["rotation_combine", "NeighborExchange", "neighbor_exchange", "allgather_combine"]
+__all__ = ["rotation_combine", "NeighborExchange", "neighbor_exchange", "allgather_combine",
+           "gather_payload"]
 
 
 def _roll(tree: Tree, shift: int, mesh) -> Tree:
     """Every tensor of ``tree`` (packed payloads, send masks) rolled by
     ``-shift`` along the node axis: ``out[i] = a[(i + shift) mod N]``."""
     if mesh is not None:
-        return mesh.roll(tree, shift)
+        moved, plan = share_split(tree, mesh.model_group)
+        return share_join(mesh.roll(moved, shift), plan, mesh.model_group)
     return map_tensors(lambda a: torch.roll(a, -shift, 0), tree)
+
+
+def gather_payload(tree: Tree, mesh) -> Tree:
+    """Every tensor of a payload tree with all N rows (``mesh.all_gather``
+    of exactly the payload; shared tensors in chunks, then joined)."""
+    moved, plan = share_split(tree, mesh.model_group)
+    return share_join(mesh.all_gather(moved), plan, mesh.model_group)
 
 
 def _pick(rotations, scheduled: bool, ctx):
@@ -74,8 +106,8 @@ def rotation_combine(comp: Compressor, rotations: Sequence[Rotation],
             rolled = _roll(payload, s, mesh)
             # a leaf at a time: each shift's message decoded, weighted and
             # added before the next leaf's is decoded
-            for a, p in zip(tree_leaves(acc), tree_leaves(rolled)):
-                a.add_(wgt * comp.decode(p).float())
+            for i, (a, p) in enumerate(zip(tree_leaves(acc), tree_leaves(rolled))):
+                a.add_(wgt * comp.for_leaf(i).decode(p).float())
             del rolled
         return tree_map(lambda a, d: a.to(d.dtype), acc, dec)
 
@@ -138,7 +170,7 @@ def allgather_combine(comp: Compressor, mesh, w=None, scheduled: bool = False) -
         np.asarray(w), dtype=torch.float32, device=mesh.device)[mesh.lo:mesh.hi]
 
     def combine(payload, dec, ctx):
-        dec_full = Gathered(comp.decode_tree(mesh.all_gather(payload)))
+        dec_full = Gathered(comp.decode_tree(gather_payload(payload, mesh)))
         return _dense_contract(ctx.w if scheduled else w_static, dec_full, mesh)
 
     return combine

@@ -199,11 +199,14 @@ def scheduled_rotation_mix(rotations: Sequence[Rotation], mesh=None) -> Callable
 def replicate_gather(mesh) -> Callable[[Tree], Tree]:
     """The compressed-allgather transport: every node-stacked tensor of a
     (packed payload) tree to all N rows, by ``mesh.all_gather`` of exactly
-    those tensors, so only payload bytes move.  The reference pins the
-    payload behind an optimization barrier so that its partitioner cannot
-    hoist the gather into the encode; here nothing moves but what is
-    gathered."""
-    return mesh.all_gather
+    those tensors, so only payload bytes move (on a model axis, a sharded
+    leaf's shared tensors in chunks: ``compression.gossip.gather_payload``).
+    The reference pins the payload behind an optimization barrier so that
+    its partitioner cannot hoist the gather into the encode; here nothing
+    moves but what is gathered."""
+    from ..compression.gossip import gather_payload  # lazy: gossip imports us
+
+    return functools.partial(gather_payload, mesh=mesh)
 
 
 def replicate_pin(mesh) -> Callable[[Tree], Tree]:
@@ -230,14 +233,17 @@ def replicated_local(mesh) -> Callable[[Callable], Callable]:
     rank: its node-row inputs are gathered to all N rows first, as the
     reference's ``shard_map`` with replicated in-specs reshards them, and
     it computes the full result on each rank (the reference guards the
-    same locality against its partitioner)."""
+    same locality against its partitioner).  On a model axis "replicated"
+    is over the node axis only: the wire holds all N rows of this rank's
+    shard of each leaf, and nothing is gathered over the model group."""
 
     def wrap(fn: Callable) -> Callable:
         if mesh.world == 1:
             return fn   # every row is here: nothing to gather
 
         def run(*trees: Tree) -> Tree:
-            return fn(*(mesh.full(t) for t in trees))
+            # node rows only: mesh.full with no model dims keeps the shards
+            return fn(*(mesh.full(t, model_dims=None) for t in trees))
 
         return run
 

@@ -41,8 +41,17 @@ index on the other nodes (mixing is linear).  Per node:
     the audio encoder), every model rank on the whole node batch.
 
 On a model axis of 1 every profile is the node-a-replica job bit for bit.
-On a larger one, the '2d' profile, a codec or a CHOCO / async channel, and
-a scenario raise: ROADMAP queue 1 item 8 (b).  The reference's ``lower()`` (an XLA
+On a larger one every codec, channel, wire mode and scenario runs as at
+model 1 and computes the function the reference's GSPMD job computes: a
+node's message is a function of the whole node, never of a shard.  Each
+codec is bound to each leaf's shard (``compression.base.AtShard``), so that
+every model rank of a node encodes the same scale, index set and send
+decision and decodes its shard of the whole leaf's message, bit for bit
+(low-rank up to its partial sums' order); a replicated leaf is encoded
+whole on every rank.  Over the node axis a rank moves its share of a
+node's payload (``compression/gossip.py`` gives the byte count); the
+scenario streams sum the shards over the model group.  The '2d' profile
+raises: ROADMAP queue 1 item 8 (b).  The reference's ``lower()`` (an XLA
 cost model) and its mesh-sharded ``ServeJob`` are not carried over; the
 one-device serve job is ``launch/serve.py``.
 """
@@ -54,7 +63,9 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..compression.base import ChannelState, abstract_channel_state, attach_channel_state
+from ..compression.base import (
+    AtShard, ChannelState, Packed, Shard, abstract_channel_state, attach_channel_state,
+)
 from ..compression.channels import ChocoChannel, SeedFn, SyncChannel
 from ..compression.gossip import allgather_combine, neighbor_exchange, rotation_combine
 from ..core import make_algorithm, ring
@@ -133,7 +144,8 @@ class TrainJob:
 
     def round_ctx(self, schedule, r: int) -> RoundCtx:
         """Round ``r``'s context at this rank's rows: its rows of W_t, its
-        nodes' ``active`` and ``local_mask``; the knobs as host scalars."""
+        nodes' ``active`` and ``local_mask``; the knobs as host scalars.
+        Every model rank of a node gets the same rows."""
         m = self.mesh
         dev, rows = m.device, slice(m.lo, m.hi)
         return RoundCtx(
@@ -170,6 +182,63 @@ class TrainJob:
         dims = [None if d is None else d + 1 for d in self.shard_dims]
         return self.mesh.full(tree, dims)
 
+    def full_state(self, state) -> Any:
+        """The whole state on every rank (a collective: every rank calls
+        it): each parameter-shaped buffer as :meth:`full` gathers it, the
+        channel's wire too (replicas, residuals, in-flight payloads, with
+        the parameters' ``shard_dims``; a replicated wire already holds all
+        N rows), its per-node vectors at all N rows; host values as they
+        are.  The reference's state, which ``save_checkpoint`` writes in
+        its format."""
+        chan = self.algorithm.comm.resolved_channel()
+        fields = {}
+        for f in dataclasses.fields(type(state)):
+            v = getattr(state, f.name)
+            if isinstance(v, ChannelState):
+                v = ChannelState(wire=tuple(
+                    None if w is None else self._full_wire(w, chan.for_buffer(i))
+                    for i, w in enumerate(v.wire)), event=v.event)
+            elif isinstance(v, dict):
+                v = self.full(v)
+            fields[f.name] = v
+        return type(state)(**fields)
+
+    def _full_wire(self, wire: dict, chan) -> dict:
+        replicated = getattr(chan, "replicated_wire", False)
+        dims = [None if d is None else d + 1 for d in self.shard_dims]
+        group = self.mesh.model_group
+        codecs = chan.compression
+
+        def params_like(tree):
+            if not replicated:
+                return self.full(tree)
+            if group is None:
+                return tree
+            leaves, treedef = tree_flatten(tree)
+            return tree_unflatten(treedef, group.all_gather(leaves, dims))
+
+        def payload(tree):
+            if codecs is not None and group is not None:
+                leaves, treedef = tree_flatten(tree)
+                tree = tree_unflatten(treedef, [
+                    codecs.for_leaf(i).whole(p)
+                    if isinstance(p, Packed) and isinstance(codecs.for_leaf(i), AtShard) else p
+                    for i, p in enumerate(leaves)])
+            return tree if replicated else self.mesh.full(tree)
+
+        out = {}
+        for k, v in wire.items():
+            if k in ("res", "hat"):
+                out[k] = params_like(v)
+            elif k == "nbr":
+                out[k] = tuple(params_like(t) for t in v)
+            elif k == "fly":
+                out[k] = {fk: (tuple(payload(t) for t in fv) if isinstance(fv, tuple)
+                               else payload(fv)) for fk, fv in v.items()}
+            else:   # per-node vectors (ages, send masks)
+                out[k] = v if replicated else self.mesh.full(v)
+        return out
+
     def local_batch(self, global_batches: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """This rank's nodes of ``(round_len, N, b, ...)`` batches (numpy
         arrays or tensors), as tensors on the mesh's device."""
@@ -191,17 +260,20 @@ def _shard(p: torch.Tensor, dim: Optional[int], mesh: NodeMesh) -> torch.Tensor:
     return p.narrow(dim, mesh.model_group.index * n, n).contiguous()
 
 
-def _layout(abstract_state, alg, params, param_spec=None) -> Any:
+def _layout(abstract_state, alg, params, param_spec=None, node_spec=None) -> Any:
     """``TrainJob.state_layout``: ``abstract_state``'s structure with every
     tensor's layout (the reference's ``state_shardings``); ``param_spec``
-    (on a model axis) is the parameter-shaped buffers' spec tree."""
+    (on a model axis) is the parameter-shaped buffers' spec tree, which a
+    channel's params-shaped wire takes too, and ``node_spec`` a per-node
+    vector's."""
     chan = alg.comm.resolved_channel()
     fields = {}
     for f in dataclasses.fields(type(abstract_state)):
         v = getattr(abstract_state, f.name)
         if isinstance(v, ChannelState):
             fields[f.name] = ChannelState(
-                wire=tuple(chan.for_buffer(i).wire_spec(params) for i in range(len(v.wire))),
+                wire=tuple(chan.for_buffer(i).wire_spec(params, param_spec, node_spec)
+                           for i in range(len(v.wire))),
                 event="host")
         elif isinstance(v, int):
             fields[f.name] = "host"
@@ -212,19 +284,12 @@ def _layout(abstract_state, alg, params, param_spec=None) -> Any:
     return type(abstract_state)(**fields)
 
 
-def _refuse_layout(profile: ShardingProfile, chan, scenario) -> None:
-    """What a model axis larger than 1 cannot run yet (the '2d' profile,
-    codecs and channels, scenarios): ROADMAP queue 1 item 8 (b)."""
-    why = None
+def _refuse_layout(profile: ShardingProfile) -> None:
+    """What a model axis larger than 1 cannot run yet (the '2d' profile):
+    ROADMAP queue 1 item 8 (b)."""
     if profile.name == "2d":
-        why = "the '2d' profile"
-    elif chan is not None:
-        why = f"gossip through {chan!r}"
-    elif scenario is not None:
-        why = "a scenario"
-    if why is not None:
         raise NotImplementedError(
-            f"{why} on a node spread over a model axis is ROADMAP queue 1 item 8 (b)")
+            "the '2d' profile on a node spread over a model axis is ROADMAP queue 1 item 8 (b)")
 
 
 def make_train_job(
@@ -306,7 +371,7 @@ def make_train_job(
         raise ValueError(f"wire_mode must be auto/dense/neighbor/allgather, got {wire_mode!r}")
     chan = alg.comm.resolved_channel()
     if mesh.model > 1:
-        _refuse_layout(profile, chan, scenario)
+        _refuse_layout(profile)
     group = mesh.model_group
     # each parameter leaf's spec under the profile, and its model-sharded dim
     with axis_rules(profile.train_rules(mesh), mesh, param_rules=profile.train_param_rules(mesh)):
@@ -324,9 +389,14 @@ def make_train_job(
                 "against while the message is in flight")
         alg = dataclasses.replace(alg, channel=dataclasses.replace(chan, overlap=True))
         chan = alg.comm.resolved_channel()
+    # this rank's codec numbers its noise from its first global node, and on
+    # a model axis each leaf's codec is bound to its shard of the whole leaf
     bound = None if chan is None else chan.at_rows(mesh.lo)
+    if bound is not None and group is not None:
+        whole = tree_leaves(model.param_shapes(dtype=torch.float32))
+        bound = bound.at_shards([None if d is None else Shard(group, d, tuple(w.shape))
+                                 for d, w in zip(shard_dims, whole)])
     if bound is not chan:
-        # this rank's codec numbers its noise from its first global node
         alg = dataclasses.replace(alg, channel=bound)
         chan = alg.comm.resolved_channel()
 
@@ -510,7 +580,8 @@ def make_train_job(
 
         # the runtime's reference is the buffer mean (no full-batch closure)
         stream_fn = make_stream_fn(buffer_name=getattr(alg, "tracking_buffer", None),
-                                   comm_buffers=alg.comm.buffers, mesh=mesh)
+                                   comm_buffers=alg.comm.buffers, mesh=mesh,
+                                   shard_dims=shard_dims if group is not None else None)
 
     def step_fn(state, batches: Dict[str, torch.Tensor], ctx: Optional[RoundCtx] = None):
         if (ctx is None) != (scenario is None):
@@ -535,6 +606,7 @@ def make_train_job(
         tau=int(getattr(alg, "tau", 1)), round_len=round_len, n_nodes=n_nodes,
         gossip=gossip, step_fn=step_fn, abstract_state=abstract_state,
         state_layout=_layout(abstract_state, alg, stacked,
-                             param_spec if group is not None else None),
+                             param_spec if group is not None else None,
+                             (node_axes or None,) if group is not None else None),
         profile=profile, shard_dims=shard_dims, scenario=scenario,
     )

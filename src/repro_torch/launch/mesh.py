@@ -46,6 +46,7 @@ over.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,8 +60,11 @@ __all__ = ["NodeMesh", "ModelGroup", "make_test_mesh", "make_group_mesh", "OPS",
 
 #: the three primitives, the keys of :meth:`NodeMesh.byte_counts`
 OPS = ("roll", "all_gather", "all_reduce")
-#: the model group's movements, the keys of ``byte_counts()["model"]``
-MODEL_OPS = ("all_gather", "reduce_scatter", "all_reduce")
+#: the model group's movements, the keys of ``byte_counts()["model"]``: the
+#: layouts' (``all_gather``, ``reduce_scatter``, ``all_reduce``), the codecs'
+#: and channels' statistics, candidates and factors (``codec``), and the
+#: payload chunks a node's ranks join after they arrive (``payload``)
+MODEL_OPS = ("all_gather", "reduce_scatter", "all_reduce", "codec", "payload")
 
 
 def _tensors(obj: Any) -> List[torch.Tensor]:
@@ -153,16 +157,17 @@ class ModelGroup:
             self._host[key] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
         return self._host[key]
 
-    def _exchange(self, msgs: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
+    def _exchange(self, msgs: Dict[int, torch.Tensor],
+                  sizes: Optional[Dict[int, int]] = None) -> Dict[int, torch.Tensor]:
         """Send ``msgs[r]`` (uint8, on the device) to each peer r; return
-        what each peer sent, on the device (every message between two ranks
-        has one size both ways)."""
+        what each peer sent, on the device.  ``sizes[r]`` is the byte size
+        of peer r's message (default: the size of the one sent to it)."""
         ops, recv = [], {}
         for r, msg in msgs.items():
             peer = dist.get_global_rank(self.group, r)
             out = self._staging("send", r, msg.numel())
             out.copy_(msg)
-            recv[r] = self._staging("recv", r, msg.numel())
+            recv[r] = self._staging("recv", r, msg.numel() if sizes is None else sizes[r])
             ops += [dist.P2POp(dist.isend, out, peer, self.group),
                     dist.P2POp(dist.irecv, recv[r], peer, self.group)]
         for req in dist.batch_isend_irecv(ops):
@@ -220,9 +225,55 @@ class ModelGroup:
             at += _padded(size)
         return out
 
-    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """The sum (in rank order) or the max of ``x`` over the ranks."""
-        self._bytes["all_reduce"] += (self.size - 1) * x.numel() * x.element_size()
+    def gather(self, parts: Sequence[torch.Tensor], key: str = "codec",
+               shapes: Optional[Sequence[Sequence[Tuple[int, ...]]]] = None
+               ) -> List[List[torch.Tensor]]:
+        """Every rank's ``parts``, in rank order (this rank's own as they
+        are), in one message to each peer, counted under ``key``.
+        ``shapes[r][j]`` is the shape of rank r's part j (default: the shape
+        of this rank's); the dtypes are this rank's.  Callers sum or
+        concatenate the parts in rank order, so that every rank gets the
+        same bits.  Meta tensors move nothing: each rank's parts are meta
+        tensors of their shapes."""
+        parts = [p.detach() for p in parts]
+
+        def shape_of(r, j):
+            return tuple(parts[j].shape) if shapes is None else tuple(shapes[r][j])
+
+        if any(p.is_meta for p in parts):
+            return [[torch.empty(shape_of(r, j), dtype=p.dtype, device="meta")
+                     for j, p in enumerate(parts)] for r in range(self.size)]
+
+        def nbytes(r):
+            return sum(_padded(math.prod(shape_of(r, j)) * p.element_size())
+                       for j, p in enumerate(parts))
+
+        # 8 trailing bytes: no message is empty, whatever the parts' sizes
+        mine = torch.cat([_as_bytes(p) for p in parts]
+                         + [torch.zeros(8, dtype=torch.uint8, device=self.device)])
+        arrived = self._exchange({r: mine for r in self._peers()},
+                                 {r: nbytes(r) + 8 for r in self._peers()})
+        del mine
+        out = []
+        for r in range(self.size):
+            if r == self.index:
+                out.append(list(parts))
+                continue
+            at, got = 0, []
+            for j, p in enumerate(parts):
+                t, at = _from_bytes(arrived[r], at, p.dtype, shape_of(r, j))
+                got.append(t)
+                self._bytes[key] += t.numel() * t.element_size()
+            out.append(got)
+        return out
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum", key: str = "all_reduce"
+                   ) -> torch.Tensor:
+        """The sum (in rank order) or the max of ``x`` over the ranks,
+        counted under ``key``; a meta tensor passes as it is."""
+        if x.is_meta:
+            return x
+        self._bytes[key] += (self.size - 1) * x.numel() * x.element_size()
         if op == "max":
             host = x.detach().cpu().clone()
             dist.all_reduce(host, op=dist.ReduceOp.MAX, group=self.group)

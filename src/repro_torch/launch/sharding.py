@@ -13,7 +13,8 @@ the within-node layout of parameters and activations:
           gathers the parameters before its forward: ZeRO-3).
   '2d'    for models too big for one slice: nodes = ('pod',) only, the
           parameters sharded over both axes.  The port refuses it on a
-          model axis larger than 1 (ROADMAP queue 1 item 8 (b)).
+          model axis larger than 1 (ROADMAP queue 1 item 8 (b)); 'tp' and
+          'fsdp' run every codec, channel and scenario there.
 
 A spec is a tuple with one entry per dim: a mesh axis name, a tuple of
 them, or None -- the entries of the reference's ``PartitionSpec``.  A mesh

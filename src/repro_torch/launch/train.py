@@ -8,23 +8,26 @@ iteration, checkpointing, metrics logging.
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --reduced \\
       --steps 100 --tau 4 --algorithm dse_mvr --out /tmp/run1 --device cpu
 
-The node mesh has one node per rank.  A plain process is world 1: one node
-on its device, whose gossip is the identity.  A process started as one rank
-of a group (``torch.distributed.run`` sets ``RANK`` / ``WORLD_SIZE`` /
-``MASTER_ADDR``) joins a gloo group and trains ``WORLD_SIZE`` nodes on
-``ring(WORLD_SIZE)``, one a rank; ranks may share one card:
+The node mesh is the reference's: W ranks are ``data = max(1, W // 2)``
+nodes x a model axis of ``W // data`` (``NodeMesh(model=...)``, rank
+``d M + m`` holding model shard m of node d under the arch's sharding
+profile), and a world that leaves ranks outside ``data x model`` raises.
+A plain process is world 1: one node on its device, whose gossip is the
+identity.  A process started as one rank of a group
+(``torch.distributed.run`` sets ``RANK`` / ``WORLD_SIZE`` /
+``MASTER_ADDR``) joins a gloo group; ranks may share one card.  Four
+ranks are 2 nodes x 2 on ``ring(2)``, every codec and channel as at
+model 1:
 
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 4 -m repro_torch.launch.train --arch yi-9b --reduced
 
-The reference sizes its node axis to half its devices, because its node
-spans a 2-way model axis; the port's node is one replica on one device,
-and a node over more than one card (the model axis) is ROADMAP queue 1 item
-8 (b).  On a group, rank 0 alone prints, writes ``history.json`` and the
-checkpoints (all N nodes' rows, gathered through the mesh, in the
-reference's format); each rank writes its own telemetry, rank 0 to
-``--telemetry-out`` and rank r to ``<file>.rank<r>``, each counting the link
-bytes its own nodes send and the kernel launches its process made.
+On a group, rank 0 alone prints, writes ``history.json`` and the
+checkpoints (all N nodes' whole parameters, gathered over both axes of the
+mesh, in the reference's format); each rank writes its own telemetry, rank
+0 to ``--telemetry-out`` and rank r to ``<file>.rank<r>``, each counting
+the link bytes its own shards of its nodes send and the kernel launches its
+process made.
 
 Elastic multi-process mode (``repro_torch.runtime``): ``--num-processes N``
 runs the SAME decentralized rounds across N worker processes with
@@ -35,10 +38,10 @@ coordinator-driven membership:
 
 ``--coordinator HOST:PORT --process-id I`` instead runs ONE worker role
 joining an external coordinator.  ``--host-devices`` other than 1 and
-``--jax-distributed`` (a worker's device mesh) are refused, ROADMAP queue 1
-item 8 (b).  ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of
-the training loop into DIR.  ``--device`` is the port's one flag more: the
-card unless it says ``cpu``.
+``--jax-distributed`` (a worker's device mesh, which needs more than one
+card and NCCL) are refused, ROADMAP queue 1 item 8 (b).  ``--profile DIR``
+writes a ``torch.profiler`` Chrome trace of the training loop into DIR.
+``--device`` is the port's one flag more: the card unless it says ``cpu``.
 """
 from __future__ import annotations
 
@@ -57,7 +60,7 @@ from ..data import TokenPipeline, make_lm_tokens
 from .distributed import make_train_job
 from .mesh import NodeMesh, make_group_mesh, make_test_mesh
 
-__all__ = ["make_mesh_for_devices", "main"]
+__all__ = ["make_mesh_for_devices", "mesh_shape", "main"]
 
 
 def _launched_as_rank() -> bool:
@@ -67,14 +70,30 @@ def _launched_as_rank() -> bool:
             and int(os.environ.get("WORLD_SIZE", "1")) > 1)
 
 
+def mesh_shape(world: int) -> tuple:
+    """The reference's ``(data, model)`` grid for ``world`` devices:
+    ``data = max(1, world // 2)``, ``model = world // data``.  The port has
+    no idle ranks, so a world the grid does not cover raises."""
+    data = max(1, world // 2)
+    model = world // data
+    if data * model != world:
+        raise ValueError(
+            f"a world of {world} ranks does not lay out as the reference's data x model "
+            f"grid (data = max(1, W // 2) = {data}, model = W // data = {model}: "
+            f"{data * model} ranks); launch an even number of ranks")
+    return data, model
+
+
 def make_mesh_for_devices(device=None) -> NodeMesh:
-    """One node per rank: the gloo group's ranks (joined from the launcher's
-    environment when this process was started as one), else one node on
-    ``device`` (CUDA unless ``"cpu"``)."""
+    """The reference's layout over the gloo group's ranks (joined from the
+    launcher's environment when this process was started as one):
+    :func:`mesh_shape` nodes x model; else one node on ``device`` (CUDA
+    unless ``"cpu"``)."""
     if _launched_as_rank() and not dist.is_initialized():
         dist.init_process_group("gloo")   # env://: MASTER_ADDR, RANK, WORLD_SIZE
     if dist.is_initialized():
-        return make_group_mesh(dist.get_world_size(), device=device)
+        data, model = mesh_shape(dist.get_world_size())
+        return make_group_mesh(data, device=device, model=model)
     return make_test_mesh(1, device=device)
 
 
@@ -221,13 +240,16 @@ def main(argv=None):
 
 
 def _train(args, cfg, mesh: NodeMesh):
-    lead = mesh.rank == 0
+    index = 0 if mesh.model_group is None else mesh.model_group.index
+    rank = mesh.rank * mesh.model + index      # in the group, rank d M + m
+    lead = rank == 0
 
     def say(msg: str) -> None:
         if lead:
             print(msg, flush=True)
 
-    say(f"[train] arch={cfg.name} mesh={{'nodes': {mesh.n_nodes}, 'world': {mesh.world}}}")
+    say(f"[train] arch={cfg.name} "
+        f"mesh={dict(zip(mesh.axis_names, mesh.devices.shape))}")
     job = make_train_job(
         cfg, mesh, algorithm=args.algorithm, tau=args.tau,
         lr=args.lr, alpha=args.alpha, gossip=args.gossip,
@@ -236,7 +258,7 @@ def _train(args, cfg, mesh: NodeMesh):
     )
     n = job.n_nodes
     rl = job.round_len  # batches per round (1 for every-step methods)
-    say(f"[train] {n} decentralized nodes (world {mesh.world} on {mesh.device}), "
+    say(f"[train] {n} decentralized nodes ({job.profile.name} profile), "
         f"algorithm={args.algorithm}, round_len={rl}")
     if args.global_batch % max(n, 1):
         raise SystemExit(f"global batch {args.global_batch} not divisible by {n} nodes")
@@ -287,13 +309,13 @@ def _train(args, cfg, mesh: NodeMesh):
                 say(f"[train] round {r+1:4d}/{args.steps}  loss={loss:.4f}  "
                     f"({(time.time()-t0)/(r+1):.2f}s/round)")
             if args.out and args.ckpt_every and (r + 1) % args.ckpt_every == 0:
-                params = mesh.full(state.params)   # every rank takes part
+                params = job.full(state.params)   # every rank takes part
                 if ckpt is not None:
                     ckpt.save(r + 1, params, {"loss": loss})
                 del params
     if tel is not None:
         tel.record_kernel_launches()
-        path = args.telemetry_out if lead else f"{args.telemetry_out}.rank{mesh.rank}"
+        path = args.telemetry_out if lead else f"{args.telemetry_out}.rank{rank}"
         n_rec = tel.export_jsonl(path)
         print(f"[train] telemetry: {n_rec} records -> {path}", flush=True)
     if args.out and lead:

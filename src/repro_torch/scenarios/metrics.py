@@ -35,7 +35,11 @@ NodeMesh`) the state and the round context hold this rank's rows, and every
 sum over nodes is completed by ``mesh.all_reduce_sum``: the active mean
 x̄, the squared distances, the residuals, the ages and send masks.  The
 spectral gap takes all of W_t and the active mask, gathered by
-``mesh.full``.  Every rank gets the same values.
+``mesh.full``.  On a model axis (``shard_dims``: each parameter leaf's
+model-sharded dim, or None) a rank holds shards: the sums over a node's
+leaves add the shards over the model group in rank order, each replicated
+leaf once, as the engine's ``v_norm`` does, before the sum over nodes.
+Every rank gets the same values.
 """
 from __future__ import annotations
 
@@ -74,6 +78,19 @@ def _sum(x: torch.Tensor, mesh) -> torch.Tensor:
     return x if mesh is None else mesh.all_reduce_sum(x)
 
 
+def _leaves(values, dims, mesh):
+    """Σ of per-leaf values (0-d tensors, in the order ``dims`` lists the
+    leaves) over a whole node: this rank's values, on a model axis summed
+    over the group with each replicated leaf counted once."""
+    group = None if mesh is None else mesh.model_group
+    if group is None or dims is None:
+        return sum(values)
+    total = sum(v for v, d in zip(values, dims) if d is not None or group.index == 0)
+    if not torch.is_tensor(total):
+        total = torch.zeros((), dtype=torch.float32, device=mesh.device)
+    return group.all_reduce(total)
+
+
 def _weights(n: int, active: Optional[torch.Tensor], device, mesh=None):
     """(a, k): the fp32 active mask of these rows and max(|a|, 1) over all."""
     a = (torch.ones(n, dtype=torch.float32, device=device) if active is None
@@ -81,7 +98,8 @@ def _weights(n: int, active: Optional[torch.Tensor], device, mesh=None):
     return a, torch.clamp(_sum(a.sum(), mesh), min=1.0)
 
 
-def masked_consensus(tree: Tree, active: Optional[torch.Tensor], mesh=None) -> torch.Tensor:
+def masked_consensus(tree: Tree, active: Optional[torch.Tensor], mesh=None,
+                     shard_dims=None) -> torch.Tensor:
     """Σ_{i active} ||x_i - x̄_active||² over the whole tree."""
     leaves = tree_leaves(tree)
     n = leaves[0].shape[0]
@@ -93,7 +111,7 @@ def masked_consensus(tree: Tree, active: Optional[torch.Tensor], mesh=None) -> t
         d = (xf - mean[None]) * a[:, None]
         return torch.sum(d * d)
 
-    return _sum(sum(one(x) for x in leaves), mesh)
+    return _sum(_leaves([one(x) for x in leaves], shard_dims, mesh), mesh)
 
 
 def tracking_buffer(state, name: Optional[str]) -> Optional[Tree]:
@@ -109,6 +127,7 @@ def tracking_error(
     grad_at_mean: Optional[Callable[[Tree], Tree]] = None,
     buffer_name: Optional[str] = None,
     mesh=None,
+    shard_dims=None,
 ) -> torch.Tensor:
     """Σ_{i active} ||b_i − g*||² of the declared buffer (NaN when the
     algorithm declares none).  ``grad_at_mean`` maps the node-mean params
@@ -127,11 +146,11 @@ def tracking_error(
         ref = [r.float().reshape(-1) for r in tree_leaves(grad_at_mean(xbar))]
     else:
         ref = [_sum(a @ x.float().reshape(n, -1), mesh) / k for x in leaves]
-    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    parts = []
     for x, r in zip(leaves, ref):
         d = (x.float().reshape(n, -1) - r[None]) * a[:, None]
-        total = total + torch.sum(d * d)
-    return _sum(total, mesh)
+        parts.append(torch.sum(d * d))
+    return _sum(_leaves(parts, shard_dims, mesh), mesh)
 
 
 def effective_spectral_gap(w: torch.Tensor, active: Optional[torch.Tensor]) -> torch.Tensor:
@@ -151,7 +170,7 @@ def effective_spectral_gap(w: torch.Tensor, active: Optional[torch.Tensor]) -> t
 
 
 def replica_drift(state, comm_buffers: Optional[Sequence[str]] = None,
-                  mesh=None) -> torch.Tensor:
+                  mesh=None, shard_dims=None) -> torch.Tensor:
     """Σ ||b − x̂||² between each gossiped buffer and its channel replica
     (the ``"hat"`` wire entries, matched to ``comm_buffers`` by position);
     NaN for channels without replicas.  A replicated wire's replica is
@@ -159,7 +178,7 @@ def replica_drift(state, comm_buffers: Optional[Sequence[str]] = None,
     comp = getattr(state, "comp", None)
     if comp is None or comm_buffers is None:
         return _nan(tree_leaves(state.params)[0].device)
-    total = None
+    parts, dims = [], []
     for name, wire in zip(comm_buffers, comp.wire):
         if not isinstance(wire, dict) or wire.get("hat") is None:
             continue
@@ -169,8 +188,11 @@ def replica_drift(state, comm_buffers: Optional[Sequence[str]] = None,
         hat = wire["hat"] if mesh is None else mesh.rows(wire["hat"])
         for b, h in zip(tree_leaves(buf), tree_leaves(hat)):
             d = b.float() - h.float()
-            total = torch.sum(d * d) + (0.0 if total is None else total)
-    return _nan(tree_leaves(state.params)[0].device) if total is None else _sum(total, mesh)
+            parts.append(torch.sum(d * d))
+        dims += list(shard_dims) if shard_dims is not None else []
+    if not parts:
+        return _nan(tree_leaves(state.params)[0].device)
+    return _sum(_leaves(parts, dims if shard_dims is not None else None, mesh), mesh)
 
 
 def _node_mean(v: torch.Tensor, mesh) -> torch.Tensor:
@@ -204,21 +226,24 @@ def make_stream_fn(
     comm_buffers: Optional[Sequence[str]] = None,
     spectral_gap: bool = True,
     mesh=None,
+    shard_dims=None,
 ):
     """The per-round stream function ``(state, ctx) -> dict`` of 0-d fp32
     tensors, one per :data:`STREAM_FIELDS` entry.
 
     ``spectral_gap=False`` leaves that field out, for callers that compute
     it for a whole chunk of rounds in one batched call.  With a ``mesh`` the
-    state and ``ctx`` hold this rank's rows (module docstring)."""
+    state and ``ctx`` hold this rank's rows, and with ``shard_dims`` its
+    shards (module docstring)."""
 
     def stream(state, ctx) -> dict:
         active = ctx.active
         leaf = tree_leaves(state.params)[0]
         n, dev = leaf.shape[0], leaf.device
         out = {
-            "consensus": masked_consensus(state.params, active, mesh),
-            "tracking_err": tracking_error(state, active, grad_at_mean, buffer_name, mesh),
+            "consensus": masked_consensus(state.params, active, mesh, shard_dims),
+            "tracking_err": tracking_error(state, active, grad_at_mean, buffer_name, mesh,
+                                           shard_dims),
         }
         if spectral_gap:
             if ctx.w is None:
@@ -234,10 +259,15 @@ def make_stream_fn(
         out["active_nodes"] = (_sum(active.float().sum(), mesh) if active is not None
                                else torch.tensor(float(n if mesh is None else mesh.n_nodes),
                                                  device=dev))
-        residual = compression_error(state)
-        out["compression_err"] = (_sum(residual, mesh) if _wire_entries(state, "res")
-                                  else residual)
-        out["replica_drift"] = replica_drift(state, comm_buffers, mesh)
+        residuals = _wire_entries(state, "res")
+        if residuals and shard_dims is not None:
+            residual = _leaves([torch.sum(leaf.float() ** 2) for tree in residuals
+                                for leaf in tree_leaves(tree)],
+                               list(shard_dims) * len(residuals), mesh)
+        else:
+            residual = compression_error(state)
+        out["compression_err"] = _sum(residual, mesh) if residuals else residual
+        out["replica_drift"] = replica_drift(state, comm_buffers, mesh, shard_dims)
         out["staleness"] = staleness(state, mesh)
         out["send_rate"] = send_rate(state, mesh)
         return out

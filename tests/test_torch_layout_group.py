@@ -34,10 +34,11 @@ job.
     show its movements (tp: all-reduces; fsdp: all-gathers and
     reduce-scatters).
   * A 2-rank group (1 node x model 2): every ``ALGORITHMS`` entry takes one
-    fused step under each profile, and every refusal of a model axis (the
-    '2d' profile; a codec, a CHOCO and an async channel; a scenario) raises
-    naming ROADMAP queue 1 item 8 (b).  tp over the MoE, Mamba-2 and RWKV
-    blocks and HuBERT's encoder is ``test_torch_layout_blocks.py``'s.
+    fused step under each profile, and the one refusal of a model axis (the
+    '2d' profile) raises naming ROADMAP queue 1 item 8 (b).  tp over the
+    MoE, Mamba-2 and RWKV blocks and HuBERT's encoder is
+    ``test_torch_layout_blocks.py``'s; codecs, channels and scenarios on a
+    model axis are ``test_torch_layout_codecs.py``'s.
 
 Each group initializes from a ``FileStore`` under the test's temporary
 directory; every process and the whole group have deadlines of their own,
@@ -75,13 +76,10 @@ HYPER = dict(tau=TAU, lr=1e-2, alpha=0.1)
 PROFILE_NAMES = ("tp", "fsdp")
 ALGORITHM_NAMES = ("dlsgd", "dse_mvr", "dse_sgd", "dsgd", "gt_dsgd", "gt_hsgd", "pd_sgdm",
                    "slowmo_d")
-# refusal case -> make_train_job keywords
+# refusal case -> make_train_job keywords (codecs, channels and scenarios
+# on a model axis are test_torch_layout_codecs.py's)
 REFUSALS = {
     "2d": dict(profile="2d"),
-    "qsgd": dict(profile="tp", compression="qsgd"),
-    "choco": dict(profile="fsdp", channel="choco", compression="top_k:0.1"),
-    "async": dict(profile="tp", channel="async:2"),
-    "scenario": dict(profile="fsdp", scenario="dropout_ring"),
 }
 PROCESS_DEADLINE = 240     # s, one rank process
 GROUP_DEADLINE = 300       # s, a whole group

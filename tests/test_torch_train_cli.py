@@ -18,11 +18,18 @@ rtol 5e-3 / atol 1e-4 (``tests/test_distributed.py``), but for CHOCO's
 parameters after round 2, where near-ties at the top-k cut make the two
 packages keep a few other entries (``CHOCO_ROUND2_SHARE``).
 
-The port's own paths: a 2-rank gloo group launched by
-``torch.distributed.run`` gives world 1's losses and checkpoint on 2 nodes
-bit for bit, with a telemetry file a rank; the flags of a worker's device
-mesh are refused, naming ROADMAP queue 1 item 8 (b); ``--num-processes``
-and ``--coordinator`` reach the elastic runtime.
+The reference's layout: ``make_mesh_for_devices`` lays W ranks out as
+``(max(1, W // 2), W // data)`` nodes x model and refuses a world the grid
+leaves ranks of; 8 gloo ranks launched by ``torch.distributed.run`` (this
+file each rank's script, starting from the reference's initial parameters)
+train 4 nodes x a model axis of 2 under Yi-9B's default fsdp profile, print
+the reference's mesh line, and hold the reference's 8-device run in the
+same band (losses, and rank 0's checkpoint of all 4 nodes, CHOCO's after
+round 2 as ``CHOCO_ROUND2_SHARE`` says); each rank's telemetry counts the
+link bytes its shards send, which together are the documented count
+(``compression/gossip.py``).  The flags of a worker's device mesh are
+refused, naming ROADMAP queue 1 item 8 (b); ``--num-processes`` and
+``--coordinator`` reach the elastic runtime.
 """
 import json
 import os
@@ -155,46 +162,109 @@ def test_checkpointed_parameters_match_the_reference(runs, tag, step):
         f"step_{s:010d}" for s in range(every, 3, every)]
 
 
-GROUP_FLAGS = ["--arch", "yi_9b", "--reduced", "--steps", "2", "--tau", "2", "--use-fused",
-               "--seq-len", "16", "--global-batch", "4", "--lr", "0.05", "--ckpt-every", "2",
-               "--device", "cpu"]
+GROUP_RANKS = 8
 
 
-def test_two_gloo_ranks_are_world_one_bit_for_bit(tmp_path, monkeypatch):
-    """``torch.distributed.run`` starts 2 ranks, one node each on ring(2);
-    world 1 with the same 2 nodes in one process gives the same losses and
-    checkpoint, bit for bit.  Each rank writes its telemetry, whose link
-    bytes together are world 1's."""
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+@pytest.fixture(scope="module")
+def group_runs(runs, tmp_path_factory):
+    """Each run of the module at the reference's layout: 8 gloo ranks, 4
+    nodes x model 2, from the reference's initial parameters."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO / "src"), str(REPO / "tests")]),
+               OMP_NUM_THREADS="1")
     for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
         env.pop(k, None)
-    group = tmp_path / "group"
-    out = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
-         "-m", "repro_torch.launch.train", *GROUP_FLAGS, "--out", str(group),
-         "--telemetry-out", str(group / "tel.jsonl")],
-        env=env, capture_output=True, text=True, timeout=DEADLINE)
-    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
-    assert "2 decentralized nodes (world 2 on cpu)" in out.stdout
+    tmp = tmp_path_factory.mktemp("cli_group")
+    out = {}
+    for tag, extra in RUNS.items():
+        d = tmp / tag
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             str(GROUP_RANKS), __file__, str(runs["ref"] / "init"), str(d / "shard_dims.json"),
+             "--device", "cpu", *FLAGS, *extra, "--out", str(d), "--telemetry-out",
+             str(d / "tel.jsonl")],
+            env=env, capture_output=True, text=True, timeout=DEADLINE)
+        assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+        out[tag] = {"dir": d, "stdout": proc.stdout}
+    return out
 
-    monkeypatch.setattr(train, "make_mesh_for_devices",
-                        lambda device=None: make_test_mesh(2, device="cpu"))
-    one = tmp_path / "one"
-    train.main(GROUP_FLAGS + ["--out", str(one), "--telemetry-out", str(one / "tel.jsonl")])
-    assert (json.loads((group / "history.json").read_text())[-1]["loss"]
-            == json.loads((one / "history.json").read_text())[-1]["loss"])
-    for a, b in zip(tree_leaves(load_checkpoint(str(group / "ckpt"), device="cpu")[0]),
-                    tree_leaves(load_checkpoint(str(one / "ckpt"), device="cpu")[0])):
-        assert a.shape[0] == 2 and torch.equal(a, b)
 
-    def link_bytes(path):
-        recs = [json.loads(line) for line in Path(path).read_text().splitlines()]
-        return sum(r["value"] for r in recs
-                   if r["event"] == "sample" and r["stream"] == "link_bytes")
+def _link_bytes(path):
+    recs = [json.loads(line) for line in Path(path).read_text().splitlines()]
+    return sum(r["value"] for r in recs if r["event"] == "sample" and r["stream"] == "link_bytes")
 
-    ranks = [group / "tel.jsonl", group / "tel.jsonl.rank1"]
-    assert link_bytes(ranks[0]) == link_bytes(ranks[1]) > 0
-    assert sum(map(link_bytes, ranks)) == link_bytes(one / "tel.jsonl")
+
+@pytest.mark.parametrize("tag", sorted(RUNS))
+def test_the_reference_layout_holds_the_reference_run(runs, group_runs, tag):
+    """8 ranks are the reference's 4 nodes x model 2: its mesh line, its
+    losses and its checkpoints in the band (CHOCO's after round 2 as
+    ``CHOCO_ROUND2_SHARE`` says)."""
+    got_dir = group_runs[tag]["dir"]
+    assert "mesh={'data': 4, 'model': 2}" in group_runs[tag]["stdout"]
+    assert "4 decentralized nodes (fsdp profile)" in group_runs[tag]["stdout"]
+    want = json.loads((runs["ref"] / tag / "history.json").read_text())
+    got = json.loads((got_dir / "history.json").read_text())
+    np.testing.assert_allclose([h["loss"] for h in got], [h["loss"] for h in want], **BAND)
+    every = 1 if tag == "choco" else 2
+    assert sorted(os.listdir(got_dir / "ckpt")) == [
+        f"step_{s:010d}" for s in range(every, 3, every)]
+    for step in range(every, 3, every):
+        g = tree_leaves(load_checkpoint(str(got_dir / "ckpt"), step, device="cpu")[0])
+        w = tree_leaves(load_checkpoint(str(runs["ref"] / tag / "ckpt"), step, device="cpu")[0])
+        assert len(g) == len(w) > 0
+        for a, b in zip(g, w):
+            assert a.shape == b.shape and a.shape[0] == 4
+            if (tag, step) == ("choco", 2):
+                inside = np.isclose(a.numpy(), b.float().numpy(), **BAND)
+                assert inside.mean() >= CHOCO_ROUND2_SHARE, inside.mean()
+            else:
+                np.testing.assert_allclose(a.numpy(), b.float().numpy(), **BAND)
+
+
+@pytest.mark.parametrize("tag", sorted(RUNS))
+def test_ranks_link_bytes_add_up_to_the_documented_count(group_runs, tag):
+    """Each rank's telemetry counts the link bytes its shards of its nodes
+    send; over the 8 ranks they are the model-1 count plus (M - 1) x the
+    replicated leaves' message bytes a node and buffer, each round (under
+    Yi-9B's fsdp every leaf is sharded: the model-1 count)."""
+    from repro_torch.compression.channels import link_bytes_per_round
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.distributed import make_train_job
+
+    d = group_runs[tag]["dir"]
+    ranks = [d / "tel.jsonl"] + [d / f"tel.jsonl.rank{r}" for r in range(1, GROUP_RANKS)]
+    got = [_link_bytes(p) for p in ranks]
+    assert all(g > 0 for g in got)
+    dims = json.loads((d / "shard_dims.json").read_text())
+    extra = dict(zip(RUNS[tag][::2], RUNS[tag][1::2]))
+    job = make_train_job(get_reduced("yi_9b"), make_test_mesh(4, device="cpu"),
+                         compression=extra.get("--compression"),
+                         channel=extra.get("--channel"), tau=2)
+    params = job.abstract_state.params
+    one = link_bytes_per_round(job.algorithm.comm, params)
+    chan = job.algorithm.comm.resolved_channel()
+    per_node = [torch.empty(p.shape[1:], dtype=p.dtype, device="meta")
+                for p in tree_leaves(params)]
+    rep = {str(j): p for j, (p, dim) in enumerate(zip(per_node, dims)) if dim is None}
+    assert len(dims) == len(per_node)
+    more = 0
+    for i in range(len(job.algorithm.comm.buffers)):
+        c = chan.for_buffer(i) if chan is not None else None
+        msg = (sum(p.numel() * p.element_size() for p in rep.values()) if c is None
+               else c.message_bytes(rep))
+        more += 4 * msg     # 4 nodes, M - 1 = 1
+    assert sum(got) == 2 * (sum(one.values()) + more), (got, one, more)
+
+
+@pytest.mark.parametrize("world,shape", [(1, (1, 1)), (2, (1, 2)), (3, (1, 3)), (4, (2, 2)),
+                                         (8, (4, 2))])
+def test_worlds_lay_out_as_the_reference(world, shape):
+    assert train.mesh_shape(world) == shape
+
+
+@pytest.mark.parametrize("world", [5, 7])
+def test_a_world_the_grid_leaves_ranks_of_is_refused(world):
+    with pytest.raises(ValueError, match="data x model"):
+        train.mesh_shape(world)
 
 
 @pytest.mark.parametrize("flags", [["--host-devices", "2"], ["--jax-distributed"],
@@ -236,3 +306,26 @@ def test_world_one_is_one_node_and_the_card_is_the_default():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train.make_mesh_for_devices()
+
+
+if __name__ == "__main__":
+    # one rank of torch.distributed.run: the CLI from the reference's
+    # initial parameters (argv: their checkpoint dir, a file for the shard
+    # dims, the CLI's flags)
+    from repro_torch.launch import distributed
+
+    init_params = load_checkpoint(sys.argv[1], device="cpu")[0]
+    dims_out = Path(sys.argv[2])
+    init_state, make = TrainJob.init_state, distributed.make_train_job
+
+    def recorded(*a, **kw):
+        job = make(*a, **kw)
+        if os.environ.get("RANK") == "0":
+            dims_out.parent.mkdir(parents=True, exist_ok=True)
+            dims_out.write_text(json.dumps(job.shard_dims))
+        return job
+
+    TrainJob.init_state = lambda self, seed=0, params=None: init_state(self, seed, init_params)
+    train.make_train_job = recorded
+    torch.set_num_threads(1)
+    train.main(sys.argv[3:])
