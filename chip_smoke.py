@@ -311,6 +311,39 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    state equal to the feed's; tx bytes against 4 x ``message_bytes``);
    then ``examples/serve_while_training_torch.py`` (its default size) and
    ``examples/quickstart_torch.py --smoke`` in process, their asserts live;
+4g. the mesh-sharded serve job (``make_serve_job(cfg, mesh)`` on a
+   ``NodeMesh`` of 2 data ranks x a model axis of 2 = 4 gloo ranks on the
+   one card, started by ``python -m torch.distributed.run --standalone
+   --nproc-per-node 4 chip_smoke.py --serve-rank <dir>``, this file each
+   rank's script): Gemma-2 2B (its block unit ``("local", "attn")``, flash
+   at 4 of 8 heads a rank with the window and softcap), RWKV-6 3B
+   (``wkv_chunk`` at 20 of 40 heads), Zamba2-7B (56 of 112 SSM heads, the
+   conv window gathered a decode step, flash at 16 of 32 heads, D 112) and
+   Qwen1.5-MoE-A2.7B (30 of 60 experts, flash at 8 of 16 heads), each at
+   full width on one block unit (``layout_config``), fp32 parameters from a
+   seed, each rank's shard cut from the whole tree; 4 prompts of 512
+   tokens (2 a data rank) through ``prefill_fn`` twice (the second timed),
+   then 8 decode steps through a ``RequestDriver(..., job=job)`` on
+   ``job.decode_fn``.  The group is spawned as phase 4 begins and sets up
+   while phases 4-4f run; its ranks then wait for this phase's ``go``.
+   Model 1 is the one-device job on the whole batch in this process, run
+   before the go: its greedy decode gives the token stream both are fed (a
+   rank's requests are its rows' first token and that stream, teacher
+   forced), so that one flipped token does not carry on.  In bf16 (the
+   job's activations) each rank's logits after the prefill and at every
+   step within ``LAYOUT_FLOOR_TIMES`` times the floor, model 1 against
+   itself with its parameters one fp32 ulp up on the same stream; Zamba2
+   in fp32 activations too, within the band, its greedy tokens model 1's;
+   greedy disagreements printed; every model rank of a data rank the same
+   logits bit for bit; launches by rank exactly (flash once a causal
+   attention layer a prefill call, ``wkv_chunk`` once an RWKV layer, none
+   in a decode step).  The MoE's data ranks queue the whole batch once
+   (one exchange of the per-expert counts a layer), so model 1 is the
+   whole batch for every arch.  Prints prefill tokens/s and
+   ms a decode step by rank, peak memory by rank against model 1's and the
+   model group's bytes a step.  Cuts, no width: one block unit; 8 decode
+   steps, not 16 (the time limit, with every serving path's ``serve.main``
+   and ``RequestDriver`` sizes, ``MAIN_SERVE``);
 5. RWKV-6 3B at full width (32 layers, d 2560, 40 heads of 64, vocab
    65,536; random bf16 weights from a seed): ``prefill_fn`` with
    ``rwkv_chunk=16, rwkv_pallas=True`` on 2 prompts of 8192 tokens, three
@@ -326,7 +359,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 6. a ``{"kernels": [...]}`` line (with each op's phase 3d launches by
    worker, ``elastic_launches``, phase 3e's by process,
    ``sharded_launches``, phase 3f's by run and rank, ``cli_launches``, and
-   phase 3g's by run and rank, ``layout_launches``),
+   phase 3g's by run and rank, ``layout_launches``, and phase 4g's by run
+   and rank, ``serve_layout_launches``),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -501,6 +535,26 @@ LAYOUT_FULL = ("tp_hubert",)
 # the block kinds that run attention (through flash where causal)
 ATTENTION_KINDS = ("attn", "local", "moe", "shared_attn")
 LAYOUT_DEADLINE = 900  # s, a spawned group of phase 3g
+# the mesh-sharded serve job (phase 4g): make_serve_job(cfg, mesh) over
+# SERVE_DATA data ranks x a model axis of SERVE_MODEL gloo ranks on the one
+# card, each model at full width on its first block unit (layout_config:
+# flash at the ranks' heads, wkv_chunk at RWKV-6's), fp32 parameters from
+# SERVE_SEED, a batch of SERVE_BATCH prompts of SERVE_PROMPT tokens (a data
+# rank's half of them) through prefill_fn, then SERVE_STEPS decode steps
+# through a RequestDriver on job.decode_fn; in bf16 activations (the job's)
+# held to LAYOUT_FLOOR_TIMES times the floor of model 1 against itself one
+# fp32 ulp up, and SERVE_FP32's runs in fp32 activations too, held to the
+# band with the greedy tokens equal
+SERVE_ARCHS = ("gemma2-2b", "rwkv6-3b", "zamba2-7b", "qwen2-moe-a2.7b")
+SERVE_DATA, SERVE_MODEL = 2, 2
+# (16 decode steps before: the time limit)
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 512, 8
+SERVE_FP32 = ("zamba2-7b",)   # Mamba-2's conv window gathered a step
+SERVE_SEED = 7
+SERVE_DEADLINE = 600   # s, the spawned group of phase 4g from its go
+# the group starts with phase 4 and sets up while phases 4-4f run here (its
+# ranks then wait for the go of phase 4g: the time limit)
+SERVE_WAIT = 1500      # s, a rank's wait for the go
 # the CLI and the sweep (phase 3f): the example's lm-100m at full width (12
 # layers, d 768, 12 heads on 4 KV heads, d_ff 2048, vocab 16,384, tied;
 # attn_impl "xla", the reference's default, so no flash launch), seq 128,
@@ -526,6 +580,13 @@ CLI_DEADLINE = 600     # s, a spawned group of phase 3f
 CLI_TOKENS: dict = {}  # the CLI's token stream by vocabulary, for the model-1 twins
 # the LM serving path: Gemma-2 2B at full width, prompts of its 8192 context
 LM_ARCH, LM_BATCH, LM_SEQ = "gemma2-2b", 2, 8192
+# every full-width serving path's serve.main and RequestDriver (phases 4-5):
+# serve.main of MAIN_SERVE = (requests, prompt tokens, new tokens); a 4-slot
+# driver of 8 requests of DRIVER_PROMPTS = (fewest, most) prompt tokens and
+# DRIVER_NEW new ones.  Cut for the time limit (8 x 128 + 32 for
+# Gemma-2 and RWKV-6 and 4 x 64 + 16 for the rest before; the drivers'
+# prompts 16-96 or 16-48 tokens and 16 new ones): host-bound decode loops
+MAIN_SERVE, DRIVER_PROMPTS, DRIVER_NEW = (4, 16, 8), (4, 12), 8
 # fp32 flash_attention and rms_norm vs plain: other summation orders, the
 # hardware's rsqrt; bf16 within one bf16 ulp beyond that
 ATT_RTOL = ATT_ATOL = 1e-5
@@ -553,6 +614,11 @@ FLASH_CASES = (
     # and tp's heads of Qwen1.5-MoE and of Zamba2's shared attention
     ("qwen2_moe_tp", 1, 8, 8, 2048, 128, None, None),
     ("zamba2_tp", 1, 16, 16, 1024, 112, None, None),
+    # phase 4g's ranks: a data rank's 2 prompts at the model rank's heads
+    ("gemma2_serve_tp", 2, 4, 2, 512, 256, None, 50.0),
+    ("gemma2_serve_tp_local", 2, 4, 2, 512, 256, 4096, 50.0),
+    ("qwen2_moe_serve_tp", 2, 8, 8, 512, 128, None, None),
+    ("zamba2_serve_tp", 2, 16, 16, 512, 112, None, None),
 )
 # the kernels of a traced prefill by name: the bf16 attention kernel, and
 # the GEMMs by the substrings of cuBLAS's and CUTLASS's kernel names
@@ -1330,10 +1396,17 @@ def check_attention_kernels(api, bw) -> dict:
     torch.cuda.empty_cache()
 
     # untimed: fp32 at S=1024 and ragged lengths, Gemma-2's and Yi's heads,
-    # and the fp32 ranks of phase 3g (tp Qwen1.5-MoE's and Zamba2's shared
-    # attention's heads)
+    # the fp32 ranks of phase 3g (tp Qwen1.5-MoE's and Zamba2's shared
+    # attention's heads), and phase 4g's model 1 (the whole batch) and its
+    # Zamba2 fp32 ranks
     fp32_err, bf16_err = 0.0, 0.0
     for b, h, kh, s, d, window, cap, dtype in (
+        (4, 8, 4, 512, 256, None, 50.0, torch.bfloat16),
+        (4, 8, 4, 512, 256, 4096, 50.0, torch.bfloat16),
+        (4, 16, 16, 512, 128, None, None, torch.bfloat16),
+        (4, 32, 32, 512, 112, None, None, torch.bfloat16),
+        (4, 32, 32, 512, 112, None, None, torch.float32),
+        (2, 16, 16, 512, 112, None, None, torch.float32),
         (1, 8, 4, 1024, 256, 256, 50.0, torch.float32),
         (1, 32, 4, 1024, 128, None, None, torch.float32),
         (2, 8, 4, 1000, 256, 400, 50.0, torch.float32),
@@ -1610,35 +1683,32 @@ def serving_path(api) -> list:
     torch.cuda.empty_cache()
 
     # 4. the serving CLI and continuous batching
-    out = serve.main(["--arch", LM_ARCH, "--requests", "8", "--prompt-len", "128",
-                      "--new-tokens", "32"])
+    out = serve.main(main_serve_args(LM_ARCH))
     assert out["finite"], "serve.main: non-finite logits"
     print(f"serve.main: decode {out['decode_ms_per_step']:.2f} ms/step, "
           f"{out['tokens_per_s']:.1f} tokens/s, prefill {out['prefill_s']:.2f} s, "
           f"finite logits {out['finite']}")
     torch.cuda.empty_cache()
     params = job.init_params(0)
-    rng = torch.Generator().manual_seed(4)
-    requests = [(torch.randint(0, cfg.vocab_size, (int(n),), generator=rng).tolist(), 16)
-                for n in torch.randint(16, 97, (8,), generator=rng)]
-    driver = RequestDriver(model, slots=4, max_len=96 + 16, dtype=torch.bfloat16,
-                           decode_fn=job.decode_fn, device=job.device)
+    requests = driver_requests(cfg, 4)
+    driver = RequestDriver(model, slots=4, max_len=DRIVER_PROMPTS[1] + DRIVER_NEW,
+                           dtype=torch.bfloat16, decode_fn=job.decode_fn, device=job.device)
     res = driver.run(params, requests)
     outs = res["outputs"]
-    ok = all(len(o) == 16 and 0 <= int(o.min()) and int(o.max()) < cfg.vocab_size
+    ok = all(len(o) == DRIVER_NEW and 0 <= int(o.min()) and int(o.max()) < cfg.vocab_size
              for o in outs.values())
     assert res["completed"] == 8 and ok, res
     print(f"serve RequestDriver(slots=4) 8 requests: {res['steps']} steps, "
           f"{res['elapsed_s'] / res['steps'] * 1e3:.2f} ms/step, "
           f"{res['tokens_per_sec']:.1f} tokens/s, {res['requests_per_sec']:.2f} requests/s, "
-          f"every output 16 tokens in the vocabulary: {ok}")
+          f"every output {DRIVER_NEW} tokens in the vocabulary: {ok}")
     # the same driver with a hub (fenced serve/admit and serve/decode spans)
     # and serving metrics: the same tokens
     hub = Telemetry(config={"arch": LM_ARCH, "slots": 4})
     metrics = ServingMetrics((1,), telemetry=hub)
-    driver = RequestDriver(model, slots=4, max_len=96 + 16, dtype=torch.bfloat16,
-                           decode_fn=job.decode_fn, device=job.device, telemetry=hub,
-                           metrics=metrics)
+    driver = RequestDriver(model, slots=4, max_len=DRIVER_PROMPTS[1] + DRIVER_NEW,
+                           dtype=torch.bfloat16, decode_fn=job.decode_fn, device=job.device,
+                           telemetry=hub, metrics=metrics)
     got = driver.run(params, requests)
     for i, o in outs.items():
         assert np.array_equal(got["outputs"][i], o), f"request {i}: tokens differ with a hub"
@@ -1699,10 +1769,25 @@ def dropped(routes: list) -> list:
     return [int((~keep).sum()) for _, keep in routes]
 
 
+def main_serve_args(arch: str) -> list:
+    """``serve.main``'s flags on a full-width serving path (MAIN_SERVE)."""
+    n, prompt, new = MAIN_SERVE
+    return ["--arch", arch, "--requests", str(n), "--prompt-len", str(prompt),
+            "--new-tokens", str(new)]
+
+
+def driver_requests(cfg, seed: int) -> list:
+    """A serving path's 8 driver requests: DRIVER_PROMPTS prompt tokens and
+    DRIVER_NEW new ones each, drawn from ``seed``."""
+    rng = torch.Generator().manual_seed(seed)
+    return [(torch.randint(0, cfg.vocab_size, (int(n),), generator=rng).tolist(), DRIVER_NEW)
+            for n in torch.randint(DRIVER_PROMPTS[0], DRIVER_PROMPTS[1] + 1, (8,), generator=rng)]
+
+
 def serve_and_drive(cfg, job, arch: str, seed: int) -> None:
     """``serve.main`` at full width (fp32 parameters, freed after), then a
     4-slot bf16 ``RequestDriver`` of 8 requests through ``job.decode_fn``:
-    every output 16 tokens in the vocabulary."""
+    every output DRIVER_NEW tokens in the vocabulary."""
     from repro_torch.launch import serve
     from repro_torch.serving import RequestDriver
 
@@ -1710,8 +1795,7 @@ def serve_and_drive(cfg, job, arch: str, seed: int) -> None:
     print(f"device memory allocated before serve.main {arch}: "
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     torch.cuda.reset_peak_memory_stats()
-    out = serve.main(["--arch", arch, "--requests", "4", "--prompt-len", "64",
-                      "--new-tokens", "16"])
+    out = serve.main(main_serve_args(arch))
     assert out["finite"], "serve.main: non-finite logits"
     print(f"serve.main {arch}: decode {out['decode_ms_per_step']:.2f} ms/step, "
           f"{out['tokens_per_s']:.1f} tokens/s, prefill {out['prefill_s']:.2f} s, "
@@ -1719,19 +1803,17 @@ def serve_and_drive(cfg, job, arch: str, seed: int) -> None:
           f"{out['finite']}")
     torch.cuda.empty_cache()
     params = job.init_params(0)
-    rng = torch.Generator().manual_seed(seed)
-    requests = [(torch.randint(0, cfg.vocab_size, (int(n),), generator=rng).tolist(), 16)
-                for n in torch.randint(16, 49, (8,), generator=rng)]
-    driver = RequestDriver(job.model, slots=4, max_len=48 + 16, dtype=torch.bfloat16,
-                           decode_fn=job.decode_fn, device=job.device)
+    requests = driver_requests(cfg, seed)
+    driver = RequestDriver(job.model, slots=4, max_len=DRIVER_PROMPTS[1] + DRIVER_NEW,
+                           dtype=torch.bfloat16, decode_fn=job.decode_fn, device=job.device)
     res = driver.run(params, requests)
-    ok = all(len(o) == 16 and 0 <= int(o.min()) and int(o.max()) < cfg.vocab_size
+    ok = all(len(o) == DRIVER_NEW and 0 <= int(o.min()) and int(o.max()) < cfg.vocab_size
              for o in res["outputs"].values())
     assert res["completed"] == 8 and ok, res
     print(f"serve {cfg.name} RequestDriver(slots=4) 8 requests: {res['steps']} steps, "
           f"{res['elapsed_s'] / res['steps'] * 1e3:.2f} ms/step, "
           f"{res['tokens_per_sec']:.1f} tokens/s, {res['requests_per_sec']:.2f} requests/s, "
-          f"every output 16 tokens in the vocabulary: {ok}")
+          f"every output {DRIVER_NEW} tokens in the vocabulary: {ok}")
     del params, driver
     torch.cuda.empty_cache()
 
@@ -2759,25 +2841,39 @@ def check_wkv_kernel(api, bw) -> dict:
           f"plain_ms={row['plain_ms']:.4f} (per-token) library_ms=None; group of "
           f"{row['group']} chunks; by pass (CUPTI, median of {WKV_PASS_CALLS} calls) "
           + json.dumps({k_: round(v_, 4) for k_, v_ in row["pass_ms"].items()}))
-    # a tp rank's share of phase 3g's RWKV-6 3B layer (WKV_TP_SHAPE)
-    b, s, h = WKV_TP_SHAPE
-    x = [t[:b, :s, :h].contiguous() for t in (r, k, v, logw)]
-    (y, st), (y_want, st_want) = kernel(x), plain_chunked(x)
-    torch.testing.assert_close(y, y_want, rtol=WKV_TOL, atol=WKV_TOL)
-    torch.testing.assert_close(st, st_want, rtol=WKV_TOL, atol=WKV_TOL)
-    case = {"case": "rwkv6_tp", "shape": [b, s, h, p],
-            "max_abs_err": float((y - y_want).abs().max())}
-    del y, st, y_want, st_want
-    case["ms"], case["plain_chunked_ms"] = abba_ms(lambda: kernel(x), lambda: plain_chunked(x))
-    n_bytes = (3 * x[0].numel() * x[0].element_size() + 2 * x[0].numel() * 4
-               + b * h * p * p * 4)
-    flops = b * h * (s // WKV_CHUNK) * (2 * WKV_CHUNK * (WKV_CHUNK - 1) * p
-                                        + 4 * WKV_CHUNK * p * p)
-    case["bound_ms"] = max(n_bytes / bw, flops / FP32_PEAK_FLOPS) * 1e3
-    row["cases"] = [case]
-    print(f"kernel wkv_chunk rwkv6_tp (B={b}, S={s}, H={h}): ms={case['ms']:.4f} "
-          f"bound_ms={case['bound_ms']:.4f} plain_chunked_ms={case['plain_chunked_ms']:.4f} "
-          f"max_abs_err={case['max_abs_err']:.3g}")
+    # a tp rank's share of phase 3g's RWKV-6 3B layer (WKV_TP_SHAPE) and of
+    # phase 4g's (a data rank's 2 prompts of SERVE_PROMPT tokens), timed;
+    # phase 4g's model 1 (all 4 prompts, every head), untimed
+    row["cases"] = []
+    s4 = SERVE_PROMPT
+    for label, x in (
+            ("rwkv6_tp", [t[:WKV_TP_SHAPE[0], :WKV_TP_SHAPE[1], :WKV_TP_SHAPE[2]].contiguous()
+                          for t in (r, k, v, logw)]),
+            ("rwkv6_serve_tp", [t[:, :s4, :h // 2].contiguous() for t in (r, k, v, logw)]),
+            ("rwkv6_serve", [torch.cat([t[:, :s4], t[:, s4:2 * s4]]) for t in (r, k, v, logw)])):
+        b, s, h_x = x[0].shape[:3]
+        (y, st), (y_want, st_want) = kernel(x), plain_chunked(x)
+        torch.testing.assert_close(y, y_want, rtol=WKV_TOL, atol=WKV_TOL)
+        torch.testing.assert_close(st, st_want, rtol=WKV_TOL, atol=WKV_TOL)
+        err = float((y - y_want).abs().max())
+        del y, st, y_want, st_want
+        if label == "rwkv6_serve":
+            print(f"kernel wkv_chunk {label} (B={b}, S={s}, H={h_x}): against the plain chunked "
+                  f"form within {WKV_TOL}, max_abs_err={err:.3g} (untimed)")
+            continue
+        case = {"case": label, "shape": [b, s, h_x, p], "max_abs_err": err}
+        case["ms"], case["plain_chunked_ms"] = abba_ms(lambda: kernel(x),
+                                                       lambda: plain_chunked(x))
+        n_bytes = (3 * x[0].numel() * x[0].element_size() + 2 * x[0].numel() * 4
+                   + b * h_x * p * p * 4)
+        flops = b * h_x * (s // WKV_CHUNK) * (2 * WKV_CHUNK * (WKV_CHUNK - 1) * p
+                                              + 4 * WKV_CHUNK * p * p)
+        case["bound_ms"] = max(n_bytes / bw, flops / FP32_PEAK_FLOPS) * 1e3
+        row["cases"].append(case)
+        print(f"kernel wkv_chunk {label} (B={b}, S={s}, H={h_x}): ms={case['ms']:.4f} "
+              f"bound_ms={case['bound_ms']:.4f} "
+              f"plain_chunked_ms={case['plain_chunked_ms']:.4f} "
+              f"max_abs_err={case['max_abs_err']:.3g}")
     del r, k, v, logw, x
     torch.cuda.empty_cache()
     return row
@@ -2936,27 +3032,24 @@ def rwkv_serving_path(api) -> list:
     torch.cuda.empty_cache()
 
     # 4. the serving CLI and continuous batching
-    out = serve.main(["--arch", RWKV_ARCH, "--requests", "8", "--prompt-len", "128",
-                      "--new-tokens", "32"])
+    out = serve.main(main_serve_args(RWKV_ARCH))
     assert out["finite"], "serve.main: non-finite logits"
     print(f"serve.main {RWKV_ARCH}: decode {out['decode_ms_per_step']:.2f} ms/step, "
           f"{out['tokens_per_s']:.1f} tokens/s, prefill {out['prefill_s']:.2f} s, "
           f"finite logits {out['finite']}")
     torch.cuda.empty_cache()
     params = job.init_params(0)
-    rng = torch.Generator().manual_seed(7)
-    requests = [(torch.randint(0, cfg.vocab_size, (int(n),), generator=rng).tolist(), 16)
-                for n in torch.randint(16, 97, (8,), generator=rng)]
-    driver = RequestDriver(model, slots=4, max_len=96 + 16, dtype=torch.bfloat16,
-                           decode_fn=job.decode_fn, device=job.device)
+    requests = driver_requests(cfg, 7)
+    driver = RequestDriver(model, slots=4, max_len=DRIVER_PROMPTS[1] + DRIVER_NEW,
+                           dtype=torch.bfloat16, decode_fn=job.decode_fn, device=job.device)
     res = driver.run(params, requests)
-    ok = all(len(o) == 16 and 0 <= int(o.min()) and int(o.max()) < cfg.vocab_size
+    ok = all(len(o) == DRIVER_NEW and 0 <= int(o.min()) and int(o.max()) < cfg.vocab_size
              for o in res["outputs"].values())
     assert res["completed"] == 8 and ok, res
     print(f"serve {cfg.name} RequestDriver(slots=4) 8 requests: {res['steps']} steps, "
           f"{res['elapsed_s'] / res['steps'] * 1e3:.2f} ms/step, "
           f"{res['tokens_per_sec']:.1f} tokens/s, {res['requests_per_sec']:.2f} requests/s, "
-          f"every output 16 tokens in the vocabulary: {ok}")
+          f"every output {DRIVER_NEW} tokens in the vocabulary: {ok}")
     del params, driver
     torch.cuda.empty_cache()
     return runs
@@ -4502,6 +4595,306 @@ def layout_codec_check(run: str, one: dict, ranks: list, smi: str) -> None:
           f"same on both model ranks of a node" + line)
 
 
+def serve_runs() -> list:
+    """Phase 4g's runs: (arch, activations) in order."""
+    return [(arch, act) for arch in SERVE_ARCHS
+            for act in (("bf16", "fp32") if arch in SERVE_FP32 else ("bf16",))]
+
+
+def serve_prompts(cfg) -> torch.Tensor:
+    """Phase 4g's prompts, drawn on the card from SERVE_SEED: the same in
+    this process and in every rank."""
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED)
+    return torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
+                         device="cuda")
+
+
+@contextlib.contextmanager
+def fp32_serving(on: bool):
+    """``Model.prefill`` and ``Model.decode_step`` in fp32 activations
+    whatever dtype the job asks for (``on``), else as they are."""
+    from repro_torch.models import Model
+
+    prefill, decode = Model.prefill, Model.decode_step
+    if on:
+        Model.prefill = lambda self, p, b, dtype=None, tp=None, data=None: prefill(
+            self, p, b, torch.float32, tp, data)
+        Model.decode_step = lambda self, p, c, t, pos, dtype=None, tp=None, data=None: decode(
+            self, p, c, t, pos, torch.float32, tp, data)
+    try:
+        yield
+    finally:
+        Model.prefill, Model.decode_step = prefill, decode
+
+
+def serve_prefill(api, job, params, prompts) -> dict:
+    """Phase 4g's prefill on ``job`` (a rank's or model 1's) of its data
+    rank's rows of ``prompts``: a first call, then a timed one (fenced);
+    the last-token logits (rows, V), tokens/s, the launches of the two
+    calls and the peak memory."""
+    batch = job.local_batch({"tokens": prompts})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    api.reset_counters()
+    job.prefill_fn(params, batch, global_batch=SERVE_BATCH)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits = job.prefill_fn(params, batch, global_batch=SERVE_BATCH)[0]
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t
+    return {"logits": logits[:, -1], "tokens_per_s": batch["tokens"].numel() / s,
+            "ms": s * 1e3, "launches": api.launch_counts(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def serve_decode(api, job, params, prompts, stream=None) -> dict:
+    """Phase 4g's SERVE_STEPS decode steps on ``job`` through a
+    ``RequestDriver`` of SERVE_BATCH slots (a rank's job: its data rank's
+    slots): each row's request is its prompt's first token and SERVE_STEPS
+    new tokens, greedy; or, given ``stream`` (SERVE_BATCH, SERVE_STEPS),
+    that token and the stream's first SERVE_STEPS - 1 tokens as its prompt
+    and one new token, so that every step is fed the stream.  Each step's
+    logits (SERVE_STEPS, rows, V), the greedy tokens (rows, SERVE_STEPS),
+    ms a step, the model group's bytes a step and the launches."""
+    from repro_torch.serving import RequestDriver
+
+    steps: list = []
+
+    def recording(p, c, t, pos, **kw):
+        logits, c = job.decode_fn(p, c, t, pos, **kw)
+        steps.append(logits[:, -1].clone())
+        return logits, c
+
+    rows = job.rows(SERVE_BATCH)
+    driver = RequestDriver(job.model, slots=SERVE_BATCH, max_len=SERVE_STEPS + 1,
+                           decode_fn=recording, job=job if job.mesh is not None else None,
+                           device=job.device)
+    first = prompts[:, :1].cpu()
+    requests = [(first[r].tolist(), SERVE_STEPS) if stream is None else
+                (first[r].tolist() + stream[r, :SERVE_STEPS - 1].tolist(), 1)
+                for r in range(rows.start, rows.stop)]
+    group = None if job.mesh is None else job.mesh.model_group
+    if group is not None:
+        job.mesh.reset_bytes()
+    api.reset_counters()
+    res = driver.run(params, requests)
+    assert res["steps"] == SERVE_STEPS and res["completed"] == len(requests), res
+    moved = {} if group is None else {k: v / SERVE_STEPS for k, v in group.byte_counts().items()
+                                      if v}
+    # over the data ranks: the MoE's per-expert counts, the driver's pending
+    data = {} if group is None else {
+        op: c["process"] / SERVE_STEPS for op, c in job.mesh.byte_counts().items()
+        if op != "model" and c["process"]}
+    greedy = torch.stack([torch.as_tensor(res["outputs"][i]) for i in range(len(requests))])
+    return {"logits": torch.stack(steps), "greedy": greedy,
+            "ms": res["elapsed_s"] / res["steps"] * 1e3, "bytes": moved, "data_bytes": data,
+            "launches": api.launch_counts()}
+
+
+def serve_rank(out_dir: str) -> None:
+    """One rank of phase 4g's group (``chip_smoke.py --serve-rank``), started
+    by ``torch.distributed.run``: the (SERVE_DATA, SERVE_MODEL) mesh once,
+    then, once this process's model-1 runs are done (the ``go`` marker),
+    each of ``serve_runs()`` in turn: the job's shards cut from the whole
+    parameters, the prefill, then the decode steps fed model 1's stream;
+    the logits to ``<run>_rank<r>.pt``, the rest to ``<run>_rank<r>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import api
+    from repro_torch.launch.mesh import make_group_mesh
+    from repro_torch.launch.serve import make_serve_job
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=SERVE_DEADLINE))
+    rank = dist.get_rank()
+    mesh = make_group_mesh(SERVE_DATA, device="cuda", model=SERVE_MODEL)
+    out = Path(out_dir)
+    t0 = time.perf_counter()
+    while not (out / "go").exists():
+        assert time.perf_counter() - t0 < SERVE_WAIT, "no go from the smoke process"
+        time.sleep(0.5)
+    for arch, act in serve_runs():
+        tag = f"{arch}_{act}"
+        cfg = layout_config(arch)
+        job = make_serve_job(cfg, mesh, param_dtype=torch.float32)
+        whole = job.init_params(SERVE_SEED)
+        params = job.shard_params(whole)
+        del whole
+        prompts = serve_prompts(cfg)
+        stream = torch.load(out / f"{tag}_stream.pt")
+        with fp32_serving(act == "fp32"):
+            pre = serve_prefill(api, job, params, prompts)
+            dec = serve_decode(api, job, params, prompts, stream)
+        torch.save({"prefill": pre.pop("logits").cpu(), "steps": dec.pop("logits").cpu(),
+                    "greedy": dec.pop("greedy")}, out / f"{tag}_rank{rank}.pt")
+        (out / f"{tag}_rank{rank}.json").write_text(json.dumps(
+            {"prefill": pre, "decode": dec, "data": mesh.rank,
+             "index": mesh.model_group.index}))
+        del params, job
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+
+def spawn_serve_group() -> tuple:
+    """Start phase 4g's group: ``torch.distributed.run`` starting this file
+    as each of SERVE_DATA x SERVE_MODEL ranks' script on the one card, its
+    output to a log file; returns the runs' directory, the process and its
+    start time."""
+    import os
+
+    out = ROOT / "build" / "serve_layout"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               PYTHONPATH=str(ROOT / "src") + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(SERVE_DATA * SERVE_MODEL), str(ROOT / "chip_smoke.py"), "--serve-rank", str(out)]
+    with open(out / "group.log", "w") as f:
+        proc = subprocess.Popen(cmd, env=env, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    return out, proc, time.perf_counter()
+
+
+def serve_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ``|got - want| / (atol + rtol |want|)`` of two logit
+    tensors in phase 3e's band (at most 1 is within it)."""
+    got, want = got.float().to(want.device), want.float()
+    return float(((got - want).abs() / (SHARD_ATOL + SHARD_RTOL * want.abs())).max())
+
+
+def serve_expected(cfg) -> dict:
+    """A rank's launches in phase 4g (two prefill calls, decode none):
+    flash_attention once a causal attention layer a call, wkv_chunk once
+    an RWKV layer."""
+    att = sum(cfg.repeats for kind in cfg.block_unit if kind in ATTENTION_KINDS)
+    rwkv = sum(cfg.repeats for kind in cfg.block_unit if kind == "rwkv")
+    return {k: 2 * n for k, n in (("flash_attention", att), ("wkv_chunk", rwkv)) if n}
+
+
+def serve_layout_path(api, smi: str, group: tuple) -> tuple:
+    """Phase 4g: the mesh-sharded serve job on the card.  The group
+    (``spawn_serve_group``'s) started with phase 4 and has set up since;
+    this process runs model 1 (the one-device job on the whole batch) for
+    every run: its prefill, its greedy decode steps (the stream the ranks
+    are fed, written for them), and, in bf16, the same from the parameters
+    one fp32 ulp up (the floor).  Then it gives the go and the ranks run
+    alone, and each run is held against model 1.  Returns every run's
+    launches and each op's launches by run and rank."""
+    from repro_torch.launch.serve import make_serve_job
+    from repro_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    out, proc, t_spawn = group
+    world = SERVE_DATA * SERVE_MODEL
+    one, launches, by_run = {}, [], {}
+    try:
+        for arch, act in serve_runs():
+            tag = f"{arch}_{act}"
+            cfg = layout_config(arch)
+            job = make_serve_job(cfg, device="cuda", param_dtype=torch.float32)
+            params = job.init_params(SERVE_SEED)
+            prompts = serve_prompts(cfg)
+            with fp32_serving(act == "fp32"):
+                pre = serve_prefill(api, job, params, prompts)
+                dec = serve_decode(api, job, params, prompts)
+                stream = dec["greedy"]
+                torch.save(stream, out / f"{tag}_stream.tmp")
+                (out / f"{tag}_stream.tmp").rename(out / f"{tag}_stream.pt")
+                floor = None
+                if act == "bf16":
+                    up = tree_map(lambda t: torch.nextafter(t, torch.full_like(t, math.inf)),
+                                  params)
+                    floor = (serve_prefill(api, job, up, prompts)["logits"],
+                             serve_decode(api, job, up, prompts, stream)["logits"])
+                    floor = (serve_gap(floor[0], pre["logits"]),
+                             serve_gap(floor[1], dec["logits"]))
+                    del up
+            launches.append(pre["launches"])
+            one[tag] = {"prefill": pre["logits"].cpu(), "steps": dec["logits"].cpu(),
+                        "stream": stream, "floor": floor,
+                        "tokens_per_s": pre["tokens_per_s"], "ms": dec["ms"],
+                        "peak_gib": pre["peak_gib"], "launches": pre["launches"]}
+            del params, job, pre, dec
+            torch.cuda.empty_cache()
+        assert proc.poll() is None, f"serve group exited {proc.returncode} before its go"
+        (out / "go").write_text("")
+        t0 = time.perf_counter()
+        print(f"serve layout: model 1's runs done {t0 - t_phase:.1f} s into the phase, "
+              f"{t0 - t_spawn:.1f} s after the group started")
+        proc.wait(timeout=SERVE_DEADLINE)
+    finally:
+        stop_group(proc)
+    wall = time.perf_counter() - t0
+    log = (out / "group.log").read_text()
+    assert proc.returncode == 0, f"serve group exited {proc.returncode}:\n{log[-6000:]}"
+    print(f"serve layout group: {world} gloo ranks on the card ({SERVE_DATA} data x model "
+          f"{SERVE_MODEL}), {wall:.1f} s wall from the go")
+    for arch, act in serve_runs():
+        tag = f"{arch}_{act}"
+        cfg = layout_config(arch)
+        want = one.pop(tag)
+        ranks = [json.loads((out / f"{tag}_rank{r}.json").read_text()) for r in range(world)]
+        got = [torch.load(out / f"{tag}_rank{r}.pt") for r in range(world)]
+        expected = serve_expected(cfg)
+        gaps, flips = [], []
+        for r, (res, g) in enumerate(zip(ranks, got)):
+            d, m = res["data"], res["index"]
+            assert (d, m) == divmod(r, SERVE_MODEL), (r, d, m)
+            rows = slice(d * SERVE_BATCH // SERVE_DATA, (d + 1) * SERVE_BATCH // SERVE_DATA)
+            first = got[d * SERVE_MODEL]
+            for k in ("prefill", "steps", "greedy"):   # a data rank's model ranks: one answer
+                assert torch.equal(g[k], first[k]), (tag, r, k)
+            gaps.append((serve_gap(g["prefill"], want["prefill"][rows]),
+                         serve_gap(g["steps"], want["steps"][:, rows])))
+            # each step's greedy token against model 1's (its stream)
+            flips.append(int((g["steps"].argmax(-1).T != want["stream"][rows]).sum()))
+            assert torch.isfinite(g["prefill"]).all() and torch.isfinite(g["steps"]).all()
+            pre_l = {k: v for k, v in res["prefill"]["launches"].items() if v}
+            assert pre_l == expected, (tag, r, pre_l, expected)
+            assert not res["decode"]["launches"], (tag, r, res["decode"]["launches"])
+        assert {k: v for k, v in want["launches"].items() if v} == expected, \
+            (tag, want["launches"])
+        worst = [max(x[i] for x in gaps) for i in range(2)]
+        if act == "bf16":
+            bound = [LAYOUT_FLOOR_TIMES * f for f in want["floor"]]
+            ok = all(w <= b for w, b in zip(worst, bound))
+            print(f"serve layout {tag} ({smi}): gap to model 1 (band units) prefill "
+                  f"{worst[0]:.4g}, decode steps {worst[1]:.4g}; floor (model 1 one fp32 ulp up) "
+                  f"{want['floor'][0]:.4g}, {want['floor'][1]:.4g}; gap / floor "
+                  f"{[round(w / f, 3) if f else None for w, f in zip(worst, want['floor'])]}; "
+                  f"greedy disagreements with model 1's stream by rank {flips} of "
+                  f"{SERVE_STEPS * SERVE_BATCH // SERVE_DATA}")
+            assert ok, (tag, worst, bound)
+        else:
+            print(f"serve layout {tag} ({smi}): gap to model 1 (band units) prefill "
+                  f"{worst[0]:.4g}, decode steps {worst[1]:.4g}; greedy disagreements {flips}")
+            assert max(worst) <= 1.0 and not any(flips), (tag, worst, flips)
+        print(f"serve layout {tag} ({smi}): prefill tokens/s by rank "
+              f"{[round(r['prefill']['tokens_per_s'], 1) for r in ranks]} (model 1 "
+              f"{want['tokens_per_s']:.1f} on {SERVE_BATCH} x {SERVE_PROMPT}); ms a decode step "
+              f"by rank {[round(r['decode']['ms'], 2) for r in ranks]} (model 1 "
+              f"{want['ms']:.2f}); peak GiB by rank "
+              f"{[round(r['prefill']['peak_gib'], 2) for r in ranks]} (model 1 "
+              f"{want['peak_gib']:.2f}); the model group's bytes a step by rank "
+              f"{[r['decode']['bytes'] for r in ranks]}; the data ranks' bytes a step by rank "
+              f"{[r['decode']['data_bytes'] for r in ranks]}; launches by rank "
+              f"{[r['prefill']['launches'] for r in ranks]}")
+        launches += [r["prefill"]["launches"] for r in ranks]
+        for op in expected:
+            by_run.setdefault(op, {})[tag] = {"model1": want["launches"].get(op, 0), **{
+                f"rank{r}": res["prefill"]["launches"].get(op, 0)
+                for r, res in enumerate(ranks)}}
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"serve layout phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, by_run
+
+
 def cli_model():
     """Phase 3f's model: the example's lm-100m, registered as a config module
     by the example's own ``register``, as a user registers a config."""
@@ -5094,33 +5487,47 @@ def main() -> int:
         results[name]["layout_launches"] = by_run
 
     done("3g")
-    # ---------------------------------------------------------------- 4
-    kernel_runs += [{"launches": launches} for launches in serving_path(api)]
+    # phase 4g's group sets up while phases 4-4f run (its ranks idle, a
+    # CUDA context each, until the go of phase 4g)
+    serve_group = spawn_serve_group()
+    try:
+        # ------------------------------------------------------------ 4
+        kernel_runs += [{"launches": launches} for launches in serving_path(api)]
 
-    done("4")
-    # --------------------------------------------------------------- 4b
-    kernel_runs += [{"launches": launches} for launches in moe_serving_path(api)]
+        done("4")
+        # ----------------------------------------------------------- 4b
+        kernel_runs += [{"launches": launches} for launches in moe_serving_path(api)]
 
-    done("4b")
-    # --------------------------------------------------------------- 4c
-    kernel_runs += [{"launches": launches} for launches in hybrid_serving_path(api)]
+        done("4b")
+        # ----------------------------------------------------------- 4c
+        kernel_runs += [{"launches": launches} for launches in hybrid_serving_path(api)]
 
-    done("4c")
-    # --------------------------------------------------------------- 4d
-    kernel_runs += [{"launches": launches} for launches in vlm_audio_path(api)]
+        done("4c")
+        # ----------------------------------------------------------- 4d
+        kernel_runs += [{"launches": launches} for launches in vlm_audio_path(api)]
 
-    done("4d")
-    # --------------------------------------------------------------- 4e
-    kernel_runs += [{"launches": launches} for launches in training_path(api)]
+        done("4d")
+        # ----------------------------------------------------------- 4e
+        kernel_runs += [{"launches": launches} for launches in training_path(api)]
 
-    done("4e")
-    # --------------------------------------------------------------- 4f
-    runs, snapshot_rows = serve_while_training_path(api, bw)
+        done("4e")
+        # ----------------------------------------------------------- 4f
+        runs, snapshot_rows = serve_while_training_path(api, bw)
+        kernel_runs += [{"launches": launches} for launches in runs]
+        for name, row in snapshot_rows.items():
+            results[name]["snapshot"] = row
+
+        done("4f")
+    except BaseException:
+        stop_group(serve_group[1])
+        raise
+    # --------------------------------------------------------------- 4g
+    runs, serve_launches = serve_layout_path(api, smi, serve_group)
     kernel_runs += [{"launches": launches} for launches in runs]
-    for name, row in snapshot_rows.items():
-        results[name]["snapshot"] = row
+    for name, by_run in serve_launches.items():
+        results[name]["serve_layout_launches"] = by_run
 
-    done("4f")
+    done("4g")
     # ---------------------------------------------------------------- 5
     kernel_runs += [{"launches": launches} for launches in rwkv_serving_path(api)]
 
@@ -5132,7 +5539,8 @@ def main() -> int:
             "bf16", "skew_ms", "windows", "windowed_ms", "one_pass_ms", "mlp_ms_p10_p90",
             "mlp_plain_ms_p10_p90",
             "ms_p10_p90", "library_ms_p10_p90", "on_path", "cases", "snapshot",
-            "elastic_launches", "sharded_launches", "cli_launches", "layout_launches")
+            "elastic_launches", "sharded_launches", "cli_launches", "layout_launches",
+            "serve_layout_launches")
     kernels = []
     for name, row in results.items():
         row["launches"] = sum(r["launches"].get(name, 0) for r in kernel_runs)
@@ -5152,6 +5560,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-rank"]:
         train_rank(sys.argv[2], sys.argv[3:])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--serve-rank"]:
+        serve_rank(sys.argv[2])
         sys.exit(0)
     if sys.argv[1:2] == ["--layout-rank"]:
         layout_rank(sys.argv[2], sys.argv[3])

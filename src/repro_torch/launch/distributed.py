@@ -51,9 +51,18 @@ decision and decodes its shard of the whole leaf's message, bit for bit
 whole on every rank.  Over the node axis a rank moves its share of a
 node's payload (``compression/gossip.py`` gives the byte count); the
 scenario streams sum the shards over the model group.  The '2d' profile
-raises: ROADMAP queue 1 item 8 (b).  The reference's ``lower()`` (an XLA
-cost model) and its mesh-sharded ``ServeJob`` are not carried over; the
-one-device serve job is ``launch/serve.py``.
+raises: ROADMAP queue 1 item 8 (b).
+
+The reference's serving half (``ServeJob``, ``make_serve_job``: one device
+or a data x model mesh) is ``launch/serve.py``.  Decisions, not carried
+over: the jobs' ``lower``, ``lower_prefill`` and ``lower_decode``
+(``jax.jit(...).lower``, an XLA compile artefact, whose callers are the
+reference's ``launch/dryrun.py``, not carried over, and its transport
+benchmark, whose port reads counted bytes); the sequence-sharded
+long-context decode cache (``lower_decode(seq_shard_cache=True)``, which
+only ``dryrun.py`` asks for: ``cache_specs`` keeps the parameter and the
+serve job never passes it); and a serve job for HuBERT X-Large, an encoder
+with no decode path.
 """
 from __future__ import annotations
 
@@ -79,7 +88,7 @@ from ..models import Model, ModelConfig
 from ..models.common import axis_rules, resolve_specs
 from ..tree import map_tensors, tree_flatten, tree_leaves, tree_unflatten
 from .mesh import NodeMesh
-from .sharding import PROFILES, ShardingProfile, profile_for_arch
+from .sharding import PROFILES, ShardingProfile, profile_for_arch, shard_leaf
 
 Tree = Any
 
@@ -168,7 +177,7 @@ class TrainJob:
         if params is None:
             params = self.model.init(seed, device=m.device)
         leaves, treedef = tree_flatten(params)
-        shards = [_shard(p.to(m.device), d, m) for p, d in zip(leaves, self.shard_dims)]
+        shards = [shard_leaf(p.to(m.device), d, m) for p, d in zip(leaves, self.shard_dims)]
         stacked = tree_unflatten(treedef, [
             p.unsqueeze(0).repeat((m.n_local,) + (1,) * p.dim()) for p in shards])
         return attach_channel_state(self.algorithm, self.algorithm.init(stacked),
@@ -249,15 +258,6 @@ class TrainJob:
             return t[:, m.lo:m.hi].to(m.device)
 
         return {k: rows(v) for k, v in global_batches.items()}
-
-
-def _shard(p: torch.Tensor, dim: Optional[int], mesh: NodeMesh) -> torch.Tensor:
-    """This rank's model shard of a full parameter along ``dim`` (None: the
-    whole of it)."""
-    if dim is None:
-        return p
-    n = p.shape[dim] // mesh.model
-    return p.narrow(dim, mesh.model_group.index * n, n).contiguous()
 
 
 def _layout(abstract_state, alg, params, param_spec=None, node_spec=None) -> Any:
@@ -531,7 +531,7 @@ def make_train_job(
             if mine is not None:
                 acc = [a / group.size for a in group.reduce_scatter(acc, shard_dims)]
             elif fsdp:
-                acc = [_shard(a, d, mesh) for a, d in zip(acc, shard_dims)]
+                acc = [shard_leaf(a, d, mesh) for a, d in zip(acc, shard_dims)]
             for o, a in zip(out, acc):
                 o[i].copy_(a if grad_accum == 1 else a / grad_accum)
         return tree_unflatten(treedef, out)
@@ -597,7 +597,7 @@ def make_train_job(
     # ---- the abstract state: meta tensors, nothing allocated ----
     leaves, treedef = tree_flatten(model.param_shapes(dtype=torch.float32))
     stacked = tree_unflatten(treedef, [
-        torch.empty((mesh.n_local,) + tuple(_shard(s, d, mesh).shape), dtype=s.dtype,
+        torch.empty((mesh.n_local,) + tuple(shard_leaf(s, d, mesh).shape), dtype=s.dtype,
                     device="meta") for s, d in zip(leaves, shard_dims)])
     abstract_state = abstract_channel_state(alg, alg.init(stacked), n_nodes=n_nodes)
 

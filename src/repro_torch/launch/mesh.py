@@ -569,6 +569,22 @@ class NodeMesh:
         self._count("all_reduce", 0, host.numel() * host.element_size() * (self.world - 1))
         return host.to(x.device)
 
+    def sum_below(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the ranks below this one (zeros on rank 0
+        and on one rank), added in rank order: where a sequence lies over
+        the ranks in rank order, the counts of what comes before this
+        rank's part (a MoE's queue over a batch split on the data ranks)."""
+        if self.world == 1:
+            return torch.zeros_like(x)
+        host = x.detach().cpu().contiguous()
+        parts = [torch.empty_like(host) for _ in range(self.world)]
+        dist.all_gather(parts, host, group=self.group)
+        self._count("all_gather", 0, host.numel() * host.element_size() * (self.world - 1))
+        out = torch.zeros_like(host)
+        for p in parts[:self.rank]:
+            out += p
+        return out.to(x.device)
+
     # -------------------------------------------------------- layout helpers
     def _replicated(self, x: torch.Tensor) -> bool:
         """True for a tensor of all N rows on a multi-rank mesh; on one

@@ -25,9 +25,12 @@ batch shards over all data axes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
-__all__ = ["ShardingProfile", "PROFILES", "ARCH_PROFILE", "profile_for_arch", "cache_specs"]
+from ..tree import tree_flatten, tree_leaves, tree_unflatten
+
+__all__ = ["ShardingProfile", "PROFILES", "ARCH_PROFILE", "profile_for_arch", "cache_specs",
+           "shard_leaf", "param_shard", "cache_shard"]
 
 
 def _axis_sizes(mesh) -> Dict[str, int]:
@@ -153,8 +156,14 @@ def cache_specs(cache: Any, batch_axes, model_axis="model", mesh=None,
 
     An axis that does not divide its dim (with ``mesh`` given) drops to
     None; ``seq_shard_axes`` shards the KV sequence where the batch cannot
-    shard (the reference's long-context decode at batch 1).  No caller yet:
-    the mesh-sharded serve job is ROADMAP queue 1 item 8 (b)."""
+    shard (the reference's long-context decode at batch 1; the serve job
+    never passes it, as only the reference's ``launch/dryrun.py`` does).
+    The mesh-sharded serve job (``launch/serve.py``) lays its decode caches
+    out by this tree: ``ServeJob.init_cache`` cuts a rank's shard with
+    :func:`cache_shard`, and the model's prefill and decode produce and
+    read caches in that layout (a rank's KV heads, or all of them where K
+    does not divide by the model axis; its contiguous block of the conv
+    window's channels; its heads' states)."""
     sizes = _axis_sizes(mesh) if mesh is not None else {}
 
     def axis_ok(size, ax):
@@ -192,3 +201,43 @@ def cache_specs(cache: Any, batch_axes, model_axis="model", mesh=None,
         return spec_for(name, tree)
 
     return walk(cache)
+
+
+# ---------------------------------------------------------------- shards
+def shard_leaf(p, dim: Optional[int], mesh):
+    """A rank's model shard of a whole leaf along ``dim`` (None: the whole
+    of it): part ``m`` of M along it, for model index m of ``mesh``."""
+    if dim is None:
+        return p
+    n = p.shape[dim] // mesh.model
+    return p.narrow(dim, mesh.model_group.index * n, n).contiguous()
+
+
+def param_shard(params: Any, specs: Any, mesh) -> Any:
+    """A rank's shard of a whole parameter tree laid out by ``specs`` (a
+    spec tree with no data axis, as ``resolve_specs`` gives it under
+    ``serve_param_rules``): each leaf's model shard (:func:`shard_leaf`)."""
+    if mesh is None or mesh.model == 1:
+        return params
+    leaves, treedef = tree_flatten(params)
+    dims = [None if "model" not in spec else spec.index("model") for spec in tree_leaves(specs)]
+    return tree_unflatten(treedef, [shard_leaf(p, d, mesh) for p, d in zip(leaves, dims)])
+
+
+def cache_shard(cache: Any, specs: Any, mesh) -> Any:
+    """A rank's shard of a whole decode-cache tree laid out by ``specs``
+    (:func:`cache_specs`' tree): along a data axis (``"data"``, or a tuple
+    of the data axes) its data rank's part, along ``"model"`` its model
+    index's part."""
+    def part(x, spec):
+        for dim, ax in enumerate(spec):
+            for a in (() if ax is None else (ax,) if isinstance(ax, str) else ax):
+                size, index = ((mesh.model, mesh.model_group.index) if a == "model"
+                               else (mesh.world, mesh.rank))
+                if size > 1:
+                    n = x.shape[dim] // size
+                    x = x.narrow(dim, index * n, n)
+        return x.contiguous()
+
+    leaves, treedef = tree_flatten(cache)
+    return tree_unflatten(treedef, [part(x, s) for x, s in zip(leaves, tree_leaves(specs))])

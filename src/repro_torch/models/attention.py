@@ -15,6 +15,13 @@ the reference: a bidirectional encoder (HuBERT) runs ``_sdpa`` under every
 by position: under M-RoPE every vision token has temporal position 0, so
 there the plain paths let the vision block see itself both ways and the
 kernel does not (the reference's paths differ in the same way).
+
+Under tensor parallelism (``tp``, a model group) a rank computes its H / M
+query heads and the KV heads they read, in the training forward, the
+prefill and the decode step; the prefill's cache and the decode step's
+ring buffer are the rank's as ``cache_specs`` lays them out: its K / M KV
+heads, or, where K does not divide by M, every KV head (each rank
+projects and writes all of them and attends with its own).
 """
 from __future__ import annotations
 
@@ -153,35 +160,47 @@ def _blockwise_sdpa(cfg: AttentionConfig, q, k, v, q_pos, kv_pos, block: int = 5
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
-def _head_shard(cfg: AttentionConfig, params, x: torch.Tensor, tp):
+def _kv_take(cfg: AttentionConfig, h_loc: int, index: int, device):
+    """The KV heads that a tensor-parallel rank's ``h_loc`` query heads
+    (heads ``index * h_loc`` on) read out of all K: their count, and a
+    function that takes them along a dim (a slice where the groups line up,
+    each head its own KV head otherwise)."""
+    qpk, h0 = cfg.q_per_kv, index * h_loc
+    if h_loc % qpk == 0 or qpk % h_loc == 0:
+        lo, k_loc = h0 // qpk, max(h_loc // qpk, 1)
+        return k_loc, lambda w, dim: w.narrow(dim, lo, k_loc)
+    idx = torch.tensor([(h0 + i) // qpk for i in range(h_loc)], device=device)
+    return h_loc, lambda w, dim: w.index_select(dim, idx)
+
+
+def _head_shard(cfg: AttentionConfig, params, x: torch.Tensor, tp, kv_whole: bool = False):
     """A tensor-parallel rank's attention: its query heads (``wq`` holds
     H / M of them) and the KV heads they read.  KV heads sharded with the
     query heads are used as they are; where they fell back to replicated,
-    the rank slices the ones its heads use (each head its own where the
-    groups do not line up), through ``tp.copy_to`` so that the replicated
-    leaf's gradient is summed over the ranks, as the QK norms' are.
-    Returns the rank's config, parameters and input (identity forward,
-    gradient all-reduced backward)."""
+    the rank slices the ones its heads use (:func:`_kv_take`), through
+    ``tp.copy_to`` so that the replicated leaf's gradient is summed over the
+    ranks, as the QK norms' are.  With ``kv_whole`` (a decode cache, which
+    holds every KV head where they are replicated) the KV projections stay
+    whole, and the returned ``take`` picks the rank's KV heads out of the
+    projected keys and values instead (None where the KV heads are the
+    rank's own).  Returns the rank's config, parameters and input (identity
+    forward, gradient all-reduced backward), and ``take``."""
     h_loc = params["wq"].shape[1]
     k_loc = params["wk"].shape[1]
     p = dict(params)
     for name in ("q_norm", "k_norm"):
         if name in p:
             p[name] = tp.copy_to(p[name])
+    take = None
     if k_loc == cfg.n_kv_heads:            # KV heads replicated: slice them
-        qpk, h0 = cfg.q_per_kv, tp.index * h_loc
-        if h_loc % qpk == 0 or qpk % h_loc == 0:
-            lo, k_loc = h0 // qpk, max(h_loc // qpk, 1)
-            take = lambda w, dim: w.narrow(dim, lo, k_loc)  # noqa: E731
-        else:
-            idx = torch.tensor([(h0 + i) // qpk for i in range(h_loc)], device=x.device)
-            k_loc = h_loc
-            take = lambda w, dim: w.index_select(dim, idx)  # noqa: E731
-        for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
-            if name in p:
-                p[name] = take(tp.copy_to(p[name]), dim)
+        k_loc, take = _kv_take(cfg, h_loc, tp.index, x.device)
+        if not kv_whole:
+            for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+                if name in p:
+                    p[name] = take(tp.copy_to(p[name]), dim)
+            take = None
     local = dataclasses.replace(cfg, n_heads=h_loc, n_kv_heads=k_loc)
-    return local, p, tp.copy_to(x)
+    return local, p, tp.copy_to(x), take
 
 
 def attention_forward(cfg: AttentionConfig, params, x: torch.Tensor,
@@ -192,11 +211,17 @@ def attention_forward(cfg: AttentionConfig, params, x: torch.Tensor,
     ``tp`` (a model group) runs the rank's heads of a tensor-parallel node
     (:func:`_head_shard`); ``wo``'s partial sums are all-reduced in fp32.
     Where the heads fell back to replicated (``wq`` holds all of them) the
-    layer runs whole, with no collective."""
+    layer runs whole, with no collective.  With ``return_cache`` the cache
+    is the rank's as ``launch/sharding.py``'s ``cache_specs`` lays it out:
+    the rank's KV heads, or every KV head where they are replicated."""
     sharded = tp is not None and params["wq"].shape[1] != cfg.n_heads
+    take = None
     if sharded:
-        cfg, params, x = _head_shard(cfg, params, x, tp)
+        cfg, params, x, take = _head_shard(cfg, params, x, tp, kv_whole=return_cache)
     q, k, v = _project_qkv(cfg, params, x, positions)
+    cache_k, cache_v = k, v
+    if take is not None:
+        k, v = take(k, 2).contiguous(), take(v, 2).contiguous()
     pos1 = positions[0] if cfg.mrope_sections is not None else positions
     if cfg.attn_impl == "pallas" and cfg.causal:
         from ..kernels import api as kernel_api
@@ -213,7 +238,7 @@ def attention_forward(cfg: AttentionConfig, params, x: torch.Tensor,
     if sharded:
         y = tp.reduce_from(y)
     if return_cache:
-        return y, {"k": k, "v": v, "pos": pos1}
+        return y, {"k": cache_k, "v": cache_v, "pos": pos1}
     return y
 
 
@@ -233,11 +258,22 @@ def init_kv_cache(cfg: AttentionConfig, batch: int, max_len: int, dtype=torch.bf
 
 
 def attention_decode(cfg: AttentionConfig, params, x: torch.Tensor,
-                     position: torch.Tensor, cache):
+                     position: torch.Tensor, cache, tp=None):
     """Single-token decode against the ring-buffer cache.  x (B, 1, d),
     position (B,) int32.  Returns ``(y, new_cache)``; the input cache is
     not modified.  Under M-RoPE the position is the same on all three
-    streams (a text token)."""
+    streams (a text token).
+
+    ``tp`` (a model group) runs the rank's query heads (:func:`_head_shard`)
+    against its cache shard, laid out by ``cache_specs``: the rank's KV
+    heads, whose new key and value it writes; or, where the KV heads are
+    replicated, all of them, every one written (each rank keeps the whole
+    cache) and the ones its heads read attended.  ``wo``'s partial sums are
+    all-reduced in fp32."""
+    sharded = tp is not None and params["wq"].shape[1] != cfg.n_heads
+    take = None
+    if sharded:
+        cfg, params, x, take = _head_shard(cfg, params, x, tp, kv_whole=True)
     rope_pos = position[:, None]
     if cfg.mrope_sections is not None:
         rope_pos = rope_pos[None].expand(3, x.shape[0], 1)
@@ -248,6 +284,9 @@ def attention_decode(cfg: AttentionConfig, params, x: torch.Tensor,
     k = cache["k"].index_put((bidx, slot), k_new[:, 0].to(cache["k"].dtype))
     v = cache["v"].index_put((bidx, slot), v_new[:, 0].to(cache["v"].dtype))
     pos = cache["pos"].index_put((bidx, slot), position.to(torch.int32))
-    out = _sdpa(cfg, q, k, v, position[:, None], pos, kv_mask=pos >= 0)
+    k_att, v_att = (k, v) if take is None else (take(k, 2), take(v, 2))
+    out = _sdpa(cfg, q, k_att, v_att, position[:, None], pos, kv_mask=pos >= 0)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(out.dtype))
+    if sharded:
+        y = tp.reduce_from(y)
     return y, {"k": k, "v": v, "pos": pos}

@@ -37,6 +37,15 @@ no projection is computed twice.  The gated norm normalises over the whole
 partial sums all-reduced (``reduce_from``).  The SSD scan runs on the
 rank's heads unchanged.  Where the heads fell back to replicated, the block
 runs whole on every rank, its sharded leaves gathered first.
+
+The prefill's cache and ``mamba_decode`` under ``tp`` keep the layout of
+``launch/sharding.py``'s ``cache_specs``: the rank's heads' SSM state and a
+contiguous block of the conv window's ``[x | B | C]`` channels, which is
+not its heads' channels (Zamba2-7B: 3,648 of 7,296 channels a rank,
+against its 3,584 ``x`` channels and the 128 of ``B`` and ``C``).  A decode
+step gathers the window over the group, convolves the rank's heads'
+columns of it, and keeps the rank's block of the new window, whose new
+column every rank has from the gathered projection.
 """
 from __future__ import annotations
 
@@ -92,18 +101,26 @@ def _conv(cfg: MambaConfig, xbc, conv_w, conv_state=None):
     """Causal depthwise conv over time. xbc: (B, S, C).  Returns (silu(y),
     the last ``conv_width - 1`` inputs as the new state)."""
     w = conv_w.to(xbc.dtype)   # (W, C)
-    kw = cfg.conv_width
-    if conv_state is None:
-        pad = xbc.new_zeros((xbc.shape[0], kw - 1, xbc.shape[-1]))
-    else:
-        pad = conv_state.to(xbc.dtype)
-    xp = torch.cat([pad, xbc], dim=1)
+    xp = _padded(cfg, xbc, conv_state)
     s = xbc.shape[1]
     y = xp[:, 0:s] * w[0]
-    for i in range(1, kw):
+    for i in range(1, cfg.conv_width):
         y = y + xp[:, i:i + s] * w[i]
-    new_state = xp[:, -(kw - 1):] if kw > 1 else pad
-    return F.silu(y), new_state
+    return F.silu(y), _window(cfg, xp)
+
+
+def _padded(cfg: MambaConfig, xbc, conv_state=None):
+    """``xbc`` (B, S, C) after the conv window ``conv_state`` (zeros where
+    None) along time: (B, conv_width - 1 + S, C)."""
+    pad = (xbc.new_zeros((xbc.shape[0], cfg.conv_width - 1, xbc.shape[-1]))
+           if conv_state is None else conv_state.to(xbc.dtype))
+    return torch.cat([pad, xbc], dim=1)
+
+
+def _window(cfg: MambaConfig, padded):
+    """The conv window after a sequence padded by :func:`_padded`: its last
+    ``conv_width - 1`` steps."""
+    return padded[:, padded.shape[1] - (cfg.conv_width - 1):]
 
 
 def _split_xbc(cfg: MambaConfig, xbc):
@@ -176,10 +193,28 @@ def _sharded_dim(p: torch.Tensor, full) -> int:
     return next((i for i, (a, b) in enumerate(zip(p.shape, full)) if a != b), -1)
 
 
-def _forward_tp(cfg: MambaConfig, params, u: torch.Tensor, tp) -> torch.Tensor:
-    """The rank's heads of a tensor-parallel Mamba-2 block (see the module
-    docstring).  u: (B, S, d_model), replicated; returns the block's
-    output, all-reduced."""
+def _conv_part(window: torch.Tensor, tp) -> torch.Tensor:
+    """The rank's contiguous block of a conv window's channels: ``conv`` as
+    ``launch/sharding.py``'s ``cache_specs`` shards it over the model
+    axis."""
+    n = window.shape[-1] // tp.size
+    return window.narrow(-1, tp.index * n, n).contiguous()
+
+
+def _rank_cols(cfg: MambaConfig, t: torch.Tensor, width: int, index: int) -> torch.Tensor:
+    """The ``[x | B | C]`` channels of a rank's heads (``width`` x channels
+    from ``index * width``; B and C whole) out of the whole ``[x | B | C]``
+    along the last dim."""
+    di, n = cfg.d_inner, cfg.state_dim
+    c0 = index * width
+    return torch.cat([t[..., c0:c0 + width], t[..., di:di + 2 * n]], dim=-1)
+
+
+def _inputs_tp(cfg: MambaConfig, params, u: torch.Tensor, tp):
+    """The rank's heads' inputs of a tensor-parallel block: ``z``, the
+    ``[x | B | C]`` channels of its heads and their conv weights, ``dt``
+    raw, and the whole ``[x | B | C]`` projection (every rank's columns,
+    gathered)."""
     full = _full_shapes(cfg)
     di, n, p = cfg.d_inner, cfg.state_dim, cfg.head_dim
     h_loc = params["a_log"].shape[0]
@@ -193,36 +228,62 @@ def _forward_tp(cfg: MambaConfig, params, u: torch.Tensor, tp) -> torch.Tensor:
     conv_w = (tp.gather_sum(conv_w, 1) if _sharded_dim(conv_w, full["conv_w"]) == 1
               else tp.copy_to(conv_w))
     z = proj[..., c0:c0 + width]
-    bc = slice(2 * di, 2 * di + 2 * n)
-    xbc = torch.cat([proj[..., di + c0:di + c0 + width], proj[..., bc]], dim=-1)
-    conv_w = torch.cat([conv_w[:, c0:c0 + width], conv_w[:, di:di + 2 * n]], dim=-1)
+    whole = proj[..., di:2 * di + 2 * n]
+    xbc = _rank_cols(cfg, whole, width, tp.index)
+    conv_w = _rank_cols(cfg, conv_w, width, tp.index)
     dt_raw = proj[..., 2 * di + 2 * n + h0:2 * di + 2 * n + h0 + h_loc]
+    return z, xbc, conv_w, dt_raw, whole
+
+
+def _forward_tp(cfg: MambaConfig, params, u: torch.Tensor, tp, return_cache: bool = False):
+    """The rank's heads of a tensor-parallel Mamba-2 block (see the module
+    docstring).  u: (B, S, d_model), replicated; returns the block's
+    output, all-reduced, and with ``return_cache`` the rank's decode cache:
+    its block of the conv window's channels and its heads' SSM state."""
+    n, p = cfg.state_dim, cfg.head_dim
+    z, xbc, conv_w, dt_raw, whole = _inputs_tp(cfg, params, u, tp)
+    width = z.shape[-1]
     xbc, _ = _conv(cfg, xbc, conv_w)
     x, b_in, c_in = xbc[..., :width], xbc[..., width:width + n], xbc[..., width + n:]
     bsz, s, _ = x.shape
-    xh = x.reshape(bsz, s, h_loc, p)
+    xh = x.reshape(bsz, s, width // p, p)
     dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
     a = -torch.exp(params["a_log"].float())
     with torch.profiler.record_function("repro/ssd_scan"):
-        y, _ = _ssd_chunked(cfg, a, xh, b_in, c_in, dt)
+        y, h_final = _ssd_chunked(cfg, a, xh, b_in, c_in, dt)
     y = y + xh * params["d_skip"].to(y.dtype)[None, None, :, None]
-    y = sharded_rms_norm(y.reshape(bsz, s, width) * F.silu(z), params["norm"], tp, di)
-    return tp.reduce_from(torch.einsum("bse,ed->bsd", y, params["w_out"].to(y.dtype)))
+    y = sharded_rms_norm(y.reshape(bsz, s, width) * F.silu(z), params["norm"], tp, cfg.d_inner)
+    out = tp.reduce_from(torch.einsum("bse,ed->bsd", y, params["w_out"].to(y.dtype)))
+    if return_cache:
+        return out, {"conv": _conv_part(_window(cfg, _padded(cfg, whole)), tp), "ssm": h_final}
+    return out
+
+
+def _whole_leaves(cfg: MambaConfig, params, tp) -> dict:
+    """The block's leaves gathered whole over the model group (the heads
+    fell back to replicated: the block runs whole on every rank)."""
+    full = _full_shapes(cfg)
+    return {k: v if _sharded_dim(v, full[k]) < 0 else
+            tp.gather_from(v, _sharded_dim(v, full[k])) for k, v in params.items()}
 
 
 def mamba_forward(cfg: MambaConfig, params, u: torch.Tensor, return_cache: bool = False,
                   tp=None):
     """Full-sequence forward. u: (B, S, d_model).  With ``return_cache``
-    also the decode cache ``{"conv", "ssm"}`` the sequence leaves.  ``tp``
-    (forward only): the rank's heads of a tensor-parallel node (see the
-    module docstring)."""
+    also the decode cache ``{"conv", "ssm"}`` the sequence leaves.  ``tp``:
+    the rank's heads of a tensor-parallel node (see the module docstring);
+    its cache is the rank's block of the conv window's channels (where the
+    channels divide by the model axis) and its heads' SSM state, as
+    ``cache_specs`` lays them out."""
     if tp is not None:
-        full = _full_shapes(cfg)
         if params["a_log"].shape[0] != cfg.n_heads:
-            return _forward_tp(cfg, params, u, tp)
+            return _forward_tp(cfg, params, u, tp, return_cache)
         # heads replicated: the whole block on every rank, from whole leaves
-        params = {k: v if _sharded_dim(v, full[k]) < 0 else
-                  tp.gather_from(v, _sharded_dim(v, full[k])) for k, v in params.items()}
+        split = _sharded_dim(params["conv_w"], _full_shapes(cfg)["conv_w"]) == 1
+        out = mamba_forward(cfg, _whole_leaves(cfg, params, tp), u, return_cache)
+        if return_cache and split:
+            out = (out[0], {**out[1], "conv": _conv_part(out[1]["conv"], tp)})
+        return out
     z, xbc, dt_raw = _project(cfg, params, u)
     xbc, conv_state = _conv(cfg, xbc, params["conv_w"])
     x, b_in, c_in = _split_xbc(cfg, xbc)
@@ -251,22 +312,58 @@ def init_mamba_cache(cfg: MambaConfig, batch: int, dtype=torch.bfloat16, device=
     }
 
 
-def mamba_decode(cfg: MambaConfig, params, u: torch.Tensor, cache):
-    """One-token decode. u: (B, 1, d_model).  Returns ``(y, new_cache)``;
-    the input cache is not modified."""
-    z, xbc, dt_raw = _project(cfg, params, u)
-    xbc, conv_state = _conv(cfg, xbc, params["conv_w"], conv_state=cache["conv"])
-    x, b_in, c_in = _split_xbc(cfg, xbc)
+def _step(cfg: MambaConfig, params, u, z, xbc, dt_raw, ssm, norm):
+    """One token's recurrence on the heads that ``xbc`` (B, 1, x | B | C)
+    and ``ssm`` (B, h, P, N) hold: the block's output (before any
+    all-reduce) and the new SSM state.  ``norm(y)`` is the gated norm."""
+    n = cfg.state_dim
+    width = xbc.shape[-1] - 2 * n
+    x, b_in, c_in = xbc[..., :width], xbc[..., width:width + n], xbc[..., width + n:]
     bsz = x.shape[0]
-    xh = x.reshape(bsz, cfg.n_heads, cfg.head_dim).float()
+    xh = x.reshape(bsz, width // cfg.head_dim, cfg.head_dim).float()
     dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"].float())   # (B, H)
     a = -torch.exp(params["a_log"].float())
     decay = torch.exp(dt * a)   # (B, H)
     dh = torch.einsum("bh,bn,bhp->bhpn", dt, b_in[:, 0].float(), xh)
-    h_new = decay[..., None, None] * cache["ssm"] + dh
+    h_new = decay[..., None, None] * ssm + dh
     y = torch.einsum("bn,bhpn->bhp", c_in[:, 0].float(), h_new)
     y = y + xh * params["d_skip"].float()[None, :, None]
-    y = y.reshape(bsz, 1, cfg.d_inner).to(u.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"])
-    out = torch.einsum("bse,ed->bsd", y, params["w_out"].to(y.dtype))
+    y = y.reshape(bsz, 1, width).to(u.dtype)
+    y = norm(y * F.silu(z))
+    return torch.einsum("bse,ed->bsd", y, params["w_out"].to(y.dtype)), h_new
+
+
+def mamba_decode(cfg: MambaConfig, params, u: torch.Tensor, cache, tp=None):
+    """One-token decode. u: (B, 1, d_model).  Returns ``(y, new_cache)``;
+    the input cache is not modified.
+
+    ``tp``: the rank's heads of a tensor-parallel node, against its cache
+    shard as ``cache_specs`` lays it out: its heads' SSM state, and its
+    contiguous block of the conv window's channels, which does not hold its
+    heads' ``x`` channels (the channels are ``[x | B | C]``).  So the
+    window is gathered over the group each step, the rank's heads convolve
+    their ``[x | B | C]`` columns of it, and the rank keeps its block of
+    the new window, whose new column every rank has from the gathered
+    projection."""
+    if tp is not None:
+        split = cache["conv"].shape[-1] != cfg.d_inner + 2 * cfg.state_dim
+        window = tp.gather_from(cache["conv"], 2) if split else cache["conv"]
+        if params["a_log"].shape[0] != cfg.n_heads:
+            z, xbc, conv_w, dt_raw, whole = _inputs_tp(cfg, params, u, tp)
+            xbc, _ = _conv(cfg, xbc, conv_w,
+                           conv_state=_rank_cols(cfg, window, z.shape[-1], tp.index))
+            norm = lambda y: sharded_rms_norm(y, params["norm"], tp, cfg.d_inner)  # noqa: E731
+            out, h_new = _step(cfg, params, u, z, xbc, dt_raw, cache["ssm"], norm)
+            out, window = tp.reduce_from(out), _window(cfg, _padded(cfg, whole, window))
+        else:   # heads replicated: the whole block on every rank
+            out, new = mamba_decode(cfg, _whole_leaves(cfg, params, tp), u,
+                                    {"conv": window, "ssm": cache["ssm"]})
+            window, h_new = new["conv"], new["ssm"]
+        if split:
+            window = _conv_part(window, tp)
+        return out, {"conv": window.to(cache["conv"].dtype), "ssm": h_new}
+    z, xbc, dt_raw = _project(cfg, params, u)
+    xbc, conv_state = _conv(cfg, xbc, params["conv_w"], conv_state=cache["conv"])
+    out, h_new = _step(cfg, params, u, z, xbc, dt_raw, cache["ssm"],
+                       lambda y: rms_norm(y, params["norm"]))
     return out, {"conv": conv_state.to(cache["conv"].dtype), "ssm": h_new}

@@ -40,6 +40,16 @@ the entries of its own experts (the rest go to the trash slot), runs its
 experts' GEMMs on ``copy_to`` of the tokens, combines its gated outputs
 and all-reduces them (``reduce_from``).  The shared experts and a dense
 residual are Megatron MLPs (``mlp_forward(..., tp=)``).
+
+``moe_forward`` also takes ``data``, the ``NodeMesh`` of the mesh-sharded
+serve job where it splits one logical batch over its D data ranks, each
+holding a contiguous block of the rows in data-rank order.  The MoE queues
+the whole batch once, as the reference's serve job does: the capacity is
+the whole batch's (D times the rank's tokens), and a rank's queue
+positions start after the entries that the data ranks below it route to
+each expert (``NodeMesh.sum_below`` of the E per-expert counts, one
+exchange of E ints a layer).  So the kept entries, and the answer, do not
+depend on D.
 """
 from __future__ import annotations
 
@@ -166,13 +176,13 @@ def _router_logits(cfg: MoEConfig, router, tokens, tp=None):
     return torch.einsum("gtd,de->gte", tokens.float(), router.float())
 
 
-def _route(cfg: MoEConfig, router, tokens, capacity: int, tp=None):
+def _route(cfg: MoEConfig, router, tokens, capacity: int, tp=None, data=None):
     """tokens (G, T, d) -> logits and probs (G, T, E) fp32, gates, experts,
     queue positions and the kept mask, each (G, T, k).
 
     Top-k is a stable descending sort, so equal probabilities rank by
-    expert index, as ``lax.top_k`` ranks them.  ``tp``: see the module
-    docstring (the gates come back through ``copy_to``)."""
+    expert index, as ``lax.top_k`` ranks them.  ``tp`` and ``data``: see
+    the module docstring (the gates come back through ``copy_to``)."""
     logits = _router_logits(cfg, router, tokens, tp)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -184,21 +194,24 @@ def _route(cfg: MoEConfig, router, tokens, capacity: int, tp=None):
     # outer dim of (G, T*k, E) takes tens of ms a layer on the card)
     flat = F.one_hot(expert_idx.reshape(g, t * k), cfg.n_experts).transpose(1, 2).contiguous()
     before = torch.cumsum(flat, dim=2) - flat
+    if data is not None:
+        before = before + data.sum_below(flat.sum(dim=2, keepdim=True))
     pos = before.gather(1, expert_idx.reshape(g, 1, t * k)).reshape(g, t, k)
     if tp is not None:
         gate_vals = tp.copy_to(gate_vals)
     return logits, probs, gate_vals, expert_idx, pos, pos < capacity
 
 
-def _dispatch_compute_combine(cfg: MoEConfig, params, tokens, capacity: int, tp=None):
+def _dispatch_compute_combine(cfg: MoEConfig, params, tokens, capacity: int, tp=None,
+                              data=None):
     """The capacity MoE on token groups (G, T, d), each group with its own
     queues.  Returns (y (G, T, d), logits, probs, experts).  With ``tp``
     the rank's experts (or its share of every expert's hidden units) alone:
-    y is the rank's partial sum."""
+    y is the rank's partial sum.  ``data``: see the module docstring."""
     g, t, d = tokens.shape
     k, e = cfg.top_k, params["w_gate"].shape[0]
     logits, probs, gate_vals, expert_idx, pos, keep = _route(cfg, params["router"], tokens,
-                                                             capacity, tp)
+                                                             capacity, tp, data)
     e_flat = expert_idx.reshape(g, t * k)
     if e != cfg.n_experts:
         # the rank's experts [e0, e0 + e); entries routed elsewhere go to
@@ -234,17 +247,32 @@ def _expert_parallel(cfg: MoEConfig, params, tp):
     return tp if tp is not None and tuple(params["w_gate"].shape) != whole else None
 
 
-def moe_forward(cfg: MoEConfig, params, x: torch.Tensor, return_aux: bool = False, tp=None):
+def _queues(cfg: MoEConfig, n_tok: int, data=None):
+    """The token groups and the capacity of ``n_tok`` tokens, a data rank's
+    part of a batch split over ``data``'s ranks where it is given (the
+    capacity then the whole batch's, in one group)."""
+    if data is None:
+        return _groups_and_capacity(cfg, n_tok)
+    groups, capacity = _groups_and_capacity(cfg, n_tok * data.world)
+    if groups != 1:
+        raise NotImplementedError(
+            "a 'grouped' MoE dispatch over a batch split on data ranks is not carried over")
+    return groups, capacity
+
+
+def moe_forward(cfg: MoEConfig, params, x: torch.Tensor, return_aux: bool = False, tp=None,
+                data=None):
     """x: (B, S, d).  Returns ``(y, aux)``: the router's z-loss plus the
     Switch load-balance loss in fp32 with ``return_aux``, else None.
-    ``tp`` (forward only): a tensor-parallel node (see the module
+    ``tp`` (forward only): a tensor-parallel node; ``data`` (prefill and
+    decode): the data ranks that split the batch (see the module
     docstring)."""
     b, s, d = x.shape
     n_tok = b * s
-    groups, capacity = _groups_and_capacity(cfg, n_tok)
+    groups, capacity = _queues(cfg, n_tok, data)
     ep = _expert_parallel(cfg, params, tp)
     y, logits, probs, expert_idx = _dispatch_compute_combine(
-        cfg, params, x.reshape(groups, n_tok // groups, d), capacity, ep)
+        cfg, params, x.reshape(groups, n_tok // groups, d), capacity, ep, data)
     y = y.reshape(b, s, d)
     if ep is not None:
         y = ep.reduce_from(y)
@@ -265,13 +293,13 @@ def moe_forward(cfg: MoEConfig, params, x: torch.Tensor, return_aux: bool = Fals
     return y, z_loss + lb_loss
 
 
-def moe_routing(cfg: MoEConfig, params, x: torch.Tensor, tp=None):
+def moe_routing(cfg: MoEConfig, params, x: torch.Tensor, tp=None, data=None):
     """The experts each token of x (B, S, d) goes to and whether each
     entry is kept, as ``moe_forward`` routes them: ``(experts, keep)``, both
     (B*S, k), in token order (with ``tp``, every rank the whole routing)."""
     b, s, d = x.shape
-    groups, capacity = _groups_and_capacity(cfg, b * s)
+    groups, capacity = _queues(cfg, b * s, data)
     *_, expert_idx, _, keep = _route(cfg, params["router"],
                                      x.reshape(groups, b * s // groups, d), capacity,
-                                     _expert_parallel(cfg, params, tp))
+                                     _expert_parallel(cfg, params, tp), data)
     return expert_idx.reshape(b * s, cfg.top_k), keep.reshape(b * s, cfg.top_k)

@@ -29,7 +29,10 @@ sums all-reduced (``reduce_from``).  The channel mix: ``cw_k`` is
 column-parallel on ``ffn``, ``cw_v`` row-parallel then ``reduce_from``;
 ``cw_r`` (``(embed, embed)``) is replicated and its gate runs whole on every
 rank.  Each mix reads its layout off its shards' shapes: where its parallel
-dim fell back to replicated it runs whole.
+dim fell back to replicated it runs whole.  ``timemix_decode`` and
+``chanmix_decode`` take ``tp`` the same way, against the rank's cache
+shard (its heads' ``wkv`` state; the token shifts whole, as
+``cache_specs`` lays them out).
 """
 from __future__ import annotations
 
@@ -220,27 +223,43 @@ def init_rwkv_cache(cfg: RWKVConfig, batch: int, dtype=torch.bfloat16, device=No
     }
 
 
-def timemix_decode(cfg: RWKVConfig, params, x, cache):
-    """One-token time-mix.  x: (B, 1, d), normed."""
+def timemix_decode(cfg: RWKVConfig, params, x, cache, tp=None):
+    """One-token time-mix.  x: (B, 1, d), normed.  ``tp``: the rank's heads
+    of a tensor-parallel node, against its cache shard as ``cache_specs``
+    lays it out (its heads' ``wkv`` state, the token shift whole)."""
     b = x.shape[0]
+    sharded = tp is not None and params["w_r"].shape[-1] != cfg.d_model
+    if sharded:
+        params, x = _timemix_shard(cfg, params, x, tp)
     shifted = cache["shift_t"].to(x.dtype)
     r, k, v, g, logw = _timemix_inputs(cfg, params, x, shifted)
     rh, kh, vh = (_heads(cfg, t)[:, 0].float() for t in (r, k, v))
     wh = _heads(cfg, logw)[:, 0]
-    u = params["bonus_u"].float().reshape(cfg.n_heads, cfg.head_dim)
+    h = rh.shape[1]
+    u = params["bonus_u"].float().reshape(h, cfg.head_dim)
     s_prev = cache["wkv"]
     y = torch.einsum("bhp,bhpq->bhq", rh, s_prev) + _bonus(rh, kh, vh, u)
     s_new = torch.exp(wh)[..., None] * s_prev + kh[..., None] * vh[..., None, :]
-    y = y.reshape(b, 1, cfg.d_model).to(x.dtype)
-    y = rms_norm(y, params["ln_x"]) * g
+    y = y.reshape(b, 1, h * cfg.head_dim).to(x.dtype)
+    if sharded:
+        y = sharded_rms_norm(y, params["ln_x"], tp, cfg.d_model) * g
+    else:
+        y = rms_norm(y, params["ln_x"]) * g
     out = y @ params["w_o"].to(y.dtype)
+    if sharded:
+        out = tp.reduce_from(out)
     return out, {"wkv": s_new, "shift_t": x.to(cache["shift_t"].dtype)}
 
 
-def chanmix_decode(cfg: RWKVConfig, params, x, cache):
+def chanmix_decode(cfg: RWKVConfig, params, x, cache, tp=None):
+    """One-token channel-mix.  ``tp``: the rank's hidden units."""
     shifted = cache["shift_c"].to(x.dtype)
-    kc = _lerp(x, shifted, params["cmix_k"]) @ params["cw_k"].to(x.dtype)
+    sharded = tp is not None and params["cw_k"].shape[-1] != cfg.d_ff
+    xk, mix_k = (tp.copy_to(x), tp.copy_to(params["cmix_k"])) if sharded else (x, params["cmix_k"])
+    kc = _lerp(xk, shifted, mix_k) @ params["cw_k"].to(x.dtype)
     kc = torch.square(torch.relu(kc))
     rc = torch.sigmoid(_lerp(x, shifted, params["cmix_r"]) @ params["cw_r"].to(x.dtype))
-    out = rc * (kc @ params["cw_v"].to(kc.dtype))
-    return out, {"shift_c": x.to(cache["shift_c"].dtype)}
+    kv = kc @ params["cw_v"].to(kc.dtype)
+    if sharded:
+        kv = tp.reduce_from(kv)
+    return rc * kv, {"shift_c": x.to(cache["shift_c"].dtype)}

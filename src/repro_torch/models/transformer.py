@@ -36,8 +36,9 @@ field is not read: the port keeps every activation for the backward.
 ``init_cache`` make tensors on CUDA unless the caller asks for the CPU;
 the rest follow their inputs' device.
 
-``forward`` and ``loss`` take ``tp``, a model group (``launch/mesh.py``'s
-``ModelGroup``), for a node spread tensor-parallel over M ranks: each rank
+``forward``, ``loss``, ``prefill`` and ``decode_step`` take ``tp``, a model
+group (``launch/mesh.py``'s ``ModelGroup``), for a node (or a served
+model) spread tensor-parallel over M ranks: each rank
 holds its shard of the parameters, as the 'tp' profile lays them out, and
 the model reads the layout off the shards' shapes.  The embedding is
 vocab-parallel (each rank looks up its rows and the lookups are summed),
@@ -49,7 +50,13 @@ head gives vocab-sharded logits and the loss reduces over the vocabulary's
 shards (``cross_entropy_loss(..., tp=)``).  The audio front end's
 projection is replicated and runs whole on every rank.  A layer whose
 parallel dim fell back to replicated runs whole on every rank.  Every rank
-sees the whole batch.
+sees the whole batch.  ``prefill`` and ``decode_step`` return the whole
+vocabulary's logits, the ranks' shards gathered in rank order (the same
+bits on every rank), and read and write the rank's decode caches as
+``launch/sharding.py``'s ``cache_specs`` lays them out (the serve job,
+``launch/serve.py``).  They also take ``data``, the serve job's mesh where
+it splits one batch over its data ranks: the only rows that interact are
+a MoE block's, whose queues run over the whole batch.
 """
 from __future__ import annotations
 
@@ -297,6 +304,20 @@ class Model:
         n = params["embed"].shape[0] if w is None else w.shape[-1]
         return tp is not None and n != self.cfg.vocab_size
 
+    def _embed_tokens(self, params, tokens, dtype, tp=None):
+        """The token embeddings (before the scale).  With ``tp`` and a
+        vocab-sharded table: vocab-parallel, the rank's rows, zero
+        elsewhere, summed over the ranks (one nonzero term: the same bits
+        as the whole table)."""
+        embed = params["embed"]
+        if tp is not None and embed.shape[0] != self.cfg.vocab_size:
+            rows = embed.shape[0]
+            local = tokens - tp.index * rows
+            inside = (local >= 0) & (local < rows)
+            x = embed[local.clamp(0, rows - 1)].to(dtype) * inside[..., None].to(dtype)
+            return tp.reduce_from(x)
+        return embed[tokens].to(dtype)
+
     def _embed_inputs(self, params, batch, dtype=torch.bfloat16, tp=None):
         """Returns (x, positions): (B, S) int32, or (3, B, S) under M-RoPE.
 
@@ -309,17 +330,7 @@ class Model:
                              params["audio_proj"].to(dtype))
             b, s = x.shape[:2]
             return x, torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
-        embed = params["embed"]
-        if tp is not None and embed.shape[0] != cfg.vocab_size:
-            # vocab-parallel: the rank's rows, zero elsewhere, summed over
-            # the ranks (one nonzero term: the same bits as the whole table)
-            rows = embed.shape[0]
-            local = batch["tokens"] - tp.index * rows
-            inside = (local >= 0) & (local < rows)
-            x = embed[local.clamp(0, rows - 1)].to(dtype) * inside[..., None].to(dtype)
-            x = tp.reduce_from(x)
-        else:
-            x = embed[batch["tokens"]].to(dtype)
+        x = self._embed_tokens(params, batch["tokens"], dtype, tp)
         if cfg.n_vision_tokens:
             ve = torch.einsum("bvd,de->bve", batch["vision_embeds"].to(dtype),
                               params["vision_proj"].to(dtype))
@@ -344,13 +355,23 @@ class Model:
         logits = torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
         return softcap(logits, self.cfg.logit_softcap)
 
+    def _whole_logits(self, params, x, tp=None):
+        """The head's logits over the whole vocabulary: with ``tp`` and a
+        vocab-parallel head, the ranks' shards gathered in rank order (every
+        rank of the model group gets the same bits)."""
+        logits = self._head(params, x, tp=tp)
+        if self._vocab_sharded(params, tp):
+            logits = tp.all_gather([logits], [2])[0]
+        return logits
+
     # ------------------------------------------------------------------
     # block application
     # ------------------------------------------------------------------
-    def _apply_block(self, kind, bp, x, positions, mode, cache=None, position=None, tp=None):
+    def _apply_block(self, kind, bp, x, positions, mode, cache=None, position=None, tp=None,
+                     data=None):
         """Apply one block.  mode: 'fwd' | 'prefill' | 'decode'.
         Returns (x, new_cache, aux): aux is a MoE block's router losses in
-        'fwd' mode, else None.  ``tp`` (forward only): see the module
+        'fwd' mode, else None.  ``tp`` and ``data``: see the module
         docstring."""
         cfg = self.cfg
         if kind == "rwkv":
@@ -361,10 +382,10 @@ class Model:
         h = self._norm(x, bp["norm1"])
         if mode == "decode":
             y, new_cache = attn_lib.attention_decode(acfg, bp["attn"], h, position,
-                                                     cache["attn"])
+                                                     cache["attn"], tp=tp)
         elif mode == "prefill":
             y, new_cache = attn_lib.attention_forward(acfg, bp["attn"], h, positions,
-                                                      return_cache=True)
+                                                      return_cache=True, tp=tp)
         else:
             y, new_cache = attn_lib.attention_forward(acfg, bp["attn"], h, positions,
                                                       tp=tp), None
@@ -375,7 +396,7 @@ class Model:
         aux = None
         if kind == "moe":
             y, aux = mlp_lib.moe_forward(cfg.moe_cfg(), bp["ffn"], h, return_aux=mode == "fwd",
-                                         tp=tp)
+                                         tp=tp, data=data)
         else:
             y = mlp_lib.mlp_forward(cfg.mlp_cfg(), bp["ffn"], h, tp=tp)
         if cfg.use_post_norm:
@@ -389,9 +410,10 @@ class Model:
         mcfg = self.cfg.mamba_cfg()
         h = self._norm(x, bp["norm1"])
         if mode == "decode":
-            y, new_cache = mamba_lib.mamba_decode(mcfg, bp["mamba"], h, cache["mamba"])
+            y, new_cache = mamba_lib.mamba_decode(mcfg, bp["mamba"], h, cache["mamba"], tp=tp)
         elif mode == "prefill":
-            y, new_cache = mamba_lib.mamba_forward(mcfg, bp["mamba"], h, return_cache=True)
+            y, new_cache = mamba_lib.mamba_forward(mcfg, bp["mamba"], h, return_cache=True,
+                                                   tp=tp)
         else:
             y, new_cache = mamba_lib.mamba_forward(mcfg, bp["mamba"], h, tp=tp), None
         return x + y, (None if new_cache is None else {"mamba": new_cache})
@@ -402,19 +424,20 @@ class Model:
         rcfg = self.cfg.rwkv_cfg()
         h = self._norm(x, bp["norm1"])
         if mode == "decode":
-            y, tc = rwkv_lib.timemix_decode(rcfg, bp["rwkv"], h, cache["rwkv"])
+            y, tc = rwkv_lib.timemix_decode(rcfg, bp["rwkv"], h, cache["rwkv"], tp=tp)
         else:
             y, tc = rwkv_lib.timemix_forward(rcfg, bp["rwkv"], h, return_cache=True, tp=tp)
         x = x + y
         h = self._norm(x, bp["norm2"])
         if mode == "decode":
-            y, cc = rwkv_lib.chanmix_decode(rcfg, bp["rwkv"], h, cache["rwkv"])
+            y, cc = rwkv_lib.chanmix_decode(rcfg, bp["rwkv"], h, cache["rwkv"], tp=tp)
         else:
             y, cc = rwkv_lib.chanmix_forward(rcfg, bp["rwkv"], h, return_cache=True, tp=tp)
         x = x + y
         return x, (None if mode == "fwd" else {"rwkv": {**tc, **cc}})
 
-    def _scan_blocks(self, params, x, positions, mode, caches=None, position=None, tp=None):
+    def _scan_blocks(self, params, x, positions, mode, caches=None, position=None, tp=None,
+                     data=None):
         """Loop over repeats; within a repeat apply each unit element in
         order.  Returns (x, caches stacked over repeats or None, the summed
         auxiliary loss (fp32) in 'fwd' mode or None)."""
@@ -429,7 +452,7 @@ class Model:
                 bp = params["blocks"][key] if kind == "shared_attn" else layers[key][r]
                 c = None if caches is None else tree_map(lambda t: t[r], caches[key])
                 x, nc, block_aux = self._apply_block(kind, bp, x, positions, mode, cache=c,
-                                                     position=position, tp=tp)
+                                                     position=position, tp=tp, data=data)
                 if nc is not None:
                     out[key].append(nc)
                 if block_aux is not None:
@@ -463,16 +486,24 @@ class Model:
         return cross_entropy_loss(logits, batch["targets"], batch.get("mask"),
                                   tp=vocab_tp) + aux
 
-    def prefill(self, params, batch, dtype=torch.bfloat16):
+    def prefill(self, params, batch, dtype=torch.bfloat16, tp=None, data=None):
         """Last-token logits (B, 1, V) and the prompt's caches: per block
         element ``{"attn": {"k", "v" (repeats, B, S, K, hd), "pos"
         (repeats, B, S) int32}}``, full length (not ring buffers),
         ``{"mamba": {"conv" (repeats, B, W-1, di+2N), "ssm" (repeats, B, H,
         P, N) fp32}}`` or ``{"rwkv": {"wkv" (repeats, B, H, P, P) fp32,
-        "shift_t", "shift_c" (repeats, B, 1, d)}}``."""
-        x, positions = self._embed_inputs(params, batch, dtype)
-        x, caches = self._scan_blocks(params, x, positions, "prefill")
-        return self._head(params, x[:, -1:]), caches
+        "shift_t", "shift_c" (repeats, B, 1, d)}}``.
+
+        ``tp`` (a model group): the rank's shards of a tensor-parallel
+        model, as the 'tp' profile (and every profile's serve rules) lays
+        them out; the logits are the whole vocabulary's on every rank, and
+        the caches the rank's, as ``launch/sharding.py``'s ``cache_specs``
+        lays them out.  ``data`` (a ``NodeMesh``): the batch is this data
+        rank's block of rows of one batch split over the mesh's data ranks,
+        which a MoE block queues as one (``models/mlp.py``)."""
+        x, positions = self._embed_inputs(params, batch, dtype, tp=tp)
+        x, caches = self._scan_blocks(params, x, positions, "prefill", tp=tp, data=data)
+        return self._whole_logits(params, x[:, -1:], tp), caches
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
         """Empty decode caches, stacked over repeats (a shared_attn
@@ -495,12 +526,14 @@ class Model:
                 lambda t: t.unsqueeze(0).repeat((cfg.repeats,) + (1,) * t.dim()), one)
         return caches
 
-    def decode_step(self, params, caches, tokens, position, dtype=torch.bfloat16):
+    def decode_step(self, params, caches, tokens, position, dtype=torch.bfloat16, tp=None,
+                    data=None):
         """tokens: (B, 1) int; position: (B,) int32.  Returns (logits
-        (B, 1, V), caches); the input caches are not modified."""
-        x = params["embed"][tokens].to(dtype)
+        (B, 1, V), caches); the input caches are not modified.  ``tp`` and
+        ``data``: as in :meth:`prefill`, against the rank's cache shards."""
+        x = self._embed_tokens(params, tokens, dtype, tp)
         if self.cfg.scale_embeddings:
             x = self._scale_embeddings(x)
         x, caches_out = self._scan_blocks(params, x, None, "decode", caches=caches,
-                                          position=position)
-        return self._head(params, x), caches_out
+                                          position=position, tp=tp, data=data)
+        return self._whole_logits(params, x, tp), caches_out

@@ -15,11 +15,15 @@ Counterpart of ``repro.serving.driver``:
     to their empty values, whatever the cache holds (ring-buffer ``pos`` to
     -1, an RWKV-6 state and token shifts to zero).
 
+On a mesh-sharded serve job (``job=``) each data rank drives its own
+slots against its cache shards, and the data ranks step together, as one
+driver over the whole batch's slots would (a MoE queues them as one).
 Greedy only, as the reference's driver.  With a telemetry hub each step
-runs in fenced ``serve/admit`` and ``serve/decode`` spans (the host copy of
-the sampled tokens fences the decode span), and with a ``ServingMetrics``
-each ``run`` lands in its ``requests_per_sec`` and ``tokens_per_sec``
-streams.  Everything runs under ``torch.inference_mode()``.
+runs in fenced ``serve/admit`` and ``serve/decode`` spans (the host copy
+of the sampled tokens fences the decode span), and with a
+``ServingMetrics`` each ``run`` lands in its ``requests_per_sec`` and
+``tokens_per_sec`` streams.  Everything runs under
+``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -71,21 +75,47 @@ class RequestDriver:
     metrics:   optional ``repro_torch.serving.ServingMetrics``: each
                ``run`` records its requests and tokens per second.
     device:    where the caches live: CUDA unless the CPU is asked for.
+    job:       optional ``launch.serve.ServeJob`` on a mesh: the cache
+               template is its ``init_cache(slots, max_len)``, this rank's
+               shard, and ``decode_fn`` defaults to its ``decode_fn`` (a
+               ``decode_fn`` given beside a job takes its ``global_batch``
+               keyword), so that the driver runs against the rank's shard
+               on the job's device.  ``slots`` is then the whole batch's:
+               this data rank drives its own of them (``job.rows(slots)``),
+               with the requests submitted to it; every model rank of a
+               data rank is given the same requests.  Where the slots are
+               split over the data ranks, ``run`` steps until no data rank
+               has a request left (a rank with none steps its empty
+               slots); a caller of ``step`` keeps the ranks in step too.
     """
 
     def __init__(self, model, *, slots: int, max_len: int, dtype=torch.float32,
-                 decode_fn=None, telemetry=None, metrics=None, device=None):
+                 decode_fn=None, telemetry=None, metrics=None, device=None, job=None):
         if model.cfg.head != "lm":
             raise ValueError(f"{model.cfg.name} has no decode path")
         self.model = model
-        self.slots = int(slots)
         self.max_len = int(max_len)
         self.dtype = dtype
-        self.device = resolve_device(device)
         self.metrics = metrics
         self.telemetry = telemetry or (metrics.telemetry if metrics is not None else None)
-        self._cache_template = model.init_cache(self.slots, self.max_len, dtype=dtype,
-                                                device=self.device)
+        self._data = None       # the mesh whose data ranks split the slots
+        if job is None:
+            self.slots = int(slots)
+            self.device = resolve_device(device)
+            self._cache_template = model.init_cache(self.slots, self.max_len, dtype=dtype,
+                                                    device=self.device)
+        else:
+            whole = int(slots)
+            rows = job.rows(whole)
+            self.slots = rows.stop - rows.start
+            self.device = job.device
+            self._cache_template = job.init_cache(whole, self.max_len, dtype=dtype)
+            if self.slots != whole:
+                self._data = job.mesh
+            decode = decode_fn or job.decode_fn
+
+            def decode_fn(p, c, t, pos):
+                return decode(p, c, t, pos, global_batch=whole)
         self._decode = decode_fn or (
             lambda p, c, t, pos: model.decode_step(p, c, t, pos, dtype=dtype)
         )
@@ -137,6 +167,13 @@ class RequestDriver:
     @property
     def pending(self) -> int:
         return len(self._queue) + sum(r is not None for r in self._active)
+
+    def _pending_anywhere(self) -> int:
+        """The requests left on this driver, or on every data rank where
+        the slots are split over them."""
+        if self._data is None:
+            return self.pending
+        return int(self._data.all_reduce_sum(torch.tensor([self.pending]))[0])
 
     # ------------------------------------------------------------------
     def _admit(self):
@@ -191,7 +228,7 @@ class RequestDriver:
         synchronize(self.device)
         t0 = time.perf_counter()
         completed = 0
-        while self.pending:
+        while self._pending_anywhere():
             completed += self.step(params)
         synchronize(self.device)
         elapsed = time.perf_counter() - t0
