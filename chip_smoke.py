@@ -39,8 +39,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    Qwen2-VL-2B's (H=12, K=2, D=128) at the prefill's B=2, S=8192 and at
    the training step's B=1, S=2048, bf16, SDPA timed beside the seven
    cases it computes, and checked untimed in
-   fp32 at S=1024, at a ragged S=1000 (D=112 too) and at phase 3g's fp32
-   tp ranks (H=K=8, S=2048, D=128; H=K=16, S=1024, D=112), the first call of
+   fp32 at S=1024, at a ragged S=1000 (D=112 too), at phase 3g's fp32
+   tp ranks (H=K=8, S=2048, D=128; H=K=16, S=512, D=112) and at phase
+   3h's fp32 2d ranks (H=K=8, S=1024, D=128; timed in bf16 there too), the
+   first call of
    each case under
    torch.profiler to print its launch's grid, block, registers and shared
    memory; rms_norm (CUDA C++, src/repro_torch/csrc/rms_norm.cu) on 16,384
@@ -130,11 +132,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    roll run's plain twin passes the card (PERF.md).  Then 2 gloo ranks on
    the card, each
    its own process, against a world-1 process, both deterministic
-   (``torch.use_deterministic_algorithms``, cuBLAS workspace config): roll
-   on 4 nodes for 1 round (2 before phase 3g's codec runs took on the roll
-   between gloo ranks: the time limit) and CHOCO on 2 for 2 rounds (its
-   replicas carried between them), final params bit for bit by per-node
-   fingerprints, process bytes, ms a round and each rank's launches.
+   (``torch.use_deterministic_algorithms``, cuBLAS workspace config), the
+   world-1 process first (the 2-rank group's states and its do not fit
+   the card together): roll on 4 nodes, two a rank, for 1 round (2 before
+   phase 3g's codec runs took on the roll between gloo ranks: the time
+   limit) and CHOCO on 2 for 2 rounds (its replicas carried between them),
+   final params bit for bit by per-node fingerprints, process bytes, ms a
+   round and each rank's launches.
    Every run prints ms a round, node-steps/s, peak memory, launches by op
    and the mesh's bytes a round beside the card's name and power limit;
 3f. the training CLI, its example and the sweep, on the example's lm-100m
@@ -185,10 +189,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    rank), Zamba2-7B (2 Mamba-2 layers, 56 of 112 SSM heads a rank, and the
    shared attention, flash at 16 of 32 heads, D 112) and HuBERT X-Large (1
    layer, the plain bidirectional attention at 8 of 16 heads; 1 x 1,500
-   frames of 512 features and frame targets drawn on the card), each 2
-   nodes x model 2; Qwen1.5-MoE-A2.7B (1 layer, 30 of 60 experts and flash
-   at 8 of 16 heads a rank), 1 node x model 2; 1 x 512, 1,024 and 2,048
-   tokens a node.  RWKV-6, Zamba2 and Qwen1.5-MoE run twice: in the
+   frames of 512 features and frame targets drawn on the card), HuBERT 2
+   nodes x model 2, RWKV-6 and Zamba2 2 nodes x model 2; Qwen1.5-MoE-A2.7B (1 layer, 30 of 60 experts and flash
+   at 8 of 16 heads a rank), 1 node x model 2; 1 x 256, 512 and 2,048
+   tokens a node.  The one-node runs' group trains while phase 3f runs (both
+   fit the card) and is held first.  RWKV-6, Zamba2 and Qwen1.5-MoE run twice: in the
    engine's bf16 activations, held to ``LAYOUT_FLOOR_TIMES``
    times the floor of the same round, model 1 against itself from its init
    one fp32 ulp up (in bf16 a tp round's partial sums round apart past the
@@ -226,10 +231,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    group and the decoded shard are the whole leaf's in this process, bit
    for bit (chunked fingerprints).  Cuts, no width: 1
    block unit of each model (as phase 3e), Yi-9B and Qwen1.5-MoE on 1 node
-   (two nodes of their state do not fit the card), the batches above, the
+   (two nodes of their state do not fit the card), the batches above
+   (RWKV-6's and Zamba2's halved when phase 3h took its time), the
    fsdp runs to 1 round, (a) to 1 (the codec runs take its path, 2 rounds
    each), the fp32 twins to 1 (their bf16 runs keep round 2) and the rest
    to 2 (the time limit; see ``LAYOUT_RUNS``);
+3h. the '2d' profile (``make_train_job(profile="2d")`` on a ``NodeMesh(
+   data=2, model=2)``: one node over 2 data x 2 model gloo ranks, rank
+   ``d M + m``), on a 4-rank group of its own (``--layout-rank``, as phase
+   3g's) spawned as phase 3 begins, whose ranks train while phases 3-3b
+   run in this process (those take little device memory, and their speed
+   figures are taken beside the ranks), and held here right after phase
+   3b (before phase 3c draws a full-width Gemma-2 2B): phase 3g's DSE-MVR
+   through the kernels on Qwen1.5-MoE-A2.7B at
+   full width on one block unit, a node batch of 2 x 1,024 tokens split
+   over the data ranks (a rank's row: flash at 8 of 16 heads; all 60
+   experts at 704 of 1,408 hidden units, each data rank holding 30 of them
+   and gathering the rest before each forward; the queues and the router
+   losses over the whole node batch), two rounds in the engine's bf16 held
+   to ``LAYOUT_FLOOR_TIMES`` times the floor of model 1 from its init one
+   fp32 ulp up, and one in fp32 activations held to the band, each against
+   the same node at model 1 in this process, run after the group ends (the
+   group's and model 1's peaks never overlap); the routing decisions by
+   round (the data ranks' rows joined) against model 1's; the data group's
+   bytes to the byte (the data-sharded leaves gathered and every leaf's
+   gradient reduce-scattered a forward, the queue counts a MoE layer), the
+   model group's all-reduces only; leaves replicated over the data ranks
+   and over the model ranks bit for bit; launches, ms a round, peak memory
+   and both groups' bytes a round by rank beside model 1's.  Arctic 480B
+   and Command R+ 104B, whose default profile '2d' is, do not fit one card
+   at full width (ROADMAP queue 1 item 8 (b) 3);
 4. the LM serving path at Gemma-2 2B's full width (26 layers, d 2304,
    vocab 256,000; random bf16 weights from a seed): ``make_serve_job(...).
    prefill_fn`` with ``attn_impl="pallas"`` on 2 prompts of 8192 tokens,
@@ -359,7 +390,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 6. a ``{"kernels": [...]}`` line (with each op's phase 3d launches by
    worker, ``elastic_launches``, phase 3e's by process,
    ``sharded_launches``, phase 3f's by run and rank, ``cli_launches``, and
-   phase 3g's by run and rank, ``layout_launches``, and phase 4g's by run
+   phase 3g's and 3h's by run and rank, ``layout_launches``, and phase 4g's by run
    and rank, ``serve_layout_launches``),
    then the last line
    ``{"ok": true, "device": {...}}``.
@@ -446,9 +477,10 @@ ELASTIC_CHOCO = (("channel", "choco"), ("compression", "top_k:0.1"), ("overlap",
 # (scripts/sharded_memory_probe.py; PERF.md)
 SHARD_NODES = SHARD_QSGD_NODES = SHARD_CHOCO_NODES = 4
 # the 2-rank group's runs (two ranks share the card, each with its own
-# state): tag -> (nodes, rounds); roll on 4 nodes, 1 round (2 before phase
-# 3g's codec runs took on the roll between gloo ranks; the time limit),
-# CHOCO on 2 (one a rank), 2 rounds (its replicas carried between them)
+# state): tag -> (nodes, rounds); roll on 4 nodes (two a rank), 1 round (2
+# before phase 3g's codec runs took on the roll between gloo ranks; the
+# time limit), CHOCO on 2 (one a rank), 2 rounds (its replicas carried
+# between them)
 SHARD_GROUP_RUNS = {"roll": (4, 1), "choco": (2, 2)}
 SHARD_TAU, SHARD_ROUNDS = 3, 3
 SHARD_LAYERS = 1
@@ -467,13 +499,17 @@ SHARD_DEADLINE = 900   # s, a spawned world of phase 3e
 # Zamba2-7B (0.48 B) and HuBERT X-Large and 1 for Yi-9B and Qwen1.5-MoE (4
 # ranks of their state do not fit the card beside each other: about 0.70 B
 # and 1.19 B parameters a node, at about 40 bytes of a node's state a
-# parameter), the batches below (RWKV-6 on 512 tokens a node: its training
+# parameter), the batches below (RWKV-6 on 256 tokens a node: its training
 # backward recomputes the plain per-token recurrence, 8-10 s a round at
-# 1,024 in fp32; Zamba2 on 1,024: host staging, 8-10 s a round at 2,048 in
-# fp32), and the rounds below (an fsdp round moves the whole tree through the host twice a
+# 1,024 in fp32, 7.4-9.3 s at 512; Zamba2 on 512: host staging, 8-10 s a
+# round at 2,048 in fp32, 6.1-8.6 s at 1,024; each halved when phase 3h
+# took on the '2d' runs: the time limit), and the rounds below (an fsdp round moves the whole tree through the host twice a
 # gradient, 10-23 s a round on the card): the smoke's time limit holds
 # every phase
 LAYOUT_MODEL = 2
+# the '2d' profile's within-node data axis (phase 3h): one node of
+# LAYOUT_DATA x LAYOUT_MODEL ranks
+LAYOUT_DATA = 2
 # run -> (arch, profile, nodes, node batch, text tokens (HuBERT: frames) a
 # row, rounds)
 LAYOUT_RUNS = {
@@ -484,15 +520,20 @@ LAYOUT_RUNS = {
     "tp_qwen2_vl_async_dropout": ("qwen2-vl-2b", "tp", 2, 1, 1792, 2),
     "fsdp_qwen2_vl": ("qwen2-vl-2b", "fsdp", 2, 2, 768, 1),   # splits over the 2 ranks
     "fsdp_yi_9b": ("yi-9b", "fsdp", 1, 2, 1024, 1),
-    "tp_rwkv6": ("rwkv6-3b", "tp", 2, 1, 512, 2),
-    "tp_zamba2": ("zamba2-7b", "tp", 2, 1, 1024, 2),
+    "tp_rwkv6": ("rwkv6-3b", "tp", 2, 1, 256, 2),
+    "tp_zamba2": ("zamba2-7b", "tp", 2, 1, 512, 2),
     "tp_hubert": ("hubert-xlarge", "tp", 2, 1, 1500, 2),
     "tp_qwen2_moe": ("qwen2-moe-a2.7b", "tp", 1, 1, 2048, 2),
     # the fp32 twins 1 round (2 before: the time limit; their bf16 runs
     # keep round 2, where the loss must fall)
-    "tp_rwkv6_fp32": ("rwkv6-3b", "tp", 2, 1, 512, 1),
-    "tp_zamba2_fp32": ("zamba2-7b", "tp", 2, 1, 1024, 1),
+    "tp_rwkv6_fp32": ("rwkv6-3b", "tp", 2, 1, 256, 1),
+    "tp_zamba2_fp32": ("zamba2-7b", "tp", 2, 1, 512, 1),
     "tp_qwen2_moe_fp32": ("qwen2-moe-a2.7b", "tp", 1, 1, 2048, 1),
+    # phase 3h: the '2d' profile, one node of data 2 x model 2, its batch of
+    # 2 x 1,024 tokens split over the data ranks (the tp run's 2,048
+    # tokens); two rounds in bf16, one in fp32
+    "2d_qwen2_moe": ("qwen2-moe-a2.7b", "2d", 1, 2, 1024, 2),
+    "2d_qwen2_moe_fp32": ("qwen2-moe-a2.7b", "2d", 1, 2, 1024, 1),
 }
 # RWKV-6, Mamba-2 and the MoE in bf16 activations (the engine's own path):
 # a tp round rounds each row-parallel partial sum to bf16 before the fp32
@@ -502,7 +543,7 @@ LAYOUT_RUNS = {
 # which the same bf16 roundings (and the MoE's flipped routes) amplify as
 # far (PERF.md §6: the tp gap 0.8-1.5 times the floor)
 LAYOUT_FLOOR = ("tp_rwkv6", "tp_zamba2", "tp_qwen2_moe", "tp_qwen2_vl_qsgd", "tp_qwen2_vl_choco",
-                "tp_qwen2_vl_async_dropout")
+                "tp_qwen2_vl_async_dropout", "2d_qwen2_moe")
 LAYOUT_FLOOR_TIMES = 4
 # the codecs and channels on a model axis: run -> (make_train_job
 # keywords, scenario preset or None).  Sync QSGD rolls its int8 payload
@@ -528,7 +569,9 @@ LAYOUT_STAGE_FIRST = ("tp_qwen2_vl",) + tuple(LAYOUT_CODECS)
 LAYOUT_LEAF_SEED = 0x5EED
 # and their twins in fp32 activations (Model.loss wrapped; the engine asks
 # for bf16), each and its model-1 run: held to the band, as the rest
-LAYOUT_FP32 = ("tp_rwkv6_fp32", "tp_zamba2_fp32", "tp_qwen2_moe_fp32")
+LAYOUT_FP32 = ("tp_rwkv6_fp32", "tp_zamba2_fp32", "tp_qwen2_moe_fp32", "2d_qwen2_moe_fp32")
+# phase 3h's runs, on a group of their own that runs beside phases 3-3b
+LAYOUT_2D = tuple(r for r, spec in LAYOUT_RUNS.items() if spec[1] == "2d")
 # the run whose ranks also gather their parameters over both axes with
 # TrainJob.full (the rest write their own rows and shards): the cheapest
 LAYOUT_FULL = ("tp_hubert",)
@@ -613,7 +656,10 @@ FLASH_CASES = (
     ("yi_9b_fsdp", 1, 32, 4, 1024, 128, None, None),
     # and tp's heads of Qwen1.5-MoE and of Zamba2's shared attention
     ("qwen2_moe_tp", 1, 8, 8, 2048, 128, None, None),
-    ("zamba2_tp", 1, 16, 16, 1024, 112, None, None),
+    ("zamba2_tp", 1, 16, 16, 512, 112, None, None),
+    # phase 3h's ranks: the 2d node's model rank's heads on its data rank's
+    # row of the node batch
+    ("qwen2_moe_2d", 1, 8, 8, 1024, 128, None, None),
     # phase 4g's ranks: a data rank's 2 prompts at the model rank's heads
     ("gemma2_serve_tp", 2, 4, 2, 512, 256, None, 50.0),
     ("gemma2_serve_tp_local", 2, 4, 2, 512, 256, 4096, 50.0),
@@ -677,8 +723,8 @@ SNAP_REMOTE_CODEC = "top_k:0.01"
 # RWKV-6 3B at full width: 2 prompts of 8192 tokens, the wkv chunk of 16
 RWKV_ARCH, RWKV_BATCH, RWKV_SEQ, WKV_CHUNK = "rwkv6-3b", 2, 8192, 16
 # a tp rank's wkv_chunk call in phase 3g: RWKV-6 3B's 20 of 40 heads on a
-# node batch of 1 x 512 tokens, (B, S, heads)
-WKV_TP_SHAPE = (1, 512, 20)
+# node batch of 1 x 256 tokens, (B, S, heads)
+WKV_TP_SHAPE = (1, 256, 20)
 # wkv_chunk vs the plain chunked form: the same fp32 arithmetic in other
 # summation orders; vs the per-token recurrence inside the clamp envelope:
 # the reference's kernel-test tolerance (tests/test_kernels.py)
@@ -1397,8 +1443,8 @@ def check_attention_kernels(api, bw) -> dict:
 
     # untimed: fp32 at S=1024 and ragged lengths, Gemma-2's and Yi's heads,
     # the fp32 ranks of phase 3g (tp Qwen1.5-MoE's and Zamba2's shared
-    # attention's heads), and phase 4g's model 1 (the whole batch) and its
-    # Zamba2 fp32 ranks
+    # attention's heads) and of phase 3h (the 2d node's), and phase 4g's
+    # model 1 (the whole batch) and its Zamba2 fp32 ranks
     fp32_err, bf16_err = 0.0, 0.0
     for b, h, kh, s, d, window, cap, dtype in (
         (4, 8, 4, 512, 256, None, 50.0, torch.bfloat16),
@@ -1414,7 +1460,8 @@ def check_attention_kernels(api, bw) -> dict:
         (1, 32, 4, 1000, 128, None, None, torch.bfloat16),
         (1, 32, 32, 1000, 112, None, None, torch.float32),
         (1, 8, 8, 2048, 128, None, None, torch.float32),
-        (1, 16, 16, 1024, 112, None, None, torch.float32),
+        (1, 16, 16, 512, 112, None, None, torch.float32),
+        (1, 8, 8, 1024, 128, None, None, torch.float32),
     ):
         q, k, v = qkv(b, h, kh, s, d, dtype)
         kw = dict(causal=True, sliding_window=window, softcap=cap)
@@ -3860,7 +3907,7 @@ def fp32_activations():
     from repro_torch.models import Model
 
     loss = Model.loss
-    Model.loss = lambda self, p, b, dtype=None, tp=None: loss(self, p, b, torch.float32, tp)
+    Model.loss = lambda self, p, b, dtype=None, **kw: loss(self, p, b, torch.float32, **kw)
     try:
         yield
     finally:
@@ -3988,6 +4035,7 @@ def layout_run(api, mesh, run: str, on_round, moved: bool = False) -> dict:
             assert math.isfinite(losses[-1]), (run, r, losses)
             on_round(r + 1, job, state)
     replicated = [t for t, d in zip(tree_leaves(state.params), job.shard_dims) if d is None]
+    data_replicated = [t for t, d in zip(tree_leaves(state.params), job.data_dims) if d is None]
     out = {"run": run, "ms": ms, "loss": losses, "launches": api.launch_counts(),
            "bytes": moved_bytes, "routes": routes,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -3995,8 +4043,10 @@ def layout_run(api, mesh, run: str, on_round, moved: bool = False) -> dict:
            "buckets": api.bucket_count(job.abstract_state.params),
            "n_local": mesh.n_local, "replicated": fingerprint({str(i): t for i, t in
                                                                enumerate(replicated)}),
+           "data_replicated": fingerprint({str(i): t for i, t in enumerate(data_replicated)}),
            "sharded_leaves": sum(d is not None for d in job.shard_dims),
            "leaves": len(job.shard_dims), "shard_dims": job.shard_dims,
+           "data_dims": job.data_dims,
            "streams": streams, "payloads": payloads,
            "whole_shapes": [list(t.shape) for t in
                             tree_leaves(job.model.param_shapes(dtype=torch.float32))]}
@@ -4052,9 +4102,11 @@ def layout_stage(api, runs: list, out_dir: str, rank: int) -> None:
     from repro_torch.tree import tree_leaves
 
     for run in runs:
-        # a mesh a run: its model group's pinned staging buffers, kept for
-        # the sizes a run repeats, go with it
-        mesh = make_group_mesh(LAYOUT_RUNS[run][2], device="cuda", model=LAYOUT_MODEL)
+        # a mesh a run: its groups' pinned staging buffers, kept for the
+        # sizes a run repeats, go with it; '2d' with its data axis
+        two_d = LAYOUT_RUNS[run][1] == "2d"
+        mesh = make_group_mesh(LAYOUT_RUNS[run][2], device="cuda", model=LAYOUT_MODEL,
+                               data=LAYOUT_DATA if two_d else None)
         rounds = LAYOUT_RUNS[run][5]
 
         def on_round(r, job, state):
@@ -4071,7 +4123,12 @@ def layout_stage(api, runs: list, out_dir: str, rank: int) -> None:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             res = layout_run(api, mesh, run, on_round)
-        res.update(rank=rank, node_rank=mesh.rank, index=mesh.model_group.index,
+        d = 0 if mesh.data_group is None else mesh.data_group.index
+        res.update(rank=rank, node_rank=mesh.rank, index=mesh.model_group.index, data_index=d,
+                   # the global ranks of this rank's model group's first rank
+                   # and of its data group's
+                   model_first=(mesh.rank * mesh.data + d) * LAYOUT_MODEL,
+                   data_first=mesh.rank * mesh.data * LAYOUT_MODEL + mesh.model_group.index,
                    nondeterministic=sorted({str(w.message)[:200] for w in caught}))
         torch.save(res.pop("routes"), Path(out_dir) / f"{run}_routes_rank{rank}.pt")
         (Path(out_dir) / f"{run}_rank{rank}.json").write_text(json.dumps(res))
@@ -4166,12 +4223,12 @@ def layout_leaf_check(out: Path, res: dict, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
-def spawn_layout_group(stages: list, world: int) -> tuple:
-    """Phase 3g's ``world``-rank group for ``stages`` (lists of runs, one
-    after the other): ``torch.distributed.run`` starting this file as each
-    rank's script, on the one card, its output to a log file; returns the
-    runs' directory, the process, its start time and the log's path (see
-    ``layout_stage_wait``)."""
+def spawn_layout_group(stages: list, world: int, tag: str = "") -> tuple:
+    """Phase 3g's (3h's) ``world``-rank group for ``stages`` (lists of runs,
+    one after the other): ``torch.distributed.run`` starting this file as
+    each rank's script, on the one card, its output to a log file (named
+    with ``tag``); returns the runs' directory, the process, its start time
+    and the log's path (see ``layout_stage_wait``)."""
     import gc
     import os
 
@@ -4187,7 +4244,7 @@ def spawn_layout_group(stages: list, world: int) -> tuple:
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
            str(world), str(ROOT / "chip_smoke.py"), "--layout-rank",
            ";".join(",".join(runs) for runs in stages), str(out)]
-    log = out / f"group{world}.log"
+    log = out / f"group{world}{tag}.log"
     with open(log, "w") as f:
         proc = subprocess.Popen(cmd, env=env, stdout=f, stderr=subprocess.STDOUT,
                                 start_new_session=True)
@@ -4225,40 +4282,76 @@ def layout_gap(got: list, want: list) -> float:
     return worst
 
 
-def layout_rank_part(params, rank: int, n_local: int, dims) -> list:
-    """Rank ``rank``'s rows and model shards of a whole node-stacked tree
-    (its leaves; ``dims`` each leaf's model-sharded dim or None)."""
+def layout_world(run: str) -> int:
+    """The gloo ranks of a phase 3g / 3h run: nodes x model, x data under
+    '2d'."""
+    _, profile, nodes = LAYOUT_RUNS[run][:3]
+    return nodes * LAYOUT_MODEL * (LAYOUT_DATA if profile == "2d" else 1)
+
+
+def layout_rank_part(params, rank: int, n_local: int, dims, data_dims=None) -> list:
+    """Rank ``rank``'s rows and shards of a whole node-stacked tree (its
+    leaves; ``dims`` each leaf's model-sharded dim or None, ``data_dims``
+    under '2d' its data-sharded dim, rank ``(p D + d) M + m``)."""
     from repro_torch.tree import tree_leaves
 
-    d, m = divmod(rank, LAYOUT_MODEL)
+    data = LAYOUT_DATA if data_dims is not None else 1
+    p, rest = divmod(rank, data * LAYOUT_MODEL)
+    d, m = divmod(rest, LAYOUT_MODEL)
     out = []
-    for t, dim in zip(tree_leaves(params), dims):
-        t = t[d * n_local:(d + 1) * n_local]
-        if dim is not None:
-            n = t.shape[dim + 1] // LAYOUT_MODEL
-            t = t.narrow(dim + 1, m * n, n)
+    for i, (t, dim) in enumerate(zip(tree_leaves(params), dims)):
+        t = t[p * n_local:(p + 1) * n_local]
+        for cut, size, index in ((dim, LAYOUT_MODEL, m),
+                                 (None if data_dims is None else data_dims[i], data, d)):
+            if cut is not None:
+                n = t.shape[cut + 1] // size
+                t = t.narrow(cut + 1, index * n, n)
         out.append(t)
     return out
 
 
-def layout_path(api, smi: str) -> tuple:
+def layout_groups() -> dict:
+    """Phase 3g's runs by the number of gloo ranks they take (phase 3h's
+    '2d' runs apart)."""
+    groups: dict = {}
+    for run in LAYOUT_RUNS:
+        if run not in LAYOUT_2D:
+            groups.setdefault(layout_world(run), []).append(run)
+    return groups
+
+
+def spawn_layout_early() -> tuple:
+    """Phase 3g's one-node runs (a node over LAYOUT_MODEL ranks), their
+    group spawned as phase 3f begins: its ranks train while phase 3f runs
+    here (both fit the card: about 46 GiB and 15 GiB at their peaks)."""
+    runs = layout_groups()[LAYOUT_MODEL]
+    return spawn_layout_group([runs], LAYOUT_MODEL, "early") + (runs,)
+
+
+def layout_path(api, smi: str, early: tuple) -> tuple:
     """Phase 3g: the within-node layouts on the card.  The runs of one node
     count share a spawned group: the nodes x LAYOUT_MODEL gloo ranks run
     them in turn (each rank writes its rows and shards after round 1 and
     the last round to disk), then each runs at model 1 in this process,
     held leaf by leaf against those files as it goes, so that no run's
-    parameters wait on the host and no rank gathers a whole tree.  A group
-    runs in stages (``LAYOUT_STAGE_FIRST`` first): its ranks wait while this
-    process holds a stage's runs, so that one stage's files are on the disk
-    at a time.  Returns every run's launches and each op's launches by run
-    and rank."""
+    parameters wait on the host and no rank gathers a whole tree.  The
+    one-node group (``early``, ``spawn_layout_early``) ran beside phase 3f
+    and is held first, so that its files leave the disk before the 2-node
+    group's are written; the 2-node group runs in stages
+    (``LAYOUT_STAGE_FIRST`` first): its ranks wait while this process holds
+    a stage's runs, so that one stage's files are on the disk at a time.
+    Returns every run's launches and each op's launches by run and rank."""
     t_phase = time.perf_counter()
     launches, by_run = [], {}
-    groups: dict = {}
-    for run, spec in LAYOUT_RUNS.items():
-        groups.setdefault(spec[2], []).append(run)
-    for nodes, runs in groups.items():
-        world = nodes * LAYOUT_MODEL
+    out, proc, t0, log, runs = early
+    wall = layout_stage_wait(proc, None, t0, log)
+    print(f"layout group {runs}: {LAYOUT_MODEL} gloo ranks on the card, {wall:.1f} s wall with "
+          f"spawn and set-up since the group started (beside phase 3f), "
+          f"{time.perf_counter() - t_phase:.1f} s of it waited for here")
+    layout_stage_check(api, smi, runs, out, launches, by_run)
+    for world, runs in layout_groups().items():
+        if world == LAYOUT_MODEL:
+            continue
         # Qwen2-VL-2B's tp runs first, apart: one stage's rank files on the
         # disk at a time (the machine's disk limit)
         stages = [s for s in ([r for r in runs if r in LAYOUT_STAGE_FIRST],
@@ -4269,14 +4362,14 @@ def layout_path(api, smi: str) -> tuple:
             wall = layout_stage_wait(proc, marker, t0, log)
             print(f"layout group {runs}: {world} gloo ranks on the card, {wall:.1f} s wall with "
                   f"spawn and set-up since the group started")
-            layout_stage_check(api, smi, runs, nodes, out, launches, by_run)
+            layout_stage_check(api, smi, runs, out, launches, by_run)
             if marker is not None:
                 (out / f"stage{world}_{i}_go").write_text("")
     print(f"layout phase {time.perf_counter() - t_phase:.1f} s")
     return launches, by_run
 
 
-def layout_stage_check(api, smi: str, runs: list, nodes: int, out: Path, launches: list,
+def layout_stage_check(api, smi: str, runs: list, out: Path, launches: list,
                        by_run: dict) -> None:
     """The smoke process's side of one stage of a phase 3g group: each run
     at model 1 here, held against the ranks' files (and, for
@@ -4284,9 +4377,9 @@ def layout_stage_check(api, smi: str, runs: list, nodes: int, out: Path, launche
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.tree import tree_leaves
 
-    world = nodes * LAYOUT_MODEL
     for run in runs:
-        rounds = LAYOUT_RUNS[run][5]
+        nodes, rounds = LAYOUT_RUNS[run][2], LAYOUT_RUNS[run][5]
+        world = layout_world(run)
         ranks = [json.loads((out / f"{run}_rank{k}.json").read_text())
                  for k in range(world)]
         gaps, floor, twin, twin_run = {}, {}, {}, None
@@ -4308,7 +4401,8 @@ def layout_stage_check(api, smi: str, runs: list, nodes: int, out: Path, launche
                     gaps[r] = max(gaps[r], layout_gap(
                         torch.load(path, mmap=True),
                         layout_rank_part(state.params, k, res["n_local"],
-                                         res["shard_dims"])))
+                                         res["shard_dims"], res["data_dims"]
+                                         if LAYOUT_RUNS[run][1] == "2d" else None)))
                     path.unlink()
                 if r in twin:
                     floor[r] = layout_gap(twin.pop(r), tree_leaves(state.params))
@@ -4327,6 +4421,28 @@ def layout_stage_check(api, smi: str, runs: list, nodes: int, out: Path, launche
             by_run.setdefault(op, {})[run] = {
                 "model1" if k == 0 else f"rank{k - 1}": c.get(op, 0)
                 for k, c in enumerate(launches[-world - 1:])}
+
+
+def spawn_layout_2d() -> tuple:
+    """Phase 3h's group, spawned as phase 3 begins: its ranks run the '2d'
+    runs while phases 3-3b run here (those take little device memory)."""
+    return spawn_layout_group([list(LAYOUT_2D)], layout_world(LAYOUT_2D[0]), "2d")
+
+
+def layout_2d_path(api, smi: str, group: tuple) -> tuple:
+    """Phase 3h: wait for the '2d' group (``spawn_layout_2d``), then hold its
+    runs against model 1 here, as phase 3g holds its stages; returns the
+    launches and each op's launches by run and rank."""
+    t_phase = time.perf_counter()
+    out, proc, t0, log = group
+    wall = layout_stage_wait(proc, None, t0, log)
+    print(f"layout group {list(LAYOUT_2D)}: {layout_world(LAYOUT_2D[0])} gloo ranks on the card, "
+          f"{wall:.1f} s wall with spawn and set-up since the group started (beside phases "
+          f"3-3b), {time.perf_counter() - t_phase:.1f} s of it waited for here")
+    launches, by_run = [], {}
+    layout_stage_check(api, smi, list(LAYOUT_2D), out, launches, by_run)
+    print(f"layout 2d phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, by_run
 
 
 def layout_kernels(cfg, nodes: int, forwards: int) -> dict:
@@ -4359,9 +4475,29 @@ def layout_gathers(cfg, tokens: int, forwards: int, act_bytes: int) -> tuple:
     return forwards * peers * gather, forwards * peers * scatter
 
 
+def layout_2d_data_bytes(cfg, res: dict, tau: int) -> dict:
+    """The bytes a '2d' rank receives over its data group in one round of
+    ``res``'s run (one node): each forward all-gathers its data-sharded
+    leaves (fp32) and reduce-scatters every leaf's gradient (fp32, the
+    rank's shard of a data-sharded one, all of a replicated one), and each
+    MoE layer of a forward exchanges its E int64 queue counts
+    (``sum_below``); the per-expert counts' and the loss's sums are the
+    ``all_reduce`` (checked nonzero apart)."""
+    peers = LAYOUT_DATA - 1
+    forwards = 2 * (tau - 1) + 1
+    shard = []
+    for whole, d, dd in zip(res["whole_shapes"], res["shard_dims"], res["data_dims"]):
+        n = math.prod(whole) // (LAYOUT_MODEL if d is not None else 1)
+        shard.append((n // (LAYOUT_DATA if dd is not None else 1), dd is not None))
+    moe = cfg.block_unit.count("moe") * cfg.repeats
+    return {"all_gather": forwards * peers * 4 * sum(n for n, sharded in shard if sharded),
+            "reduce_scatter": forwards * peers * 4 * sum(n for n, _ in shard),
+            "sum_below": forwards * peers * moe * cfg.n_experts * 8}
+
+
 def layout_shape(cfg, profile: str, tokens: int) -> str:
     """What a rank of a run computes, for the report."""
-    m = LAYOUT_MODEL if profile == "tp" else 1
+    m = LAYOUT_MODEL if profile in ("tp", "2d") else 1
     parts = []
     if any(k in ATTENTION_KINDS for k in cfg.block_unit):
         how = "flash" if cfg.causal else "the plain bidirectional attention"
@@ -4373,7 +4509,11 @@ def layout_shape(cfg, profile: str, tokens: int) -> str:
     if "mamba" in cfg.block_unit:
         h = cfg.mamba_cfg().n_heads
         parts.append(f"the SSD scan at {h // m} of {h} heads")
-    if "moe" in cfg.block_unit:
+    if "moe" in cfg.block_unit and profile == "2d":
+        f = cfg.moe_cfg().d_ff
+        parts.append(f"{cfg.n_experts} experts at {f // m} of {f} hidden units (gathered over "
+                     f"the data ranks, {cfg.n_experts // LAYOUT_DATA} a data rank)")
+    elif "moe" in cfg.block_unit:
         parts.append(f"{cfg.n_experts // m} of {cfg.n_experts} experts")
     return ", ".join(parts) + f" over {tokens} tokens"
 
@@ -4395,11 +4535,14 @@ def layout_check(run: str, one: dict, out: Path, gaps: dict, smi: str, floor: di
     model 1's ``twin`` from its init one ulp up); returns the launches,
     model 1's first, then by rank."""
     arch, profile, nodes, batch, text, rounds = LAYOUT_RUNS[run]
-    world = nodes * LAYOUT_MODEL
+    world = layout_world(run)
+    two_d = profile == "2d"
     ranks = [json.loads((out / f"{run}_rank{r}.json").read_text()) for r in range(world)]
     cfg = layout_config(arch)
-    n_tok = (cfg.n_vision_tokens + text) * (batch if profile == "tp" else
-                                           batch // LAYOUT_MODEL)
+    # the tokens a rank computes: tp's whole node batch, fsdp's share over
+    # the model ranks, 2d's over the data ranks
+    n_tok = (cfg.n_vision_tokens + text) * {"tp": batch, "fsdp": batch // LAYOUT_MODEL,
+                                            "2d": batch // LAYOUT_DATA}[profile]
     fwd = rounds * (2 * (SHARD_TAU - 1) + 1)       # a node's forwards
     per_round = [{k: {op: n for op, n in c.items() if n} for k, c in b.items()
                   if any(c.values())} for b in ranks[0]["bytes"]]
@@ -4408,13 +4551,21 @@ def layout_check(run: str, one: dict, out: Path, gaps: dict, smi: str, floor: di
         (out / f"{run}_routes_rank{r}.pt").unlink()
     flips = ""
     if one["routes"][0]:
-        # every rank routes every token of its nodes: the same decisions
-        # on the model ranks of a node, and (one node) model 1's or not
+        # every rank routes every token of its rows: the same decisions on
+        # the model ranks of a node (of a data rank, under 2d), and (one
+        # node) model 1's or not, 2d's data ranks' rows joined in order
         assert nodes == 1, run
         decisions = sum(e.numel() for e, _ in one["routes"][0])
-        for rk in routes[1:]:
-            assert all(route_flips(a, b) == 0 for a, b in zip(rk, routes[0])), run
-        got = [route_flips(a, b) for a, b in zip(routes[0], one["routes"])]
+        for k, rk in enumerate(routes):
+            first = routes[ranks[k]["model_first"]]
+            assert all(route_flips(a, b) == 0 for a, b in zip(rk, first)), run
+        if two_d:
+            heads = [routes[d * LAYOUT_MODEL] for d in range(LAYOUT_DATA)]
+            joined = [[tuple(torch.cat([h[rnd][f][i] for h in heads], dim=1) for i in (0, 1))
+                       for f in range(len(heads[0][rnd]))] for rnd in range(len(heads[0]))]
+        else:
+            joined = routes[0]
+        got = [route_flips(a, b) for a, b in zip(joined, one["routes"])]
         flips = (f"; routing decisions that differ from model 1's, by round, of {decisions} "
                  f"a round: the ranks {got}")
         if twin is not None:
@@ -4423,8 +4574,10 @@ def layout_check(run: str, one: dict, out: Path, gaps: dict, smi: str, floor: di
     held = (f"{LAYOUT_FLOOR_TIMES} times the floor, model 1 from its init one fp32 ulp up "
             f"{floor[1]:.4g} after round 1, {floor[rounds]:.4g} after round {rounds}"
             if run in LAYOUT_FLOOR else "the band")
-    print(f"layout {run} ({smi}): {arch} {profile}, {nodes} nodes x model "
-          f"{LAYOUT_MODEL} = {world} gloo ranks on the card, "
+    layout_desc = (f"{nodes} node of data {LAYOUT_DATA} x model {LAYOUT_MODEL}" if two_d
+                   else f"{nodes} nodes x model {LAYOUT_MODEL}")
+    print(f"layout {run} ({smi}): {arch} {profile}, {layout_desc} = {world} gloo ranks on "
+          f"the card, "
           f"{layout_shape(cfg, profile, n_tok)}, {'fp32' if run in LAYOUT_FP32 else 'bf16'} "
           f"activations; vs model 1 in this process: {gaps[1]:.4g} "
           f"of the band (rtol {SHARD_RTOL}, atol {SHARD_ATOL}) after round 1, "
@@ -4464,7 +4617,16 @@ def layout_check(run: str, one: dict, out: Path, gaps: dict, smi: str, floor: di
         assert r["loss"] == ranks[0]["loss"], (run, r["rank"], r["loss"])
         assert all(b < a for a, b in zip(r["loss"], r["loss"][1:])), (run, r["loss"])
         moved = r["bytes"][0]["model"]
-        if profile == "tp":
+        if two_d:
+            # the router and the experts' count are whole after the data
+            # group's gather: the model group all-reduces only; the data
+            # group to the byte, a rank's forwards a round
+            want = layout_2d_data_bytes(cfg, r, SHARD_TAU)
+            got = r["bytes"][0]["data"]
+            assert (moved["all_gather"], moved["reduce_scatter"]) == (0, 0), (run, moved)
+            assert moved["all_reduce"] > 0, (run, moved)
+            assert {k: got[k] for k in want} == want, (run, got, want)
+        elif profile == "tp":
             gather, scatter = layout_gathers(cfg, n_tok, r["n_local"] * (2 * SHARD_TAU - 1),
                                              4 if run in LAYOUT_FP32 else 2)
             assert moved["all_reduce"] > 0, (run, moved)
@@ -4475,12 +4637,17 @@ def layout_check(run: str, one: dict, out: Path, gaps: dict, smi: str, floor: di
         if nodes > 1:   # the roll, or the allgather wire's gathers
             assert (r["bytes"][0]["roll"]["process"]
                     + r["bytes"][0]["all_gather"]["process"]) > 0, (run, r["bytes"][0])
-    # replicated leaves: the same bits on every model rank of a node
+    # replicated leaves: the same bits on every model rank of a node (and,
+    # under 2d, leaves replicated over the data ranks on every data rank)
     for r in ranks:
-        assert r["replicated"] == ranks[r["node_rank"] * LAYOUT_MODEL]["replicated"], \
-            (run, r["rank"])
+        assert r["replicated"] == ranks[r["model_first"]]["replicated"], (run, r["rank"])
+        if two_d:
+            assert r["data_replicated"] == ranks[r["data_first"]]["data_replicated"], \
+                (run, r["rank"])
     print(f"layout {run}: replicated leaves bit for bit across the model ranks "
-          f"({len(ranks[0]['replicated'])} leaves a rank)")
+          f"({len(ranks[0]['replicated'])} leaves a rank)"
+          + (f" and across the data ranks ({len(ranks[0]['data_replicated'])})" if two_d
+             else ""))
     return [one["launches"]] + [r["launches"] for r in ranks]
 
 
@@ -5254,10 +5421,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 1
-    from repro_torch.compression import link_bytes_per_round
-    from repro_torch.core.simulate import default_comm_seed_fn
     from repro_torch.kernels import _cuda, api
-    from repro_torch.paper_problem import make_algorithm, make_paper_problem, mlp_init, run_method
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5305,6 +5469,26 @@ def main() -> int:
     results["wkv_chunk"] = check_wkv_kernel(api, bw)
 
     done("2")
+    # phase 3h's group runs its '2d' node while phases 3-3b run here (little
+    # device memory; the ranks take host cores beside their host loops)
+    layout_2d_group = spawn_layout_2d()
+    try:
+        kernel_runs = paper_paths(api, smi, done, results, layout_2d_group)
+    except BaseException:
+        stop_group(layout_2d_group[1])
+        raise
+    return main_rest(api, smi, bw, results, kernel_runs, done, t0, kind)
+
+
+def paper_paths(api, smi: str, done, results: dict, layout_2d_group: tuple) -> list:
+    """Phases 3-3c: the paper problem's main paths, the scenario engine,
+    telemetry and checkpoints, with phase 3h (the check of
+    ``layout_2d_group``, spawned before) after 3b, before 3c draws a
+    full-width model; returns the runs through the kernels."""
+    from repro_torch.compression import link_bytes_per_round
+    from repro_torch.core.simulate import default_comm_seed_fn
+    from repro_torch.paper_problem import make_algorithm, make_paper_problem, mlp_init, run_method
+
     # ---------------------------------------------------------------- 3
     data, _ = make_paper_problem(OMEGA, seed=0)
     idx_cpu = torch.randint(
@@ -5455,10 +5639,23 @@ def main() -> int:
     scenario_path(run, agree)
 
     done("3b")
+    # --------------------------------------------------------------- 3h
+    runs, layout_launches = layout_2d_path(api, smi, layout_2d_group)
+    kernel_runs += [{"launches": launches} for launches in runs]
+    for name, by_run in layout_launches.items():
+        results[name].setdefault("layout_launches", {}).update(by_run)
+
+    done("3h")
     # --------------------------------------------------------------- 3c
     telemetry_path(run, idx_cuda, seed_fn, smi)
 
     done("3c")
+    return kernel_runs
+
+
+def main_rest(api, smi: str, bw: float, results: dict, kernel_runs: list, done, t0: float,
+              kind: str) -> int:
+    """Phases 3d-6, after phase 3h."""
     # --------------------------------------------------------------- 3d
     runs, elastic_launches = elastic_path(api, smi)
     kernel_runs += [{"launches": launches} for launches in runs]
@@ -5474,17 +5671,23 @@ def main() -> int:
 
     done("3e")
     # --------------------------------------------------------------- 3f
-    runs, cli_launches = cli_path(api, smi)
+    # phase 3g's one-node group trains beside phase 3f (both fit the card)
+    early = spawn_layout_early()
+    try:
+        runs, cli_launches = cli_path(api, smi)
+    except BaseException:
+        stop_group(early[1])
+        raise
     kernel_runs += [{"launches": launches} for launches in runs]
     for name, by_run in cli_launches.items():
         results[name]["cli_launches"] = by_run
 
     done("3f")
     # --------------------------------------------------------------- 3g
-    runs, layout_launches = layout_path(api, smi)
+    runs, layout_launches = layout_path(api, smi, early)
     kernel_runs += [{"launches": launches} for launches in runs]
     for name, by_run in layout_launches.items():
-        results[name]["layout_launches"] = by_run
+        results[name].setdefault("layout_launches", {}).update(by_run)
 
     done("3g")
     # phase 4g's group sets up while phases 4-4f run (its ranks idle, a

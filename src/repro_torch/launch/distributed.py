@@ -38,7 +38,26 @@ index on the other nodes (mixing is linear).  Per node:
     computes the whole node batch and keeps its part of the gradient;
   * 'tp'   -- ``Model.loss(..., tp=group)``: the rank's heads, hidden units,
     experts, SSM heads and vocabulary shard (Megatron; every block kind and
-    the audio encoder), every model rank on the whole node batch.
+    the audio encoder), every model rank on the whole node batch;
+  * '2d'   -- on a ``NodeMesh(data=D, model=M)`` (the reference's pod x data
+    x model mesh; nodes across ``pod`` only, so a mesh of one pod is one
+    node of D x M ranks): a leaf shards ``experts`` and ``embed`` over the
+    D data ranks and the features over the M model ranks (its
+    ``data_dims`` and ``shard_dims``).  Per node the rank all-gathers the
+    data-sharded dims over the data group (``mesh.data_group``), which
+    leaves each leaf as 'tp' lays it out (the experts whole, their hidden
+    units over ``model``), runs ``Model.loss(..., tp=model group,
+    data=data group)`` on its data rank's rows of each microbatch of the
+    node batch -- the rank's share of the whole batch's loss, a MoE
+    queueing the whole batch and its router losses the whole batch's
+    (``models/mlp.py``) -- and reduce-scatters the gradients' sum over the
+    data group onto each data-sharded dim (all-reduces the rest): the
+    gradient of the whole node batch's loss.  Where a microbatch does not
+    split over D (or holds a mask) every data rank computes all of it and
+    keeps its part of the gradient.  A codec, channel or scenario on a node
+    spread over more than one rank under '2d' raises: ROADMAP queue 1 item
+    8 (b) 5 (a codec binds a leaf to one shard, ``compression.base.Shard``);
+    uncompressed roll and dense gossip and every algorithm run.
 
 On a model axis of 1 every profile is the node-a-replica job bit for bit.
 On a larger one every codec, channel, wire mode and scenario runs as at
@@ -50,8 +69,12 @@ decision and decodes its shard of the whole leaf's message, bit for bit
 (low-rank up to its partial sums' order); a replicated leaf is encoded
 whole on every rank.  Over the node axis a rank moves its share of a
 node's payload (``compression/gossip.py`` gives the byte count); the
-scenario streams sum the shards over the model group.  The '2d' profile
-raises: ROADMAP queue 1 item 8 (b).
+scenario streams sum the shards over the model group.  'tp' and 'fsdp' lay
+a node over model ranks only, so a mesh with a data axis larger than 1
+takes '2d' alone; a '2d' job on a model axis needs a mesh made with its
+data axis (``NodeMesh(data=D)``) wherever its node axis has more than one
+rank.  All of it runs on gloo ranks; NCCL across cards, and with it the
+memory win of a node over several cards, is ROADMAP queue 1 item 8 (b).
 
 The reference's serving half (``ServeJob``, ``make_serve_job``: one device
 or a data x model mesh) is ``launch/serve.py``.  Decisions, not carried
@@ -128,7 +151,8 @@ class TrainJob:
     axis a node-stacked tensor's layout is its spec instead, ``(node axes,
     *mesh axis or None a dim)`` (the reference's ``state_shardings``).
     ``shard_dims`` gives each parameter leaf's model-sharded dim (None:
-    replicated; all None on a model axis of 1)."""
+    replicated; all None on a model axis of 1) and ``data_dims`` its
+    data-sharded dim under '2d' (all None without a data group)."""
 
     model: Model
     mesh: NodeMesh
@@ -142,6 +166,7 @@ class TrainJob:
     state_layout: Any
     profile: ShardingProfile
     shard_dims: Any
+    data_dims: Any
     scenario: Any = None
 
     # ---- scenario plumbing ------------------------------------------------
@@ -171,13 +196,14 @@ class TrainJob:
         """The initial state at this rank's rows: the model's full
         parameters from ``seed`` (or ``params``, e.g. the reference's carried
         across by ``convert.params_from_numpy``), this rank's shard of each
-        kept, broadcast over this rank's nodes, then the channel's wire
-        state (all N rows for a replicated wire)."""
+        kept (over both axes under '2d'), broadcast over this rank's nodes,
+        then the channel's wire state (all N rows for a replicated wire)."""
         m = self.mesh
         if params is None:
             params = self.model.init(seed, device=m.device)
         leaves, treedef = tree_flatten(params)
-        shards = [shard_leaf(p.to(m.device), d, m) for p, d in zip(leaves, self.shard_dims)]
+        shards = [shard_leaf(p.to(m.device), d, m, dd)
+                  for p, d, dd in zip(leaves, self.shard_dims, self.data_dims)]
         stacked = tree_unflatten(treedef, [
             p.unsqueeze(0).repeat((m.n_local,) + (1,) * p.dim()) for p in shards])
         return attach_channel_state(self.algorithm, self.algorithm.init(stacked),
@@ -186,10 +212,11 @@ class TrainJob:
     def full(self, tree: Tree) -> Tree:
         """A parameter-shaped node-stacked tree of this rank's rows and
         shards (the parameters, or any buffer of the state) gathered over
-        both axes: all N nodes, whole leaves, on every rank (a collective:
+        every axis: all N nodes, whole leaves, on every rank (a collective:
         every rank calls it)."""
         dims = [None if d is None else d + 1 for d in self.shard_dims]
-        return self.mesh.full(tree, dims)
+        data = [None if d is None else d + 1 for d in self.data_dims]
+        return self.mesh.full(tree, dims, data)
 
     def full_state(self, state) -> Any:
         """The whole state on every rank (a collective: every rank calls
@@ -250,7 +277,9 @@ class TrainJob:
 
     def local_batch(self, global_batches: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """This rank's nodes of ``(round_len, N, b, ...)`` batches (numpy
-        arrays or tensors), as tensors on the mesh's device."""
+        arrays or tensors), as tensors on the mesh's device: every model
+        and data rank of a node gets the node's whole batch, of which a
+        '2d' data rank computes its rows (see the module docstring)."""
         m = self.mesh
 
         def rows(v):
@@ -284,12 +313,24 @@ def _layout(abstract_state, alg, params, param_spec=None, node_spec=None) -> Any
     return type(abstract_state)(**fields)
 
 
-def _refuse_layout(profile: ShardingProfile) -> None:
-    """What a model axis larger than 1 cannot run yet (the '2d' profile):
-    ROADMAP queue 1 item 8 (b)."""
-    if profile.name == "2d":
-        raise NotImplementedError(
-            "the '2d' profile on a node spread over a model axis is ROADMAP queue 1 item 8 (b)")
+def _refuse_layout(profile: ShardingProfile, mesh, chan, scenario) -> None:
+    """What a node spread over more than one rank cannot run yet under the
+    '2d' profile: a codec, a channel or a scenario (ROADMAP queue 1 item 8
+    (b) 5: a codec binds each leaf to one shard of one group); and the
+    layouts a mesh does not hold (ValueError)."""
+    if profile.name == "2d" and (mesh.model > 1 or mesh.data > 1):
+        if chan is not None or scenario is not None:
+            raise NotImplementedError(
+                "a codec, a gossip channel or a scenario under the '2d' profile on a node "
+                "spread over data x model ranks is ROADMAP queue 1 item 8 (b) 5")
+        if not mesh.data_axis and mesh.world > 1:
+            raise ValueError(
+                "the '2d' profile lays a node over data x model ranks: make the mesh with "
+                "its data axis (NodeMesh(..., data=D)); its node axis here has "
+                f"{mesh.world} ranks")
+    if profile.name != "2d" and mesh.data > 1:
+        raise ValueError(f"a within-node data axis of {mesh.data} is the '2d' profile's "
+                         f"layout, not {profile.name!r}'s")
 
 
 def make_train_job(
@@ -347,8 +388,8 @@ def make_train_job(
 
     ``profile`` (a ``ShardingProfile`` or its name; None: the arch's
     default, ``profile_for_arch``) lays each node out over the mesh's model
-    axis (see the module docstring); on a model axis of 1 it changes
-    nothing."""
+    axis, and '2d' over its data axis too (see the module docstring); on a
+    mesh of one rank a node it changes nothing."""
     if profile is None:
         profile = profile_for_arch(cfg.name)
     elif isinstance(profile, str):
@@ -370,17 +411,20 @@ def make_train_job(
     if wire_mode not in ("auto", "dense", "neighbor", "allgather"):
         raise ValueError(f"wire_mode must be auto/dense/neighbor/allgather, got {wire_mode!r}")
     chan = alg.comm.resolved_channel()
-    if mesh.model > 1:
-        _refuse_layout(profile)
+    _refuse_layout(profile, mesh, chan, scenario)
     group = mesh.model_group
-    # each parameter leaf's spec under the profile, and its model-sharded dim
+    dgroup = mesh.data_group
+    # each parameter leaf's spec under the profile, and its model- and
+    # data-sharded dims
     with axis_rules(profile.train_rules(mesh), mesh, param_rules=profile.train_param_rules(mesh)):
         node_axes = profile.node_axes(mesh)
         param_spec = resolve_specs(model.param_specs(), prefix=(node_axes or None,))
     shard_dims = [None if group is None or "model" not in spec else spec.index("model") - 1
                   for spec in tree_leaves(param_spec)]
+    data_dims = [None if dgroup is None or "data" not in spec else spec.index("data") - 1
+                 for spec in tree_leaves(param_spec)]
     fsdp = group is not None and profile.name == "fsdp"
-    tp = group if group is not None and profile.name == "tp" else None
+    tp = group if group is not None and profile.name in ("tp", "2d") else None
     if overlap:
         if not isinstance(chan, ChocoChannel):
             raise ValueError(
@@ -491,7 +535,9 @@ def make_train_job(
         loss (the first microbatch's with accumulation, the value the
         reference's metrics read).  Under fsdp the loss and the gradient
         are those of the whole tree gathered over the model group, the
-        gradient reduce-scattered back to this rank's shards."""
+        gradient reduce-scattered back to this rank's shards; under '2d'
+        those of the tree gathered over the data group, on this data rank's
+        rows of each microbatch (see the module docstring)."""
         leaves, treedef = tree_flatten(params)
         out = [torch.empty_like(p) for p in leaves]
         for i in range(leaves[0].shape[0]):
@@ -504,15 +550,26 @@ def make_train_job(
                 raise ValueError(f"per-node batch {b} does not split into {grad_accum} "
                                  "microbatches")
             mb = b // grad_accum
-            whole = (group.all_gather([p[i] for p in leaves], shard_dims) if fsdp
-                     else [p[i] for p in leaves])
+            # '2d': this data rank's rows of each microbatch, where they split
+            split = dgroup is not None and mb % dgroup.size == 0 and "mask" not in node
+            if fsdp:
+                whole = group.all_gather([p[i] for p in leaves], shard_dims)
+            elif dgroup is not None:
+                whole = dgroup.all_gather([p[i] for p in leaves], data_dims)
+            else:
+                whole = [p[i] for p in leaves]
             acc = None
             for j in range(grad_accum):
                 p_i = [p.detach().requires_grad_(True) for p in whole]
                 part = {k: v[j * mb:(j + 1) * mb] for k, v in node.items()}
+                kw = {}
+                if split:
+                    n = mb // dgroup.size
+                    part = {k: v[dgroup.index * n:(dgroup.index + 1) * n] for k, v in part.items()}
+                    kw["data"] = dgroup
                 with torch.enable_grad():
                     loss = model.loss(tree_unflatten(treedef, p_i), part, dtype=torch.bfloat16,
-                                      tp=tp)
+                                      tp=tp, **kw)
                     # a leaf the loss does not read (HuBERT's token
                     # embedding) gets a zero gradient, as under jax.grad
                     g = torch.autograd.grad(loss, p_i, materialize_grads=True)
@@ -520,6 +577,8 @@ def make_train_job(
                     loss = loss.detach().float()
                     if mine is not None:
                         loss = group.all_reduce(loss) / group.size
+                    if split:      # the data ranks' shares of the node's loss
+                        loss = dgroup.all_reduce(loss)
                     losses.append(loss)
                 if grad_accum == 1:
                     acc = g
@@ -532,6 +591,10 @@ def make_train_job(
                 acc = [a / group.size for a in group.reduce_scatter(acc, shard_dims)]
             elif fsdp:
                 acc = [shard_leaf(a, d, mesh) for a, d in zip(acc, shard_dims)]
+            elif split:
+                acc = dgroup.reduce_scatter(acc, data_dims)
+            elif dgroup is not None:
+                acc = [shard_leaf(a, None, mesh, d) for a, d in zip(acc, data_dims)]
             for o, a in zip(out, acc):
                 o[i].copy_(a if grad_accum == 1 else a / grad_accum)
         return tree_unflatten(treedef, out)
@@ -564,13 +627,16 @@ def make_train_job(
                 else torch.zeros((), device=dev))
         v_norm = torch.zeros((), device=dev)
         if direction is not None:
-            # on a model axis: the shards' squares summed over the group, a
-            # replicated leaf's once
+            # on a model (data) axis: the shards' squares summed over the
+            # group, a leaf replicated over it once
             v_norm = sum((torch.sum(v.float() ** 2)
-                          for v, d in zip(tree_leaves(direction), shard_dims)
-                          if d is not None or group is None or group.index == 0), v_norm)
+                          for v, d, dd in zip(tree_leaves(direction), shard_dims, data_dims)
+                          if (d is not None or group is None or group.index == 0)
+                          and (dd is not None or dgroup is None or dgroup.index == 0)), v_norm)
             if group is not None:
                 v_norm = group.all_reduce(v_norm)
+            if dgroup is not None:
+                v_norm = dgroup.all_reduce(v_norm)
             v_norm = mesh.all_reduce_sum(v_norm)
         return {"loss": loss, "v_norm": v_norm}
 
@@ -597,8 +663,8 @@ def make_train_job(
     # ---- the abstract state: meta tensors, nothing allocated ----
     leaves, treedef = tree_flatten(model.param_shapes(dtype=torch.float32))
     stacked = tree_unflatten(treedef, [
-        torch.empty((mesh.n_local,) + tuple(shard_leaf(s, d, mesh).shape), dtype=s.dtype,
-                    device="meta") for s, d in zip(leaves, shard_dims)])
+        torch.empty((mesh.n_local,) + tuple(shard_leaf(s, d, mesh, dd).shape), dtype=s.dtype,
+                    device="meta") for s, d, dd in zip(leaves, shard_dims, data_dims)])
     abstract_state = abstract_channel_state(alg, alg.init(stacked), n_nodes=n_nodes)
 
     return TrainJob(
@@ -606,7 +672,8 @@ def make_train_job(
         tau=int(getattr(alg, "tau", 1)), round_len=round_len, n_nodes=n_nodes,
         gossip=gossip, step_fn=step_fn, abstract_state=abstract_state,
         state_layout=_layout(abstract_state, alg, stacked,
-                             param_spec if group is not None else None,
-                             (node_axes or None,) if group is not None else None),
-        profile=profile, shard_dims=shard_dims, scenario=scenario,
+                             param_spec if group is not None or dgroup is not None else None,
+                             (node_axes or None,) if group is not None or dgroup is not None
+                             else None),
+        profile=profile, shard_dims=shard_dims, scenario=scenario, data_dims=data_dims,
     )

@@ -35,6 +35,21 @@ backwards take this rank's part of the gradient or reduce-scatter its
 sum).  Its bytes are counted under ``byte_counts()["model"]``.
 ``model=1`` makes no subgroup and calls no collective of its own.
 
+A mesh with a within-node data axis (``data`` = D given) is the
+reference's pod x data x model mesh, ``make_test_mesh((P, D, M), ("pod",
+"data", "model"))``: ``world = P x D x M`` ranks, rank ``p D M + d M + m``,
+the layout of the '2d' sharding profile, whose nodes run across ``pod``
+only.  The node-axis primitives then run on the P ranks that share ``(d,
+m)``; the model group is the M ranks that share ``(p, d)``; and a
+:class:`DataGroup`, the D ranks that share ``(p, m)``, splits a node's
+batch and its data-sharded parameter dims, with the same all-gather,
+reduce-scatter and all-reduce (each summed in rank order) and ``sum_below``
+(the counts of the data ranks before this one), its bytes counted under
+``byte_counts()["data"]``.  ``axis_names`` then reads ``("pod", "data",
+"model")``, so that a profile's ``node_axes`` decides the node count as
+the reference's does; a mesh made without ``data`` keeps its ``("data",
+"model")`` axes and its subgroups as they were.
+
 The backend is gloo.  Gloo moves no CUDA tensor on send, recv or
 all-gather, so on the card the mesh stages exactly the payload rows through
 host buffers: one device-to-host copy of the rows a peer needs, the gloo
@@ -56,7 +71,8 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..tree import map_tensors
 
-__all__ = ["NodeMesh", "ModelGroup", "make_test_mesh", "make_group_mesh", "OPS", "MODEL_OPS"]
+__all__ = ["NodeMesh", "ModelGroup", "DataGroup", "make_test_mesh", "make_group_mesh", "OPS",
+           "MODEL_OPS", "DATA_OPS"]
 
 #: the three primitives, the keys of :meth:`NodeMesh.byte_counts`
 OPS = ("roll", "all_gather", "all_reduce")
@@ -65,6 +81,10 @@ OPS = ("roll", "all_gather", "all_reduce")
 #: and channels' statistics, candidates and factors (``codec``), and the
 #: payload chunks a node's ranks join after they arrive (``payload``)
 MODEL_OPS = ("all_gather", "reduce_scatter", "all_reduce", "codec", "payload")
+#: the data group's movements, the keys of ``byte_counts()["data"]``: the
+#: '2d' layout's gathers of data-sharded parameters and reductions of their
+#: gradients, the loss's and the MoE's sums, and the MoE's queue offsets
+DATA_OPS = ("all_gather", "reduce_scatter", "all_reduce", "sum_below")
 
 
 def _tensors(obj: Any) -> List[torch.Tensor]:
@@ -129,6 +149,9 @@ class ModelGroup:
     (Mamba-2's fused projection).
     """
 
+    #: the movements :meth:`byte_counts` reports
+    ops = MODEL_OPS
+
     def __init__(self, group, size: int, index: int, device):
         self.group = group
         self.size = int(size)
@@ -138,10 +161,10 @@ class ModelGroup:
         self.reset_bytes()
 
     def __repr__(self) -> str:
-        return f"ModelGroup(size={self.size}, index={self.index})"
+        return f"{type(self).__name__}(size={self.size}, index={self.index})"
 
     def reset_bytes(self) -> None:
-        self._bytes = {op: 0 for op in MODEL_OPS}
+        self._bytes = {op: 0 for op in self.ops}
 
     def byte_counts(self) -> Dict[str, int]:
         """Bytes this rank received over the model group, by movement."""
@@ -317,6 +340,35 @@ class ModelGroup:
         return _GatherSum.apply(x, self, dim)
 
 
+class DataGroup(ModelGroup):
+    """The D ranks of one node along its within-node data axis (the '2d'
+    profile): the same movements as :class:`ModelGroup`, counted under
+    :data:`DATA_OPS`, and :meth:`sum_below`.  ``world`` / ``rank`` are its
+    size and this rank's index, the names a MoE reads off the mesh that
+    splits its batch (``models/mlp.py``)."""
+
+    ops = DATA_OPS
+
+    @property
+    def world(self) -> int:
+        return self.size
+
+    @property
+    def rank(self) -> int:
+        return self.index
+
+    def sum_below(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the data ranks below this one (zeros on
+        data rank 0), added in rank order: where a node's batch lies over the
+        data ranks in rank order, the counts of what comes before this
+        rank's rows (a MoE's queue positions)."""
+        parts = self.gather([x], key="sum_below")
+        out = torch.zeros_like(x)
+        for r in range(self.index):
+            out += parts[r][0]
+        return out
+
+
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -379,14 +431,21 @@ class NodeMesh:
     Tensors are node-stacked on ``device``; host staging is explicit (see
     the module docstring)."""
 
-    def __init__(self, n_nodes: int, group=None, device=None, model: int = 1):
+    def __init__(self, n_nodes: int, group=None, device=None, model: int = 1,
+                 data: Optional[int] = None):
         self.n_nodes = int(n_nodes)
         self.model = int(model)
+        # the within-node data axis: None (no such axis, the (data, model)
+        # mesh) or its size D
+        self.data_axis = data is not None
+        self.data = 1 if data is None else int(data)
         self.device = resolve_device(device)
         self.model_group: Optional[ModelGroup] = None
+        self.data_group: Optional[DataGroup] = None
         if group is None:
-            if self.model != 1:
-                raise ValueError(f"a model axis of {self.model} needs a process group")
+            if self.model != 1 or self.data != 1:
+                raise ValueError(f"a model axis of {self.model} and a data axis of "
+                                 f"{self.data} need a process group")
             self.world, self.rank = 1, 0
         else:
             backend = dist.get_backend(group)
@@ -396,10 +455,11 @@ class NodeMesh:
                     "NCCL) is ROADMAP queue 1 item 8 (b); the port's mesh runs on gloo")
             self.world = dist.get_world_size(group)
             self.rank = dist.get_rank(group)
-            if self.model < 1 or self.world % self.model:
-                raise ValueError(f"a model axis of {self.model} does not split "
-                                 f"{self.world} ranks")
-            if self.model > 1:
+            block = self.model * self.data
+            if self.model < 1 or self.data < 1 or self.world % block:
+                raise ValueError(f"a data axis of {self.data} x a model axis of {self.model} "
+                                 f"does not split {self.world} ranks")
+            if block > 1:
                 group = self._split_axes(group)
         self.group = group
         if self.n_nodes < 1 or self.n_nodes % self.world:
@@ -410,48 +470,75 @@ class NodeMesh:
         self.reset_bytes()
 
     def _split_axes(self, group):
-        """Make the node-axis and model-axis subgroups of ``group`` (every
-        rank of it makes all of them, in one order); this rank's node
-        subgroup is returned and ``world`` / ``rank`` become its node-axis
-        size and index."""
+        """The mesh's subgroups of ``group`` (every rank of it makes all of
+        them, in one order): the node axis over the P ranks that share ``(d,
+        m)``, returned, with ``world`` / ``rank`` its size and this rank's
+        index p; on a model axis the model group over the M ranks that share
+        ``(p, d)``; on a data axis the data group over the D ranks that
+        share ``(p, m)`` (D = 1: the (data, model) mesh, P its data size)."""
         ranks = dist.get_process_group_ranks(group)
-        m_size, d_size = self.model, self.world // self.model
-        d, m = divmod(self.rank, m_size)
-        node_groups = [dist.new_group([ranks[i * m_size + j] for i in range(d_size)],
-                                      backend="gloo") for j in range(m_size)]
-        model_groups = [dist.new_group([ranks[i * m_size + j] for j in range(m_size)],
-                                       backend="gloo") for i in range(d_size)]
-        self.model_group = ModelGroup(model_groups[d], m_size, m, self.device)
-        self.world, self.rank = d_size, d
-        return node_groups[m]
+        m_size, d_size = self.model, self.data
+        p_size = self.world // (m_size * d_size)
+        p, rest = divmod(self.rank, d_size * m_size)
+        d, m = divmod(rest, m_size)
 
-    # the data x model mesh the sharding profiles read
-    axis_names = ("data", "model")
+        def at(q, i, j):
+            return ranks[(q * d_size + i) * m_size + j]
+
+        node_groups = {(i, j): dist.new_group([at(q, i, j) for q in range(p_size)],
+                                              backend="gloo")
+                       for i in range(d_size) for j in range(m_size)}
+        if m_size > 1:
+            model_groups = {(q, i): dist.new_group([at(q, i, j) for j in range(m_size)],
+                                                   backend="gloo")
+                            for q in range(p_size) for i in range(d_size)}
+            self.model_group = ModelGroup(model_groups[p, d], m_size, m, self.device)
+        if d_size > 1:
+            data_groups = {(q, j): dist.new_group([at(q, i, j) for i in range(d_size)],
+                                                  backend="gloo")
+                           for q in range(p_size) for j in range(m_size)}
+            self.data_group = DataGroup(data_groups[p, m], d_size, d, self.device)
+        self.world, self.rank = p_size, p
+        return node_groups[d, m]
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        """The mesh axes the sharding profiles read: ``("data", "model")``,
+        or ``("pod", "data", "model")`` with a within-node data axis."""
+        return ("pod", "data", "model") if self.data_axis else ("data", "model")
 
     @property
     def devices(self) -> np.ndarray:
-        """The ranks as a (data, model) array (the reference's
-        ``mesh.devices``; its shape gives the axis sizes)."""
-        return np.arange(self.world * self.model).reshape(self.world, self.model)
+        """The ranks as a (data, model) or (pod, data, model) array (the
+        reference's ``mesh.devices``; its shape gives the axis sizes)."""
+        shape = ((self.world, self.data, self.model) if self.data_axis
+                 else (self.world, self.model))
+        return np.arange(math.prod(shape)).reshape(shape)
 
     def __repr__(self) -> str:
+        data = f", data={self.data}" if self.data_axis else ""
         return (f"NodeMesh(n_nodes={self.n_nodes}, world={self.world}, rank={self.rank}, "
-                f"model={self.model}, rows=[{self.lo}, {self.hi}), device={self.device})")
+                f"model={self.model}{data}, rows=[{self.lo}, {self.hi}), "
+                f"device={self.device})")
 
     # ---------------------------------------------------------- accounting
     def reset_bytes(self) -> None:
         self._bytes = {op: {"node_link": 0, "process": 0} for op in OPS}
-        if self.model_group is not None:
-            self.model_group.reset_bytes()
+        for g in (self.model_group, self.data_group):
+            if g is not None:
+                g.reset_bytes()
 
     def byte_counts(self) -> Dict[str, Dict[str, int]]:
         """``{primitive: {"node_link": B, "process": B}}`` received by this
         rank's nodes since the last :meth:`reset_bytes`; on a model axis
         also ``"model"``: ``{movement: B}`` this rank received over its
-        :class:`ModelGroup`."""
+        :class:`ModelGroup`, and on a data axis ``"data"``, over its
+        :class:`DataGroup`."""
         out = {op: dict(c) for op, c in self._bytes.items()}
         if self.model_group is not None:
             out["model"] = self.model_group.byte_counts()
+        if self.data_group is not None:
+            out["data"] = self.data_group.byte_counts()
         return out
 
     def _count(self, op: str, node_link: int, process: int) -> None:
@@ -599,14 +686,19 @@ class NodeMesh:
         return map_tensors(
             lambda x: x[self.lo:self.hi] if x.dim() and x.shape[0] == self.n_nodes else x, tree)
 
-    def full(self, tree: Any, model_dims: Optional[Sequence[Optional[int]]] = None) -> Any:
+    def full(self, tree: Any, model_dims: Optional[Sequence[Optional[int]]] = None,
+             data_dims: Optional[Sequence[Optional[int]]] = None) -> Any:
         """``tree`` with every tensor of this rank's rows gathered to all N
         rows (:meth:`all_gather`); replicated tensors pass.  ``model_dims``
         (on a model axis) gives each tensor's model-sharded dim, or None, in
-        the order the tree's tensors are walked: those shards are gathered
-        over the model group first, so every rank gets the whole tree."""
+        the order the tree's tensors are walked, and ``data_dims`` (on a
+        data axis) its data-sharded dim: those shards are gathered over the
+        model group, then over the data group, first, so every rank gets the
+        whole tree."""
         if model_dims is not None and self.model_group is not None:
             tree = _refill(tree, self.model_group.all_gather(_tensors(tree), model_dims))
+        if data_dims is not None and self.data_group is not None:
+            tree = _refill(tree, self.data_group.all_gather(_tensors(tree), data_dims))
         local = [x for x in _tensors(tree) if not self._replicated(x)]
         if not local:
             return tree
@@ -620,13 +712,17 @@ def make_test_mesh(n_nodes: int, device=None) -> NodeMesh:
     return NodeMesh(n_nodes, group=None, device=device)
 
 
-def make_group_mesh(n_nodes: int, group=None, device=None, model: int = 1) -> NodeMesh:
+def make_group_mesh(n_nodes: int, group=None, device=None, model: int = 1,
+                    data: Optional[int] = None) -> NodeMesh:
     """A mesh over an initialized ``torch.distributed`` group (the default
     group when None): with ``model`` = 1, rank r holds nodes ``[r N / W,
     (r + 1) N / W)``; with M > 1, rank ``d M + m`` holds model shard m of
-    nodes ``[d N M / W, (d + 1) N M / W)``.  A model axis makes subgroups,
-    so every rank of ``group`` must call this."""
+    nodes ``[d N M / W, (d + 1) N M / W)``; with ``data`` = D given, the
+    pod x data x model mesh, rank ``p D M + d M + m`` holding model shard m
+    and data shard d of nodes ``[p N D M / W, (p + 1) N D M / W)``.  A model
+    or data axis makes subgroups, so every rank of ``group`` must call
+    this."""
     if not dist.is_initialized():
         raise RuntimeError("make_group_mesh needs an initialized torch.distributed group")
     return NodeMesh(n_nodes, group=group if group is not None else dist.group.WORLD,
-                    device=device, model=model)
+                    device=device, model=model, data=data)

@@ -183,6 +183,10 @@ def make_serve_job(cfg: ModelConfig, mesh: Optional[NodeMesh] = None, *, profile
         dev = mesh.device
         if device is not None and torch.device(device) != dev:
             raise ValueError(f"device {device} is not the mesh's {dev}")
+        if mesh.data_group is not None:
+            raise ValueError("the serve job splits its batch over the mesh's node-axis ranks; "
+                             "a within-node data axis (NodeMesh(data=...)) is the '2d' "
+                             "training layout")
     model = Model(cfg)
     tp = param_layout = None
     if mesh is not None:

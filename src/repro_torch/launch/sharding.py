@@ -11,10 +11,15 @@ the within-node layout of parameters and activations:
   'fsdp'  nodes = data axes; parameters shard their 'embed' dim over
           'model' and the node batch shards over 'model' (each rank
           gathers the parameters before its forward: ZeRO-3).
-  '2d'    for models too big for one slice: nodes = ('pod',) only, the
-          parameters sharded over both axes.  The port refuses it on a
-          model axis larger than 1 (ROADMAP queue 1 item 8 (b)); 'tp' and
-          'fsdp' run every codec, channel and scenario there.
+  '2d'    for models too big for one slice (Arctic 480B, Command R+
+          104B): nodes = ('pod',) only; within a node of data x model
+          ranks the parameters shard 2-D (experts / embed over 'data',
+          features over 'model') and the node batch over 'data'.  A mesh
+          with no 'pod' axis is one node.  The port lays it out on a
+          ``NodeMesh(data=D, model=M)`` (``launch/distributed.py``); a
+          codec, channel or scenario on a node spread over more than one
+          rank under '2d' is ROADMAP queue 1 item 8 (b) 5, while 'tp' and
+          'fsdp' run every one of them on a model axis.
 
 A spec is a tuple with one entry per dim: a mesh axis name, a tuple of
 them, or None -- the entries of the reference's ``PartitionSpec``.  A mesh
@@ -25,6 +30,7 @@ batch shards over all data axes.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import Any, Dict, Optional, Tuple
 
 from ..tree import tree_flatten, tree_leaves, tree_unflatten
@@ -35,6 +41,10 @@ __all__ = ["ShardingProfile", "PROFILES", "ARCH_PROFILE", "profile_for_arch", "c
 
 def _axis_sizes(mesh) -> Dict[str, int]:
     return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+# the axes of the reference CLI's mesh, a (data, model) grid
+_GRID = SimpleNamespace(axis_names=("data", "model"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +58,16 @@ class ShardingProfile:
         if self.name == "2d":
             return ("pod",) if "pod" in mesh.axis_names else ()
         return self.data_axes(mesh)
+
+    def node_grid(self, data: int) -> Tuple[int, Optional[int]]:
+        """The CLI's ``(data, model)`` grid of ``data`` rows as ``(nodes,
+        within-node data ranks)``: the nodes run across the axes
+        :meth:`node_axes` names, so the rows are nodes (no within-node data
+        axis: None), or, where the nodes run across 'pod' alone ('2d'), one
+        node of ``data`` rows."""
+        if "data" in self.node_axes(_GRID):
+            return data, None
+        return 1, data
 
     def n_nodes(self, mesh) -> int:
         shape = _axis_sizes(mesh)
@@ -204,24 +224,32 @@ def cache_specs(cache: Any, batch_axes, model_axis="model", mesh=None,
 
 
 # ---------------------------------------------------------------- shards
-def shard_leaf(p, dim: Optional[int], mesh):
-    """A rank's model shard of a whole leaf along ``dim`` (None: the whole
-    of it): part ``m`` of M along it, for model index m of ``mesh``."""
-    if dim is None:
-        return p
-    n = p.shape[dim] // mesh.model
-    return p.narrow(dim, mesh.model_group.index * n, n).contiguous()
+def shard_leaf(p, dim: Optional[int], mesh, data_dim: Optional[int] = None):
+    """A rank's shard of a whole leaf: along ``dim`` (None: the whole of
+    it) part ``m`` of M, for model index m of ``mesh``, and along
+    ``data_dim`` (the '2d' layout) part ``d`` of D, for its data index d."""
+    if data_dim is not None and mesh.data_group is not None:
+        n = p.shape[data_dim] // mesh.data
+        p = p.narrow(data_dim, mesh.data_group.index * n, n)
+    if dim is not None:
+        n = p.shape[dim] // mesh.model
+        p = p.narrow(dim, mesh.model_group.index * n, n)
+    return p.contiguous() if dim is not None or data_dim is not None else p
 
 
 def param_shard(params: Any, specs: Any, mesh) -> Any:
-    """A rank's shard of a whole parameter tree laid out by ``specs`` (a
-    spec tree with no data axis, as ``resolve_specs`` gives it under
-    ``serve_param_rules``): each leaf's model shard (:func:`shard_leaf`)."""
-    if mesh is None or mesh.model == 1:
+    """A rank's shard of a whole parameter tree laid out by ``specs`` (as
+    ``resolve_specs`` gives it, with no node prefix): each leaf's model
+    shard and, where its spec names ``"data"`` on a mesh with a data group,
+    its data shard (:func:`shard_leaf`)."""
+    if mesh is None or (mesh.model == 1 and mesh.data_group is None):
         return params
     leaves, treedef = tree_flatten(params)
-    dims = [None if "model" not in spec else spec.index("model") for spec in tree_leaves(specs)]
-    return tree_unflatten(treedef, [shard_leaf(p, d, mesh) for p, d in zip(leaves, dims)])
+    specs = tree_leaves(specs)
+    dims = [None if "model" not in spec else spec.index("model") for spec in specs]
+    data = [None if "data" not in spec else spec.index("data") for spec in specs]
+    return tree_unflatten(treedef, [shard_leaf(p, d, mesh, dd)
+                                    for p, d, dd in zip(leaves, dims, data)])
 
 
 def cache_shard(cache: Any, specs: Any, mesh) -> Any:

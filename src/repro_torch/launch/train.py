@@ -8,10 +8,14 @@ iteration, checkpointing, metrics logging.
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --reduced \\
       --steps 100 --tau 4 --algorithm dse_mvr --out /tmp/run1 --device cpu
 
-The node mesh is the reference's: W ranks are ``data = max(1, W // 2)``
-nodes x a model axis of ``W // data`` (``NodeMesh(model=...)``, rank
-``d M + m`` holding model shard m of node d under the arch's sharding
-profile), and a world that leaves ranks outside ``data x model`` raises.
+The node mesh is the reference's: W ranks are a ``data = max(1, W // 2)``
+x ``model = W // data`` grid, and a world that leaves ranks outside it
+raises.  Under the arch's sharding profile the data ranks are ``data``
+nodes x a model axis (``NodeMesh(model=...)``, rank ``d M + m`` holding
+model shard m of node d), or, under '2d' (Arctic 480B, Command R+ 104B),
+where the reference's mesh has no 'pod' axis, one node of data x model
+ranks (``NodeMesh(data=..., model=...)``: 8 ranks train one node over 4 x
+2, printing ``mesh={'data': 4, 'model': 2}``).
 A plain process is world 1: one node on its device, whose gossip is the
 identity.  A process started as one rank of a group
 (``torch.distributed.run`` sets ``RANK`` / ``WORLD_SIZE`` /
@@ -49,6 +53,7 @@ import argparse
 import json
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch.distributed as dist
@@ -59,8 +64,9 @@ from ..core import ALGORITHMS
 from ..data import TokenPipeline, make_lm_tokens
 from .distributed import make_train_job
 from .mesh import NodeMesh, make_group_mesh, make_test_mesh
+from .sharding import PROFILES, ShardingProfile, profile_for_arch
 
-__all__ = ["make_mesh_for_devices", "mesh_shape", "main"]
+__all__ = ["make_mesh_for_devices", "mesh_axes", "mesh_shape", "main"]
 
 
 def _launched_as_rank() -> bool:
@@ -84,17 +90,28 @@ def mesh_shape(world: int) -> tuple:
     return data, model
 
 
-def make_mesh_for_devices(device=None) -> NodeMesh:
+def make_mesh_for_devices(device=None, profile: Optional[ShardingProfile] = None) -> NodeMesh:
     """The reference's layout over the gloo group's ranks (joined from the
     launcher's environment when this process was started as one):
-    :func:`mesh_shape` nodes x model; else one node on ``device`` (CUDA
-    unless ``"cpu"``)."""
+    :func:`mesh_shape`'s data x model grid, laid out as nodes by the arch's
+    sharding ``profile`` (``ShardingProfile.node_grid``; 'tp' when None);
+    else one node on ``device`` (CUDA unless ``"cpu"``)."""
     if _launched_as_rank() and not dist.is_initialized():
         dist.init_process_group("gloo")   # env://: MASTER_ADDR, RANK, WORLD_SIZE
     if dist.is_initialized():
         data, model = mesh_shape(dist.get_world_size())
-        return make_group_mesh(data, device=device, model=model)
+        nodes, within = (profile or PROFILES["tp"]).node_grid(data)
+        return make_group_mesh(nodes, device=device, model=model, data=within)
     return make_test_mesh(1, device=device)
+
+
+def mesh_axes(mesh: NodeMesh) -> dict:
+    """The mesh's axis sizes as the reference's CLI prints them: its
+    ``(data, model)`` grid, a '2d' mesh's 'pod' axis of one left out."""
+    axes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    if axes.get("pod") == 1:
+        del axes["pod"]
+    return axes
 
 
 def _main_elastic(args):
@@ -231,7 +248,7 @@ def main(argv=None):
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     owns_group = _launched_as_rank() and not dist.is_initialized()
-    mesh = make_mesh_for_devices(args.device)
+    mesh = make_mesh_for_devices(args.device, profile_for_arch(cfg.name))
     try:
         return _train(args, cfg, mesh)
     finally:
@@ -240,16 +257,16 @@ def main(argv=None):
 
 
 def _train(args, cfg, mesh: NodeMesh):
-    index = 0 if mesh.model_group is None else mesh.model_group.index
-    rank = mesh.rank * mesh.model + index      # in the group, rank d M + m
+    m = 0 if mesh.model_group is None else mesh.model_group.index
+    d = 0 if mesh.data_group is None else mesh.data_group.index
+    rank = (mesh.rank * mesh.data + d) * mesh.model + m   # in the group: (p D + d) M + m
     lead = rank == 0
 
     def say(msg: str) -> None:
         if lead:
             print(msg, flush=True)
 
-    say(f"[train] arch={cfg.name} "
-        f"mesh={dict(zip(mesh.axis_names, mesh.devices.shape))}")
+    say(f"[train] arch={cfg.name} mesh={mesh_axes(mesh)}")
     job = make_train_job(
         cfg, mesh, algorithm=args.algorithm, tau=args.tau,
         lr=args.lr, alpha=args.alpha, gossip=args.gossip,

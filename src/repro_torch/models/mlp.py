@@ -41,15 +41,23 @@ experts' GEMMs on ``copy_to`` of the tokens, combines its gated outputs
 and all-reduces them (``reduce_from``).  The shared experts and a dense
 residual are Megatron MLPs (``mlp_forward(..., tp=)``).
 
-``moe_forward`` also takes ``data``, the ``NodeMesh`` of the mesh-sharded
-serve job where it splits one logical batch over its D data ranks, each
-holding a contiguous block of the rows in data-rank order.  The MoE queues
-the whole batch once, as the reference's serve job does: the capacity is
-the whole batch's (D times the rank's tokens), and a rank's queue
-positions start after the entries that the data ranks below it route to
-each expert (``NodeMesh.sum_below`` of the E per-expert counts, one
-exchange of E ints a layer).  So the kept entries, and the answer, do not
-depend on D.
+``moe_forward`` also takes ``data``, the ranks that split one logical
+batch over D data ranks, each holding a contiguous block of the rows in
+data-rank order: the ``NodeMesh`` of the mesh-sharded serve job, or the
+``DataGroup`` of a '2d' training node (``launch/mesh.py``).  The MoE queues
+the whole batch once, as the reference's one logical batch is queued: the
+capacity is the whole batch's (D times the rank's tokens), and a rank's
+queue positions start after the entries that the data ranks below it route
+to each expert (``sum_below`` of the E per-expert counts, one exchange of
+E ints a layer).  So the kept entries, and the answer, do not depend on D.
+In training (``return_aux``) the router losses are the whole batch's too:
+the z-loss is a mean over all D ranks' tokens and the load-balance loss
+multiplies the whole batch's expert fractions, the per-expert counts summed
+over the data ranks first.  A rank returns its share of them -- its own
+tokens' terms of the z-loss mean, and the product with its own tokens'
+part of the mean router probabilities -- so that the shares sum over the
+ranks to the whole batch's losses, and their gradients to the whole
+batch's gradient, with no term counted D times.
 """
 from __future__ import annotations
 
@@ -264,9 +272,9 @@ def moe_forward(cfg: MoEConfig, params, x: torch.Tensor, return_aux: bool = Fals
                 data=None):
     """x: (B, S, d).  Returns ``(y, aux)``: the router's z-loss plus the
     Switch load-balance loss in fp32 with ``return_aux``, else None.
-    ``tp`` (forward only): a tensor-parallel node; ``data`` (prefill and
-    decode): the data ranks that split the batch (see the module
-    docstring)."""
+    ``tp``: a tensor-parallel node; ``data``: the data ranks that split the
+    batch, and with ``return_aux`` ``aux`` is this rank's share of the
+    whole batch's losses (see the module docstring)."""
     b, s, d = x.shape
     n_tok = b * s
     groups, capacity = _queues(cfg, n_tok, data)
@@ -285,10 +293,16 @@ def moe_forward(cfg: MoEConfig, params, x: torch.Tensor, return_aux: bool = Fals
     if not return_aux:
         return y, None
     z = torch.logsumexp(logits, dim=-1)
-    z_loss = cfg.router_z_loss * (z * z).mean(dim=1).mean()   # per group, then over groups
-    counts = torch.bincount(expert_idx.reshape(-1), minlength=cfg.n_experts)
-    frac_tokens = counts.float() / n_tok
-    frac_probs = probs.reshape(n_tok, cfg.n_experts).mean(dim=0)
+    counts = torch.bincount(expert_idx.reshape(-1), minlength=cfg.n_experts).float()
+    # the groups are equal in size, so the mean of the group means is the
+    # mean over the tokens; under ``data`` this rank's share of the whole
+    # batch's means, and the whole batch's expert fractions
+    n_all = n_tok * (1 if data is None else data.world)
+    if data is not None:
+        counts = data.all_reduce(counts)
+    z_loss = cfg.router_z_loss * (z * z).sum() / n_all
+    frac_tokens = counts / n_all
+    frac_probs = probs.reshape(n_tok, cfg.n_experts).sum(dim=0) / n_all
     lb_loss = cfg.load_balance_loss * cfg.n_experts * torch.sum(frac_tokens * frac_probs)
     return y, z_loss + lb_loss
 

@@ -56,7 +56,10 @@ bits on every rank), and read and write the rank's decode caches as
 ``launch/sharding.py``'s ``cache_specs`` lays them out (the serve job,
 ``launch/serve.py``).  They also take ``data``, the serve job's mesh where
 it splits one batch over its data ranks: the only rows that interact are
-a MoE block's, whose queues run over the whole batch.
+a MoE block's, whose queues run over the whole batch.  ``forward`` and
+``loss`` take ``data`` too, the data group of a '2d' training node, whose
+batch splits over its data ranks the same way; ``loss`` then returns the
+rank's share of the whole batch's loss.
 """
 from __future__ import annotations
 
@@ -465,26 +468,39 @@ class Model:
     # ------------------------------------------------------------------
     # public entry points
     # ------------------------------------------------------------------
-    def forward(self, params, batch, dtype=torch.bfloat16, tp=None):
+    def forward(self, params, batch, dtype=torch.bfloat16, tp=None, data=None):
         """Logits (B, S, V) and the auxiliary loss: the MoE blocks' router
         z-losses and load-balance losses (fp32; 0 without MoE blocks).
         With ``tp`` the logits are the rank's vocabulary shard where the
-        head is vocab-parallel."""
+        head is vocab-parallel.  ``data``: the batch is this data rank's
+        block of rows of a batch split over the data ranks of a '2d' node
+        (``launch/mesh.py``'s ``DataGroup``); a MoE block queues the whole
+        batch and the auxiliary loss is this rank's share of the whole
+        batch's (``models/mlp.py``)."""
         x, positions = self._embed_inputs(params, batch, dtype, tp=tp)
-        x, aux = self._scan_blocks(params, x, positions, "fwd", tp=tp)
+        x, aux = self._scan_blocks(params, x, positions, "fwd", tp=tp, data=data)
         return self._head(params, x, tp=tp), aux
 
-    def loss(self, params, batch, dtype=torch.bfloat16, tp=None):
+    def loss(self, params, batch, dtype=torch.bfloat16, tp=None, data=None):
         """Mean token cross entropy plus the auxiliary loss, fp32.  A vision
         model's loss reads the text positions only (after the vision
         block).  Differentiable with respect to ``params``; with ``tp``,
-        every rank of the model group gets the same loss."""
-        logits, aux = self.forward(params, batch, dtype, tp=tp)
+        every rank of the model group gets the same loss.  With ``data``
+        (see :meth:`forward`; no ``mask``: every data rank's rows weigh
+        the same) it is this rank's share of the whole batch's loss: its
+        rows' mean cross entropy over D plus its share of the router
+        losses, so that the shares, and their gradients, sum over the data
+        ranks to the whole batch's."""
+        if data is not None and "mask" in batch:
+            raise ValueError("a masked batch does not split over data ranks by rows")
+        logits, aux = self.forward(params, batch, dtype, tp=tp, data=data)
         if self.cfg.n_vision_tokens:
             logits = logits[:, self.cfg.n_vision_tokens:]
         vocab_tp = tp if self._vocab_sharded(params, tp) else None
-        return cross_entropy_loss(logits, batch["targets"], batch.get("mask"),
-                                  tp=vocab_tp) + aux
+        ce = cross_entropy_loss(logits, batch["targets"], batch.get("mask"), tp=vocab_tp)
+        if data is not None:
+            ce = ce / data.world
+        return ce + aux
 
     def prefill(self, params, batch, dtype=torch.bfloat16, tp=None, data=None):
         """Last-token logits (B, 1, V) and the prompt's caches: per block

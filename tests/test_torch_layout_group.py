@@ -34,8 +34,9 @@ job.
     show its movements (tp: all-reduces; fsdp: all-gathers and
     reduce-scatters).
   * A 2-rank group (1 node x model 2): every ``ALGORITHMS`` entry takes one
-    fused step under each profile, and the one refusal of a model axis (the
-    '2d' profile) raises naming ROADMAP queue 1 item 8 (b).  tp over the
+    fused step under each profile, and the one refusal of a model axis (a
+    codec under the '2d' profile) raises naming ROADMAP queue 1 item 8 (b).
+    The '2d' layout itself is ``test_torch_layout_2d.py``'s; tp over the
     MoE, Mamba-2 and RWKV blocks and HuBERT's encoder is
     ``test_torch_layout_blocks.py``'s; codecs, channels and scenarios on a
     model axis are ``test_torch_layout_codecs.py``'s.
@@ -79,7 +80,7 @@ ALGORITHM_NAMES = ("dlsgd", "dse_mvr", "dse_sgd", "dsgd", "gt_dsgd", "gt_hsgd", 
 # refusal case -> make_train_job keywords (codecs, channels and scenarios
 # on a model axis are test_torch_layout_codecs.py's)
 REFUSALS = {
-    "2d": dict(profile="2d"),
+    "2d": dict(profile="2d", compression="qsgd"),
 }
 PROCESS_DEADLINE = 240     # s, one rank process
 GROUP_DEADLINE = 300       # s, a whole group
@@ -106,7 +107,7 @@ def fp32_activations():
     from repro_torch.models import Model
 
     loss = Model.loss
-    Model.loss = lambda self, p, b, dtype=None, tp=None: loss(self, p, b, torch.float32, tp)
+    Model.loss = lambda self, p, b, dtype=None, **kw: loss(self, p, b, torch.float32, **kw)
     try:
         yield
     finally:

@@ -494,15 +494,18 @@ def test_grad_accum_matches_one_microbatch():
 
 @pytest.mark.parametrize("profile", ["2d"])
 def test_train_job_refuses_a_sharding_profile(profile):
-    """The '2d' layout on a model axis of 2 waits for ROADMAP queue 1 item
-    8 (b): asking for it raises before anything is built, instead of
-    training a replica (the mesh here is a stand-in with a model axis of 2;
-    the spawned groups of ``test_torch_layout_group.py`` raise it on a real
-    one).  On a model axis of 1 every profile is the replica job."""
+    """What the '2d' layout cannot run yet on a node spread over a model
+    axis of 2 -- a codec, here QSGD -- waits for ROADMAP queue 1 item 8 (b):
+    asking for it raises before anything is built, instead of training
+    without it (the mesh here is a stand-in with a model axis of 2; the
+    spawned groups of ``test_torch_layout_group.py`` raise it on a real
+    one, and ``test_torch_layout_2d.py`` trains the layout itself).  On a
+    model axis of 1 every profile is the replica job."""
     from repro_torch.launch.distributed import make_train_job
 
     with pytest.raises(NotImplementedError, match=r"item 8 \(b\)"):
-        make_train_job(_lm_tiny(), SimpleNamespace(n_nodes=2, model=2), profile=profile)
+        make_train_job(_lm_tiny(), SimpleNamespace(n_nodes=2, model=2), profile=profile,
+                       compression="qsgd")
     for name in ("tp", "fsdp", "2d"):
         job = make_train_job(_lm_tiny(), make_test_mesh(4, device="cpu"), profile=name)
         assert job.profile.name == name and set(job.shard_dims) == {None}
