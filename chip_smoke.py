@@ -261,6 +261,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and both groups' bytes a round by rank beside model 1's.  Arctic 480B
    and Command R+ 104B, whose default profile '2d' is, do not fit one card
    at full width (ROADMAP queue 1 item 8 (b) 3);
+3i. the codecs, channels and scenarios under '2d' (after phase 3g): 2 pods
+   x data 2 x model 2 = 8 gloo ranks (``--layout-rank``, as phase 3g's;
+   the group is spawned as phase 3g begins and its ranks wait, a CUDA
+   context each, for this phase's go), Qwen2-VL-2B at full width on one
+   block unit, a node batch of 2 x (256 + 768) tokens split over the data
+   ranks, phase 3g's DSE-MVR through the kernels and its three codec runs,
+   2 rounds each: sync QSGD on the roll, CHOCO top-k 0.01 on the neighbour
+   wire, async:3 QSGD under ``dropout_ring`` on the allgather wire; each
+   leaf's codec bound to its block over the data and the model ranks.  Each
+   held to ``LAYOUT_FLOOR_TIMES`` times the floor of the same 2 nodes at
+   model 1 with the same codec from its init one fp32 ulp up, after each
+   round, in this process after the group ends; node-link bytes over the
+   ranks and the model and data groups' payload and codec bytes to the byte
+   by ``compression/gossip.py``'s rule; the same payload fingerprints on
+   every rank of a node; launches by op and rank; the scenario's streams
+   the same on every rank and within the band of model 1's; s a
+   rank-round, peak memory and bytes by group by rank.  Pod 0's ranks also
+   encode their 2-D blocks of two seeded full-width leaves with QSGD and
+   top-k 0.01, held bit for bit against the whole leaf's in this process
+   (chunked fingerprints): Qwen2-VL-2B's embedding (151,936 x 1,536 fp32,
+   vocabulary over the model ranks, width over the data ranks) and one
+   Qwen1.5-MoE-A2.7B expert leaf (60 x 2,048 x 1,408: experts over the
+   data ranks, hidden units over the model ranks);
 4. the LM serving path at Gemma-2 2B's full width (26 layers, d 2304,
    vocab 256,000; random bf16 weights from a seed): ``make_serve_job(...).
    prefill_fn`` with ``attn_impl="pallas"`` on 2 prompts of 8192 tokens,
@@ -390,7 +413,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 6. a ``{"kernels": [...]}`` line (with each op's phase 3d launches by
    worker, ``elastic_launches``, phase 3e's by process,
    ``sharded_launches``, phase 3f's by run and rank, ``cli_launches``, and
-   phase 3g's and 3h's by run and rank, ``layout_launches``, and phase 4g's by run
+   phase 3g's, 3h's and 3i's by run and rank, ``layout_launches``, and phase 4g's by run
    and rank, ``serve_layout_launches``),
    then the last line
    ``{"ok": true, "device": {...}}``.
@@ -534,6 +557,12 @@ LAYOUT_RUNS = {
     # tokens); two rounds in bf16, one in fp32
     "2d_qwen2_moe": ("qwen2-moe-a2.7b", "2d", 1, 2, 1024, 2),
     "2d_qwen2_moe_fp32": ("qwen2-moe-a2.7b", "2d", 1, 2, 1024, 1),
+    # phase 3i: the codec runs under '2d', 2 pods x data 2 x model 2, each
+    # node's batch of 2 x (256 + 768) tokens (fsdp's) split over its data
+    # ranks
+    "2d_qwen2_vl_qsgd": ("qwen2-vl-2b", "2d", 2, 2, 768, 2),
+    "2d_qwen2_vl_choco": ("qwen2-vl-2b", "2d", 2, 2, 768, 2),
+    "2d_qwen2_vl_async_dropout": ("qwen2-vl-2b", "2d", 2, 2, 768, 2),
 }
 # RWKV-6, Mamba-2 and the MoE in bf16 activations (the engine's own path):
 # a tp round rounds each row-parallel partial sum to bf16 before the fp32
@@ -543,7 +572,8 @@ LAYOUT_RUNS = {
 # which the same bf16 roundings (and the MoE's flipped routes) amplify as
 # far (PERF.md §6: the tp gap 0.8-1.5 times the floor)
 LAYOUT_FLOOR = ("tp_rwkv6", "tp_zamba2", "tp_qwen2_moe", "tp_qwen2_vl_qsgd", "tp_qwen2_vl_choco",
-                "tp_qwen2_vl_async_dropout", "2d_qwen2_moe")
+                "tp_qwen2_vl_async_dropout", "2d_qwen2_moe", "2d_qwen2_vl_qsgd",
+                "2d_qwen2_vl_choco", "2d_qwen2_vl_async_dropout")
 LAYOUT_FLOOR_TIMES = 4
 # the codecs and channels on a model axis: run -> (make_train_job
 # keywords, scenario preset or None).  Sync QSGD rolls its int8 payload
@@ -558,6 +588,9 @@ LAYOUT_CODECS = {
     "tp_qwen2_vl_choco": (dict(channel="choco", compression="top_k:0.01"), None),
     "tp_qwen2_vl_async_dropout": (dict(channel="async:3", compression="qsgd"), "dropout_ring"),
 }
+# phase 3i: the same three under '2d' (each leaf's codec bound to its block
+# over the data and the model ranks)
+LAYOUT_CODECS.update({"2d" + run[2:]: spec for run, spec in list(LAYOUT_CODECS.items())})
 # the codec-level check in the group: each rank of node block 0 encodes its
 # tp shard of a seeded full-width Qwen2-VL-2B embedding (151,936 x 1,536
 # fp32) with each codec; its payload gathered over the model group and its
@@ -570,14 +603,25 @@ LAYOUT_LEAF_SEED = 0x5EED
 # and their twins in fp32 activations (Model.loss wrapped; the engine asks
 # for bf16), each and its model-1 run: held to the band, as the rest
 LAYOUT_FP32 = ("tp_rwkv6_fp32", "tp_zamba2_fp32", "tp_qwen2_moe_fp32", "2d_qwen2_moe_fp32")
+# phase 3i's runs: the codec runs under '2d', on a group of their own
+LAYOUT_2D_CODECS = tuple(r for r in LAYOUT_CODECS if LAYOUT_RUNS[r][1] == "2d")
 # phase 3h's runs, on a group of their own that runs beside phases 3-3b
-LAYOUT_2D = tuple(r for r, spec in LAYOUT_RUNS.items() if spec[1] == "2d")
+LAYOUT_2D = tuple(r for r, spec in LAYOUT_RUNS.items()
+                  if spec[1] == "2d" and r not in LAYOUT_2D_CODECS)
+# phase 3i's codec-level check: pod 0's ranks encode their '2d' blocks of
+# Qwen2-VL-2B's embedding (its largest leaf, laid out as the run lays it
+# out) and of one Qwen1.5-MoE-A2.7B expert leaf (experts, d_model, d_ff):
+# name -> (whole shape, model dim, data dim), None for the run's
+LAYOUT_2D_LEAVES = {"embedding": None, "expert": ((60, 2048, 1408), 2, 0)}
 # the run whose ranks also gather their parameters over both axes with
 # TrainJob.full (the rest write their own rows and shards): the cheapest
 LAYOUT_FULL = ("tp_hubert",)
 # the block kinds that run attention (through flash where causal)
 ATTENTION_KINDS = ("attn", "local", "moe", "shared_attn")
 LAYOUT_DEADLINE = 900  # s, a spawned group of phase 3g
+# phase 3i's group sets up while phase 3g runs (its ranks idle, a CUDA
+# context each, until the go of phase 3i)
+LAYOUT_WAIT = 1200     # s, a rank's wait for the go
 # the mesh-sharded serve job (phase 4g): make_serve_job(cfg, mesh) over
 # SERVE_DATA data ranks x a model axis of SERVE_MODEL gloo ranks on the one
 # card, each model at full width on its first block unit (layout_config:
@@ -3954,8 +3998,9 @@ def recording_payloads(fps: list, dims):
     fingerprinted into ``fps``: of each sharded leaf its tensors that are
     the whole node's (``shared``) and its per-node scalars (QSGD's scale,
     the adaptive level count), of each replicated leaf the whole payload,
-    and bare tensors (send masks) whole: what every model rank of a node
-    must hold the same."""
+    and bare tensors (send masks) whole: what every rank of a node must
+    hold the same (``dims``: each leaf's split dim, None where no group
+    splits it)."""
     from repro_torch.compression import gossip
     from repro_torch.compression.base import Packed
     from repro_torch.tree import tree_leaves
@@ -4016,7 +4061,10 @@ def layout_run(api, mesh, run: str, on_round, moved: bool = False) -> dict:
         if "moe" in cfg.block_unit:
             stack.enter_context(recording_routes(recorded))
         if run in LAYOUT_CODECS and mesh.model_group is not None:
-            stack.enter_context(recording_payloads(payloads, job.shard_dims))
+            # a leaf split over either group ('2d': the model or the data
+            # ranks) moves its shared tensors; a replicated one its payload
+            split = [d if d is not None else dd for d, dd in zip(job.shard_dims, job.data_dims)]
+            stack.enter_context(recording_payloads(payloads, split))
         for r in range(rounds):
             mesh.reset_bytes()
             torch.cuda.synchronize()
@@ -4055,9 +4103,11 @@ def layout_run(api, mesh, run: str, on_round, moved: bool = False) -> dict:
     return out
 
 
-def layout_rank(runs: str, out_dir: str) -> None:
+def layout_rank(runs: str, out_dir: str, go: str | None = None) -> None:
     """One rank of a phase 3g group (``chip_smoke.py --layout-rank``), started
-    by ``torch.distributed.run``: each run of the comma-separated ``runs``
+    by ``torch.distributed.run``, which first waits for the marker file
+    ``go`` where one is named (phase 3i's group sets up early): each run of
+    the comma-separated ``runs``
     (one node count; stages separated by ``;``) on the data x model mesh;
     every rank writes its rows and shards of the parameters after round 1
     and the last round (and, for ``LAYOUT_FULL``, rank 0 the whole
@@ -4077,6 +4127,12 @@ def layout_rank(runs: str, out_dir: str) -> None:
     torch.use_deterministic_algorithms(True, warn_only=True)
     dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=LAYOUT_DEADLINE))
     rank, world = dist.get_rank(), dist.get_world_size()
+    if go is not None:
+        torch.zeros(1, device="cuda")   # this rank's CUDA context, while it waits
+        t0 = time.perf_counter()
+        while not Path(go).exists():
+            assert time.perf_counter() - t0 < LAYOUT_WAIT, "no go from the smoke process"
+            time.sleep(0.2)
     stages = runs.split(";")
     for i, stage in enumerate(stages):
         layout_stage(api, stage.split(","), out_dir, rank)
@@ -4132,7 +4188,11 @@ def layout_stage(api, runs: list, out_dir: str, rank: int) -> None:
                    nondeterministic=sorted({str(w.message)[:200] for w in caught}))
         torch.save(res.pop("routes"), Path(out_dir) / f"{run}_routes_rank{rank}.pt")
         (Path(out_dir) / f"{run}_rank{rank}.json").write_text(json.dumps(res))
-        if (run in LAYOUT_CODECS and mesh.rank == 0
+        if (run in LAYOUT_2D_CODECS and mesh.rank == 0
+                and not (Path(out_dir) / f"leaf2d_rank{rank}.json").exists()):
+            # pod 0's data x model ranks, once: phase 3i's codec-level check
+            layout_leaf_2d_rank(mesh, Path(out_dir), rank, res)
+        elif (run in LAYOUT_CODECS and run not in LAYOUT_2D_CODECS and mesh.rank == 0
                 and not (Path(out_dir) / f"leaf_rank{rank}.json").exists()):
             # node block 0's model group, once: the codec-level check
             layout_leaf_rank(mesh, Path(out_dir), rank, res)
@@ -4223,12 +4283,131 @@ def layout_leaf_check(out: Path, res: dict, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
-def spawn_layout_group(stages: list, world: int, tag: str = "") -> tuple:
-    """Phase 3g's (3h's) ``world``-rank group for ``stages`` (lists of runs,
-    one after the other): ``torch.distributed.run`` starting this file as
-    each rank's script, on the one card, its output to a log file (named
-    with ``tag``); returns the runs' directory, the process, its start time
-    and the log's path (see ``layout_stage_wait``)."""
+def layout_leaves_2d(res: dict) -> list:
+    """Phase 3i's codec-level leaves (``LAYOUT_2D_LEAVES``): ``(name, whole
+    per-node shape, model dim, data dim, seed)``, the embedding's from a
+    run's result."""
+    out = []
+    for j, (name, spec) in enumerate(LAYOUT_2D_LEAVES.items()):
+        if spec is None:
+            shape = [tuple(x) for x in res["whole_shapes"]]
+            i = max(range(len(shape)), key=lambda k: math.prod(shape[k]))
+            spec = (shape[i], res["shard_dims"][i], res["data_dims"][i])
+        assert spec[1] is not None and spec[2] is not None, (name, spec)
+        out.append((name,) + tuple(spec) + (LAYOUT_LEAF_SEED + j,))
+    return out
+
+
+def layout_leaf_2d(whole, seed: int) -> torch.Tensor:
+    """A codec-level leaf, node-stacked (one node), drawn on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((1,) + tuple(whole), generator=gen, device="cuda")
+
+
+def layout_block_2d(t: torch.Tensor, dim: int, data_dim: int, m: int, d: int) -> torch.Tensor:
+    """The block of a node-stacked leaf that model index ``m`` and data
+    index ``d`` hold."""
+    n = t.shape[dim + 1] // LAYOUT_MODEL
+    t = t.narrow(dim + 1, m * n, n)
+    n = t.shape[data_dim + 1] // LAYOUT_DATA
+    return t.narrow(data_dim + 1, d * n, n).contiguous()
+
+
+def layout_leaf_2d_bytes(spec: str, whole) -> dict:
+    """The codec bytes a rank receives by group for one encode of a leaf
+    split over both groups: QSGD's scale maximum, 4 B from each peer of each
+    group; top-k's candidates, 8 B each, ``min(k, d / (D M))`` from each
+    rank, the data group's messages holding the model ranks' lists."""
+    if spec == "qsgd":
+        return {"model": 4 * (LAYOUT_MODEL - 1), "data": 4 * (LAYOUT_DATA - 1)}
+    d = math.prod(whole)
+    cand = 8 * min(layout_leaf_codec(spec).k_for(d), d // (LAYOUT_MODEL * LAYOUT_DATA))
+    return {"model": (LAYOUT_MODEL - 1) * cand, "data": (LAYOUT_DATA - 1) * LAYOUT_MODEL * cand}
+
+
+def layout_leaf_2d_rank(mesh, out_dir: Path, rank: int, res: dict) -> None:
+    """Rank side of phase 3i's codec-level check: this rank's block of each
+    leaf (``layout_leaves_2d``) encoded and decoded by each codec bound to
+    its two-group shard; fingerprints of the payload gathered over the
+    node's ranks and of the decoded block, encode + decode ms and the codec
+    bytes each group received, to ``leaf2d_rank<r>.json``."""
+    from repro_torch.compression.base import AtShard, Shard
+
+    node = mesh.node_group
+    out = {}
+    for name, whole, dim, data_dim, seed in layout_leaves_2d(res):
+        x = layout_block_2d(layout_leaf_2d(whole, seed), dim, data_dim,
+                            mesh.model_group.index, mesh.data_group.index)
+        sh = Shard(node, dim, whole, data_dim=data_dim)
+        out[name] = {}
+        for spec in LAYOUT_LEAF_CODECS:
+            bound = AtShard(inner=layout_leaf_codec(spec), shard=sh, node=node)
+            before = {g: mesh.byte_counts()[g]["codec"] for g in ("model", "data")}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            packed = bound.encode(x, seed)
+            dec = bound.decode(packed)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            moved = {g: mesh.byte_counts()[g]["codec"] - before[g] for g in before}
+            whole_p = bound.whole(packed)
+            out[name][spec] = {
+                "ms": ms, "codec_bytes": moved, "decoded": chunk_fingerprint(dec),
+                "payload": {k: chunk_fingerprint(v) for k, v in whole_p.data.items()},
+                "shapes": {k: list(v.shape) for k, v in whole_p.data.items()}}
+            del packed, dec, whole_p
+        del x
+        torch.cuda.empty_cache()
+    (out_dir / f"leaf2d_rank{rank}.json").write_text(json.dumps(out))
+
+
+def layout_leaf_2d_check(out: Path, res: dict, smi: str) -> None:
+    """Phase 3i's codec-level check, this process's side: each whole leaf
+    encoded and decoded by each codec; pod 0's data x model ranks' gathered
+    payloads and decoded blocks must be its, bit for bit (fingerprints), and
+    each group's codec bytes the rule's."""
+    per_node = LAYOUT_DATA * LAYOUT_MODEL
+    ranks = [json.loads((out / f"leaf2d_rank{k}.json").read_text()) for k in range(per_node)]
+    for k in range(per_node):
+        (out / f"leaf2d_rank{k}.json").unlink()
+    for name, whole, dim, data_dim, seed in layout_leaves_2d(res):
+        leaf = layout_leaf_2d(whole, seed)
+        for spec in LAYOUT_LEAF_CODECS:
+            codec = layout_leaf_codec(spec)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            packed = codec.encode(leaf, seed)
+            dec = codec.decode(packed)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            payload = {k: chunk_fingerprint(v) for k, v in packed.data.items()}
+            want_bytes = layout_leaf_2d_bytes(spec, whole)
+            for k, got in enumerate(ranks):   # rank d M + m of pod 0
+                d, m = divmod(k, LAYOUT_MODEL)
+                got = got[name][spec]
+                assert got["shapes"] == {j: list(v.shape) for j, v in packed.data.items()}, \
+                    (name, spec, k, got["shapes"])
+                assert got["payload"] == payload, (name, spec, k, "payload")
+                assert got["decoded"] == chunk_fingerprint(
+                    layout_block_2d(dec, dim, data_dim, m, d)), (name, spec, k, "decoded block")
+                assert got["codec_bytes"] == want_bytes, (name, spec, k, got["codec_bytes"])
+            print(f"layout 2d leaf {name} {spec} ({smi}): {tuple(whole)} fp32, model dim {dim}, "
+                  f"data dim {data_dim}: the {per_node} ranks' gathered payloads and decoded "
+                  f"blocks are the whole leaf's, bit for bit; encode + decode ms whole "
+                  f"{ms:.1f}, a rank's block {[round(r[name][spec]['ms'], 1) for r in ranks]}; "
+                  f"codec bytes a rank by group {json.dumps(want_bytes)}")
+            del packed, dec
+        del leaf
+        torch.cuda.empty_cache()
+
+
+def spawn_layout_group(stages: list, world: int, tag: str = "", go: Path | None = None) -> tuple:
+    """Phase 3g's (3h's, 3i's) ``world``-rank group for ``stages`` (lists of
+    runs, one after the other): ``torch.distributed.run`` starting this file
+    as each rank's script, on the one card, its output to a log file (named
+    with ``tag``), its ranks waiting for the marker file ``go`` where one is
+    named; returns the runs' directory, the process, its start time and the
+    log's path (see ``layout_stage_wait``)."""
     import gc
     import os
 
@@ -4243,7 +4422,7 @@ def spawn_layout_group(stages: list, world: int, tag: str = "") -> tuple:
         env.pop(k, None)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
            str(world), str(ROOT / "chip_smoke.py"), "--layout-rank",
-           ";".join(",".join(runs) for runs in stages), str(out)]
+           ";".join(",".join(runs) for runs in stages), str(out)] + ([] if go is None else [str(go)])
     log = out / f"group{world}{tag}.log"
     with open(log, "w") as f:
         proc = subprocess.Popen(cmd, env=env, stdout=f, stderr=subprocess.STDOUT,
@@ -4311,11 +4490,11 @@ def layout_rank_part(params, rank: int, n_local: int, dims, data_dims=None) -> l
 
 
 def layout_groups() -> dict:
-    """Phase 3g's runs by the number of gloo ranks they take (phase 3h's
-    '2d' runs apart)."""
+    """Phase 3g's runs by the number of gloo ranks they take (phases 3h's
+    and 3i's '2d' runs apart)."""
     groups: dict = {}
     for run in LAYOUT_RUNS:
-        if run not in LAYOUT_2D:
+        if run not in LAYOUT_2D and run not in LAYOUT_2D_CODECS:
             groups.setdefault(layout_world(run), []).append(run)
     return groups
 
@@ -4415,7 +4594,9 @@ def layout_stage_check(api, smi: str, runs: list, out: Path, launches: list,
 
         one = layout_run(api, make_test_mesh(nodes, device="cuda"), run, hold)
         launches += layout_check(run, one, out, gaps, smi, floor, twin_run)
-        if run in LAYOUT_CODECS and (out / "leaf_rank0.json").exists():
+        if run in LAYOUT_2D_CODECS and (out / "leaf2d_rank0.json").exists():
+            layout_leaf_2d_check(out, ranks[0], smi)
+        elif run in LAYOUT_CODECS and (out / "leaf_rank0.json").exists():
             layout_leaf_check(out, ranks[0], smi)
         for op in {op for c in launches[-world - 1:] for op in c}:
             by_run.setdefault(op, {})[run] = {
@@ -4442,6 +4623,32 @@ def layout_2d_path(api, smi: str, group: tuple) -> tuple:
     launches, by_run = [], {}
     layout_stage_check(api, smi, list(LAYOUT_2D), out, launches, by_run)
     print(f"layout 2d phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, by_run
+
+
+def spawn_layout_2d_codecs() -> tuple:
+    """Phase 3i's group, spawned as phase 3g begins: its ranks set up (a
+    CUDA context each) and wait for the go of phase 3i."""
+    go = ROOT / "build" / "layout" / "codecs2d_go"
+    go.unlink(missing_ok=True)
+    world = layout_world(LAYOUT_2D_CODECS[0])
+    return spawn_layout_group([list(LAYOUT_2D_CODECS)], world, "2d_codecs", go) + (go,)
+
+
+def layout_2d_codecs_path(api, smi: str, group: tuple) -> tuple:
+    """Phase 3i: the go to the '2d' codec group (``spawn_layout_2d_codecs``),
+    its runs held against model 1 here after it ends, as phase 3g holds its
+    stages; returns the launches and each op's launches by run and rank."""
+    out, proc, t_spawn, log, go = group
+    t_phase = time.perf_counter()
+    go.write_text("")
+    wall = layout_stage_wait(proc, None, t_phase, log)
+    world = layout_world(LAYOUT_2D_CODECS[0])
+    print(f"layout group {list(LAYOUT_2D_CODECS)}: {world} gloo ranks on the card, {wall:.1f} s "
+          f"wall from the go (spawned {t_phase - t_spawn:.1f} s before it, beside phase 3g)")
+    launches, by_run = [], {}
+    layout_stage_check(api, smi, list(LAYOUT_2D_CODECS), out, launches, by_run)
+    print(f"layout 2d codecs phase {time.perf_counter() - t_phase:.1f} s")
     return launches, by_run
 
 
@@ -4574,8 +4781,8 @@ def layout_check(run: str, one: dict, out: Path, gaps: dict, smi: str, floor: di
     held = (f"{LAYOUT_FLOOR_TIMES} times the floor, model 1 from its init one fp32 ulp up "
             f"{floor[1]:.4g} after round 1, {floor[rounds]:.4g} after round {rounds}"
             if run in LAYOUT_FLOOR else "the band")
-    layout_desc = (f"{nodes} node of data {LAYOUT_DATA} x model {LAYOUT_MODEL}" if two_d
-                   else f"{nodes} nodes x model {LAYOUT_MODEL}")
+    layout_desc = (f"{nodes} node{'s' if nodes > 1 else ''} (pods) of data {LAYOUT_DATA} x "
+                   f"model {LAYOUT_MODEL}" if two_d else f"{nodes} nodes x model {LAYOUT_MODEL}")
     print(f"layout {run} ({smi}): {arch} {profile}, {layout_desc} = {world} gloo ranks on "
           f"the card, "
           f"{layout_shape(cfg, profile, n_tok)}, {'fp32' if run in LAYOUT_FP32 else 'bf16'} "
@@ -4671,48 +4878,65 @@ def layout_codec_launches(run: str, n_leaves: int, nodes: int, rounds: int) -> d
 
 
 def layout_codec_bytes(run: str, res: dict) -> tuple:
-    """The byte rule of ``compression/gossip.py`` for a codec run:
-    ``(P, R, S, mask, codec)``: a node's message at model 1 (the whole
-    leaves' payloads), what the model ranks of a node move more a message
-    each (the replicated leaves' payloads, QSGD's 4 B scale a sharded
-    leaf), the shared bytes of a message the model group joins, the send
-    mask's bytes a message, and the model group's codec bytes a rank
-    receives a round (QSGD's scales, top-k's 8 B candidates, the async
-    trigger's two sums, a node each)."""
+    """The byte rule of ``compression/gossip.py`` for a codec run, on K
+    ranks a node (the model ranks, x the data ranks under '2d'): ``(P, R,
+    S, mask, codec)``: a node's message at model 1 (the whole leaves'
+    payloads); what a node's ranks move more a message, summed over them
+    (of a tensor held in k distinct blocks, K / k - 1 copies more: a
+    replicated leaf's payload and QSGD's 4 B scale K - 1, QSGD's levels of a
+    leaf split over one group of two K / k - 1, a shared tensor none); the
+    shared bytes of a message the node's ranks join; the send mask's bytes
+    a message (K - 1 copies more); and the codec bytes a rank receives a
+    round by group (QSGD's scale maxima, top-k's 8 B candidates, the data
+    group's messages holding the model ranks' lists, the async trigger's
+    two sums, a node each)."""
     from repro_torch.compression import make_compressor
 
     kw, _ = LAYOUT_CODECS[run]
     comp = make_compressor(kw["compression"])
     inner = getattr(comp, "inner", comp)
     qsgd = kw["compression"] == "qsgd"
+    two_d = LAYOUT_RUNS[run][1] == "2d"
+    data = LAYOUT_DATA if two_d else 1
+    per_node = LAYOUT_MODEL * data
     shapes, dims = [tuple(x) for x in res["whole_shapes"]], res["shard_dims"]
+    ddims = res["data_dims"] if two_d else [None] * len(dims)
     size = [comp.payload_bytes(x, torch.float32) for x in shapes]
-    whole = sum(size)
-    extra = sum(b for b, d in zip(size, dims) if d is None)
-    shared = 0
-    if qsgd:
-        extra += 4 * sum(d is not None for d in dims)
-    else:
-        shared = sum(b for b, d in zip(size, dims) if d is not None)
+    whole, extra, shared = sum(size), 0, 0
     mask = 1 if kw.get("channel", "").startswith("async") else 0
-    per_buffer = 0
-    for x, d in zip(shapes, dims):
+    per_buffer = {"model": 2 * 4 * mask, "data": 2 * 4 * mask if two_d else 0}
+    for x, b, d, dd in zip(shapes, size, dims, ddims):
+        k = (LAYOUT_MODEL if d is not None else 1) * (data if dd is not None else 1)
+        if k == 1:
+            extra += (per_node - 1) * b
+            continue
+        if qsgd:
+            extra += (per_node // k - 1) * math.prod(x) + (per_node - 1) * 4
+            cand = 4
+        else:
+            shared += b
+            cand = 8 * min(inner.k_for(math.prod(x)), math.prod(x) // k)
         if d is not None:
-            d_shard = math.prod(x) // LAYOUT_MODEL
-            per_buffer += 4 if qsgd else 8 * min(inner.k_for(math.prod(x)), d_shard)
-    per_buffer += 2 * 4 * mask
-    codec = 2 * per_buffer * res["n_local"] * (LAYOUT_MODEL - 1)
+            per_buffer["model"] += cand
+        if dd is not None:
+            per_buffer["data"] += cand * (LAYOUT_MODEL if d is not None and not qsgd else 1)
+    codec = {"model": 2 * per_buffer["model"] * res["n_local"] * (LAYOUT_MODEL - 1),
+             "data": 2 * per_buffer["data"] * res["n_local"] * (data - 1)}
+    extra += (per_node - 1) * mask
     return whole, extra, shared, mask, codec
 
 
 def layout_codec_check(run: str, one: dict, ranks: list, smi: str) -> None:
     """A codec run's exact checks: node-link bytes over the ranks, the model
-    group's payload and codec bytes a rank, to the byte; every model rank of
-    a node moved the same payloads and send masks (fingerprints); the
-    scenario streams the same on every rank and within the band of model
-    1's."""
+    group's (and under '2d' the data group's) payload and codec bytes a
+    rank, to the byte; every rank of a node moved the same payloads and
+    send masks (fingerprints); the scenario streams the same on every rank
+    and within the band of model 1's."""
     whole, extra, shared, mask, codec = layout_codec_bytes(run, ranks[0])
     kw, scen = LAYOUT_CODECS[run]
+    two_d = LAYOUT_RUNS[run][1] == "2d"
+    data = LAYOUT_DATA if two_d else 1
+    groups = ("model", "data") if two_d else ("model",)
     # beside the payloads, a scenario's round gathers over the node axis
     # each rank's rows of W_t (4 N B a row, for the streams' spectral gap)
     # and of the active mask twice (1 B a row: the gap, the replicated
@@ -4727,18 +4951,22 @@ def layout_codec_check(run: str, one: dict, ranks: list, smi: str) -> None:
             n = one_nl // (whole + mask)
             got = sum(r["bytes"][i][op]["node_link"] for r in ranks)
             ctx = len(ranks) * ctx_bytes if op == "all_gather" else 0
-            assert got == one_nl + n * (LAYOUT_MODEL - 1) * (extra + mask) + ctx, \
-                (run, op, i, got, one_nl, n, extra, mask, ctx)
+            assert got == one_nl + n * extra + ctx, (run, op, i, got, one_nl, n, extra, mask, ctx)
             messages += n
         assert messages > 0, run
-        joined = sum(r["bytes"][i]["model"]["payload"] for r in ranks)
-        assert joined == messages * shared, (run, i, joined, messages, shared)
+        # the node's ranks join a message's shared chunks: the model group
+        # gathers M - 1 peers' chunks, the data group D - 1 peers' M each
+        for g, times in (("model", LAYOUT_MODEL - 1), ("data", LAYOUT_MODEL * (data - 1))):
+            if g in groups:
+                joined = sum(r["bytes"][i][g]["payload"] for r in ranks)
+                assert joined == messages * times * shared, (run, i, g, joined, messages, shared)
         for r in ranks:
-            assert r["bytes"][i]["model"]["codec"] == codec, \
-                (run, i, r["rank"], r["bytes"][i]["model"]["codec"], codec)
+            for g in groups:
+                assert r["bytes"][i][g]["codec"] == codec[g], \
+                    (run, i, r["rank"], g, r["bytes"][i][g]["codec"], codec)
     for r in ranks:
-        assert r["payloads"] and r["payloads"] == ranks[r["node_rank"] * LAYOUT_MODEL][
-            "payloads"], (run, r["rank"], "payload")
+        first = ranks[r["node_rank"] * LAYOUT_MODEL * data]
+        assert r["payloads"] and r["payloads"] == first["payloads"], (run, r["rank"], "payload")
     line = ""
     if scen is not None:
         keys = sorted(k for k in one["streams"][0] if k not in ("loss", "v_norm"))
@@ -4756,10 +4984,10 @@ def layout_codec_check(run: str, one: dict, ranks: list, smi: str) -> None:
     print(f"layout {run} ({smi}): {kw}{'' if scen is None else ' under ' + scen}; a round's "
           f"node-link bytes over the ranks {[sum(r['bytes'][i][op]['node_link'] for r in ranks for op in ('roll', 'all_gather')) for i in range(len(one['bytes']))]} "
           f"= model 1's {[sum(one['bytes'][i][op]['node_link'] for op in ('roll', 'all_gather')) for i in range(len(one['bytes']))]} "
-          f"+ (M - 1) x {extra + mask} B a message; the model group's payload bytes a round "
-          f"{[sum(r['bytes'][i]['model']['payload'] for r in ranks) for i in range(len(one['bytes']))]}, "
-          f"codec bytes a rank-round {codec}; {len(ranks[0]['payloads'])} payloads a rank, the "
-          f"same on both model ranks of a node" + line)
+          f"+ {extra} B a message; payload bytes a round by group "
+          f"{json.dumps({g: [sum(r['bytes'][i][g]['payload'] for r in ranks) for i in range(len(one['bytes']))] for g in groups})}, "
+          f"codec bytes a rank-round by group {json.dumps(codec)}; {len(ranks[0]['payloads'])} "
+          f"payloads a rank, the same on every rank of a node" + line)
 
 
 def serve_runs() -> list:
@@ -5655,7 +5883,7 @@ def paper_paths(api, smi: str, done, results: dict, layout_2d_group: tuple) -> l
 
 def main_rest(api, smi: str, bw: float, results: dict, kernel_runs: list, done, t0: float,
               kind: str) -> int:
-    """Phases 3d-6, after phase 3h."""
+    """Phases 3d-6, after phase 3h (phase 3i after 3g)."""
     # --------------------------------------------------------------- 3d
     runs, elastic_launches = elastic_path(api, smi)
     kernel_runs += [{"launches": launches} for launches in runs]
@@ -5684,12 +5912,26 @@ def main_rest(api, smi: str, bw: float, results: dict, kernel_runs: list, done, 
 
     done("3f")
     # --------------------------------------------------------------- 3g
-    runs, layout_launches = layout_path(api, smi, early)
+    # phase 3i's group sets up while phase 3g runs (its ranks idle, a CUDA
+    # context each, until the go of phase 3i)
+    codecs_2d = spawn_layout_2d_codecs()
+    try:
+        runs, layout_launches = layout_path(api, smi, early)
+    except BaseException:
+        stop_group(codecs_2d[1])
+        raise
     kernel_runs += [{"launches": launches} for launches in runs]
     for name, by_run in layout_launches.items():
         results[name].setdefault("layout_launches", {}).update(by_run)
 
     done("3g")
+    # --------------------------------------------------------------- 3i
+    runs, layout_launches = layout_2d_codecs_path(api, smi, codecs_2d)
+    kernel_runs += [{"launches": launches} for launches in runs]
+    for name, by_run in layout_launches.items():
+        results[name].setdefault("layout_launches", {}).update(by_run)
+
+    done("3i")
     # phase 4g's group sets up while phases 4-4f run (its ranks idle, a
     # CUDA context each, until the go of phase 4g)
     serve_group = spawn_serve_group()
@@ -5768,7 +6010,7 @@ if __name__ == "__main__":
         serve_rank(sys.argv[2])
         sys.exit(0)
     if sys.argv[1:2] == ["--layout-rank"]:
-        layout_rank(sys.argv[2], sys.argv[3])
+        layout_rank(sys.argv[2], sys.argv[3], *sys.argv[4:5])
         sys.exit(0)
     if sys.argv[1:2] == ["--sharded-worker"]:
         world, rank, store, out = sys.argv[2:6]

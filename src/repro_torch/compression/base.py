@@ -17,19 +17,24 @@ residuals, replica estimates, staleness ages, in-flight payloads) plus the
 number of communication events so far; the seeds of event ``e`` come from
 the executor's ``comm_seed_fn``.
 
-On a node spread over a model axis (the sharded engine's
-``NodeMesh(model=M)``), a leaf sharded along a dim is bound to its
-:class:`Shard` (:meth:`Compressor.at_shards`, one binding a leaf): a node's
-message stays a function of the whole node, never of a shard.  Every model
-rank of a node arrives at the same scale, the same index set in the same
-order and the same send decision, through collectives over the model group
-that move scalars, candidate lists and low-rank factors, never a shard; the
-decoded shard is the shard of what the whole leaf decodes to (low-rank's
-fp32 partial sums may reorder).  A replicated leaf is encoded whole on
-every model rank, with identical bits and no group traffic.  A sharded
-leaf's :class:`Packed` names its ``shared`` tensors: those that are the
-whole node's payload, the same on every model rank, which the node axis
-moves in chunks (:func:`share_split` / :func:`share_join`).
+On a node spread over several ranks (the sharded engine's
+``NodeMesh(model=M)``, or ``NodeMesh(data=D, model=M)`` under the '2d'
+layout), a leaf sharded along a dim is bound to its :class:`Shard`
+(:meth:`Compressor.at_shards`, one binding a leaf): a node's message stays
+a function of the whole node, never of a shard.  A shard lies over one
+group (the model ranks, or under '2d' the data ranks) along one dim, or
+under '2d' over both, the model group along one dim and the data group
+along another, in either order of dims.  Every rank of a node arrives at
+the same scale, the same index set in the same order and the same send
+decision, through collectives over the shard's groups (the model group's
+first) that move scalars, candidate lists and low-rank factors, never a
+shard; the decoded shard is the shard of what the whole leaf decodes to
+(low-rank's fp32 partial sums may reorder).  A leaf replicated over a
+group is encoded alike on each of its ranks, with identical bits and no
+traffic over that group.  A sharded leaf's :class:`Packed` names its
+``shared`` tensors: those that are the whole node's payload, the same on
+every rank of the node, which the node axis moves in chunks over the
+node's ranks (:func:`share_split` / :func:`share_join`).
 
 This module imports nothing of ``repro_torch.core`` (the executor imports
 us, not vice versa).
@@ -51,7 +56,7 @@ __all__ = [
     "Packed", "Compressor", "ErrorFeedback", "ChannelState", "COMPRESSORS",
     "register_compressor", "make_compressor", "attach_channel_state",
     "abstract_channel_state", "compression_error", "Shard", "AtShard", "LeafCodecs",
-    "share_split", "share_join",
+    "share_split", "share_join", "holds_first",
 ]
 
 
@@ -79,29 +84,73 @@ def _to_global(local: torch.Tensor, whole: Tuple[int, ...], dim: int, lo: int,
     return local + (local // (n * inner)) * ((span - n) * inner) + lo * inner
 
 
+def _to_local(flat: torch.Tensor, whole: Tuple[int, ...], dim: int, lo: int,
+              n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_to_global`'s inverse: the shard's flat indices of the whole
+    shape's and whether each lies in the shard."""
+    inner = math.prod(whole[dim + 1:])
+    span = whole[dim]
+    outer, rest = flat // (span * inner), flat % (span * inner)
+    c, i = rest // inner, rest % inner
+    inside = (c >= lo) & (c < lo + n)
+    return (outer * n + (c - lo)) * inner + i, inside
+
+
+def holds_first(shard: Optional["Shard"], node) -> bool:
+    """Whether this rank counts a leaf's block in a sum over the ranks of a
+    node (``node``: its model group, data group or ``NodeGroup``) that
+    counts each distinct block once: the rank has index 0 in every group of
+    the node that does not split the leaf (``shard`` None: a replicated
+    leaf, counted on the node's rank 0)."""
+    split = () if shard is None else shard.groups
+    return all(g.index == 0 for g in node.groups if not any(g is s for s in split))
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Shard:
-    """One leaf's model shard on a node spread over a model group: the
-    leaf's whole per-node shape ``whole``, split in ``group.size`` equal
-    parts along ``dim``; this rank holds part ``group.index``."""
+    """One leaf's shard on a node spread over ranks: the leaf's whole
+    per-node shape ``whole``, split in ``group.size`` equal parts along
+    ``dim``, this rank holding part ``group.index``.  Under the '2d' layout
+    a leaf split over both the model and the data ranks has ``group`` the
+    node's ``launch.mesh.NodeGroup`` and ``data_dim``: split along ``dim``
+    over its model group and along ``data_dim`` over its data group, this
+    rank holding the block of its two indices; the collectives
+    (``group.all_reduce``, ``group.gather``) then run over the node's D x M
+    ranks, model group first, and :meth:`owner` numbers them d M + m."""
 
     group: Any
     dim: int
     whole: Tuple[int, ...]
+    data_dim: Optional[int] = None
+
+    @property
+    def cuts(self) -> Tuple[Tuple[Any, int], ...]:
+        """(group, dim) of each split, the model group's first."""
+        if self.data_dim is None:
+            return ((self.group, self.dim),)
+        return ((self.group.model, self.dim), (self.group.data, self.data_dim))
+
+    @property
+    def groups(self) -> Tuple[Any, ...]:
+        """The groups that split the leaf."""
+        return tuple(g for g, _ in self.cuts)
 
     @property
     def n(self) -> int:
         """The shard's length along ``dim``."""
-        return self.whole[self.dim] // self.group.size
+        return self.whole[self.dim] // self.cuts[0][0].size
 
     @property
     def lo(self) -> int:
-        return self.group.index * self.n
+        return self.cuts[0][0].index * self.n
 
     @property
     def shape(self) -> Tuple[int, ...]:
         """The shard's per-node shape."""
-        return self.whole[:self.dim] + (self.n,) + self.whole[self.dim + 1:]
+        shape = list(self.whole)
+        for g, d in self.cuts:
+            shape[d] //= g.size
+        return tuple(shape)
 
     @property
     def d(self) -> int:
@@ -110,28 +159,41 @@ class Shard:
 
     def to_global(self, local: torch.Tensor) -> torch.Tensor:
         """The whole leaf's flat indices of flat (int64) shard indices."""
-        return _to_global(local, self.whole, self.dim, self.lo, self.n)
+        shape = list(self.shape)
+        for g, d in self.cuts:
+            n = shape[d]
+            shape[d] = self.whole[d]
+            local = _to_global(local, tuple(shape), d, g.index * n, n)
+        return local
 
     def to_local(self, flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(local, inside)``: the shard's flat indices of the whole leaf's
         flat (int64) indices, and whether each lies in this shard (where it
         does not, ``local`` is meaningless)."""
-        inner = math.prod(self.whole[self.dim + 1:])
-        span = self.whole[self.dim]
-        outer, rest = flat // (span * inner), flat % (span * inner)
-        c, i = rest // inner, rest % inner
-        inside = (c >= self.lo) & (c < self.lo + self.n)
-        return (outer * self.n + (c - self.lo)) * inner + i, inside
+        shape, inside = list(self.whole), None
+        for g, d in reversed(self.cuts):
+            n = self.whole[d] // g.size
+            flat, ins = _to_local(flat, tuple(shape), d, g.index * n, n)
+            shape[d] = n
+            inside = ins if inside is None else inside & ins
+        return flat, inside
 
     def owner(self, flat: torch.Tensor) -> torch.Tensor:
-        """The model index holding each of the whole leaf's flat indices."""
-        inner = math.prod(self.whole[self.dim + 1:])
-        return (flat // inner) % self.whole[self.dim] // self.n
+        """The index in ``group`` of the rank holding each of the whole
+        leaf's flat indices."""
+        out = None
+        for g, d in reversed(self.cuts):
+            inner = math.prod(self.whole[d + 1:])
+            o = (flat // inner) % self.whole[d] // (self.whole[d] // g.size)
+            out = o if out is None else out * g.size + o
+        return out
 
     def gather(self, t: torch.Tensor, lead: int = 1) -> torch.Tensor:
         """The whole leaf from every rank's shard ``t``, shaped ``lead``
         leading dims + the shard's per-node shape (a collective)."""
-        return self.group.all_gather([t], [self.dim + lead])[0]
+        for g, d in self.cuts:
+            t = g.all_gather([t], [d + lead])[0]
+        return t
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,13 +226,15 @@ class Compressor:
         del row0
         return self
 
-    def at_shards(self, shards: Sequence[Optional[Shard]]) -> "Compressor":
-        """This codec bound to each leaf's model shard (None: a replicated
-        leaf, encoded whole), leaves in tree order: a :class:`LeafCodecs`
-        of :class:`AtShard` bindings; itself where no leaf is sharded."""
+    def at_shards(self, shards: Sequence[Optional[Shard]], node=None) -> "Compressor":
+        """This codec bound to each leaf's shard (None: a replicated leaf,
+        encoded whole), leaves in tree order: a :class:`LeafCodecs` of
+        :class:`AtShard` bindings; itself where no leaf is sharded.
+        ``node`` is the group of the node's ranks that a payload's shared
+        tensors are chunked over (None: each shard's group)."""
         if all(s is None for s in shards):
             return self
-        return LeafCodecs(tuple(self if s is None else AtShard(inner=self, shard=s)
+        return LeafCodecs(tuple(self if s is None else AtShard(inner=self, shard=s, node=node)
                                 for s in shards))
 
     def for_leaf(self, i: int) -> "Compressor":
@@ -268,8 +332,8 @@ class ErrorFeedback(Compressor):
         inner = self.inner.at_rows(row0)
         return self if inner is self.inner else dataclasses.replace(self, inner=inner)
 
-    def at_shards(self, shards):
-        inner = self.inner.at_shards(shards)
+    def at_shards(self, shards, node=None):
+        inner = self.inner.at_shards(shards, node)
         return self if inner is self.inner else dataclasses.replace(self, inner=inner)
 
     def for_leaf(self, i):
@@ -305,14 +369,16 @@ class ErrorFeedback(Compressor):
 
 @dataclasses.dataclass(frozen=True)
 class AtShard(Compressor):
-    """``inner`` bound to one leaf's model shard: ``encode`` takes this
-    rank's shard and gives this rank's part of the whole leaf's message,
-    ``decode`` gives the shard of the whole leaf's decoded message
+    """``inner`` bound to one leaf's shard: ``encode`` takes this rank's
+    shard and gives this rank's part of the whole leaf's message, ``decode``
+    gives the shard of the whole leaf's decoded message
     (``inner.encode_shard`` / ``decode_shard``).  ``payload_bytes`` stays
-    the whole leaf's."""
+    the whole leaf's; ``node`` is the group the shared tensors are chunked
+    over (None: the shard's)."""
 
     inner: Compressor = None  # type: ignore[assignment]
     shard: Shard = None       # type: ignore[assignment]
+    node: Any = None
 
     @property
     def is_identity(self):  # type: ignore[override]
@@ -333,7 +399,7 @@ class AtShard(Compressor):
         return self.inner.decode_shard(packed, self.shard)
 
     def whole(self, packed: Packed) -> Packed:
-        """The whole leaf's payload (a collective over the model group)."""
+        """The whole leaf's payload (a collective over the shard's groups)."""
         return self.inner.whole_payload(packed, self.shard)
 
     def payload_bytes(self, shape, dtype, scale=None):
@@ -347,7 +413,7 @@ class AtShard(Compressor):
 
         with fused.dispatch_mode("ref"):
             packed = self.encode(torch.empty((1,) + tuple(shape), dtype=dtype, device="meta"), 0)
-        moved, _ = share_split({"x": packed}, self.shard.group)
+        moved, _ = share_split({"x": packed}, self.node or self.shard.group)
         return sum(t.numel() * t.element_size() for t in moved["x"].data.values())
 
 
@@ -369,10 +435,10 @@ class LeafCodecs(Compressor):
     def for_leaf(self, i):
         return self.codecs[i]
 
-    def at_shards(self, shards):
+    def at_shards(self, shards, node=None):
         """The unbound codec bound to ``shards`` anew."""
         base = next(c.inner if isinstance(c, AtShard) else c for c in self.codecs)
-        return base.at_shards(shards)
+        return base.at_shards(shards, node)
 
     def at_rows(self, row0):
         bound = tuple(c.at_rows(row0) for c in self.codecs)
@@ -391,11 +457,13 @@ def _chunk(e: int, m: int, size: int) -> Tuple[int, int]:
 
 
 def share_split(tree: Tree, group) -> Tuple[Tree, List[Tuple[int, str, Tuple[int, ...]]]]:
-    """What this model rank moves over the node axis of a payload tree:
-    each sharded leaf's ``shared`` tensors cut to this rank's chunk of each
-    node's elements (part ``group.index`` of ``group.size`` contiguous
-    parts), every other tensor whole.  Returns the tree and the plan
-    :func:`share_join` reads: (leaf, key, per-node shape) of each cut."""
+    """What this rank moves over the node axis of a payload tree, ``group``
+    the ranks of its node (the model group, or under '2d' the node's D x M
+    ranks): each sharded leaf's ``shared`` tensors cut to this rank's chunk
+    of each node's elements (part ``group.index`` of ``group.size``
+    contiguous parts), every other tensor whole.  Returns the tree and the
+    plan :func:`share_join` reads: (leaf, key, per-node shape) of each
+    cut."""
     if group is None:
         return tree, []
     leaves, treedef = tree_flatten(tree)
@@ -414,10 +482,10 @@ def share_split(tree: Tree, group) -> Tuple[Tree, List[Tuple[int, str, Tuple[int
 
 
 def share_join(tree: Tree, plan, group) -> Tree:
-    """The payload tree whole again after its chunks moved: every model
-    rank's chunks of each cut tensor, gathered over the model group in one
-    message to each peer (counted as ``payload``) and concatenated in rank
-    order."""
+    """The payload tree whole again after its chunks moved: every rank's
+    chunks of each cut tensor, gathered over ``group`` in one message to
+    each peer of each of its groups (counted as ``payload``) and
+    concatenated in rank order."""
     if not plan:
         return tree
     leaves, treedef = tree_flatten(tree)

@@ -31,12 +31,13 @@ the replica update and the W contraction run on every rank); ``defer_roll``
 rolls an overlapped payload when it is consumed instead of when it is
 stored, which gives the same bits.
 
-On a node spread over a model axis (:meth:`GossipChannel.at_shards`) the
-codec is bound to each leaf's shard (``base.AtShard``), the replica
-algebra runs on the shards as it is (it is elementwise), and the async
-trigger's per-node sums add the shards over the model group, each
-replicated leaf once, so that every model rank of a node makes the same
-send decision.
+On a node spread over several ranks (:meth:`GossipChannel.at_shards`: a
+model axis, or under '2d' the node's data x model ranks) the codec is bound
+to each leaf's shard (``base.AtShard``), the replica algebra runs on the
+shards as it is (it is elementwise), and the async trigger's per-node sums
+add the shards over the node's ranks, each distinct block once (a leaf
+replicated over a group counted from that group's index 0), so that every
+rank of a node makes the same send decision.
 
 Under the scenario engine every gossip gets the round's context ``ctx``
 (:class:`~repro_torch.core.algorithm.RoundCtx`): the transport mixes with
@@ -60,7 +61,7 @@ import torch
 
 from ..kernels import api as fused
 from ..tree import map_tensors, tree_flatten, tree_leaves, tree_map, tree_unflatten
-from .base import ChannelState, Compressor, ErrorFeedback, Shard
+from .base import ChannelState, Compressor, ErrorFeedback, Shard, holds_first
 
 Tree = Any
 SeedFn = Callable[[int, int, int], int]   # (event, buffer, leaf) -> uint32 seed
@@ -160,9 +161,12 @@ class GossipChannel:
     with (a resolved ``Compressor``, or None for raw)."""
 
     compression: Any = None
-    #: each leaf's model shard (None: replicated), leaves in tree order; ()
-    #: off a model axis
+    #: each leaf's shard (None: replicated), leaves in tree order; () on a
+    #: node of one rank
     shards: Tuple[Optional[Shard], ...] = ()
+    #: the group of the node's ranks (a model group, a data group or a
+    #: ``launch.mesh.NodeGroup``); None on a node of one rank
+    node: Any = None
 
     name = "base"
 
@@ -195,26 +199,27 @@ class GossipChannel:
         bound = None if comp is None else comp.at_rows(row0)
         return self if bound is comp else dataclasses.replace(self, compression=bound)
 
-    def at_shards(self, shards) -> "GossipChannel":
-        """This channel on a node spread over a model axis: ``shards`` is
+    def at_shards(self, shards, node) -> "GossipChannel":
+        """This channel on a node spread over several ranks: ``shards`` is
         each leaf's :class:`~.base.Shard` (None: replicated), which binds
         the codec (:meth:`Compressor.at_shards`) and the async trigger's
-        sums."""
+        sums; ``node`` is the group of the node's ranks."""
         comp = self.compression
-        return dataclasses.replace(self, shards=tuple(shards),
-                                   compression=None if comp is None else comp.at_shards(shards))
+        return dataclasses.replace(
+            self, shards=tuple(shards), node=node,
+            compression=None if comp is None else comp.at_shards(shards, node))
 
     def node_sum(self, parts) -> torch.Tensor:
         """Σ over a buffer's leaves of per-leaf per-node values ``parts``,
-        over the whole node: on a model axis the shards' values summed over
-        the model group in rank order, each replicated leaf's once, the
-        same bits on every rank."""
-        group = next((s.group for s in self.shards if s is not None), None)
-        if group is None:
+        over the whole node: on a node of several ranks the values summed
+        over its ranks (model group first, each in rank order), each
+        distinct block once (:func:`~.base.holds_first`), the same bits on
+        every rank."""
+        if self.node is None:
             return sum(parts)
-        total = sum((p for p, s in zip(parts, self.shards) if s is not None or group.index == 0),
+        total = sum((p for p, s in zip(parts, self.shards) if holds_first(s, self.node)),
                     torch.zeros_like(parts[0]))
-        return group.all_reduce(total, key="codec")
+        return self.node.all_reduce(total, key="codec")
 
     def message_bytes(self, tree: Tree) -> int:
         """Analytic wire bytes of ONE node's send of this buffer (``tree``
@@ -240,9 +245,11 @@ class GossipChannel:
         """Each wire leaf's layout on the sharded engine, in the structure
         of :meth:`abstract_wire`: ``"replicated"`` (all N rows on every
         rank) for a replicated wire; else ``"node"`` (this rank's rows), or
-        on a model axis (``param_spec``, the parameters' spec tree) the
-        reference's ``wire_spec``: ``param_spec`` for a params-shaped tree,
-        ``node_spec`` for a per-node vector and every payload tensor."""
+        on a node of several ranks (``param_spec``, the parameters' spec
+        tree: their ``"model"`` dims, and under '2d' their ``"data"`` dims)
+        the reference's ``wire_spec``: ``param_spec`` for a params-shaped
+        tree, ``node_spec`` for a per-node vector and every payload
+        tensor."""
         wire = self.abstract_wire(params)
         if wire is None:
             return None
@@ -662,9 +669,10 @@ class PerBufferChannel(GossipChannel):
         same = all(b is c for b, c in zip(bound, self.channels))
         return self if same else dataclasses.replace(self, channels=bound)
 
-    def at_shards(self, shards):
-        return dataclasses.replace(self, shards=tuple(shards),
-                                   channels=tuple(c.at_shards(shards) for c in self.channels))
+    def at_shards(self, shards, node):
+        return dataclasses.replace(self, shards=tuple(shards), node=node,
+                                   channels=tuple(c.at_shards(shards, node)
+                                                  for c in self.channels))
 
     def for_buffer(self, i: int) -> GossipChannel:
         if not 0 <= i < len(self.channels):

@@ -20,26 +20,36 @@ draws on one rank and in the reference, whose hash runs over the global
 iota.  Rand-k's and low-rank's draws are one per leaf, shared by all nodes,
 and need no offset.
 
-On a node spread over a model axis each codec also encodes a leaf's shard
+On a node spread over several ranks each codec also encodes a leaf's shard
 (``encode_shard``, bound by :class:`~.base.AtShard`) to its part of the whole
-leaf's message, bit for bit (low-rank: up to its partial sums' order):
+leaf's message, bit for bit (low-rank: up to its partial sums' order).  A
+shard lies over one group along one dim, or under the '2d' layout over the
+model group along one dim and the data group along another
+(:class:`~.base.Shard`); its collectives run over the model group first:
 
-  * QSGD: the scale is the group max of the shards' maxima; the noise
-    hashes each element's index in the whole leaf's (N, d) flattening (for
-    a shard on a later dim, a strided index); the levels of the shard are
-    this rank's, the scale every rank's;
+  * QSGD: the scale is the max of the shards' maxima over the shard's
+    groups; the noise hashes each element's index in the whole leaf's (N,
+    d) flattening (for a shard on a later dim, or on two dims, a strided
+    index); the levels of the shard are this rank's, the scale every
+    rank's;
   * top-k: each rank takes its shard's best ``min(k, d_shard)``
     candidates (the pack kernel at the shard's shape) with their whole-leaf
-    indices; the group gathers them and every rank merges them in the
-    whole leaf's stable order (descending |x|, ties to the lower index):
-    the whole payload, on every rank; decoding unpacks the entries in this
-    shard, re-indexed, the others padded as +0.0 adds;
+    indices; the shard's groups gather them and every rank merges them in
+    the whole leaf's stable order (descending |x|, ties to the lower
+    index): the whole payload, on every rank; decoding unpacks the entries
+    in this shard, re-indexed, the others padded as +0.0 adds;
   * rand-k: the whole leaf's index draw on every rank; each rank packs the
-    entries in its shard and the group takes each slot's value from its
-    owner;
-  * low-rank: ``_plan`` and the sketch of the whole leaf, ``M Q0`` and
-    ``Mᵀ P`` as partial products summed (or row blocks concatenated) over
-    the group in rank order, and QR on the replicated product.
+    entries in its shard and each slot takes its value from its owner;
+  * low-rank: ``_plan`` and the sketch of the whole leaf on the matrix view
+    (rows = the leaf's dim 0, columns = the rest).  ``M Q0``'s partial
+    products are summed over the groups that split the columns and its
+    row blocks concatenated over the group that splits the rows, QR runs
+    on the replicated product, and ``Mᵀ P``'s partial products are summed
+    over the row group.  A rank keeps its rows of P where the rows are
+    split and its rows of Q (its columns of M) where the columns are: the
+    factor of an unsplit side is the whole node's (``shared``), and where
+    a leaf is split on both sides (an expert's rows over one group, its
+    columns over the other) neither is.
 
 The int64 work of the noise hash and of top-k's stable sort runs a slice
 at a time (a chunk of elements, a node row), so that its temporaries stay
@@ -433,13 +443,20 @@ class LowRank(Compressor):
         mat = torch.einsum("nmr,ncr->nmc", p, q)
         return mat.reshape((p.shape[0],) + shape).to(dtype)
 
+    @staticmethod
+    def _sides(shard):
+        """The group splitting the matrix rows (the leaf's dim 0; None where
+        none does) and the (group, column-shape dim) of each splitting its
+        columns."""
+        rows = next((g for g, d in shard.cuts if d == 0), None)
+        return rows, [(g, d - 1) for g, d in shard.cuts if d > 0]
+
     def encode_shard(self, x, seed, shard, scale=None):
-        """The whole leaf's factors: sharded on the matrix rows (dim 0),
-        ``M Q0``'s row blocks are concatenated and ``Mᵀ P`` summed over the
-        group, and this rank keeps its rows of P; sharded on a later dim
-        (columns), ``M Q0`` is summed from the shard's columns of the sketch
-        and this rank keeps its rows of Q.  The replicated factor is
-        ``shared``."""
+        """The whole leaf's factors (see the module docstring): ``M Q0``
+        from the shard's columns of the sketch, summed over the column
+        groups, its row blocks concatenated over the row group; ``Mᵀ P``
+        summed over the row group.  A factor every rank of the node holds
+        whole is ``shared``."""
         del scale
         shape, n = tuple(x.shape[1:]), x.shape[0]
         plan = self._plan(shard.whole)
@@ -448,19 +465,30 @@ class LowRank(Compressor):
         m, nn, r = plan
         draw = self.sketch_draw or _normal_draw
         q0 = torch.as_tensor(draw(seed, nn, r)).to(device=x.device, dtype=torch.float32)
-        group = shard.group
-        if shard.dim == 0:
-            mat = x.reshape(n, shard.n, nn).float()
-            y = torch.cat([p[0] for p in group.gather([mat @ q0], key="codec")], dim=1)
-            p = torch.linalg.qr(y).Q[:, shard.lo:shard.lo + shard.n].contiguous()
-            q = group.all_reduce(torch.einsum("nmc,nmr->ncr", mat, p), key="codec")
-            return Packed({"p": p, "q": q}, meta=(shape, x.dtype, plan), shared=("q",))
-        cols = _to_global(torch.arange(math.prod(shape[1:]), device=x.device),
-                          shard.whole[1:], shard.dim - 1, shard.lo, shard.n)
-        mat = x.reshape(n, m, -1).float()
-        p = torch.linalg.qr(group.all_reduce(mat @ q0[cols], key="codec")).Q
-        q = torch.einsum("nmc,nmr->ncr", mat, p)
-        return Packed({"p": p, "q": q}, meta=(shape, x.dtype, plan), shared=("p",))
+        rows, cols = self._sides(shard)
+        mat = x.reshape(n, shape[0], -1).float()
+        if cols:
+            # the whole leaf's column of each of this shard's columns
+            idx = torch.arange(mat.shape[2], device=x.device)
+            sub = list(shape[1:])
+            for g, d in cols:
+                k, sub[d] = sub[d], shard.whole[d + 1]
+                idx = _to_global(idx, tuple(sub), d, g.index * k, k)
+            y = mat @ q0[idx]
+            for g, _ in cols:
+                y = g.all_reduce(y, key="codec")
+        else:
+            y = mat @ q0
+        if rows is None:
+            p = torch.linalg.qr(y).Q
+            q = torch.einsum("nmc,nmr->ncr", mat, p)
+            return Packed({"p": p, "q": q}, meta=(shape, x.dtype, plan), shared=("p",))
+        y = torch.cat([p[0] for p in rows.gather([y], key="codec")], dim=1)
+        lo = rows.index * shape[0]
+        p = torch.linalg.qr(y).Q[:, lo:lo + shape[0]].contiguous()
+        q = rows.all_reduce(torch.einsum("nmc,nmr->ncr", mat, p), key="codec")
+        return Packed({"p": p, "q": q}, meta=(shape, x.dtype, plan),
+                      shared=() if cols else ("q",))
 
     def decode_shard(self, packed, shard):
         return self.decode(packed)
@@ -471,14 +499,17 @@ class LowRank(Compressor):
         if plan is None:
             return Packed({"raw": shard.gather(packed.data["raw"])}, meta=meta)
         p, q = packed.data["p"], packed.data["q"]
-        if shard.dim == 0:
-            p = shard.group.all_gather([p], [1])[0]
-        else:
+        rows, cols = self._sides(shard)
+        if rows is not None:
+            p = rows.all_gather([p], [1])[0]
+        if cols:
             # this rank's rows of Q are its columns of the leaf: gather them
-            # along the leaf's sharded dim, then flatten again
+            # along the leaf's sharded dims, then flatten again
             n, r = q.shape[0], q.shape[-1]
             q = q.reshape((n,) + shard.shape[1:] + (r,))
-            q = shard.group.all_gather([q], [shard.dim])[0].reshape(n, -1, r)
+            for g, d in cols:
+                q = g.all_gather([q], [d + 1])[0]
+            q = q.reshape(n, -1, r)
         return Packed({"p": p, "q": q}, meta=meta)
 
     def payload_bytes(self, shape, dtype, scale=None):

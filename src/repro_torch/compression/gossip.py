@@ -24,28 +24,39 @@ the one accumulator, a leaf at a time.  ``ctx.pattern`` is a host
 int, so a schedule selects its rotation where the reference switches with
 ``lax.switch``.
 
-On a node spread over a model axis (``NodeMesh(model=M)``) a payload moves
-over the node axis between the ranks of one model index.  A sharded
-leaf's own tensors (QSGD's levels of the shard, a low-rank factor's rows
-of it) and its per-node scalars (QSGD's scale) move whole from every rank;
-its ``shared`` tensors (top-k's and rand-k's indices and values, the
-replicated low-rank factor), which every model rank of a node holds
-whole, move as rank m's chunk of each node's elements and are joined over
-the model group after they arrive (``base.share_split`` /
-``share_join``).  A replicated leaf's payload moves whole from every
-rank, as the uncompressed roll moves it.  So a round's node-link bytes,
-summed over a node's M ranks, are
+On a node spread over several ranks -- a model axis (``NodeMesh(model=M)``)
+or, under the '2d' layout, D data x M model ranks (``NodeMesh(data=D,
+model=M)``, the node's ``mesh.node_group``) -- a payload moves over the
+node axis between the ranks of one (data, model) index.  Each rank moves
+its own tensors whole: a sharded leaf's tensors of its block (QSGD's
+levels of the shard, a low-rank factor's rows of it), its per-node
+scalars (QSGD's scale), and a replicated leaf's payload, as the
+uncompressed roll moves its shards.  A sharded leaf's ``shared`` tensors
+(top-k's and rand-k's indices and values, a low-rank factor whose side
+no group splits), which every rank of a node holds whole, move as rank
+r's chunk of each node's elements (r = d M + m of the node's D M ranks)
+and are joined over the node's ranks after they arrive (``base.
+share_split`` / ``share_join``: the model group's gather, then the data
+group's).  A tensor a node's D M ranks hold in k distinct blocks (k =
+the product of the sizes of the groups that split it; 1 for a replicated
+leaf's payload and a per-node scalar) moves D M / k copies of each.  So a
+round's node-link bytes, summed over a node's D M ranks, are
 
     (the model-1 job's, to the byte)
-    + (M - 1) x (the replicated leaves' payload bytes
-                 + 4 B a sharded leaf for QSGD's scale, 8 B with the
-                   adaptive level count)
-    + (M - 1) x (1 B a node for an async send mask)
+    + sum over the payload's tensors of (D M / k - 1) x its bytes
+      (a replicated leaf's payload: D M - 1 copies more; QSGD's 4 B scale
+       a sharded leaf, 8 B with the adaptive level count, the same; the
+       levels of a leaf split over the model ranks alone: D - 1 more; a
+       shared tensor: none)
+    + (D M - 1) x (1 B a node for an async send mask)
 
-for every message a node receives, and the model group's ``payload``
-bytes are, on each rank, the other ranks' chunks.  (A scenario's round
-also gathers each rank's rows of W_t and of the active mask over the node
-axis, as at model 1 on more than one rank.)
+for every message a node receives (on a model axis D = 1: (M - 1) x the
+replicated leaves' payloads and the scales).  On each rank the model
+group's ``payload`` bytes are its model peers' chunks and the data
+group's its data peers' M chunks each: summed over a node's ranks, (M -
+1) and M (D - 1) times the shared tensors' bytes.  (A scenario's round
+also gathers each rank's rows of W_t and of the active mask over the
+node axis, as at model 1 on more than one rank.)
 """
 from __future__ import annotations
 
@@ -69,16 +80,16 @@ def _roll(tree: Tree, shift: int, mesh) -> Tree:
     """Every tensor of ``tree`` (packed payloads, send masks) rolled by
     ``-shift`` along the node axis: ``out[i] = a[(i + shift) mod N]``."""
     if mesh is not None:
-        moved, plan = share_split(tree, mesh.model_group)
-        return share_join(mesh.roll(moved, shift), plan, mesh.model_group)
+        moved, plan = share_split(tree, mesh.node_group)
+        return share_join(mesh.roll(moved, shift), plan, mesh.node_group)
     return map_tensors(lambda a: torch.roll(a, -shift, 0), tree)
 
 
 def gather_payload(tree: Tree, mesh) -> Tree:
     """Every tensor of a payload tree with all N rows (``mesh.all_gather``
     of exactly the payload; shared tensors in chunks, then joined)."""
-    moved, plan = share_split(tree, mesh.model_group)
-    return share_join(mesh.all_gather(moved), plan, mesh.model_group)
+    moved, plan = share_split(tree, mesh.node_group)
+    return share_join(mesh.all_gather(moved), plan, mesh.node_group)
 
 
 def _pick(rotations, scheduled: bool, ctx):

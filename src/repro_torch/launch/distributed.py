@@ -54,22 +54,24 @@ index on the other nodes (mixing is linear).  Per node:
     data group onto each data-sharded dim (all-reduces the rest): the
     gradient of the whole node batch's loss.  Where a microbatch does not
     split over D (or holds a mask) every data rank computes all of it and
-    keeps its part of the gradient.  A codec, channel or scenario on a node
-    spread over more than one rank under '2d' raises: ROADMAP queue 1 item
-    8 (b) 5 (a codec binds a leaf to one shard, ``compression.base.Shard``);
-    uncompressed roll and dense gossip and every algorithm run.
+    keeps its part of the gradient.
 
 On a model axis of 1 every profile is the node-a-replica job bit for bit.
-On a larger one every codec, channel, wire mode and scenario runs as at
+On a node of several ranks -- a model axis, or under '2d' D data x M
+model ranks -- every codec, channel, wire mode and scenario runs as at
 model 1 and computes the function the reference's GSPMD job computes: a
 node's message is a function of the whole node, never of a shard.  Each
-codec is bound to each leaf's shard (``compression.base.AtShard``), so that
-every model rank of a node encodes the same scale, index set and send
+codec is bound to each leaf's shard (``compression.base.AtShard``; under
+'2d' a shard of one group, or of both with the model group's dim and the
+data group's, ``Shard(mesh.node_group, dim, whole, data_dim=...)``), so
+that every rank of a node encodes the same scale, index set and send
 decision and decodes its shard of the whole leaf's message, bit for bit
-(low-rank up to its partial sums' order); a replicated leaf is encoded
-whole on every rank.  Over the node axis a rank moves its share of a
-node's payload (``compression/gossip.py`` gives the byte count); the
-scenario streams sum the shards over the model group.  'tp' and 'fsdp' lay
+(low-rank up to its partial sums' order); a leaf replicated over a group
+is encoded alike on its ranks.  Over the node axis a rank moves its share
+of a node's payload (``compression/gossip.py`` gives the byte count); the
+scenario streams and the async trigger sum the shards over the node's
+ranks (``mesh.node_group``: the model group, then the data group), each
+distinct block once.  'tp' and 'fsdp' lay
 a node over model ranks only, so a mesh with a data axis larger than 1
 takes '2d' alone; a '2d' job on a model axis needs a mesh made with its
 data axis (``NodeMesh(data=D)``) wherever its node axis has more than one
@@ -221,10 +223,11 @@ class TrainJob:
     def full_state(self, state) -> Any:
         """The whole state on every rank (a collective: every rank calls
         it): each parameter-shaped buffer as :meth:`full` gathers it, the
-        channel's wire too (replicas, residuals, in-flight payloads, with
-        the parameters' ``shard_dims``; a replicated wire already holds all
-        N rows), its per-node vectors at all N rows; host values as they
-        are.  The reference's state, which ``save_checkpoint`` writes in
+        channel's wire too (replicas and residuals with the parameters'
+        ``shard_dims`` and ``data_dims``, in-flight payloads through each
+        leaf's codec over its shard's groups; a replicated wire already
+        holds all N rows), its per-node vectors at all N rows; host values
+        as they are.  The reference's state, which ``save_checkpoint`` writes in
         its format."""
         chan = self.algorithm.comm.resolved_channel()
         fields = {}
@@ -242,19 +245,24 @@ class TrainJob:
     def _full_wire(self, wire: dict, chan) -> dict:
         replicated = getattr(chan, "replicated_wire", False)
         dims = [None if d is None else d + 1 for d in self.shard_dims]
-        group = self.mesh.model_group
+        data = [None if d is None else d + 1 for d in self.data_dims]
+        m = self.mesh
         codecs = chan.compression
 
         def params_like(tree):
             if not replicated:
                 return self.full(tree)
-            if group is None:
-                return tree
+            # all N rows already: the shards gathered over the model group,
+            # then over the data group
             leaves, treedef = tree_flatten(tree)
-            return tree_unflatten(treedef, group.all_gather(leaves, dims))
+            if m.model_group is not None:
+                leaves = m.model_group.all_gather(leaves, dims)
+            if m.data_group is not None:
+                leaves = m.data_group.all_gather(leaves, data)
+            return tree_unflatten(treedef, leaves)
 
         def payload(tree):
-            if codecs is not None and group is not None:
+            if codecs is not None and m.node_group is not None:
                 leaves, treedef = tree_flatten(tree)
                 tree = tree_unflatten(treedef, [
                     codecs.for_leaf(i).whole(p)
@@ -313,16 +321,9 @@ def _layout(abstract_state, alg, params, param_spec=None, node_spec=None) -> Any
     return type(abstract_state)(**fields)
 
 
-def _refuse_layout(profile: ShardingProfile, mesh, chan, scenario) -> None:
-    """What a node spread over more than one rank cannot run yet under the
-    '2d' profile: a codec, a channel or a scenario (ROADMAP queue 1 item 8
-    (b) 5: a codec binds each leaf to one shard of one group); and the
-    layouts a mesh does not hold (ValueError)."""
+def _refuse_layout(profile: ShardingProfile, mesh) -> None:
+    """The layouts a mesh does not hold (ValueError)."""
     if profile.name == "2d" and (mesh.model > 1 or mesh.data > 1):
-        if chan is not None or scenario is not None:
-            raise NotImplementedError(
-                "a codec, a gossip channel or a scenario under the '2d' profile on a node "
-                "spread over data x model ranks is ROADMAP queue 1 item 8 (b) 5")
         if not mesh.data_axis and mesh.world > 1:
             raise ValueError(
                 "the '2d' profile lays a node over data x model ranks: make the mesh with "
@@ -411,7 +412,7 @@ def make_train_job(
     if wire_mode not in ("auto", "dense", "neighbor", "allgather"):
         raise ValueError(f"wire_mode must be auto/dense/neighbor/allgather, got {wire_mode!r}")
     chan = alg.comm.resolved_channel()
-    _refuse_layout(profile, mesh, chan, scenario)
+    _refuse_layout(profile, mesh)
     group = mesh.model_group
     dgroup = mesh.data_group
     # each parameter leaf's spec under the profile, and its model- and
@@ -434,12 +435,23 @@ def make_train_job(
         alg = dataclasses.replace(alg, channel=dataclasses.replace(chan, overlap=True))
         chan = alg.comm.resolved_channel()
     # this rank's codec numbers its noise from its first global node, and on
-    # a model axis each leaf's codec is bound to its shard of the whole leaf
+    # a node of several ranks each leaf's codec is bound to its shard of the
+    # whole leaf: over the model group, the data group or both
     bound = None if chan is None else chan.at_rows(mesh.lo)
-    if bound is not None and group is not None:
+    if bound is not None and mesh.node_group is not None:
+        def shard(d, dd, w):
+            if d is None and dd is None:
+                return None
+            if dd is None:
+                return Shard(group, d, w)
+            if d is None:
+                return Shard(dgroup, dd, w)
+            return Shard(mesh.node_group, d, w, data_dim=dd)
+
         whole = tree_leaves(model.param_shapes(dtype=torch.float32))
-        bound = bound.at_shards([None if d is None else Shard(group, d, tuple(w.shape))
-                                 for d, w in zip(shard_dims, whole)])
+        bound = bound.at_shards([shard(d, dd, tuple(w.shape))
+                                 for d, dd, w in zip(shard_dims, data_dims, whole)],
+                                node=mesh.node_group)
     if bound is not chan:
         alg = dataclasses.replace(alg, channel=bound)
         chan = alg.comm.resolved_channel()
@@ -647,7 +659,8 @@ def make_train_job(
         # the runtime's reference is the buffer mean (no full-batch closure)
         stream_fn = make_stream_fn(buffer_name=getattr(alg, "tracking_buffer", None),
                                    comm_buffers=alg.comm.buffers, mesh=mesh,
-                                   shard_dims=shard_dims if group is not None else None)
+                                   shard_dims=shard_dims if group is not None else None,
+                                   data_dims=data_dims if dgroup is not None else None)
 
     def step_fn(state, batches: Dict[str, torch.Tensor], ctx: Optional[RoundCtx] = None):
         if (ctx is None) != (scenario is None):

@@ -48,7 +48,13 @@ reduce-scatter and all-reduce (each summed in rank order) and ``sum_below``
 ``byte_counts()["data"]``.  ``axis_names`` then reads ``("pod", "data",
 "model")``, so that a profile's ``node_axes`` decides the node count as
 the reference's does; a mesh made without ``data`` keeps its ``("data",
-"model")`` axes and its subgroups as they were.
+"model")`` axes and its subgroups as they were.  ``node_group`` is the D x
+M ranks of one node as one group (:class:`NodeGroup`, index ``d M + m``):
+its all-reduce and gather run the model group's collective, then the data
+group's, so that every rank of a node gets the same bits without a third
+subgroup; each part counts its bytes under its own group's key.  A node
+over one group has that group as its ``node_group``, and a node on one
+rank none.
 
 The backend is gloo.  Gloo moves no CUDA tensor on send, recv or
 all-gather, so on the card the mesh stages exactly the payload rows through
@@ -71,8 +77,8 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..tree import map_tensors
 
-__all__ = ["NodeMesh", "ModelGroup", "DataGroup", "make_test_mesh", "make_group_mesh", "OPS",
-           "MODEL_OPS", "DATA_OPS"]
+__all__ = ["NodeMesh", "ModelGroup", "DataGroup", "NodeGroup", "make_test_mesh",
+           "make_group_mesh", "OPS", "MODEL_OPS", "DATA_OPS"]
 
 #: the three primitives, the keys of :meth:`NodeMesh.byte_counts`
 OPS = ("roll", "all_gather", "all_reduce")
@@ -83,8 +89,9 @@ OPS = ("roll", "all_gather", "all_reduce")
 MODEL_OPS = ("all_gather", "reduce_scatter", "all_reduce", "codec", "payload")
 #: the data group's movements, the keys of ``byte_counts()["data"]``: the
 #: '2d' layout's gathers of data-sharded parameters and reductions of their
-#: gradients, the loss's and the MoE's sums, and the MoE's queue offsets
-DATA_OPS = ("all_gather", "reduce_scatter", "all_reduce", "sum_below")
+#: gradients, the loss's and the MoE's sums, the MoE's queue offsets, and
+#: the codecs' and payloads' movements as on the model group
+DATA_OPS = ("all_gather", "reduce_scatter", "all_reduce", "sum_below", "codec", "payload")
 
 
 def _tensors(obj: Any) -> List[torch.Tensor]:
@@ -162,6 +169,11 @@ class ModelGroup:
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}(size={self.size}, index={self.index})"
+
+    @property
+    def groups(self) -> Tuple["ModelGroup", ...]:
+        """The groups this one composes: itself (:class:`NodeGroup`: two)."""
+        return (self,)
 
     def reset_bytes(self) -> None:
         self._bytes = {op: 0 for op in self.ops}
@@ -369,6 +381,51 @@ class DataGroup(ModelGroup):
         return out
 
 
+class NodeGroup:
+    """The D x M ranks of one node under the '2d' layout, as one group of
+    ``size`` D M, this rank at ``index`` d M + m: each collective runs over
+    the model group, then over the data group, so that every rank of the
+    node gets the same bits.  The parts count their bytes under their own
+    group's key (``byte_counts()["model"]`` and ``["data"]``)."""
+
+    def __init__(self, model: ModelGroup, data: DataGroup):
+        self.model, self.data = model, data
+        self.size = model.size * data.size
+        self.index = data.index * model.size + model.index
+
+    def __repr__(self) -> str:
+        return f"NodeGroup(model={self.model!r}, data={self.data!r})"
+
+    @property
+    def groups(self) -> Tuple[ModelGroup, ModelGroup]:
+        return (self.model, self.data)
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum", key: str = "all_reduce"
+                   ) -> torch.Tensor:
+        """The sum (over the model ranks in rank order, then over the data
+        ranks) or the max of ``x`` over the node's ranks."""
+        return self.data.all_reduce(self.model.all_reduce(x, op, key), op, key)
+
+    def gather(self, parts: Sequence[torch.Tensor], key: str = "codec",
+               shapes: Optional[Sequence[Sequence[Tuple[int, ...]]]] = None
+               ) -> List[List[torch.Tensor]]:
+        """Every rank's ``parts`` in the node's rank order (``shapes[r][j]``
+        as :meth:`ModelGroup.gather` reads it, ``r`` = d M + m): gathered over
+        the model group, then each data rank's M lists over the data group."""
+        m_size, d_size, n = self.model.size, self.data.size, len(parts)
+
+        def at(d, m):
+            return list(shapes[d * m_size + m])
+
+        by_m = self.model.gather(parts, key, None if shapes is None else
+                                 [at(self.data.index, m) for m in range(m_size)])
+        by_d = self.data.gather([t for row in by_m for t in row], key,
+                                None if shapes is None else
+                                [[s for m in range(m_size) for s in at(d, m)]
+                                 for d in range(d_size)])
+        return [by_d[d][m * n:(m + 1) * n] for d in range(d_size) for m in range(m_size)]
+
+
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -442,6 +499,9 @@ class NodeMesh:
         self.device = resolve_device(device)
         self.model_group: Optional[ModelGroup] = None
         self.data_group: Optional[DataGroup] = None
+        # the ranks of one node: the model group, the data group, both
+        # (NodeGroup) or none
+        self.node_group: Any = None
         if group is None:
             if self.model != 1 or self.data != 1:
                 raise ValueError(f"a model axis of {self.model} and a data axis of "
@@ -498,6 +558,9 @@ class NodeMesh:
                                                   backend="gloo")
                            for q in range(p_size) for j in range(m_size)}
             self.data_group = DataGroup(data_groups[p, m], d_size, d, self.device)
+        self.node_group = (NodeGroup(self.model_group, self.data_group)
+                           if self.model_group is not None and self.data_group is not None
+                           else self.model_group or self.data_group)
         self.world, self.rank = p_size, p
         return node_groups[d, m]
 

@@ -16,10 +16,10 @@ the within-node layout of parameters and activations:
           ranks the parameters shard 2-D (experts / embed over 'data',
           features over 'model') and the node batch over 'data'.  A mesh
           with no 'pod' axis is one node.  The port lays it out on a
-          ``NodeMesh(data=D, model=M)`` (``launch/distributed.py``); a
-          codec, channel or scenario on a node spread over more than one
-          rank under '2d' is ROADMAP queue 1 item 8 (b) 5, while 'tp' and
-          'fsdp' run every one of them on a model axis.
+          ``NodeMesh(data=D, model=M)`` (``launch/distributed.py``), where
+          every codec, channel and scenario runs as on a model axis under
+          'tp' and 'fsdp': each leaf's codec is bound to its block over the
+          data and the model ranks, and gossip crosses the pods.
 
 A spec is a tuple with one entry per dim: a mesh axis name, a tuple of
 them, or None -- the entries of the reference's ``PartitionSpec``.  A mesh

@@ -15,7 +15,8 @@ nodes x a model axis (``NodeMesh(model=...)``, rank ``d M + m`` holding
 model shard m of node d), or, under '2d' (Arctic 480B, Command R+ 104B),
 where the reference's mesh has no 'pod' axis, one node of data x model
 ranks (``NodeMesh(data=..., model=...)``: 8 ranks train one node over 4 x
-2, printing ``mesh={'data': 4, 'model': 2}``).
+2, printing ``mesh={'data': 4, 'model': 2}``), whose ``--compression`` and
+``--channel`` bind each leaf's codec to its block over both groups.
 A plain process is world 1: one node on its device, whose gossip is the
 identity.  A process started as one rank of a group
 (``torch.distributed.run`` sets ``RANK`` / ``WORLD_SIZE`` /

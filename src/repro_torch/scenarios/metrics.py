@@ -36,10 +36,13 @@ sum over nodes is completed by ``mesh.all_reduce_sum``: the active mean
 x̄, the squared distances, the residuals, the ages and send masks.  The
 spectral gap takes all of W_t and the active mask, gathered by
 ``mesh.full``.  On a model axis (``shard_dims``: each parameter leaf's
-model-sharded dim, or None) a rank holds shards: the sums over a node's
-leaves add the shards over the model group in rank order, each replicated
-leaf once, as the engine's ``v_norm`` does, before the sum over nodes.
-Every rank gets the same values.
+model-sharded dim, or None), and under '2d' also over the data ranks
+(``data_dims``: its data-sharded dim), a rank holds shards: the sums over
+a node's leaves add the shards over the node's ranks (``mesh.node_group``:
+the model group in rank order, then the data group), each distinct block
+once -- a leaf replicated over a group from that group's index 0 -- as the
+engine's ``v_norm`` does, before the sum over nodes.  Every rank gets the
+same values.
 """
 from __future__ import annotations
 
@@ -78,17 +81,23 @@ def _sum(x: torch.Tensor, mesh) -> torch.Tensor:
     return x if mesh is None else mesh.all_reduce_sum(x)
 
 
-def _leaves(values, dims, mesh):
-    """Σ of per-leaf values (0-d tensors, in the order ``dims`` lists the
-    leaves) over a whole node: this rank's values, on a model axis summed
-    over the group with each replicated leaf counted once."""
-    group = None if mesh is None else mesh.model_group
-    if group is None or dims is None:
+def _leaves(values, dims, mesh, data_dims=None):
+    """Σ of per-leaf values (0-d tensors, in the order ``dims`` and
+    ``data_dims`` list the leaves) over a whole node: this rank's values, on
+    a node of several ranks summed over them with each distinct block
+    counted once."""
+    node = None if mesh is None else mesh.node_group
+    if node is None or (dims is None and data_dims is None):
         return sum(values)
-    total = sum(v for v, d in zip(values, dims) if d is not None or group.index == 0)
+    model, data = mesh.model_group, mesh.data_group
+    dims = [None] * len(values) if dims is None else dims
+    data_dims = [None] * len(values) if data_dims is None else data_dims
+    total = sum(v for v, d, dd in zip(values, dims, data_dims)
+                if (d is not None or model is None or model.index == 0)
+                and (dd is not None or data is None or data.index == 0))
     if not torch.is_tensor(total):
         total = torch.zeros((), dtype=torch.float32, device=mesh.device)
-    return group.all_reduce(total)
+    return node.all_reduce(total)
 
 
 def _weights(n: int, active: Optional[torch.Tensor], device, mesh=None):
@@ -99,7 +108,7 @@ def _weights(n: int, active: Optional[torch.Tensor], device, mesh=None):
 
 
 def masked_consensus(tree: Tree, active: Optional[torch.Tensor], mesh=None,
-                     shard_dims=None) -> torch.Tensor:
+                     shard_dims=None, data_dims=None) -> torch.Tensor:
     """Σ_{i active} ||x_i - x̄_active||² over the whole tree."""
     leaves = tree_leaves(tree)
     n = leaves[0].shape[0]
@@ -111,7 +120,7 @@ def masked_consensus(tree: Tree, active: Optional[torch.Tensor], mesh=None,
         d = (xf - mean[None]) * a[:, None]
         return torch.sum(d * d)
 
-    return _sum(_leaves([one(x) for x in leaves], shard_dims, mesh), mesh)
+    return _sum(_leaves([one(x) for x in leaves], shard_dims, mesh, data_dims), mesh)
 
 
 def tracking_buffer(state, name: Optional[str]) -> Optional[Tree]:
@@ -128,6 +137,7 @@ def tracking_error(
     buffer_name: Optional[str] = None,
     mesh=None,
     shard_dims=None,
+    data_dims=None,
 ) -> torch.Tensor:
     """Σ_{i active} ||b_i − g*||² of the declared buffer (NaN when the
     algorithm declares none).  ``grad_at_mean`` maps the node-mean params
@@ -150,7 +160,7 @@ def tracking_error(
     for x, r in zip(leaves, ref):
         d = (x.float().reshape(n, -1) - r[None]) * a[:, None]
         parts.append(torch.sum(d * d))
-    return _sum(_leaves(parts, shard_dims, mesh), mesh)
+    return _sum(_leaves(parts, shard_dims, mesh, data_dims), mesh)
 
 
 def effective_spectral_gap(w: torch.Tensor, active: Optional[torch.Tensor]) -> torch.Tensor:
@@ -170,7 +180,7 @@ def effective_spectral_gap(w: torch.Tensor, active: Optional[torch.Tensor]) -> t
 
 
 def replica_drift(state, comm_buffers: Optional[Sequence[str]] = None,
-                  mesh=None, shard_dims=None) -> torch.Tensor:
+                  mesh=None, shard_dims=None, data_dims=None) -> torch.Tensor:
     """Σ ||b − x̂||² between each gossiped buffer and its channel replica
     (the ``"hat"`` wire entries, matched to ``comm_buffers`` by position);
     NaN for channels without replicas.  A replicated wire's replica is
@@ -178,7 +188,7 @@ def replica_drift(state, comm_buffers: Optional[Sequence[str]] = None,
     comp = getattr(state, "comp", None)
     if comp is None or comm_buffers is None:
         return _nan(tree_leaves(state.params)[0].device)
-    parts, dims = [], []
+    parts, dims, ddims = [], [], []
     for name, wire in zip(comm_buffers, comp.wire):
         if not isinstance(wire, dict) or wire.get("hat") is None:
             continue
@@ -190,9 +200,11 @@ def replica_drift(state, comm_buffers: Optional[Sequence[str]] = None,
             d = b.float() - h.float()
             parts.append(torch.sum(d * d))
         dims += list(shard_dims) if shard_dims is not None else []
+        ddims += list(data_dims) if data_dims is not None else []
     if not parts:
         return _nan(tree_leaves(state.params)[0].device)
-    return _sum(_leaves(parts, dims if shard_dims is not None else None, mesh), mesh)
+    return _sum(_leaves(parts, dims if shard_dims is not None else None, mesh,
+                        ddims if data_dims is not None else None), mesh)
 
 
 def _node_mean(v: torch.Tensor, mesh) -> torch.Tensor:
@@ -227,23 +239,24 @@ def make_stream_fn(
     spectral_gap: bool = True,
     mesh=None,
     shard_dims=None,
+    data_dims=None,
 ):
     """The per-round stream function ``(state, ctx) -> dict`` of 0-d fp32
     tensors, one per :data:`STREAM_FIELDS` entry.
 
     ``spectral_gap=False`` leaves that field out, for callers that compute
     it for a whole chunk of rounds in one batched call.  With a ``mesh`` the
-    state and ``ctx`` hold this rank's rows, and with ``shard_dims`` its
-    shards (module docstring)."""
+    state and ``ctx`` hold this rank's rows, and with ``shard_dims`` (and
+    under '2d' ``data_dims``) its shards (module docstring)."""
 
     def stream(state, ctx) -> dict:
         active = ctx.active
         leaf = tree_leaves(state.params)[0]
         n, dev = leaf.shape[0], leaf.device
         out = {
-            "consensus": masked_consensus(state.params, active, mesh, shard_dims),
+            "consensus": masked_consensus(state.params, active, mesh, shard_dims, data_dims),
             "tracking_err": tracking_error(state, active, grad_at_mean, buffer_name, mesh,
-                                           shard_dims),
+                                           shard_dims, data_dims),
         }
         if spectral_gap:
             if ctx.w is None:
@@ -260,14 +273,16 @@ def make_stream_fn(
                                else torch.tensor(float(n if mesh is None else mesh.n_nodes),
                                                  device=dev))
         residuals = _wire_entries(state, "res")
-        if residuals and shard_dims is not None:
+        if residuals and (shard_dims is not None or data_dims is not None):
             residual = _leaves([torch.sum(leaf.float() ** 2) for tree in residuals
                                 for leaf in tree_leaves(tree)],
-                               list(shard_dims) * len(residuals), mesh)
+                               None if shard_dims is None else list(shard_dims) * len(residuals),
+                               mesh,
+                               None if data_dims is None else list(data_dims) * len(residuals))
         else:
             residual = compression_error(state)
         out["compression_err"] = _sum(residual, mesh) if residuals else residual
-        out["replica_drift"] = replica_drift(state, comm_buffers, mesh, shard_dims)
+        out["replica_drift"] = replica_drift(state, comm_buffers, mesh, shard_dims, data_dims)
         out["staleness"] = staleness(state, mesh)
         out["send_rate"] = send_rate(state, mesh)
         return out

@@ -36,8 +36,9 @@ reference's '2d' job and against the whole model.
     ``byte_counts()["data"]``, ``sum_below`` in rank order.
   * Every ``ALGORITHMS`` entry takes one finite round of reduced Arctic in
     the engine's bf16, the same loss on all 8 ranks; a codec, a channel or
-    a scenario under '2d' on a spread node raises, naming ROADMAP queue 1
-    item 8 (b) 5.
+    a scenario under '2d' on a spread node, which ROADMAP queue 1 item 8
+    (b) 5 once refused, builds a job there, each leaf's codec bound to its
+    block (``test_torch_layout_2d_codecs.py`` trains them).
 
 The group initializes from a ``FileStore`` under the test's temporary
 directory (``test_torch_layout_group.py``'s spawn); every process and the
@@ -225,6 +226,49 @@ def algorithms() -> dict:
     return out
 
 
+# what a spread node once refused -> make_train_job keywords
+SPREAD = {"codec": dict(compression="qsgd"), "channel": dict(channel="choco"),
+          "scenario": dict(scenario="dropout_ring")}
+
+
+def spread_jobs() -> dict:
+    """A codec, a channel and a scenario under '2d' on the (2, 2, 2) mesh:
+    the job each builds (nothing moves), its channel's codec bindings, the
+    mesh axes its wire's layout names and its scenario."""
+    from repro_torch.compression.base import AtShard
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.distributed import make_train_job
+    from repro_torch.launch.mesh import make_group_mesh
+    from repro_torch.scenarios import make_scenario
+    from repro_torch.tree import tree_leaves
+
+    mesh = make_group_mesh(2, device="cpu", model=2, data=2)
+    out = {}
+    for what, kw in SPREAD.items():
+        kw = dict(kw)
+        if "scenario" in kw:
+            kw["scenario"] = make_scenario(kw["scenario"], seed=0)
+        job = make_train_job(get_reduced("arctic_480b"), mesh, profile="2d", **HYPER, **kw)
+        chan = job.algorithm.comm.resolved_channel()
+        codec = None if chan is None else chan.compression
+        bound = [] if codec is None or codec.is_identity else [
+            codec.for_leaf(i).inner for i in range(len(job.shard_dims))]
+        wire = job.state_layout.comp
+        axes = set()
+        for spec in ([] if wire is None else
+                     [x for w in wire.wire if w is not None and "hat" in w
+                      for x in tree_leaves(w["hat"])]):
+            for entry in (spec if isinstance(spec, tuple) else (spec,)):
+                axes.update(entry if isinstance(entry, tuple) else (entry,))
+        out[what] = {
+            "profile": job.profile.name, "channel": None if chan is None else chan.name,
+            "node": chan is not None and chan.node is mesh.node_group,
+            "scenario": job.scenario is not None, "wire_axes": sorted(axes - {None}),
+            "both": sum(isinstance(b, AtShard) and b.shard.data_dim is not None
+                        for b in bound)}
+    return out
+
+
 def layout() -> dict:
     """Where this rank sits on a (2, 2, 2) mesh, and ``sum_below`` of each
     data rank's global rank + 1."""
@@ -257,7 +301,7 @@ def _rank_main(argv=None) -> None:
                             timeout=datetime.timedelta(seconds=PROCESS_DEADLINE))
     try:
         npz = np.load(args.ref)
-        res = {"layout": layout(),
+        res = {"layout": layout(), "spread": spread_jobs(),
                "cases": {case: replay(case, npz) for case in CASES},
                "whole": {case: against_whole(case) for case in WHOLE_CASES},
                "unsplit": unsplit(),
@@ -564,19 +608,24 @@ def test_every_algorithm_takes_a_round_under_2d(runs, name):
         assert res["loss"] == got[0]["loss"]
 
 
-@pytest.mark.parametrize("what", ["codec", "channel", "scenario"])
-def test_a_codec_channel_or_scenario_under_2d_raises(what):
-    """On a node spread over data x model ranks (a stand-in mesh: the
-    refusal comes before the mesh is read)."""
-    from repro_torch.configs import get_reduced
-    from repro_torch.launch.distributed import make_train_job
-    from repro_torch.scenarios import make_scenario
-
-    kw = {"codec": dict(compression="qsgd"), "channel": dict(channel="choco"),
-          "scenario": dict(scenario=make_scenario("dropout_ring", seed=0))}[what]
-    mesh = SimpleNamespace(n_nodes=2, model=2, data=2, world=2)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 8 \(b\) 5"):
-        make_train_job(get_reduced("arctic_480b"), mesh, profile="2d", **kw)
+@pytest.mark.parametrize("what", sorted(SPREAD))
+def test_a_codec_channel_or_scenario_under_2d_raises(runs, what):
+    """What ROADMAP queue 1 item 8 (b) 5 once refused on a node spread over
+    data x model ranks builds a job on every rank of the (2, 2, 2) mesh: a
+    codec binds each leaf split over both groups to its block (reduced
+    Arctic's experts and embedding), a channel sums over the node's ranks
+    and lays its wire out over 'pod', 'data' and 'model', a scenario is the
+    job's."""
+    for res in runs["group"]:
+        got = res["spread"][what]
+        assert got["profile"] == "2d"
+        if what == "codec":
+            assert got["channel"] == "sync" and got["node"] and got["both"] >= 4, got
+        elif what == "channel":
+            assert got["channel"] == "choco" and got["node"], got
+            assert got["wire_axes"] == ["data", "model", "pod"], got
+        else:
+            assert got["scenario"] and got["channel"] is None, got
 
 
 def test_a_data_axis_is_the_2d_layouts():

@@ -34,12 +34,13 @@ job.
     show its movements (tp: all-reduces; fsdp: all-gathers and
     reduce-scatters).
   * A 2-rank group (1 node x model 2): every ``ALGORITHMS`` entry takes one
-    fused step under each profile, and the one refusal of a model axis (a
-    codec under the '2d' profile) raises naming ROADMAP queue 1 item 8 (b).
+    fused step under each profile, and what a model axis once refused (a
+    codec under the '2d' profile) builds a job and takes one finite round.
     The '2d' layout itself is ``test_torch_layout_2d.py``'s; tp over the
     MoE, Mamba-2 and RWKV blocks and HuBERT's encoder is
     ``test_torch_layout_blocks.py``'s; codecs, channels and scenarios on a
-    model axis are ``test_torch_layout_codecs.py``'s.
+    model axis are ``test_torch_layout_codecs.py``'s, and under '2d'
+    ``test_torch_layout_2d_codecs.py``'s.
 
 Each group initializes from a ``FileStore`` under the test's temporary
 directory; every process and the whole group have deadlines of their own,
@@ -77,8 +78,9 @@ HYPER = dict(tau=TAU, lr=1e-2, alpha=0.1)
 PROFILE_NAMES = ("tp", "fsdp")
 ALGORITHM_NAMES = ("dlsgd", "dse_mvr", "dse_sgd", "dsgd", "gt_dsgd", "gt_hsgd", "pd_sgdm",
                    "slowmo_d")
-# refusal case -> make_train_job keywords (codecs, channels and scenarios
-# on a model axis are test_torch_layout_codecs.py's)
+# once-refused case -> make_train_job keywords: each now builds a job and
+# takes a round (codecs, channels and scenarios on a model axis are
+# test_torch_layout_codecs.py's)
 REFUSALS = {
     "2d": dict(profile="2d", compression="qsgd"),
 }
@@ -203,8 +205,8 @@ def tp_against_whole(mesh, kind: str) -> float:
 
 def pair_group(mesh) -> dict:
     """The 2-rank group's cases: every algorithm under each profile, the
-    tensor-parallel model in fp32, and the refusals (each one's message, or
-    None where nothing was raised)."""
+    tensor-parallel model in fp32, and the once-refused cases (each one's
+    round: its loss and whether its parameters are finite)."""
     from repro_torch.launch.distributed import make_train_job
     from repro_torch.models import ModelConfig
     from repro_torch.scenarios import make_scenario
@@ -228,11 +230,14 @@ def pair_group(mesh) -> dict:
         kw = dict(kw)
         if "scenario" in kw:
             kw["scenario"] = make_scenario(kw["scenario"], seed=0)
-        try:
-            make_train_job(cfg, mesh, **HYPER, **kw)
-            out["refusals"][case] = None
-        except NotImplementedError as e:
-            out["refusals"][case] = str(e)
+        job = make_train_job(cfg, mesh, **HYPER, **kw)
+        shape = (job.round_len, 1, 2, S)
+        batches = {"tokens": rng.integers(0, VOCAB, shape),
+                   "targets": rng.integers(0, VOCAB, shape)}
+        state, m = job.step_fn(job.init_state(0), job.local_batch(batches))
+        out["refusals"][case] = {
+            "profile": job.profile.name, "loss": float(m["loss"]),
+            "finite": all(bool(np.isfinite(x).all()) for x in _numpy(state.params))}
     return out
 
 
@@ -491,11 +496,14 @@ def test_every_algorithm_steps_under_each_profile(runs, name, profile):
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_model_axis_refusals(runs, case):
-    """What a model axis cannot run yet raises, naming ROADMAP queue 1 item
-    8 (b), on every rank."""
-    for res in runs["pair"]:
-        msg = res["refusals"][case]
-        assert msg is not None and "item 8 (b)" in msg, (case, msg)
+    """What a model axis once refused (ROADMAP queue 1 item 8 (b) 5: a codec
+    under '2d') builds a job and takes one finite round, the same loss on
+    both ranks."""
+    got = [res["refusals"][case] for res in runs["pair"]]
+    for res in got:
+        assert res["profile"] == REFUSALS[case]["profile"]
+        assert res["finite"] and np.isfinite(res["loss"]), res
+        assert res["loss"] == got[0]["loss"]
 
 
 if __name__ == "__main__":

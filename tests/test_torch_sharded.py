@@ -494,18 +494,29 @@ def test_grad_accum_matches_one_microbatch():
 
 @pytest.mark.parametrize("profile", ["2d"])
 def test_train_job_refuses_a_sharding_profile(profile):
-    """What the '2d' layout cannot run yet on a node spread over a model
-    axis of 2 -- a codec, here QSGD -- waits for ROADMAP queue 1 item 8 (b):
-    asking for it raises before anything is built, instead of training
-    without it (the mesh here is a stand-in with a model axis of 2; the
-    spawned groups of ``test_torch_layout_group.py`` raise it on a real
-    one, and ``test_torch_layout_2d.py`` trains the layout itself).  On a
-    model axis of 1 every profile is the replica job."""
+    """What the '2d' layout once refused on a node spread over a model axis
+    of 2 (ROADMAP queue 1 item 8 (b) 5) -- a codec, here QSGD -- now builds
+    a job: each sharded leaf's codec bound to its model shard (the mesh here
+    is a stand-in with a model axis of 2, whose building moves nothing; the
+    spawned groups of ``test_torch_layout_group.py`` and
+    ``test_torch_layout_2d_codecs.py`` train it on real ones).  On a model
+    axis of 1 every profile is the replica job."""
+    from repro_torch.compression.base import AtShard
     from repro_torch.launch.distributed import make_train_job
 
-    with pytest.raises(NotImplementedError, match=r"item 8 \(b\)"):
-        make_train_job(_lm_tiny(), SimpleNamespace(n_nodes=2, model=2), profile=profile,
-                       compression="qsgd")
+    group = SimpleNamespace(size=2, index=0)
+    mesh = SimpleNamespace(n_nodes=2, model=2, data=1, data_axis=False, world=1, rank=0, lo=0,
+                           hi=2, n_local=2, device=torch.device("cpu"), model_group=group,
+                           data_group=None, node_group=group, axis_names=("data", "model"),
+                           devices=np.zeros((1, 2)))
+    job = make_train_job(_lm_tiny(), mesh, profile=profile, compression="qsgd")
+    codec = job.algorithm.comm.resolved_channel().compression
+    bound = [codec.for_leaf(i).inner for i in range(len(job.shard_dims))]
+    assert job.profile.name == profile and any(d is not None for d in job.shard_dims)
+    for b, d in zip(bound, job.shard_dims):
+        assert isinstance(b, AtShard) == (d is not None)
+        if d is not None:
+            assert b.shard.group is group and b.shard.dim == d and b.node is group
     for name in ("tp", "fsdp", "2d"):
         job = make_train_job(_lm_tiny(), make_test_mesh(4, device="cpu"), profile=name)
         assert job.profile.name == name and set(job.shard_dims) == {None}

@@ -363,7 +363,14 @@ def test_remote_qsgd_moves_fewer_bytes_than_raw():
                 feed.publish({k: v + 0.01 * t for k, v in params.items()})
             assert replica.pull() == 3
             _assert_states_identical(replica.state, feed.state)
+            # the feed's server thread counts a reply once ``sendall``
+            # returns, which may be after the replica has read it: wait for
+            # the count
+            rx, deadline = replica.link_bytes()["rx"], time.monotonic() + 5.0
+            while feed.link_bytes()["tx"] != rx and time.monotonic() < deadline:
+                time.sleep(0.001)
             tx[codec] = feed.link_bytes()["tx"]
+            assert tx[codec] == rx
         finally:
             replica.close()
             feed.close()
